@@ -1,0 +1,114 @@
+"""K1 nb1d: one inference NonBottleneck1D block with BatchNorm folded.
+
+Counterpart of `lanedetection_end2end_tpu/ops/pallas_nb1d.py` (`fold_bn`,
+`pack_nb1d`, `_nb1d_body`). On NHWC bf16 (B, H, W, C), C in {16, 64, 128}:
+
+    t = relu(conv3x1(x) + b1)            -> bf16
+    t = relu(conv1x3(t) * m1 + a1)       -> bf16
+    t = relu(conv3x1_d(t) + b3)          -> bf16
+    y = relu(conv1x3_d(t) * m2 + a2 + x) -> bf16
+
+f32 accumulation over bf16 operands, rounded to bf16 at the points the TPU
+kernel rounds. The TPU's block-diagonal, banded and Winograd tap matrices
+are lane-packing devices and are not ported: both versions here use the
+direct 3-tap convolutions. `nb1d` launches the CUDA kernel
+(`csrc/nb1d.cu`) for a CUDA tensor and uses `nb1d_plain` only for a CPU
+tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import torch
+import torch.nn.functional as F
+
+from lanedetection_end2end_tpu_torch.ops._build import (
+    check_cuda, kernel, launch)
+
+BF16 = torch.bfloat16
+
+
+def fold_bn(sd: Mapping[str, torch.Tensor], prefix: str, eps: float = 1e-3):
+    """Inference BatchNorm `prefix` -> per-channel (mul, add), float32:
+    y = (x - mean) / sqrt(var + eps) * weight + bias = x * mul + add."""
+    f = lambda k: sd[f"{prefix}.{k}"].float()
+    mul = f("weight") / torch.sqrt(f("running_var") + eps)
+    return mul, f("bias") - f("running_mean") * mul
+
+
+def _taps(weight: torch.Tensor, axis: int) -> torch.Tensor:
+    """Conv2d weight (C, C, 3, 1) (axis 0) or (C, C, 1, 3) (axis 1) ->
+    (3, ci, co)."""
+    k = weight[:, :, :, 0] if axis == 0 else weight[:, :, 0, :]
+    return k.permute(2, 1, 0)
+
+
+def pack_nb1d(sd: Mapping[str, torch.Tensor], prefix: str,
+              dilation: int) -> Dict:
+    """Kernel constants of block `prefix` (reference torch names), on the
+    device of `sd`:
+      w   (4, 3, C, C) bf16: [conv3x1_1, conv1x3_1, conv3x1_2, conv1x3_2]
+                             [tap][ci][co]
+      vec (6, C) f32: b1, m1, a1, b3, m2, a2 with bn1(conv + b2) =
+                      conv*m1 + a1 (a1 = b2*m1 + add1), likewise m2, a2."""
+    g = lambda k: sd[f"{prefix}.{k}"]
+    w = torch.stack([_taps(g("conv3x1_1.weight"), 0),
+                     _taps(g("conv1x3_1.weight"), 1),
+                     _taps(g("conv3x1_2.weight"), 0),
+                     _taps(g("conv1x3_2.weight"), 1)])
+    mul1, add1 = fold_bn(sd, f"{prefix}.bn1")
+    mul2, add2 = fold_bn(sd, f"{prefix}.bn2")
+    b = lambda k: g(f"{k}.bias").float()
+    vec = torch.stack([b("conv3x1_1"), mul1, b("conv1x3_1") * mul1 + add1,
+                       b("conv3x1_2"), mul2, b("conv1x3_2") * mul2 + add2])
+    return {"w": w.to(BF16).contiguous(), "vec": vec.contiguous(),
+            "dilation": int(dilation)}
+
+
+def _conv3(t: torch.Tensor, w: torch.Tensor, axis: int, d: int):
+    """f32 (B, H, W, C) -> f32 3-tap conv along H (axis 0) or W (axis 1)
+    with dilation d and zero padding."""
+    k = w.float().permute(2, 1, 0)                     # (co, ci, 3)
+    if axis == 0:
+        weight, pad, dil = k.unsqueeze(-1), (d, 0), (d, 1)
+    else:
+        weight, pad, dil = k.unsqueeze(2), (0, d), (1, d)
+    y = F.conv2d(t.permute(0, 3, 1, 2), weight, padding=pad, dilation=dil)
+    return y.permute(0, 2, 3, 1)
+
+
+def nb1d_plain(x: torch.Tensor, p: Dict) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: same function, same bf16
+    rounding points, f32 convolutions."""
+    w, v, d = p["w"], p["vec"], p["dilation"]
+    rnd = lambda y: y.to(BF16).float()
+    xf = x.float()
+    y = rnd(torch.relu(_conv3(xf, w[0], 0, 1) + v[0]))
+    y = rnd(torch.relu(_conv3(y, w[1], 1, 1) * v[1] + v[2]))
+    y = rnd(torch.relu(_conv3(y, w[2], 0, d) + v[3]))
+    y = torch.relu(_conv3(y, w[3], 1, d) * v[4] + v[5] + xf)
+    return y.to(BF16).contiguous()
+
+
+def nb1d(x: torch.Tensor, p: Dict) -> torch.Tensor:
+    """One NB1D block on (B, H, W, C) bf16. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (four convolution launches)
+    or raises."""
+    if x.device.type == "cpu":
+        return nb1d_plain(x, p)
+    B, H, W, C = x.shape
+    if C not in (16, 64, 128):
+        raise ValueError(f"nb1d kernel: C={C} not in (16, 64, 128)")
+    xp = check_cuda(x, BF16, name="x")
+    wp = check_cuda(p["w"], BF16, (4, 3, C, C), "w")
+    vp = check_cuda(p["vec"], torch.float32, (6, C), "vec")
+    out, t1, t2 = (torch.empty_like(x) for _ in range(3))
+    launch(kernel("nb1d", "ld_nb1d", "ppppppiiiiip"), x.device, xp, wp, vp,
+           t1.data_ptr(), t2.data_ptr(), out.data_ptr(), B, H, W, C,
+           p["dilation"])
+    nb1d.launches += 1
+    return out
+
+
+nb1d.launches = 0
