@@ -1,9 +1,10 @@
-"""Configuration of the PyTorch port: the fields the serving path reads.
+"""Configuration of the PyTorch port: the fields the serving path and the
+e2e train step read.
 
 Counterpart of `lanedetection_end2end_tpu/config.py`. The port keeps its own
 copy (it never imports the JAX package), restricted to the flags that the e2e
-serving forward reads and the named presets set. Defaults equal the JAX
-ones.
+forward, the e2e train step and the named presets read or set. Defaults
+equal the JAX ones. There is no CLI parser yet.
 """
 
 from __future__ import annotations
@@ -15,13 +16,20 @@ from dataclasses import dataclass
 class LaneConfig:
     # "bev": normalized BEV coordinates; "bp": pixel coordinates
     profile: str = "bp"
+    batch_size: int = 8
     nepochs: int = 500
+    learning_rate: float = 1e-4
     nclasses: int = 2  # choices [2, 4]
     resize: int = 256  # image resized to (resize, 2*resize)
     pretrained: bool = False
     num_train: int = 3626
     flip_on: bool = False
     save_freq: int = 100
+
+    # optimizer
+    optimizer: str = "adam"  # adam | sgd | rmsprop
+    weight_decay: float = 0.0
+    clip_grad_norm: float = 0.0
 
     # fitting layer
     order: int = 2
@@ -31,10 +39,17 @@ class LaneConfig:
     use_cholesky: bool = False  # inert: the solve is always spd_solve
 
     # loss / mode
-    loss_policy: str = "area"
+    weight_seg: float = 30.0
+    weight_class: float = 1.0
+    weight_fit: float = 1.0
+    loss_policy: str = "area"  # area | mse | backproject
+    weight_funct: str = "none"  # none | linear | quadratic
     end_to_end: bool = True
     no_mapping: bool = False
     clas: bool = False
+
+    compute_dtype: str = "float32"  # float32 | bfloat16: backbone compute
+    seed: int = 0
 
     def __post_init__(self):
         if self.profile not in ("bev", "bp"):

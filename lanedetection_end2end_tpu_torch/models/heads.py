@@ -3,7 +3,9 @@
 Counterpart of `lanedetection_end2end_tpu/models/heads.py` with the
 reference torch names (`conv{i}`, `conv{i}_bn`, `fully_connected1`,
 `fully_connected_line1`, `fully_connected_horizon`). Four conv+BN+relu
-stages (128, 128, 64, 64; BN eps 1e-5, the torch default), then a 2x2
+stages (128, 128, 64, 64; BN eps 1e-5, the torch default; in train mode
+the batch statistics and running-stat rule of `models/erfnet.py::
+BatchNorm2d`), then a 2x2
 maxpool + two Linear layers for the line head, or an average over the full
 width + one Linear layer for the horizon head. NCHW: the flatten before a
 Linear layer is channel-major, as in the reference.
@@ -13,6 +15,8 @@ from __future__ import annotations
 
 import torch.nn as nn
 import torch.nn.functional as F
+
+from lanedetection_end2end_tpu_torch.models.erfnet import BatchNorm2d
 
 BN_EPS = 1e-5
 
@@ -29,7 +33,7 @@ class Classification(nn.Module):
             setattr(self, f"conv{i + 1}",
                     nn.Conv2d(chans[i], chans[i + 1], k, padding=k // 2))
             setattr(self, f"conv{i + 1}_bn",
-                    nn.BatchNorm2d(chans[i + 1], eps=BN_EPS))
+                    BatchNorm2d(chans[i + 1], eps=BN_EPS))
         rows, cols = resize // 8, 2 * resize // 8  # encoder feature plane
         if class_type == "line":
             self.fully_connected1 = nn.Linear(64 * (rows // 2) * (cols // 2),

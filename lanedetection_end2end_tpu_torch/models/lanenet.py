@@ -1,11 +1,14 @@
 """LaneNet: backbone -> activation -> top-row mask -> WLS fit, plus the line
-and horizon heads; the e2e eval forward in plain PyTorch.
+and horizon heads; the e2e forward, eval and train.
 
 Counterpart of `lanedetection_end2end_tpu/models/lanenet.py` (`LaneNet.apply`
-with phase="e2e", train=False). It is the float32 reference the serving
-engine is checked against. The module's `state_dict` carries the reference
-torch names (`net.*`, `line_classification.*`, `horizon_estimation.*`).
-Only the BP profile is ported.
+and `LaneNet.apply_packed` with phase="e2e"). `forward` is the plain float32
+PyTorch reference that the serving engine and the packed training path are
+checked against; `apply_packed` reads the same parameters and runs the
+training backbone of `ops/packed_graph.py` (NB1D blocks on the fused
+half-block kernels) in the compute dtype. The module's `state_dict` carries
+the reference torch names (`net.*`, `line_classification.*`,
+`horizon_estimation.*`). Only the BP profile is ported.
 """
 
 from __future__ import annotations
@@ -23,13 +26,15 @@ from lanedetection_end2end_tpu_torch.geometry import bev_matrices_pixel
 from lanedetection_end2end_tpu_torch.models.erfnet import ERFNet
 from lanedetection_end2end_tpu_torch.models.heads import Classification
 from lanedetection_end2end_tpu_torch.ops.activations import activation_fn
+from lanedetection_end2end_tpu_torch.ops.packed_graph import (
+    erfnet_train, rowsums)
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
 
 
 @dataclasses.dataclass
 class LaneNetOutput:
     beta: torch.Tensor                       # (B, C, order+1)
-    weightmaps: torch.Tensor                 # (B, C, H, W), masked
+    weightmaps: Optional[torch.Tensor]       # (B, C, H, W), masked | None
     seg_logits: torch.Tensor                 # (B, H, W, C)
     line_logits: Optional[torch.Tensor]      # (B, 4) | None
     horizon_logits: Optional[torch.Tensor]   # (B, resize) | None
@@ -68,17 +73,57 @@ class LaneNet(nn.Module):
         self._act = activation_fn(cfg.activation_layer)
         self.to(device).eval()
 
-    @torch.no_grad()
-    def forward(self, images: torch.Tensor) -> LaneNetOutput:
-        """images (B, H, W, 3) float -> e2e eval outputs."""
-        x = images.permute(0, 3, 1, 2).float()
-        enc, dec = self.net(x)
-        dec = dec.permute(0, 2, 3, 1)                       # (B, H, W, C)
-        masked = self._act(dec) * self._mask
-        beta = self.fitter(masked)
-        line = horizon = None
-        if self.cfg.clas:
-            line = self.line_classification(enc)
-            horizon = self.horizon_estimation(enc)
+    def forward(self, images: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> LaneNetOutput:
+        """images (B, H, W, 3) float -> e2e outputs, float32. `train` sets
+        the modules' mode: batch statistics (running ones updated),
+        gradients recorded, and Dropout2d drawn from `generator` when one
+        is given; eval records no gradient."""
+        self.train(train)
+        with torch.set_grad_enabled(train):
+            x = images.permute(0, 3, 1, 2).float()
+            enc, dec = self.net(x, generator)
+            dec = dec.permute(0, 2, 3, 1)                   # (B, H, W, C)
+            masked = self._act(dec) * self._mask
+            beta = self.fitter(masked)
+            line = horizon = None
+            if self.cfg.clas:
+                line = self.line_classification(enc)
+                horizon = self.horizon_estimation(enc)
         return LaneNetOutput(beta, masked.permute(0, 3, 1, 2), dec, line,
                              horizon, enc.permute(0, 2, 3, 1))
+
+    def apply_packed(self, images: torch.Tensor, train: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     dtype: torch.dtype = torch.float32) -> LaneNetOutput:
+        """The e2e forward on the training backbone: same parameters, same
+        math as `forward`, with the backbone in `dtype` on NHWC planes
+        (`ops/packed_graph.py::erfnet_train`), the fit from the row sums of
+        the f32 logits, and the heads in `dtype` on the encoder features.
+        The weight maps are never formed (`weightmaps` is None)."""
+        self.train(train)
+        cfg = self.cfg
+        with torch.set_grad_enabled(train):
+            enc, dec = erfnet_train(self.net, images, train=train,
+                                    generator=generator, dtype=dtype)
+            S0, S1 = rowsums(dec, self._act, self.fitter.sep_xs,
+                             zero_rows(cfg))
+            beta = self.fitter.beta_from_rowsums(S0, S1)
+            line = horizon = None
+            if cfg.clas:
+                e = enc.permute(0, 3, 1, 2)  # NCHW view of NHWC features
+                line = _call_in_dtype(self.line_classification, e, dtype)
+                horizon = _call_in_dtype(self.horizon_estimation, e, dtype)
+        return LaneNetOutput(beta, None, dec, line, horizon, enc)
+
+
+def _call_in_dtype(module: nn.Module, x: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """`module(x)` with its float32 parameters cast to `dtype` for the
+    call (the cast is differentiable, so gradients reach the float32
+    parameters); buffers stay as they are."""
+    if dtype == torch.float32:
+        return module(x)
+    params = {k: v.to(dtype) for k, v in module.named_parameters()}
+    return torch.func.functional_call(module, params, (x,))

@@ -25,7 +25,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("nb1d", "downsampler", "upsampler", "head_rowsums")
+SOURCES = ("nb1d", "downsampler", "upsampler", "head_rowsums",
+           "nb_half_fwd", "nb_half_bwd", "channel_sums")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +42,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -111,7 +112,12 @@ def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape=None,
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        hint = ""
+        if dtype == torch.bfloat16 and t.dtype == torch.float32:
+            hint = (": the kernels are instantiated for bfloat16 planes "
+                    "only, their float32 instantiation is not written yet "
+                    "(on the card use compute_dtype='bfloat16')")
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}{hint}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

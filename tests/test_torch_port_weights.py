@@ -1,7 +1,8 @@
 """Weights carried from the JAX package into the PyTorch port:
 `state_dict_from_variables` is the exact inverse of the JAX package's
 `port_torch_state_dict`, and produces exactly the keys and shapes of the
-port's `LaneNet` module."""
+port's `LaneNet` module; `variables_from_state_dict` carries parameters,
+statistics or gradients back into the flax tree."""
 
 import jax
 import numpy as np
@@ -14,7 +15,7 @@ from lanedetection_end2end_tpu.models.port import port_torch_state_dict
 from lanedetection_end2end_tpu_torch.config import train_sh_config
 from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
 from lanedetection_end2end_tpu_torch.models.port import (
-    state_dict_from_variables)
+    state_dict_from_variables, variables_from_state_dict)
 
 
 @pytest.fixture(scope="module", params=[32, 64])
@@ -64,3 +65,28 @@ def test_conv_transpose_flip_and_flatten_permutation(case):
     np.testing.assert_array_equal(wt[:, 5 * rows + 1], fc[1 * 64 + 5])
     assert isinstance(sd["net.encoder.layers.0.bn.num_batches_tracked"],
                       torch.Tensor)
+
+
+def test_variables_from_state_dict_round_trips(case):
+    resize, v, sd = case
+    back = variables_from_state_dict(sd, resize)
+    want = jax.tree_util.tree_leaves_with_path(v)
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(got) == len(want)
+    for path, leaf in want:
+        np.testing.assert_array_equal(got[path], leaf,
+                                      err_msg=jax.tree_util.keystr(path))
+
+
+def test_variables_from_state_dict_takes_a_subset(case):
+    """Gradients: parameters only, and only those that have one."""
+    resize, v, sd = case
+    named = {k: t for k, t in sd.items()
+             if k.startswith("net.decoder.") and k.endswith(".weight")}
+    back = variables_from_state_dict(named, resize)
+    assert set(back["params"]) == {"erfnet"}
+    assert set(back["params"]["erfnet"]) == {"decoder"}
+    assert "var" not in str(jax.tree_util.tree_structure(back["batch_stats"]))
+    np.testing.assert_array_equal(
+        back["params"]["erfnet"]["decoder"]["output_conv"]["kernel"],
+        v["params"]["erfnet"]["decoder"]["output_conv"]["kernel"])
