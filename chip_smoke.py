@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py [--profile]
 
-`--profile` also traces two more train steps with torch.profiler and
-prints the card's busy time per step and its largest kernels. Needs one
+`--profile` also traces two more train steps of each configuration
+(`fused_maps` on, the default, and off) with torch.profiler and prints the
+card's busy time per step and its largest kernels. Needs one
 CUDA card, nvcc and the repository checkout; exits non-zero on
 any failed check and prints no result without a card. In order:
 
-1. build the seven kernel libraries from
+1. build the ten kernel libraries from
    `lanedetection_end2end_tpu_torch/csrc/` (one nvcc per source, all at
    once) and print the card's name and power limit;
 2. hold each serving kernel against its plain PyTorch version on CUDA
@@ -17,8 +18,12 @@ any failed check and prints no result without a card. In order:
    CUDA events;
 2b. the same for the training kernels: forward and backward of
    `nb_half_a` and `nb_half_b` at every (C, d, plane) of the 256x512 train
-   step at batch 8 plus the d >= H edge, and `channel_sums` at its five
-   shapes; then one whole NB1D block per (C, d) forward and backward
+   step at batch 8 plus the d >= H edge, `channel_sums` at its five
+   shapes, and the stride-2 ops at their seven: `downsampler_op` x3 (inputs
+   with planted pooling ties, the input gradient required at all three),
+   `lane_maps_op` x3 (the two upsamplers with moments, the head with f32
+   output and none) and `head_rowsums_op`; then one whole NB1D block per
+   (C, d) and every downsampler and upsampler block forward and backward
    through autograd, on the kernels and on their plain versions;
 3. serve 3 batches of 8 random 256x512 images through
    `FusedLaneNetEngine` (train_sh config, seeded random weights with
@@ -29,27 +34,38 @@ any failed check and prints no result without a card. In order:
    compute_dtype bfloat16, adam, seeded random weights, a seeded synthetic
    batch of 8): first one step with dropout off on the kernels and the
    same step on the plain versions on the card (see below), one eval
-   step, then, from the seeded weights and with the launch counts set to
-   0, 3 steps with dropout on: exactly 17
-   launches per step of each of nb_half_a / nb_half_b forward and
-   backward and 5 of channel_sums, finite loss and gradients, parameters
-   moved;
+   step with its launches counted (the head on `lane_maps_op`, no fused
+   tail), then, from the seeded weights and with the launch counts set to
+   0, 3 steps with dropout on in the default configuration
+   (`fused_maps=True`): per step exactly 17 launches of each of nb_half_a
+   / nb_half_b forward and backward, 3 + 3 of downsampler_op, 2 + 2 of
+   lane_maps_op, 1 + 1 of head_rowsums_op and 0 of channel_sums, no call
+   of `F.conv_transpose2d` and only the heads' `F.conv2d` / `F.max_pool2d`,
+   no logits plane, finite loss and gradients, parameters moved; then,
+   counted anew, one step with `fused_maps=False` (17 / 17 / 17 / 17 and 5
+   of channel_sums), which keeps that path and `channel_sums` driven;
 5. print the card line as nvidia-smi gives it, the kernels line, and
    `{"ok": true, "device": {...}}` last.
 
 In the kernels line, `launches` counts the wrapper calls of the 3 engine
-calls (serving kernels) or of the 3 train steps (training kernels, with
-`bwd_launches` beside it), and `ms`, `plain_ms` and `bound_ms` are per
+calls (serving kernels) or of the 3 default train steps (training
+kernels, with `bwd_launches` beside it; for `channel_sums` of the one
+`fused_maps=False` step), and `ms`, `plain_ms` and `bound_ms` are per
 engine call or per train step (batch 8): the sum over the path's shapes of
 the median time (or bound) times the launches per call. The training
 kernels carry the same numbers for their backward as `bwd_ms`,
 `plain_bwd_ms`, `bwd_bound_ms`. `bound_ms` is the larger of the bytes
 moved (each input read once, each output written once: 3 planes for a
-half block's forward, 5 for its backward) over 3.35 TB/s and the FLOP of
+half block's forward, 5 for its backward; x and y for a stride-2 op's
+forward, x, y, dy and dx for its backward) over 3.35 TB/s and the FLOP of
 the taps that land on the plane over 989 TFLOP/s (bf16); `library_ms` is
-null where no single PyTorch call computes the fused function, and for
+null where no single PyTorch call computes the fused function, for
 channel_sums the time of `torch.var_mean(x.float(), dim=(0, 1, 2))`, which
-gives the same statistics and is used nowhere in the port.
+gives the same statistics, and for lane_maps_op the time of one
+`F.conv_transpose2d` on the same bf16 operands at the head's shape, where
+the op takes no moments (`library_of`; the kernel's own time at that shape,
+which no train step runs, is `ms_at_library_shape`). Neither is used in
+the port.
 
 Tolerances: a kernel and its plain version do the same bf16-operand,
 f32-accumulate arithmetic in another summation order, so bf16 outputs may
@@ -60,7 +76,11 @@ against the f32 LaneNet: the JAX package's own bars (beta max relative
 error < 3e-2, line/horizon rtol = atol = 1e-2). The training kernels'
 f32 reductions (moments, dk, db, dmul, dadd) sum bf16-exact products in
 another order, with atomics, over operands of which a few may differ from
-the plain version's by one bf16 step: max|diff| / max|plain| < 2e-3.
+the plain version's by one bf16 step: max|diff| / max|plain| < 2e-3. The
+stride-2 ops have no relu inside and their pool routing is a function of
+the input alone, so the same bars hold for them without exception, planted
+ties included; the row sums S of head_rowsums_op at 1e-4, and bit for bit
+against a second launch.
 
 A whole block through autograd has two independent forwards, so a relu
 whose argument lies within a rounding step of zero may open on one side
@@ -72,7 +92,8 @@ is rounded three more times after the kernels). dx and every parameter
 gradient are held by direction and size: cosine > 0.999 and norm ratio in
 0.99-1.01, and for dx fewer than 2e-3 of the elements off by more than
 2e-2 of max. The biases of the two 1x3 convolutions sit ahead of a train-mode
-BatchNorm, so their true gradient is 0 and what either side computes is
+BatchNorm, as does a downsampler's or upsampler's convolution bias, so
+their true gradient is 0 and what either side computes is
 rounding noise: the kernels' value is held against 0, at 2e-2 of the
 block's largest parameter gradient (a backward that dropped the moment
 cotangent would leave the sum of dy there, as large as the largest).
@@ -132,6 +153,17 @@ REPLACES = {
     "nb_half_a": "lanedetection_end2end_tpu/ops/pallas_nb_block.py:198",
     "nb_half_b": "lanedetection_end2end_tpu/ops/pallas_nb_block.py:321",
     "channel_sums": "lanedetection_end2end_tpu/ops/pallas_packed_conv.py:290",
+    "downsampler_op": "lanedetection_end2end_tpu/ops/pallas_lanemaps.py:371",
+    "lane_maps_op": "lanedetection_end2end_tpu/ops/pallas_lanemaps.py:167",
+    "head_rowsums_op": "lanedetection_end2end_tpu/ops/pallas_lanemaps.py:547",
+}
+# kernel -> (forward source, backward source) where they are not `name`.cu
+SOURCES = {
+    "nb_half_a": ("nb_half_fwd.cu", "nb_half_bwd.cu"),
+    "nb_half_b": ("nb_half_fwd.cu", "nb_half_bwd.cu"),
+    "downsampler_op": ("downsampler_op.cu", "downsampler_op.cu"),
+    "lane_maps_op": ("lane_maps_op.cu", "lane_maps_op.cu"),
+    "head_rowsums_op": ("head_rowsums_op.cu", "head_rowsums_op.cu"),
 }
 SERVING = ("nb1d", "downsampler", "upsampler", "head_rowsums")
 CSRC = "lanedetection_end2end_tpu_torch/csrc/"
@@ -269,46 +301,85 @@ def plain_versions():
     from lanedetection_end2end_tpu_torch.ops import nb_block as nb
     from lanedetection_end2end_tpu_torch.ops import packed_conv as pc
     from lanedetection_end2end_tpu_torch.ops import packed_graph
-    kernels = (packed_graph.nb_half_a, packed_graph.nb_half_b,
-               packed_graph.channel_sums)
-    packed_graph.nb_half_a = nb.nb_half_a_plain
-    packed_graph.nb_half_b = nb.nb_half_b_plain
-    packed_graph.channel_sums = pc.channel_sums_plain
+    from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
+    plain = {"nb_half_a": nb.nb_half_a_plain, "nb_half_b": nb.nb_half_b_plain,
+             "channel_sums": pc.channel_sums_plain,
+             "downsampler_op": lm.downsampler_fwd_plain,
+             "lane_maps_op": lm.lane_maps_fwd_plain,
+             "head_rowsums_op": lm.head_rowsums_fwd_plain}
+    kernels = {name: getattr(packed_graph, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(packed_graph, name, fn)
     try:
         yield
     finally:
-        (packed_graph.nb_half_a, packed_graph.nb_half_b,
-         packed_graph.channel_sums) = kernels
+        for name, fn in kernels.items():
+            setattr(packed_graph, name, fn)
+
+
+@contextlib.contextmanager
+def count_calls(module, names):
+    """Count the calls of `module`'s functions `names` -> {name: calls}."""
+    calls = dict.fromkeys(names, 0)
+    originals = {n: getattr(module, n) for n in names}
+
+    def counting(n):
+        def call(*args, **kwargs):
+            calls[n] += 1
+            return originals[n](*args, **kwargs)
+        return call
+    for n in names:
+        setattr(module, n, counting(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in originals.items():
+            setattr(module, n, fn)
 
 
 def check_blocks_through_autograd(dev, g, net):
     """Phase 2b, second part: one whole NB1D block of `net` per (C, d) of
     the train step, forward and backward through autograd
     (`packed_graph.nb1d_train`: both halves, the BatchNorm math between
-    them with its moment gradient, the residual), on the kernels and on
-    their plain versions. Returns the failures."""
-    from lanedetection_end2end_tpu_torch.ops.packed_graph import nb1d_train
+    them with its moment gradient, the residual), and every downsampler and
+    upsampler block (`downsampler_train`, `upsampler_train`: the op, the
+    BatchNorm from its moments, relu), on the kernels and on their plain
+    versions. Returns the failures."""
+    from lanedetection_end2end_tpu_torch.ops.packed_graph import (
+        downsampler_train, nb1d_train, upsampler_train)
 
-    blocks = {}
+    hw = {3: (RESIZE, 2 * RESIZE), 16: (RESIZE // 2, RESIZE),
+          64: (RESIZE // 4, RESIZE // 2), 128: (RESIZE // 8, RESIZE // 4)}
+    # label -> (block, its function, input channels, output plane); the
+    # biases named by `zero` sit ahead of a train-mode BatchNorm
+    cases = {}
     for m in net.modules():
         if hasattr(m, "conv3x1_1"):
-            blocks.setdefault((m.bn1.num_features,
-                               m.conv3x1_2.dilation[0]), m)
-    hw = {16: (RESIZE // 2, RESIZE), 64: (RESIZE // 4, RESIZE // 2),
-          128: (RESIZE // 8, RESIZE // 4)}
+            C, d = m.bn1.num_features, m.conv3x1_2.dilation[0]
+            cases.setdefault(f"nb1d block C={C} d={d}",
+                             (m, nb1d_train, C, (*hw[C], C)))
+        elif hasattr(m, "conv") and hasattr(m, "bn"):
+            cin, cout = m.conv.in_channels, m.bn.num_features
+            down = isinstance(m.conv, torch.nn.Conv2d)
+            h, w = hw[cin]
+            cases[f"{'down' if down else 'up'}sampler block {cin}->{cout}"] = (
+                m, downsampler_train if down else upsampler_train, cin,
+                (h // 2, w // 2, cout) if down else (2 * h, 2 * w, cout))
+    zero = ("d conv1x3_1.bias", "d conv1x3_2.bias", "d conv.bias")
     failures = []
-    for (C, d), block in sorted(blocks.items()):
-        shape = (BATCH, *hw[C], C)
+    for name, (block, fn, cin, out_plane) in sorted(cases.items()):
+        shape = (BATCH, *hw[cin], cin)
         x0 = torch.relu(torch.randn(*shape, generator=g, device=dev)).to(
             torch.bfloat16)
-        dy = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+        dy = torch.randn(BATCH, *out_plane, generator=g, device=dev).to(
+            torch.bfloat16)
         stats = {k: v.clone() for k, v in block.state_dict().items()}
 
         def run():
             block.load_state_dict(stats)
             block.zero_grad(set_to_none=True)
             x = x0.clone().requires_grad_(True)
-            y = nb1d_train(x, block, train=True)
+            y = fn(x, block, train=True)
             y.backward(dy)
             torch.cuda.synchronize()
             out = {"y": y.detach(), "dx": x.grad}
@@ -322,8 +393,8 @@ def check_blocks_through_autograd(dev, g, net):
             want = run()
         block.load_state_dict(stats)
         block.zero_grad(set_to_none=True)
-        # a 1x3 convolution's bias sits ahead of a train-mode BatchNorm: its
-        # true gradient is 0, through the moment cotangent
+        # a bias ahead of a train-mode BatchNorm: its true gradient is 0,
+        # through the moment cotangent
         gmax = max(v.abs().max().item() for k, v in got.items()
                    if k.startswith("d "))
         bad, worst_cos, worst_flips = [], 1.0, 0.0
@@ -332,7 +403,7 @@ def check_blocks_through_autograd(dev, g, net):
             diff, scale = (a - b).abs(), max(b.abs().max().item(), 1e-30)
             if not torch.isfinite(a).all().item():
                 bad.append(f"{k} not finite")
-            elif k.startswith("d conv1x3") and k.endswith("bias"):
+            elif k in zero:
                 if a.abs().max().item() > TOL_BLOCK * gmax:
                     bad.append(f"{k} max {a.abs().max().item():.3g} > "
                                f"{TOL_BLOCK:g} x {gmax:.3g}")
@@ -352,7 +423,7 @@ def check_blocks_through_autograd(dev, g, net):
                         and flips < MAX_FLIPS):
                     bad.append(f"{k} cosine {cos:.6f} ratio {ratio:.5f} "
                                f"off elements {flips:.2e}")
-        label = f"nb1d block{shape} d={d} through autograd"
+        label = f"{name} {shape} through autograd"
         print(f"check {label}: {len(want)} tensors (output, dx, parameter "
               f"gradients, new running statistics), least cosine "
               f"{worst_cos:.6f}, share of dx off by more than "
@@ -361,6 +432,56 @@ def check_blocks_through_autograd(dev, g, net):
         if bad:
             failures.append(f"{label}: " + ", ".join(bad))
     return failures
+
+
+def hold(label, pairs, s, failures):
+    """Hold kernel results against plain ones; pairs: (name, kernel result,
+    plain result). bf16 planes at TOL_BF16 of max|plain|, f32 results at
+    TOL_REDUCE (`tol_f32` overrides it). Records the worst errors in `s`,
+    appends to `failures`, returns the verdict for the check line."""
+    bad = []
+    for name, got, want, *tol_f32 in pairs:
+        err, rel = rel_err(got, want)
+        reduce = got.dtype == torch.float32
+        tol = (tol_f32[0] if tol_f32 else TOL_REDUCE) if reduce else TOL_BF16
+        if reduce:
+            s["max_rel_err_reduce"] = max(s["max_rel_err_reduce"], rel)
+            s["max_abs_err_reduce"] = max(s["max_abs_err_reduce"], err)
+        else:
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+        if (got.shape != want.shape or got.dtype != want.dtype
+                or not torch.isfinite(got).all().item() or rel > tol):
+            bad.append(f"{name} rel {rel:.2e} > {tol:g}")
+    if bad:
+        failures.append(f"{label}: " + ", ".join(bad))
+    return "ok" if not bad else "FAIL " + "; ".join(bad)
+
+
+TRAIN_KEYS = ("ms", "plain_ms", "bound_ms", "ops_ms", "bwd_ms",
+              "plain_bwd_ms", "bwd_bound_ms", "max_abs_err",
+              "max_abs_err_reduce", "max_rel_err_reduce")
+
+
+def time_and_record(label, s, per_step, verdict, fwd, pfwd, bwd, pbwd, work):
+    """Time a training kernel's forward and backward and their plain
+    versions (medians), compute both bounds from `work(backward)` ->
+    (flop, bytes), print the check line and add `per_step` times each
+    number to the summary `s`. Returns the forward's ms."""
+    with torch.no_grad():
+        f_ms, pf_ms = median_ms(fwd), median_ms(pfwd)
+        pb_ms, b_ms = median_ms(pbwd), median_ms(bwd)
+    fb, f_by = bound_ms(*work(False))
+    bb, b_by = bound_ms(*work(True))
+    print(f"check {label}: {verdict}; forward {f_ms:.4f} ms (plain "
+          f"{pf_ms:.4f}, bound {fb:.4f} {f_by}), backward {b_ms:.4f} ms "
+          f"(plain {pb_ms:.4f}, bound {bb:.4f} {b_by}); x{per_step} per "
+          f"train step")
+    for key, v in (("ms", f_ms), ("plain_ms", pf_ms), ("bound_ms", fb),
+                   ("ops_ms", fb * (f_by == "operations")),
+                   ("bwd_ms", b_ms), ("plain_bwd_ms", pb_ms),
+                   ("bwd_bound_ms", bb)):
+        s[key] += per_step * v
+    return f_ms
 
 
 def check_training_kernels(dev, g):
@@ -379,31 +500,9 @@ def check_training_kernels(dev, g):
     cases += [("b", p128, d, 2) for d in (2, 4, 8, 16)]
     # edge: the resize=64 NB1D-128 plane (8x16) with d = 16 >= H, W
     cases += [("a", (2, 8, 16, 128), 1, 0), ("b", (2, 8, 16, 128), 16, 0)]
-    keys = ("ms", "plain_ms", "bound_ms", "ops_ms", "bwd_ms", "plain_bwd_ms",
-            "bwd_bound_ms", "max_abs_err", "max_abs_err_reduce",
-            "max_rel_err_reduce")
-    summary = {n: dict.fromkeys(keys, 0.0)
+    summary = {n: dict.fromkeys(TRAIN_KEYS, 0.0)
                for n in ("nb_half_a", "nb_half_b", "channel_sums")}
     failures = []
-
-    def hold(label, pairs, s):
-        """pairs: (name, kernel result, plain result)."""
-        bad = []
-        for name, got, want in pairs:
-            err, rel = rel_err(got, want)
-            reduce = got.dtype == torch.float32
-            tol = TOL_REDUCE if reduce else TOL_BF16
-            if reduce:
-                s["max_rel_err_reduce"] = max(s["max_rel_err_reduce"], rel)
-                s["max_abs_err_reduce"] = max(s["max_abs_err_reduce"], err)
-            else:
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-            if (got.shape != want.shape or got.dtype != want.dtype
-                    or not torch.isfinite(got).all().item() or rel > tol):
-                bad.append(f"{name} rel {rel:.2e} > {tol:g}")
-        if bad:
-            failures.append(f"{label}: " + ", ".join(bad))
-        return "ok" if not bad else "FAIL " + "; ".join(bad)
 
     for half, shape, d, per_step in cases:
         C = shape[-1]
@@ -435,24 +534,13 @@ def check_training_kernels(dev, g):
             "dkh", "dbh", "dkw", "dbw"]
         label = f"nb_half_{half}{shape} d={d}"
         verdict = hold(label, [("y", y, py), ("mom", mom, pmom)]
-                       + list(zip(names, grads, pgrads)), s)
-        with torch.no_grad():
-            f_ms = median_ms(call)
-            pf_ms = median_ms(lambda: nb.half_fwd_plain(
-                x, mul, add, kh, bh, kw, bw, d))
-            pb_ms = median_ms(lambda: nb.half_bwd_plain(*bwd_args))
-            b_ms = median_ms(lambda: nb.half_bwd_kernel(*bwd_args))
-        fb, f_by = bound_ms(*half_work(shape, d, False))
-        bb, b_by = bound_ms(*half_work(shape, d, True))
-        print(f"check {label}: {verdict}; forward {f_ms:.4f} ms (plain "
-              f"{pf_ms:.4f}, bound {fb:.4f} {f_by}), backward {b_ms:.4f} ms "
-              f"(plain {pb_ms:.4f}, bound {bb:.4f} {b_by}); x{per_step} per "
-              f"train step")
-        for key, v in (("ms", f_ms), ("plain_ms", pf_ms), ("bound_ms", fb),
-                       ("ops_ms", fb * (f_by == "operations")),
-                       ("bwd_ms", b_ms), ("plain_bwd_ms", pb_ms),
-                       ("bwd_bound_ms", bb)):
-            s[key] += per_step * v
+                       + list(zip(names, grads, pgrads)), s, failures)
+        time_and_record(
+            label, s, per_step, verdict, call,
+            lambda: nb.half_fwd_plain(x, mul, add, kh, bh, kw, bw, d),
+            lambda: nb.half_bwd_kernel(*bwd_args),
+            lambda: nb.half_bwd_plain(*bwd_args),
+            lambda bwd: half_work(shape, d, bwd))
 
     s = summary["channel_sums"]
     s["library_ms"] = 0.0
@@ -461,7 +549,8 @@ def check_training_kernels(dev, g):
         got = channel_sums(x)
         torch.cuda.synchronize()
         label = f"channel_sums{shape}"
-        verdict = hold(label, [("sums", got, channel_sums_plain(x))], s)
+        verdict = hold(label, [("sums", got, channel_sums_plain(x))], s,
+                       failures)
         k_ms = median_ms(lambda: channel_sums(x))
         p_ms = median_ms(lambda: channel_sums_plain(x))
         l_ms = median_ms(lambda: torch.var_mean(x.float(), dim=(0, 1, 2)))
@@ -473,6 +562,176 @@ def check_training_kernels(dev, g):
                        ("library_ms", l_ms)):
             s[key] += v
     s["max_abs_err"] = s["max_abs_err_reduce"]  # its only outputs are f32
+    return summary, failures
+
+
+def s2_work(small_pixels, cs, cl, k, planes_bytes, backward):
+    """A stride-2 op on `small_pixels` = (B, Hs, Ws): the taps of a k x k
+    kernel between cs and cl channels that land on the plane (twice
+    backward: the input and the weight gradient), and the bytes of its
+    planes (`planes_bytes`: (forward, backward)) plus the weights."""
+    B, Hs, Ws = small_pixels
+    taps = ((3 * Hs - 1) * (3 * Ws - 1) if k == 3 else 4 * Hs * Ws)
+    flop = 2 * cs * cl * B * taps * (2 if backward else 1)
+    return flop, (planes_bytes[backward]
+                  + cs * cl * k * k * (6 if backward else 2))
+
+
+def plant_pool_ties(x):
+    """Every fourth 2x2 window in each direction gets an exact tie between
+    two non-zero maxima at (row 1, col 0) and (row 0, col 1), which the
+    where-chain and a row-major argmax route differently; relu'd inputs
+    bring the all-zero windows."""
+    x[:, 0::8, 0::8] = 0.5
+    x[:, 1::8, 1::8] = 0.5
+    x[:, 0::8, 1::8] = 3.0
+    x[:, 1::8, 0::8] = 3.0
+    return x
+
+
+def check_lanemap_kernels(dev, g):
+    """Phase 2b, the stride-2 training ops: `downsampler_op`, `lane_maps_op`
+    and `head_rowsums_op`, forward and backward (the backward kernels and
+    their plain version on the same stashes, with a non-zero moment
+    cotangent), at every shape of the 256x512 train and eval steps.
+    Returns ({name: summary}, failures)."""
+    import torch.nn.functional as F
+
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.models.lanenet import (
+        make_fitter, zero_rows)
+    from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
+
+    bf = torch.bfloat16
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    B, H, W = BATCH, RESIZE, 2 * RESIZE
+    summary = {n: dict.fromkeys(TRAIN_KEYS, 0.0) for n in
+               ("downsampler_op", "lane_maps_op", "head_rowsums_op")}
+    failures = []
+
+    # K8: the three downsamplers, planted ties, dx required at all three
+    s = summary["downsampler_op"]
+    for (h, w, cin), cout in (((H, W, 3), 16), ((H // 2, W // 2, 16), 64),
+                              ((H // 4, W // 4, 64), 128)):
+        cc = cout - cin
+        x = plant_pool_ties(torch.relu(rn(B, h, w, cin))).to(bf)
+        wt, bias = rn(cc, cin, 3, 3) / (9 * cin) ** 0.5, 0.1 * rn(cc)
+        dy, dmom = rn(B, h // 2, w // 2, cout).to(bf), 1e-3 * rn(2, cout)
+        with torch.no_grad():
+            y, mom = lm.downsampler_op(x, wt, bias)
+            torch.cuda.synchronize()
+            py, pmom = lm.downsampler_fwd_plain(x, wt, bias)
+            args = (x, py, dy, dmom, wt)
+            grads = lm.downsampler_bwd_kernel(*args)
+            torch.cuda.synchronize()
+            pgrads = lm.downsampler_bwd_plain(*args)
+            nodx = lm.downsampler_bwd_kernel(*args, need_dx=False)
+        label = f"downsampler_op{tuple(x.shape)}->{cout}"
+        verdict = hold(label, [("y", y, py), ("mom", mom, pmom)] + list(zip(
+            ("dx", "dweight", "dbias"), grads, pgrads)) + [
+            ("dweight without dx", nodx[1], pgrads[1])], s, failures)
+        if nodx[0] is not None:
+            failures.append(f"{label}: dx returned though not needed")
+        # forward: x read, y written; backward: x, y, dy read, dx written
+        planes = (2 * (x.numel() + y.numel()), 4 * (x.numel() + y.numel()))
+        time_and_record(
+            label, s, 1, verdict,
+            lambda: lm.downsampler_op(x, wt, bias),
+            lambda: lm.downsampler_fwd_plain(x, wt, bias),
+            lambda: lm.downsampler_bwd_kernel(*args),
+            lambda: lm.downsampler_bwd_plain(*args),
+            lambda bwd: s2_work((B, h // 2, w // 2), cc, cin, 3, planes, bwd))
+
+    # K9: the two upsamplers (bf16 out, moments) and the head as the eval
+    # step runs it (f32 out, no moments)
+    s = summary["lane_maps_op"]
+    for (h, w, cin), cout, k, out_dtype, want_mom, per_step in (
+            ((H // 8, W // 8, 128), 64, 3, bf, True, 1),
+            ((H // 4, W // 4, 64), 16, 3, bf, True, 1),
+            ((H // 2, W // 2, 16), 4, 2, torch.float32, False, 0)):
+        x = rn(B, h, w, cin).to(bf)
+        wt = rn(cin, cout, k, k) / (k * k * cin / 4) ** 0.5
+        bias = 0.1 * rn(cout)
+        dy = rn(B, 2 * h, 2 * w, cout).to(out_dtype)
+        dmom = 1e-3 * rn(2, cout) if want_mom else None
+        op = lambda: lm.lane_maps_op(x, wt, bias, k, out_dtype, want_mom)
+        plain = lambda: lm.lane_maps_fwd_plain(x, wt, bias, k, out_dtype,
+                                               want_mom)
+        with torch.no_grad():
+            y, mom = op()
+            torch.cuda.synchronize()
+            py, pmom = plain()
+            args = (x, py if want_mom else None, dy, dmom, wt, k)
+            grads = lm.lane_maps_bwd_kernel(*args)
+            torch.cuda.synchronize()
+            pgrads = lm.lane_maps_bwd_plain(*args)
+        label = (f"lane_maps_op{tuple(x.shape)}->{cout} k={k} "
+                 f"{str(out_dtype).split('.')[-1]}"
+                 + ("" if want_mom else " no moments"))
+        pairs = [("y", y, py)] + ([("mom", mom, pmom)] if want_mom else [])
+        verdict = hold(label, pairs + list(zip(
+            ("dx", "dweight", "dbias"), grads, pgrads)), s, failures)
+        if (mom is None) != (not want_mom):
+            failures.append(f"{label}: moments returned {mom is not None}")
+        ybytes = y.numel() * y.element_size()
+        # backward reads y only to fold the moment cotangent
+        planes = (2 * x.numel() + ybytes,
+                  4 * x.numel() + ybytes * (1 + want_mom))
+        f_ms = time_and_record(
+            label, s, per_step, verdict, op, plain,
+            lambda: lm.lane_maps_bwd_kernel(*args),
+            lambda: lm.lane_maps_bwd_plain(*args),
+            lambda bwd: s2_work((B, h, w), cin, cout, k, planes, bwd))
+        if not want_mom:
+            # one PyTorch call on the same bf16 operands (its output is
+            # bf16, the op's f32); timed here, used nowhere in the port
+            xn = x.permute(0, 3, 1, 2)
+            wb, bb = wt.to(bf), bias.to(bf)
+            with torch.no_grad():
+                s["library_ms"] = median_ms(
+                    lambda: F.conv_transpose2d(xn, wb, bb, stride=2))
+            s["library_of"] = label
+            s["ms_at_library_shape"] = f_ms
+            print(f"check {label}: F.conv_transpose2d on the same bf16 "
+                  f"operands {s['library_ms']:.4f} ms")
+
+    # K10: the fused tail, with the fitter's column coordinate and mask
+    s = summary["head_rowsums_op"]
+    cfg = train_sh_config(resize=RESIZE, reg_ls=1.0)
+    xs = make_fitter(cfg, dev).sep_xs
+    zero = zero_rows(cfg)
+    x = rn(B, H // 2, W // 2, 16).to(bf)
+    wt, bias = rn(16, 4, 2, 2) / 4.0, 0.1 * rn(4)
+    dS = rn(B, H, 8)
+    with torch.no_grad():
+        S = lm.head_rowsums_op(x, wt, bias, xs, zero)
+        torch.cuda.synchronize()
+        pS = lm.head_rowsums_fwd_plain(x, wt, bias, xs, zero)
+        args = (x, dS, wt, bias, xs, zero)
+        grads = lm.head_rowsums_bwd_kernel(*args)
+        torch.cuda.synchronize()
+        pgrads = lm.head_rowsums_bwd_plain(*args)
+        again = lm.head_rowsums_op(x, wt, bias, xs, zero)
+    label = f"head_rowsums_op{tuple(x.shape)}"
+    verdict = hold(label, [("S", S, pS, TOL_F32)] + list(zip(
+        ("dx", "dweight", "dbias"), grads, pgrads)), s, failures)
+    if not torch.equal(S, again) or S[:, :zero].abs().max().item() != 0.0:
+        failures.append(f"{label}: S does not reproduce itself bit for bit "
+                        "or its masked rows are not zero")
+    logits = B * (H - zero) * W * 4
+
+    def head_op_work(bwd):
+        # forward: the taps, the activation and the sums; backward: the
+        # taps again, ddec, and the input and weight gradients
+        flop = logits * ((2 * 16 + 5) if not bwd else (3 * 2 * 16 + 8))
+        nbytes = 2 * x.numel() + 4 * S.numel() + 2 * wt.numel()
+        return flop, nbytes + bwd * 2 * x.numel()
+    time_and_record(
+        label, s, 1, verdict,
+        lambda: lm.head_rowsums_op(x, wt, bias, xs, zero),
+        lambda: lm.head_rowsums_fwd_plain(x, wt, bias, xs, zero),
+        lambda: lm.head_rowsums_bwd_kernel(*args),
+        lambda: lm.head_rowsums_bwd_plain(*args), head_op_work)
     return summary, failures
 
 
@@ -492,12 +751,59 @@ def synthetic_batch(seed: int) -> dict:
         "horizon": horizon}
 
 
-def train_phase(dev, sd0, profile=False):
-    """Phase 4. Returns the launch counts of the 3 counted steps."""
-    from lanedetection_end2end_tpu_torch.config import train_sh_config
-    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+TRAIN_OPS = ("nb_half_a", "nb_half_b", "downsampler_op", "lane_maps_op",
+             "head_rowsums_op", "channel_sums")
+# wrapper launches per step, (forward, backward); channel_sums has no
+# backward kernel
+PER_STEP = {
+    True: {"nb_half_a": (17, 17), "nb_half_b": (17, 17),
+           "downsampler_op": (3, 3), "lane_maps_op": (2, 2),
+           "head_rowsums_op": (1, 1), "channel_sums": (0, 0)},
+    False: {"nb_half_a": (17, 17), "nb_half_b": (17, 17),
+            "downsampler_op": (0, 0), "lane_maps_op": (0, 0),
+            "head_rowsums_op": (0, 0), "channel_sums": (5, 0)}}
+# the eval step: no backward, the head on lane_maps_op, no fused tail
+PER_EVAL = {"nb_half_a": (17, 0), "nb_half_b": (17, 0),
+            "downsampler_op": (3, 0), "lane_maps_op": (3, 0),
+            "head_rowsums_op": (0, 0), "channel_sums": (0, 0)}
+# calls of torch.nn.functional per train step: the two heads' eight
+# convolutions and the line head's pool; with fused_maps off also the
+# backbone's three downsamplers, two upsamplers and output head
+F_CALLS = {True: {"conv2d": 8, "max_pool2d": 1, "conv_transpose2d": 0},
+           False: {"conv2d": 11, "max_pool2d": 4, "conv_transpose2d": 3}}
+
+
+def train_wrappers():
+    from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
     from lanedetection_end2end_tpu_torch.ops import nb_block as nb
     from lanedetection_end2end_tpu_torch.ops import packed_conv as pc
+    return {"nb_half_a": nb.nb_half_a, "nb_half_b": nb.nb_half_b,
+            "downsampler_op": lm.downsampler_op,
+            "lane_maps_op": lm.lane_maps_op,
+            "head_rowsums_op": lm.head_rowsums_op,
+            "channel_sums": pc.channel_sums}
+
+
+def reset_counts(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "bwd_launches"):
+            w.bwd_launches = 0
+
+
+def read_counts(wrappers):
+    return {n: (w.launches, getattr(w, "bwd_launches", 0))
+            for n, w in wrappers.items()}
+
+
+def train_phase(dev, sd0, profile=False):
+    """Phase 4. Returns {kernel: (forward, backward) launches} of the
+    counted steps: of the 3 default steps, and for `channel_sums` of the
+    one step with `fused_maps=False`."""
+    import torch.nn.functional as F
+
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
     from lanedetection_end2end_tpu_torch.train.optim import define_optim
     from lanedetection_end2end_tpu_torch.train.steps import (
         make_eval_step, make_train_step)
@@ -510,12 +816,12 @@ def train_phase(dev, sd0, profile=False):
     damped = {k: v * BN2_DAMP if k.endswith("bn2.weight") else v
               for k, v in sd0.items()}
 
-    def fresh_step(sd=sd0):
+    def fresh_step(sd=sd0, fused_maps=True):
         model.load_state_dict(sd)
         opt = define_optim(model.parameters(), cfg.optimizer,
                            cfg.learning_rate, cfg.weight_decay,
                            cfg.clip_grad_norm)
-        return make_train_step(model, cfg, opt)
+        return make_train_step(model, cfg, opt, fused_maps=fused_maps)
 
     def one_step(step, generator, batch=batch):
         """-> (loss, {name: gradient}, ms of the step)."""
@@ -581,9 +887,14 @@ def train_phase(dev, sd0, profile=False):
              "their plain versions (damped weights)")
 
     # the eval step on the same kernels: running statistics, no gradient
+    wrappers = train_wrappers()
     model.load_state_dict(sd0)
+    reset_counts(wrappers)
     metrics, outputs = make_eval_step(model, cfg)(batch)
     torch.cuda.synchronize()
+    if read_counts(wrappers) != PER_EVAL:
+        fail(f"eval step launches {read_counts(wrappers)}, expected "
+             f"{PER_EVAL}")
     shapes = {k: tuple(v.shape) for k, v in outputs.items()}
     if (shapes != {"beta": (BATCH, 4, cfg.order + 1),
                    "x_cal": (BATCH, 4, 56), "line_pred": (BATCH, 4),
@@ -591,37 +902,50 @@ def train_phase(dev, sd0, profile=False):
             or not all(torch.isfinite(v.float()).all().item()
                        for v in (*outputs.values(), *metrics.values()))):
         fail(f"eval step outputs {shapes}")
-    print(f"eval step: loss {metrics['loss'].item():.6g}, outputs finite")
+    print(f"eval step: loss {metrics['loss'].item():.6g}, outputs finite, "
+          f"launches (forward, backward) {PER_EVAL}")
+    with torch.no_grad():
+        out = model.apply_packed(batch["image"].to(dev).float() / 255.0,
+                                 train=True, dtype=torch.bfloat16)
+    if out.seg_logits is not None or out.weightmaps is not None:
+        fail("the default train-mode forward formed the logits plane")
+    model.load_state_dict(sd0)
 
-    # 4b. the main path: 3 steps with dropout on, launches counted
-    step = fresh_step()
+    def counted_steps(n_steps, fused_maps, gen):
+        """n_steps from the seeded weights, dropout on, every launch and
+        every call of PyTorch's convolutions and pool counted and held to
+        the path's numbers -> (step, counts, losses, ms per step)."""
+        step = fresh_step(fused_maps=fused_maps)
+        reset_counts(wrappers)
+        losses, step_ms = [], []
+        with count_calls(F, tuple(F_CALLS[fused_maps])) as f_calls:
+            for _ in range(n_steps):
+                loss, grads, ms = one_step(step, gen)
+                step_ms.append(ms)
+                losses.append(loss)
+                if not (loss == loss and abs(loss) != float("inf")
+                        and torch.isfinite(whole(grads)).all().item()):
+                    fail(f"non-finite loss or gradient in a train step: "
+                         f"{loss}")
+        counts = read_counts(wrappers)
+        print(f"train launches over {n_steps} step(s), fused_maps="
+              f"{fused_maps}: (forward, backward) {counts}; calls of "
+              f"torch.nn.functional {f_calls}")
+        expected = {n: (n_steps * f, n_steps * b)
+                    for n, (f, b) in PER_STEP[fused_maps].items()}
+        if counts != expected:
+            fail(f"launches {counts}, expected {expected}")
+        if f_calls != {n: n_steps * c
+                       for n, c in F_CALLS[fused_maps].items()}:
+            fail(f"calls of torch.nn.functional {f_calls}, expected "
+                 f"{F_CALLS[fused_maps]} per step")
+        if step.state.step != n_steps:
+            fail(f"state counts {step.state.step} steps")
+        return step, counts, losses, step_ms
+
+    # 4b. the main path: 3 steps in the default configuration
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    wrappers = (nb.nb_half_a, nb.nb_half_b, pc.channel_sums)
-    for w in wrappers:
-        w.launches = 0
-    nb.nb_half_a.bwd_launches = nb.nb_half_b.bwd_launches = 0
-    losses, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        loss, grads, ms = one_step(step, gen)
-        step_ms.append(ms)
-        losses.append(loss)
-        if not (loss == loss and abs(loss) != float("inf")
-                and torch.isfinite(whole(grads)).all().item()):
-            fail(f"non-finite loss or gradient in a train step: {loss}")
-    counts = {"nb_half_a": nb.nb_half_a.launches,
-              "nb_half_b": nb.nb_half_b.launches,
-              "channel_sums": pc.channel_sums.launches}
-    bwd = {"nb_half_a": nb.nb_half_a.bwd_launches,
-           "nb_half_b": nb.nb_half_b.bwd_launches}
-    print(f"train launches over {TRAIN_STEPS} steps: forward {counts}, "
-          f"backward {bwd}")
-    expected = {"nb_half_a": 17, "nb_half_b": 17, "channel_sums": 5}
-    for n, per in expected.items():
-        if counts[n] != TRAIN_STEPS * per or bwd.get(n, counts[n]) != counts[n]:
-            fail(f"{n}: {counts[n]} forward / {bwd.get(n)} backward launches, "
-                 f"expected {TRAIN_STEPS * per}")
-    if step.state.step != TRAIN_STEPS:
-        fail(f"state counts {step.state.step} steps")
+    step, counts, losses, step_ms = counted_steps(TRAIN_STEPS, True, gen)
     moved = sum(int((p.detach() != sd0[k].to(dev)).any().item())
                 for k, p in model.named_parameters())
     n_params = sum(1 for _ in model.parameters())
@@ -634,15 +958,38 @@ def train_phase(dev, sd0, profile=False):
           f"{', '.join(f'{t:.3f}' for t in step_ms)}), "
           f"{1e3 * BATCH / ms:.1f} images/s, bf16, adam, dropout on")
     if profile:
-        profile_steps(lambda: step(batch, gen), ms)
-    return counts, bwd
+        profile_steps(lambda: step(batch, gen), ms, "fused_maps=True")
+
+    # 4c. one step with fused_maps=False: the cuDNN stride-2 blocks with
+    # channel_sums, and the elementwise tail over the logits
+    step0, counts0, losses0, step0_ms = counted_steps(1, False, gen)
+    print(f"train, fused_maps=False: loss {losses0[0]:.6g}, "
+          f"{step0_ms[0]:.3f} ms for the one step (its first: no warm-up)")
+    if profile:
+        step0(batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step0(batch, gen)
+        torch.cuda.synchronize()
+        profile_steps(lambda: step0(batch, gen),
+                      1e3 * (time.perf_counter() - t0), "fused_maps=False")
+    counts["channel_sums"] = counts0["channel_sums"]
+    return counts
 
 
-def profile_steps(run_step, step_ms: float, steps: int = 2) -> None:
+OWN_KERNELS = (  # device functions of csrc/, as the profiler names them
+    "conv3tap_kernel", "wgrad3tap_kernel", "dyv_kernel",
+    "channel_sums_kernel", "ds_fwd_kernel", "ds_dx_kernel", "lm_fwd_kernel",
+    "l2s_kernel", "wgrad_s2_kernel", "dyv_fold_kernel", "hr_ddec_kernel",
+    "head_rowsums_kernel")
+
+
+def profile_steps(run_step, step_ms: float, label: str,
+                  steps: int = 2) -> None:
     """`--profile`: trace `steps` more train steps with torch.profiler and
-    print the card's busy time per step, its idle share of the untraced
-    step time `step_ms`, the number of device kernels per step, and the
-    kernels that took most of the card's time."""
+    print, after `label`, the card's busy time per step, its idle share of
+    the untraced step time `step_ms`, the number of device kernels per
+    step, and the kernels that took most of the card's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -658,26 +1005,27 @@ def profile_steps(run_step, step_ms: float, steps: int = 2) -> None:
             and not e.key.startswith("Optimizer.")
             and e.self_device_time_total > 0]
     if not rows:
-        print("profile: the trace shows no device time")
+        print(f"profile {label}: the trace shows no device time")
         return
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     launches = sum(e.count for e in rows) / steps
-    print(f"profile: card busy {busy:.3f} ms of the {step_ms:.3f} ms step "
-          f"(idle share {1 - busy / step_ms:.3f}), {launches:.0f} device "
-          f"kernels per step")
-    groups = {"conv3tap_kernel": 0.0, "wgrad3tap_kernel": 0.0,
-              "dyv_kernel": 0.0, "channel_sums_kernel": 0.0}
+    print(f"profile {label}: card busy {busy:.3f} ms of the {step_ms:.3f} "
+          f"ms step (idle share {1 - busy / step_ms:.3f}), {launches:.0f} "
+          f"device kernels per step")
+    groups = dict.fromkeys(OWN_KERNELS, 0.0)
     for e in rows:
         for name in groups:
             if name in e.key:
                 groups[name] += e.self_device_time_total / 1e3 / steps
     own = sum(groups.values())
-    print(f"profile: the hand-written kernels {own:.3f} ms per step ("
-          + ", ".join(f"{n} {v:.3f}" for n, v in groups.items())
+    print(f"profile {label}: the hand-written kernels {own:.3f} ms per "
+          f"step (" + ", ".join(f"{n} {v:.3f}" for n, v in groups.items()
+                                if v > 0)
           + f"), everything else {busy - own:.3f} ms")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:16]:
-        print(f"profile:   {e.self_device_time_total / 1e3 / steps:8.3f} ms "
+        print(f"profile {label}:   "
+              f"{e.self_device_time_total / 1e3 / steps:8.3f} ms "
               f"x{e.count / steps:6.0f}  {e.key[:100]}")
 
 
@@ -789,6 +1137,9 @@ def main() -> int:
              + ", ".join(failures))
     # 2b. training kernels against their plain versions ------------------
     train_summary, failures = check_training_kernels(dev, g)
+    lanemap_summary, lanemap_failures = check_lanemap_kernels(dev, g)
+    train_summary.update(lanemap_summary)
+    failures += lanemap_failures
     failures += check_blocks_through_autograd(dev, g, model.net)
     if failures:
         fail("training kernel disagrees with its plain version: "
@@ -855,31 +1206,34 @@ def main() -> int:
           f"{1e3 * BATCH / ms:.1f} images/s")
 
     # 4. train steps ------------------------------------------------------
-    train_launches, train_bwd = train_phase(
+    train_launches = train_phase(
         dev, {k: v.detach().clone() for k, v in model.state_dict().items()},
         profile="--profile" in sys.argv[1:])
 
     # 5. kernels line and result ----------------------------------------
     kernels = []
     for n, s in {**summary, **train_summary}.items():
+        fwd_source, bwd_source = SOURCES.get(n, (f"{n}.cu", None))
         entry = {
-            "name": n, "route": "cuda",
-            "source": CSRC + ("nb_half_fwd.cu" if n.startswith("nb_half")
-                              else f"{n}.cu"),
+            "name": n, "route": "cuda", "source": CSRC + fwd_source,
             "replaces": REPLACES[n],
-            "launches": launches[n] if n in SERVING else train_launches[n],
+            "launches": (launches[n] if n in SERVING
+                         else train_launches[n][0]),
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": ("operations" if 2 * s.get("ops_ms", 0.0)
                          > s["bound_ms"] else "bytes"),
             "library_ms": s.get("library_ms")}
-        if n in train_bwd:
+        if bwd_source is not None:
             entry.update(
-                bwd_source=CSRC + "nb_half_bwd.cu",
-                bwd_launches=train_bwd[n], bwd_ms=s["bwd_ms"],
+                bwd_source=CSRC + bwd_source,
+                bwd_launches=train_launches[n][1], bwd_ms=s["bwd_ms"],
                 plain_bwd_ms=s["plain_bwd_ms"],
                 bwd_bound_ms=s["bwd_bound_ms"],
                 max_rel_err_reduce=s["max_rel_err_reduce"])
+        if "library_of" in s:
+            entry.update(library_of=s["library_of"],
+                         ms_at_library_shape=s["ms_at_library_shape"])
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

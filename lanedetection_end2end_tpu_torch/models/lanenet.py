@@ -6,7 +6,8 @@ and `LaneNet.apply_packed` with phase="e2e"). `forward` is the plain float32
 PyTorch reference that the serving engine and the packed training path are
 checked against; `apply_packed` reads the same parameters and runs the
 training backbone of `ops/packed_graph.py` (NB1D blocks on the fused
-half-block kernels) in the compute dtype. The module's `state_dict` carries
+half-block kernels, stride-2 blocks and the e2e tail on the lane-map
+kernels) in the compute dtype. The module's `state_dict` carries
 the reference torch names (`net.*`, `line_classification.*`,
 `horizon_estimation.*`). Only the BP profile is ported.
 """
@@ -27,7 +28,7 @@ from lanedetection_end2end_tpu_torch.models.erfnet import ERFNet
 from lanedetection_end2end_tpu_torch.models.heads import Classification
 from lanedetection_end2end_tpu_torch.ops.activations import activation_fn
 from lanedetection_end2end_tpu_torch.ops.packed_graph import (
-    erfnet_train, rowsums)
+    erfnet_train, head_rowsums_train, rowsums)
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
 
 
@@ -35,7 +36,7 @@ from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
 class LaneNetOutput:
     beta: torch.Tensor                       # (B, C, order+1)
     weightmaps: Optional[torch.Tensor]       # (B, C, H, W), masked | None
-    seg_logits: torch.Tensor                 # (B, H, W, C)
+    seg_logits: Optional[torch.Tensor]       # (B, H, W, C) | None
     line_logits: Optional[torch.Tensor]      # (B, 4) | None
     horizon_logits: Optional[torch.Tensor]   # (B, resize) | None
     encoder_features: torch.Tensor           # (B, H/8, W/8, 128)
@@ -96,19 +97,37 @@ class LaneNet(nn.Module):
 
     def apply_packed(self, images: torch.Tensor, train: bool = False,
                      generator: Optional[torch.Generator] = None,
-                     dtype: torch.dtype = torch.float32) -> LaneNetOutput:
+                     dtype: torch.dtype = torch.float32,
+                     fused_maps: bool = True) -> LaneNetOutput:
         """The e2e forward on the training backbone: same parameters, same
         math as `forward`, with the backbone in `dtype` on NHWC planes
         (`ops/packed_graph.py::erfnet_train`), the fit from the row sums of
         the f32 logits, and the heads in `dtype` on the encoder features.
-        The weight maps are never formed (`weightmaps` is None)."""
+        The weight maps are never formed (`weightmaps` is None).
+
+        `fused_maps` (default True, the JAX package's default
+        configuration) runs the stride-2 blocks on the lane-map kernels
+        and, in train mode with the square activation, fuses the head with
+        the tail: the logits are never formed either (`seg_logits` is
+        None). In eval mode, or with another activation, the head runs on
+        its own and `rowsums` reduces the logits."""
         self.train(train)
         cfg = self.cfg
+        fuse_tail = (fused_maps and train
+                     and cfg.activation_layer == "square")
         with torch.set_grad_enabled(train):
             enc, dec = erfnet_train(self.net, images, train=train,
-                                    generator=generator, dtype=dtype)
-            S0, S1 = rowsums(dec, self._act, self.fitter.sep_xs,
-                             zero_rows(cfg))
+                                    generator=generator, dtype=dtype,
+                                    fused_maps=fused_maps,
+                                    skip_head=fuse_tail)
+            if fuse_tail:
+                S0, S1 = head_rowsums_train(
+                    dec, self.net.decoder.output_conv, self.fitter.sep_xs,
+                    zero_rows(cfg))
+                dec = None
+            else:
+                S0, S1 = rowsums(dec, self._act, self.fitter.sep_xs,
+                                 zero_rows(cfg))
             beta = self.fitter.beta_from_rowsums(S0, S1)
             line = horizon = None
             if cfg.clas:

@@ -26,7 +26,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("nb1d", "downsampler", "upsampler", "head_rowsums",
-           "nb_half_fwd", "nb_half_bwd", "channel_sums")
+           "nb_half_fwd", "nb_half_bwd", "channel_sums", "downsampler_op",
+           "lane_maps_op", "head_rowsums_op")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

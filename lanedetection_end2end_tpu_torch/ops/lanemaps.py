@@ -1,0 +1,455 @@
+"""K8 / K9 / K10: the stride-2 ops of the training backbone, forward and
+backward.
+
+Counterpart of `lanedetection_end2end_tpu/ops/pallas_lanemaps.py`
+(`downsampler_op`, `lane_maps_op`, `head_rowsums_op`). On NHWC planes, with
+the convolution weights in the layouts of the torch modules, all parameters
+f32:
+
+  downsampler_op(x, weight (cc, cin, 3, 3), bias (cc,)) -> (y, mom)
+      y[..., :cc] = conv3x3/s2/p1(x) + bias;  y[..., cc:] = maxpool2x2(x)
+  lane_maps_op(x, weight (cin, cout, k, k), bias, k, out_dtype, want_mom)
+      -> (y, mom | None)
+      y = ConvTranspose(x) + bias: k = 3 is 3x3/s2/p1/op1, k = 2 is 2x2/s2
+  head_rowsums_op(x, weight (cin, C, 2, 2), bias, xs (W,), zero_rows) -> S
+      dec = ConvTranspose2x2/s2(x) + bias in f32, never written;
+      w2 = (dec^2)^2, rows [0, zero_rows) zero;
+      S (B, H, 2C) f32 = [sum_w w2 | sum_w w2 * xs[w]]
+
+`mom` is (2, cout) f32: the per-channel sum and sum of squares of y, which
+the caller turns into the BatchNorm's scale and shift. The convolutions
+read operands of the plane's dtype, accumulate in f32 and round once to the
+output's dtype; the moments are taken of the rounded output. Each op is a
+`torch.autograd.Function` whose backward follows the TPU backward kernels:
+the moment cotangent `ds1 + 2 y ds2` folded into the output gradient in
+f32, the bias gradient summed from that f32 value, then one rounding to the
+plane's dtype ahead of the input and weight gradients. The input gradient
+accumulates in f32 and is rounded once (the TPU kernels round every lane
+map's product and sum in bf16). The weight gradients come out in the
+parameters' layouts.
+
+A tied 2x2 pooling window sends its gradient to one element, chosen as the
+JAX package's where-chain chooses: in each column the upper row if it is
+>= the lower, then the left column's winner if it is >= the right's.
+
+A CUDA tensor launches the kernels (`csrc/downsampler_op.cu`,
+`csrc/lane_maps_op.cu`, `csrc/head_rowsums_op.cu`; bf16 planes) or raises;
+a CPU tensor takes the plain versions below (`*_fwd_plain`, differentiable
+by autograd as they stand, and `*_bwd_plain`, the kernels' order), in any
+float dtype. The TPU's lane maps, `plan`, `sel`, `red`, `pool` and `btile`
+matrices are lane-packing devices and are not ported.
+
+The moments, the bias and the weight gradients of the kernels are summed
+with f32 atomicAdd, so their last bits change from run to run; S is not.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.nn.grad import conv2d_weight
+
+from lanedetection_end2end_tpu_torch.ops._build import (
+    check_cuda, kernel, launch)
+from lanedetection_end2end_tpu_torch.ops.backbone import _nchw, _nhwc
+from lanedetection_end2end_tpu_torch.ops.nb_block import (
+    _SUM, _moments, _ptr, _rounder)
+
+BF16 = torch.bfloat16
+F32 = torch.float32
+_MOM_CHANNELS = (4, 16, 64, 128)  # the channel reductions need 256 % C == 0
+
+
+def _fold_moments(dy, y, dmom):
+    """dy + ds1 + 2 y ds2 in f32 (dmom None: dy itself)."""
+    dyv = dy.float()
+    if dmom is not None:
+        dyv = dyv + dmom[0] + 2.0 * y.float() * dmom[1]
+    return dyv
+
+
+def _convt_pad(k: int) -> dict:
+    if k == 3:
+        return {"stride": 2, "padding": 1, "output_padding": 1}
+    if k == 2:
+        return {"stride": 2}
+    raise ValueError(f"lane_maps_op: k={k} not in (2, 3)")
+
+
+# ----------------------------------------------------------------------
+# Plain versions
+# ----------------------------------------------------------------------
+
+def _pool_chain(x: torch.Tensor):
+    """2x2 max pool of an NHWC plane by the where-chain -> (p, m1, m2):
+    m1 (B, H/2, W, C) keeps the upper row, m2 (B, H/2, W/2, C) the left
+    column."""
+    r0, r1 = x[:, 0::2], x[:, 1::2]
+    m1 = r0 >= r1
+    p1 = torch.where(m1, r0, r1)
+    a, b = p1[:, :, 0::2], p1[:, :, 1::2]
+    m2 = a >= b
+    return torch.where(m2, a, b), m1, m2
+
+
+def downsampler_fwd_plain(x, weight, bias):
+    """Plain PyTorch version of `downsampler_op` -> (y, mom)."""
+    rnd = _rounder(x.dtype)
+    xf = x.float()
+    conv = F.conv2d(_nchw(xf), rnd(weight), bias.float(), stride=2,
+                    padding=1)
+    y = rnd(torch.cat([_nhwc(conv), _pool_chain(xf)[0]], dim=-1))
+    return y.to(x.dtype), _moments(y)
+
+
+def downsampler_bwd_plain(x, y, dy, dmom, weight, need_dx: bool = True):
+    """Plain version of the backward kernels, in their order ->
+    (dx | None, dweight, dbias)."""
+    rnd = _rounder(x.dtype)
+    cc = weight.shape[0]
+    xf = x.float()
+    dyv = _fold_moments(dy, y, dmom)
+    dbias = dyv[..., :cc].sum(_SUM)
+    dz = rnd(dyv)
+    dzc = dz[..., :cc].permute(0, 3, 1, 2)
+    dweight = conv2d_weight(_nchw(xf), weight.shape, dzc, stride=2, padding=1)
+    if not need_dx:
+        return None, dweight, dbias
+    dx = _nhwc(F.conv_transpose2d(dzc, rnd(weight), stride=2, padding=1,
+                                  output_padding=1))
+    _, m1, m2 = _pool_chain(xf)
+    gp = dz[..., cc:]
+    g_p1 = torch.stack([gp * m2, gp * ~m2], dim=3).flatten(2, 3)
+    dx = dx + torch.stack([g_p1 * m1, g_p1 * ~m1], dim=2).flatten(1, 2)
+    return dx.to(x.dtype), dweight, dbias
+
+
+def lane_maps_fwd_plain(x, weight, bias, k: int, out_dtype=None,
+                        want_mom: bool = True):
+    """Plain PyTorch version of `lane_maps_op` -> (y, mom | None)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    y = _nhwc(F.conv_transpose2d(_nchw(x), _rounder(x.dtype)(weight),
+                                 bias.float(), **_convt_pad(k)))
+    y = _rounder(out_dtype)(y)
+    return y.to(out_dtype), (_moments(y) if want_mom else None)
+
+
+def _convt_grads(x, dp, weight, k: int):
+    """Input and weight gradient of the transposed convolution from the
+    rounded output gradient dp (B, 2H, 2W, cout), f32 values."""
+    pad = _convt_pad(k).get("padding", 0)
+    dpn = dp.permute(0, 3, 1, 2)
+    dx = F.conv2d(dpn, _rounder(x.dtype)(weight), stride=2, padding=pad)
+    dweight = conv2d_weight(dpn, weight.shape, _nchw(x), stride=2,
+                            padding=pad)
+    return _nhwc(dx).to(x.dtype), dweight
+
+
+def lane_maps_bwd_plain(x, y, dy, dmom, weight, k: int):
+    """Plain version of the backward kernels -> (dx, dweight, dbias);
+    y and dmom None when the op returned no moments."""
+    dyv = _fold_moments(dy, y, dmom)
+    dx, dweight = _convt_grads(x, _rounder(x.dtype)(dyv), weight, k)
+    return dx, dweight, dyv.sum(_SUM)
+
+
+def _head_dec(x, weight, bias):
+    """f32 logits (B, C, H, W) of the 2x2/s2 head."""
+    return F.conv_transpose2d(_nchw(x), _rounder(x.dtype)(weight),
+                              bias.float(), stride=2)
+
+
+def head_rowsums_fwd_plain(x, weight, bias, xs, zero_rows: int):
+    """Plain PyTorch version of `head_rowsums_op` -> S (B, H, 2C) f32."""
+    w2 = _head_dec(x, weight, bias).square().square()
+    keep = torch.ones(w2.shape[2], 1, device=x.device)
+    keep[:zero_rows] = 0.0
+    w2 = w2 * keep
+    S = torch.cat([w2.sum(dim=3), (w2 * xs).sum(dim=3)], dim=1)
+    return S.transpose(1, 2).contiguous()
+
+
+def head_rowsums_bwd_plain(x, dS, weight, bias, xs, zero_rows: int):
+    """Plain version of the backward kernels -> (dx, dweight, dbias): the
+    logits recomputed, ddec = 4 dec^3 (dS0 + xs dS1) in f32."""
+    C = weight.shape[1]
+    dec = _head_dec(x, weight, bias)
+    g = dS.float().transpose(1, 2).unsqueeze(-1)         # (B, 2C, H, 1)
+    ddec = 4.0 * dec * dec * dec * (g[:, :C] + xs * g[:, C:])
+    ddec[:, :, :zero_rows] = 0.0
+    dp = _rounder(x.dtype)(_nhwc(ddec))
+    dx, dweight = _convt_grads(x, dp, weight, 2)
+    return dx, dweight, ddec.sum((0, 2, 3))
+
+
+# ----------------------------------------------------------------------
+# Kernel launches
+# ----------------------------------------------------------------------
+
+def _check_weight(weight, bias, cs: int, cl: int, k: int):
+    """The parameter (cs, cl, k, k) and its bias, f32 on the card."""
+    w = weight.float().contiguous()
+    b = bias.float().contiguous()
+    check_cuda(w, F32, (cs, cl, k, k), "weight")
+    check_cuda(b, F32, None, "bias")
+    return w, b
+
+
+def _taps_first(w: torch.Tensor, out_axis: int) -> torch.Tensor:
+    """(cs, cl, k, k) f32 -> (k, k, ., .) bf16 with the output channel of
+    the product (axis `out_axis` of the parameter) last."""
+    order = (2, 3, 1, 0) if out_axis == 0 else (2, 3, 0, 1)
+    return w.permute(*order).to(BF16).contiguous()
+
+
+def _check_mom_channels(C: int, name: str):
+    if C not in _MOM_CHANNELS:
+        raise ValueError(f"{name}: {C} channels not in {_MOM_CHANNELS}")
+
+
+def _dmom(dmom, C: int) -> Optional[torch.Tensor]:
+    if dmom is None:
+        return None
+    dmom = dmom.float().contiguous()
+    check_cuda(dmom, F32, (2, C), "dmom")
+    return dmom
+
+
+def _downsampler_fwd_cuda(x, weight, bias):
+    B, H, W, cin = x.shape
+    cc = weight.shape[0]
+    cout = cc + cin
+    check_cuda(x, BF16, name="x")
+    if H % 2 or W % 2:
+        raise ValueError(f"downsampler_op: odd plane {H}x{W}")
+    _check_mom_channels(cout, "downsampler_op")
+    w, b = _check_weight(weight, bias, cc, cin, 3)
+    wt = _taps_first(w, 0)                                # (3, 3, cin, cc)
+    y = torch.empty(B, H // 2, W // 2, cout, dtype=BF16, device=x.device)
+    mom = torch.zeros(2, cout, dtype=F32, device=x.device)
+    launch(kernel("downsampler_op", "ld_downsampler_op_fwd",
+                  "p" * 5 + "i" * 5 + "p"),
+           x.device, x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
+           mom.data_ptr(), B, H, W, cin, cout)
+    downsampler_op.launches += 1
+    return y, mom
+
+
+def downsampler_bwd_kernel(x, y, dy, dmom, weight, need_dx: bool = True):
+    """Launch the backward kernels on CUDA tensors; arguments and result as
+    `downsampler_bwd_plain`."""
+    B, H, W, cin = x.shape
+    cc = weight.shape[0]
+    cout = cc + cin
+    check_cuda(x, BF16, name="x")
+    _check_mom_channels(cout, "downsampler_op")
+    dy = dy.contiguous()
+    for t, name in ((y, "y"), (dy, "dy")):
+        check_cuda(t, BF16, (B, H // 2, W // 2, cout), name)
+    dmom = _dmom(dmom, cout)
+    w = weight.float().contiguous()
+    check_cuda(w, F32, (cc, cin, 3, 3), "weight")
+    wt = _taps_first(w, 1)                                # (3, 3, cc, cin)
+    dz = torch.empty_like(y)
+    dx = torch.empty_like(x) if need_dx else None
+    acc = torch.zeros(w.numel() + cout, dtype=F32, device=x.device)
+    dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
+    launch(kernel("downsampler_op", "ld_downsampler_op_bwd",
+                  "p" * 9 + "i" * 5 + "p"),
+           x.device, x.data_ptr(), y.data_ptr(), dy.data_ptr(),
+           dmom.data_ptr(), wt.data_ptr(), dz.data_ptr(), _ptr(dx),
+           dweight.data_ptr(), dbias.data_ptr(), B, H, W, cin, cout)
+    downsampler_op.bwd_launches += 1
+    return dx, dweight, dbias[:cc]
+
+
+def _lane_maps_fwd_cuda(x, weight, bias, k, out_dtype, want_mom):
+    B, H, W, cin = x.shape
+    cout = weight.shape[1]
+    pad = _convt_pad(k).get("padding", 0)
+    check_cuda(x, BF16, name="x")
+    if out_dtype not in (BF16, F32):
+        raise TypeError(f"lane_maps_op: out_dtype {out_dtype}")
+    _check_mom_channels(cout, "lane_maps_op")
+    w, b = _check_weight(weight, bias, cin, cout, k)
+    wt = _taps_first(w, 1)                                # (k, k, cin, cout)
+    y = torch.empty(B, 2 * H, 2 * W, cout, dtype=out_dtype, device=x.device)
+    mom = (torch.zeros(2, cout, dtype=F32, device=x.device) if want_mom
+           else None)
+    launch(kernel("lane_maps_op", "ld_lane_maps_op_fwd",
+                  "p" * 5 + "i" * 8 + "p"),
+           x.device, x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
+           _ptr(mom), B, H, W, cin, cout, k, pad, int(out_dtype == F32))
+    lane_maps_op.launches += 1
+    return y, mom
+
+
+def lane_maps_bwd_kernel(x, y, dy, dmom, weight, k: int):
+    """Launch the backward kernels on CUDA tensors; arguments and result as
+    `lane_maps_bwd_plain`."""
+    B, H, W, cin = x.shape
+    cout = weight.shape[1]
+    pad = _convt_pad(k).get("padding", 0)
+    check_cuda(x, BF16, name="x")
+    _check_mom_channels(cout, "lane_maps_op")
+    dy = dy.contiguous()
+    if dy.dtype not in (BF16, F32):
+        raise TypeError(f"lane_maps_op: output dtype {dy.dtype}")
+    check_cuda(dy, dy.dtype, (B, 2 * H, 2 * W, cout), "dy")
+    dmom = _dmom(dmom, cout)
+    if dmom is not None:
+        check_cuda(y, dy.dtype, dy.shape, "y")
+    w = weight.float().contiguous()
+    check_cuda(w, F32, (cin, cout, k, k), "weight")
+    wt = _taps_first(w, 0)                                # (k, k, cout, cin)
+    dp = torch.empty(dy.shape, dtype=BF16, device=x.device)
+    dx = torch.empty_like(x)
+    acc = torch.zeros(w.numel() + cout, dtype=F32, device=x.device)
+    dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
+    launch(kernel("lane_maps_op", "ld_lane_maps_op_bwd",
+                  "p" * 9 + "i" * 8 + "p"),
+           x.device, x.data_ptr(), _ptr(y if dmom is not None else None),
+           dy.data_ptr(), _ptr(dmom), wt.data_ptr(), dp.data_ptr(),
+           dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), B, H, W, cin,
+           cout, k, pad, int(dy.dtype == F32))
+    lane_maps_op.bwd_launches += 1
+    return dx, dweight, dbias
+
+
+def _check_head(x, weight, bias, xs):
+    B, Hh, Wh, cin = x.shape
+    C = weight.shape[1]
+    check_cuda(x, BF16, name="x")
+    if C not in (1, 2, 4, 8):
+        raise ValueError(f"head_rowsums_op: {C} lanes not in (1, 2, 4, 8)")
+    w, b = _check_weight(weight, bias, cin, C, 2)
+    xs = xs.float().contiguous()
+    check_cuda(xs, F32, (2 * Wh,), "xs")
+    return w, b, xs
+
+
+def _head_rowsums_fwd_cuda(x, weight, bias, xs, zero_rows):
+    B, Hh, Wh, cin = x.shape
+    C = weight.shape[1]
+    w, b, xs = _check_head(x, weight, bias, xs)
+    wt = _taps_first(w, 1)                                # (2, 2, cin, C)
+    S = torch.empty(B, 2 * Hh, 2 * C, dtype=F32, device=x.device)
+    launch(kernel("head_rowsums_op", "ld_head_rowsums_op_fwd",
+                  "p" * 5 + "i" * 6 + "p"),
+           x.device, x.data_ptr(), wt.data_ptr(), b.data_ptr(),
+           xs.data_ptr(), S.data_ptr(), B, 2 * Hh, 2 * Wh, cin, C,
+           int(zero_rows))
+    head_rowsums_op.launches += 1
+    return S
+
+
+def head_rowsums_bwd_kernel(x, dS, weight, bias, xs, zero_rows: int):
+    """Launch the backward kernels on CUDA tensors; arguments and result as
+    `head_rowsums_bwd_plain`."""
+    B, Hh, Wh, cin = x.shape
+    C = weight.shape[1]
+    w, b, xs = _check_head(x, weight, bias, xs)
+    dS = dS.float().contiguous()
+    check_cuda(dS, F32, (B, 2 * Hh, 2 * C), "dS")
+    wf = _taps_first(w, 1)                                # (2, 2, cin, C)
+    wt = _taps_first(w, 0)                                # (2, 2, C, cin)
+    dp = torch.empty(B, 2 * Hh, 2 * Wh, C, dtype=BF16, device=x.device)
+    dx = torch.empty_like(x)
+    acc = torch.zeros(w.numel() + C, dtype=F32, device=x.device)
+    dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
+    launch(kernel("head_rowsums_op", "ld_head_rowsums_op_bwd",
+                  "p" * 10 + "i" * 6 + "p"),
+           x.device, x.data_ptr(), dS.data_ptr(), wf.data_ptr(),
+           wt.data_ptr(), b.data_ptr(), xs.data_ptr(), dp.data_ptr(),
+           dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), B, 2 * Hh,
+           2 * Wh, cin, C, int(zero_rows))
+    head_rowsums_op.bwd_launches += 1
+    return dx, dweight, dbias
+
+
+# ----------------------------------------------------------------------
+# autograd
+# ----------------------------------------------------------------------
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
+
+
+class _Downsampler(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        fwd = downsampler_fwd_plain if _on_cpu(x) else _downsampler_fwd_cuda
+        y, mom = fwd(x, weight, bias)
+        ctx.save_for_backward(x, y, weight)
+        return y, mom
+
+    @staticmethod
+    def backward(ctx, dy, dmom):
+        x, y, weight = ctx.saved_tensors
+        bwd = downsampler_bwd_plain if _on_cpu(x) else downsampler_bwd_kernel
+        return bwd(x, y, dy, dmom, weight, ctx.needs_input_grad[0])
+
+
+class _LaneMaps(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, k, out_dtype, want_mom):
+        fwd = lane_maps_fwd_plain if _on_cpu(x) else _lane_maps_fwd_cuda
+        y, mom = fwd(x, weight, bias, k, out_dtype, want_mom)
+        ctx.save_for_backward(x, y if want_mom else None, weight)
+        ctx.k = k
+        return y, mom
+
+    @staticmethod
+    def backward(ctx, dy, dmom):
+        x, y, weight = ctx.saved_tensors  # y None: no moments were taken
+        bwd = lane_maps_bwd_plain if _on_cpu(x) else lane_maps_bwd_kernel
+        dx, dweight, dbias = bwd(x, y, dy, dmom if y is not None else None,
+                                 weight, ctx.k)
+        return dx, dweight, dbias, None, None, None
+
+
+class _HeadRowsums(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, xs, zero_rows):
+        fwd = head_rowsums_fwd_plain if _on_cpu(x) else _head_rowsums_fwd_cuda
+        ctx.save_for_backward(x, weight, bias, xs)
+        ctx.zero_rows = zero_rows
+        return fwd(x, weight, bias, xs, zero_rows)
+
+    @staticmethod
+    def backward(ctx, dS):
+        x, weight, bias, xs = ctx.saved_tensors
+        bwd = head_rowsums_bwd_plain if _on_cpu(x) else head_rowsums_bwd_kernel
+        dx, dweight, dbias = bwd(x, dS, weight, bias, xs, ctx.zero_rows)
+        return dx, dweight, dbias, None, None
+
+
+def downsampler_op(x, weight, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DownsamplerBlock ahead of its BatchNorm: conv3x3/s2 || maxpool2x2 +
+    bias, and the moments of the result. x (B, H, W, cin); returns
+    (y (B, H/2, W/2, cc + cin), mom (2, cc + cin) f32). The input gradient
+    is skipped when x needs none."""
+    return _Downsampler.apply(x, weight, bias)
+
+
+def lane_maps_op(x, weight, bias, k: int, out_dtype=None,
+                 want_mom: bool = True):
+    """ConvTranspose (k = 3: 3x3/s2/p1/op1, k = 2: 2x2/s2) + bias, written
+    once at (B, 2H, 2W, cout) in `out_dtype` (default: x's), with the
+    moments of the result when `want_mom` (else None)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    return _LaneMaps.apply(x, weight, bias, k, out_dtype, want_mom)
+
+
+def head_rowsums_op(x, weight, bias, xs, zero_rows: int) -> torch.Tensor:
+    """The 2x2/s2 head, the square activation, the top-row mask and the
+    separable WLS row sums: (B, H/2, W/2, cin) -> S (B, H, 2C) f32, lanes
+    [0, C) = S0 and [C, 2C) = S1."""
+    return _HeadRowsums.apply(x, weight, bias, xs, zero_rows)
+
+
+for _f in (downsampler_op, lane_maps_op, head_rowsums_op):
+    _f.launches = 0      # forward kernel launches
+    _f.bwd_launches = 0  # backward kernel launches

@@ -1,12 +1,27 @@
 """The differentiable training backbone on NHWC planes.
 
-Counterpart of `lanedetection_end2end_tpu/ops/packed_graph.py` in the
-configuration `PACKED_PALLAS=1 PACKED_FUSED_BLOCKS=1 PACKED_FUSED_MAPS=0`:
-every NonBottleneck1D block runs on the fused half-block kernels
-(`ops/nb_block.py`), forward and backward; the downsamplers, upsamplers and
-the 2x2 head are PyTorch autograd on operands of the compute dtype, with
-their train-mode BatchNorm moments from `channel_sums`
-(`ops/packed_conv.py`); the e2e tail reduces the logits to the WLS row sums.
+Counterpart of `lanedetection_end2end_tpu/ops/packed_graph.py` with
+`PACKED_PALLAS=1 PACKED_FUSED_BLOCKS=1`: every NonBottleneck1D block runs on
+the fused half-block kernels (`ops/nb_block.py`), forward and backward. The
+keyword `fused_maps` of the functions below chooses how the stride-2 blocks
+run, as the JAX package's `PACKED_FUSED_MAPS` does:
+
+- `fused_maps=True` (the default, as in the JAX package): the downsamplers,
+  the upsamplers and the 2x2 head run on the lane-map kernels of
+  `ops/lanemaps.py` (`downsampler_op`, `lane_maps_op`), which also return
+  the BatchNorm moments, and `head_rowsums_train` fuses the head with the
+  e2e tail (`head_rowsums_op`), so the logits are never formed;
+- `fused_maps=False` (`PACKED_FUSED_MAPS=0`): they are PyTorch autograd on
+  operands of the compute dtype, with their train-mode BatchNorm moments
+  from `channel_sums` (`ops/packed_conv.py`), and `rowsums` reduces the
+  logits to the WLS row sums.
+
+A tied 2x2 pooling window sends its gradient to one element. With
+`fused_maps=True` it is the one the JAX package's where-chain picks (in
+each column the upper row if >=, then the left column's winner if >=);
+with `fused_maps=False` it is PyTorch's, the first maximum in row-major
+order. The two agree on all-zero windows and differ on an exact tie between
+(row 1, col 0) and (row 0, col 1).
 
 The TPU's lane-packed (B, H, W*C) plane is the memory of an NHWC tensor
 (B, H, W, C), which is what these functions take and return; the lane maps,
@@ -26,6 +41,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from lanedetection_end2end_tpu_torch.ops.lanemaps import (
+    downsampler_op, head_rowsums_op, lane_maps_op)
 from lanedetection_end2end_tpu_torch.ops.nb1d import _taps
 from lanedetection_end2end_tpu_torch.ops.nb_block import nb_half_a, nb_half_b
 from lanedetection_end2end_tpu_torch.ops.packed_conv import channel_sums
@@ -119,10 +136,24 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def downsampler_train(x: torch.Tensor, block, *, train: bool) -> torch.Tensor:
+def _bn_relu(y: torch.Tensor, mom: torch.Tensor, bn,
+             train: bool) -> torch.Tensor:
+    """BatchNorm from the op's moments, one multiply and add, relu."""
+    mul, add = bn_mul_add(mom, bn, y.numel() // y.shape[-1], train)
+    return torch.relu(y * mul.to(y.dtype) + add.to(y.dtype))
+
+
+def downsampler_train(x: torch.Tensor, block, *, train: bool,
+                      fused_maps: bool = True) -> torch.Tensor:
     """DownsamplerBlock: conv3x3/s2 || maxpool2x2, concat, BatchNorm, relu.
-    (B, H, W, cin) -> (B, H/2, W/2, cout). A tied pooling window sends its
-    gradient to one element, the first in row-major order."""
+    (B, H, W, cin) -> (B, H/2, W/2, cout). `fused_maps=True` (the JAX
+    default, `PACKED_FUSED_MAPS=1`) runs `downsampler_op` and routes a tied
+    pooling window's gradient by the where-chain, rows first, then columns;
+    `fused_maps=False` (`PACKED_FUSED_MAPS=0`) runs PyTorch's convolution
+    and pool, which route it to the first maximum in row-major order."""
+    if fused_maps:
+        y, mom = downsampler_op(x, block.conv.weight, block.conv.bias)
+        return _bn_relu(y, mom, block.bn, train)
     dt = x.dtype
     xc = _nchw(x)
     conv = F.conv2d(xc, block.conv.weight.to(dt), block.conv.bias.to(dt),
@@ -131,9 +162,14 @@ def downsampler_train(x: torch.Tensor, block, *, train: bool) -> torch.Tensor:
     return torch.relu(batchnorm_train(y, block.bn, train))
 
 
-def upsampler_train(x: torch.Tensor, block, *, train: bool) -> torch.Tensor:
+def upsampler_train(x: torch.Tensor, block, *, train: bool,
+                    fused_maps: bool = True) -> torch.Tensor:
     """UpsamplerBlock: ConvTranspose 3x3/s2/p1/op1, BatchNorm, relu.
-    (B, H, W, cin) -> (B, 2H, 2W, cout)."""
+    (B, H, W, cin) -> (B, 2H, 2W, cout); on `lane_maps_op` with
+    `fused_maps`."""
+    if fused_maps:
+        y, mom = lane_maps_op(x, block.conv.weight, block.conv.bias, 3)
+        return _bn_relu(y, mom, block.bn, train)
     dt = x.dtype
     y = F.conv_transpose2d(_nchw(x), block.conv.weight.to(dt),
                            block.conv.bias.to(dt), stride=2, padding=1,
@@ -141,9 +177,13 @@ def upsampler_train(x: torch.Tensor, block, *, train: bool) -> torch.Tensor:
     return torch.relu(batchnorm_train(_nhwc(y), block.bn, train))
 
 
-def head_train(x: torch.Tensor, conv) -> torch.Tensor:
+def head_train(x: torch.Tensor, conv, *,
+               fused_maps: bool = True) -> torch.Tensor:
     """Output head, ConvTranspose 2x2/s2: (B, H, W, 16) -> (B, 2H, 2W, C)
-    f32 logits."""
+    f32 logits; on `lane_maps_op` (f32 out, no moments) with `fused_maps`."""
+    if fused_maps:
+        return lane_maps_op(x, conv.weight, conv.bias, 2, torch.float32,
+                            False)[0]
     dt = x.dtype
     y = F.conv_transpose2d(_nchw(x), conv.weight.to(dt), conv.bias.to(dt),
                            stride=2)
@@ -156,27 +196,46 @@ def head_train(x: torch.Tensor, conv) -> torch.Tensor:
 
 def erfnet_train(net, images: torch.Tensor, *, train: bool,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 fused_maps: bool = True, skip_head: bool = False):
     """The backbone `net` (`models/erfnet.py::ERFNet`) on NHWC images
     (B, H, W, 3): returns (enc (B, H/8, W/8, 128) in `dtype`, logits
-    (B, H, W, C) f32). Dropout (the encoder blocks' own rates) draws one
-    mask per block from `generator`; the decoder has none."""
+    (B, H, W, C) f32), or with `skip_head` the pre-head plane (B, H/2, W/2,
+    16) in `dtype` in place of the logits, for a caller that fuses the head
+    downstream (`head_rowsums_train`). Dropout (the encoder blocks' own
+    rates) draws one mask per block from `generator`; the decoder has
+    none."""
     x = images.to(dtype)
     enc_mod, dec_mod = net.encoder, net.decoder
-    x = downsampler_train(x, enc_mod.initial_block, train=train)
+    x = downsampler_train(x, enc_mod.initial_block, train=train,
+                          fused_maps=fused_maps)
     for layer in enc_mod.layers:
         if hasattr(layer, "conv3x1_1"):
             x = nb1d_train(x, layer, train=train, drop=layer.dropprob,
                            generator=generator)
         else:
-            x = downsampler_train(x, layer, train=train)
+            x = downsampler_train(x, layer, train=train,
+                                  fused_maps=fused_maps)
     enc = x
     for layer in dec_mod.layers:
         if hasattr(layer, "conv3x1_1"):
             x = nb1d_train(x, layer, train=train)
         else:
-            x = upsampler_train(x, layer, train=train)
-    return enc, head_train(x, dec_mod.output_conv)
+            x = upsampler_train(x, layer, train=train, fused_maps=fused_maps)
+    if skip_head:
+        return enc, x
+    return enc, head_train(x, dec_mod.output_conv, fused_maps=fused_maps)
+
+
+def head_rowsums_train(x: torch.Tensor, conv, xs_norm: torch.Tensor,
+                       zero_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused e2e tail on the pre-head plane (B, H/2, W/2, 16): output
+    head, square activation, row mask and the WLS row sums in
+    `head_rowsums_op`. Returns S0, S1 (B, C, H) f32 as `rowsums` does; the
+    logits are never formed. Square activation only."""
+    C = conv.weight.shape[1]
+    S = head_rowsums_op(x, conv.weight, conv.bias, xs_norm, zero_rows)
+    return S[..., :C].transpose(1, 2), S[..., C:].transpose(1, 2)
 
 
 def rowsums(logits: torch.Tensor, act_fn, xs_norm: torch.Tensor,

@@ -52,10 +52,13 @@ def prepare_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
-                 train: bool = True) -> Callable:
+                 train: bool = True, fused_maps: bool = True) -> Callable:
     """Returns loss_fn(batch, generator) -> (loss, metrics, outputs) on
     `lanenet` (a `models/lanenet.py::LaneNet`), through the training
-    backbone of `LaneNet.apply_packed` in `cfg.compute_dtype`."""
+    backbone of `LaneNet.apply_packed` in `cfg.compute_dtype`.
+    `fused_maps` (default True, the JAX package's default) runs the
+    stride-2 blocks and the tail on the lane-map kernels; False is the JAX
+    package's `PACKED_FUSED_MAPS=0`."""
     if phase != "e2e" or cfg.profile != "bp":
         raise NotImplementedError(
             "the port trains the 'bp' profile in phase 'e2e' only")
@@ -67,7 +70,8 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
     def loss_fn(batch, generator=None):
         batch = prepare_batch(batch)
         out = lanenet.apply_packed(batch["image"], train=train,
-                                   generator=generator, dtype=dtype)
+                                   generator=generator, dtype=dtype,
+                                   fused_maps=fused_maps)
         metrics: Dict[str, torch.Tensor] = {}
         outputs: Dict[str, torch.Tensor] = {"beta": out.beta}
 
@@ -110,13 +114,14 @@ def _to_device(batch, device):
 
 def make_train_step(lanenet, cfg: LaneConfig,
                     optimizer: torch.optim.Optimizer, phase: str = "e2e",
-                    device=None) -> Callable:
+                    device=None, fused_maps: bool = True) -> Callable:
     """Returns step(batch, generator) -> metrics: one forward, backward and
     optimizer update of `lanenet` in place. Runs on the card unless
     `device="cpu"`; `lanenet` must live on that device. `step.state`
     is the `TrainState` (model, optimizer, steps taken)."""
     device = resolve_device(device)
-    loss_fn = make_loss_fn(lanenet, cfg, phase, train=True)
+    loss_fn = make_loss_fn(lanenet, cfg, phase, train=True,
+                           fused_maps=fused_maps)
     state = TrainState(lanenet, optimizer)
 
     def step(batch, generator: Optional[torch.Generator] = None):
@@ -132,11 +137,12 @@ def make_train_step(lanenet, cfg: LaneConfig,
 
 
 def make_eval_step(lanenet, cfg: LaneConfig, phase: str = "e2e",
-                   device=None) -> Callable:
+                   device=None, fused_maps: bool = True) -> Callable:
     """Returns step(batch) -> (metrics, outputs): no gradients, running
     BatchNorm statistics, no dropout."""
     device = resolve_device(device)
-    loss_fn = make_loss_fn(lanenet, cfg, phase, train=False)
+    loss_fn = make_loss_fn(lanenet, cfg, phase, train=False,
+                           fused_maps=fused_maps)
 
     def step(batch):
         with torch.no_grad():

@@ -1,11 +1,12 @@
 """The port's training backbone (`ops/packed_graph.py`) against the JAX
 package's `erfnet_packed` on the CPU, float32, at 32x64.
 
-The JAX side runs the configuration the port follows: PACKED_FUSED_BLOCKS=1
-(every NB1D block on the fused Pallas half-block kernels, interpret mode),
-PACKED_FUSED_MAPS=0 (downsamplers, upsamplers and head in jnp with the
-Pallas `channel_sums`). The same weights cross through
-`state_dict_from_variables`; the new running statistics come back through
+The JAX side runs PACKED_FUSED_BLOCKS=1 (every NB1D block on the fused
+Pallas half-block kernels, interpret mode) and PACKED_FUSED_MAPS=0
+(downsamplers, upsamplers and head in jnp with the Pallas `channel_sums`),
+which the port follows with `fused_maps=False`; the default configuration,
+fused maps on, is held in tests/test_torch_train_step_fused.py. The same
+weights cross through `state_dict_from_variables`; the new running statistics come back through
 `variables_from_state_dict`. Bars are the JAX package's own
 (tests/test_fused_blocks.py:143-153): enc and logits atol 5e-4, rtol 2e-3;
 every new running statistic atol 1e-4."""
@@ -72,7 +73,8 @@ def run():
             net.load_state_dict(state_dict_from_variables(v))
             net.train(train)
             tenc, tdec = tg.erfnet_train(net.net, torch.from_numpy(x),
-                                         train=train, dtype=torch.float32)
+                                         train=train, dtype=torch.float32,
+                                         fused_maps=False)
             stats = variables_from_state_dict(
                 net.state_dict(), RESIZE)["batch_stats"]["erfnet"]
             out[train] = {"tenc": tenc.detach().numpy(),
@@ -165,7 +167,7 @@ def test_downsampler_tie_routing_matches_jax(monkeypatch, cin, cout):
     block.load_state_dict({k[2:]: v for k, v in
                            downsampler_state(params, stats, "b").items()})
     t = torch.from_numpy(x).requires_grad_()
-    y = tg.downsampler_train(t, block, train=True)
+    y = tg.downsampler_train(t, block, train=True, fused_maps=False)
     (y * torch.from_numpy(wy)).sum().backward()
     np.testing.assert_allclose(y.detach().numpy(),
                                np.asarray(jy).reshape(wy.shape),
@@ -236,7 +238,8 @@ def test_reference_train_forward_matches_packed_path(dropout):
                    generator=torch.Generator().manual_seed(1))
     gen = lambda: torch.Generator().manual_seed(2) if dropout else None
     a = ref(x, train=True, generator=gen())
-    b = packed.apply_packed(x, train=True, generator=gen())
+    b = packed.apply_packed(x, train=True, generator=gen(),
+                            fused_maps=False)
     assert a.beta.requires_grad and b.weightmaps is None
     for f in ("beta", "seg_logits", "line_logits", "horizon_logits",
               "encoder_features"):

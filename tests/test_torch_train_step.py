@@ -7,7 +7,10 @@ weights (through `state_dict_from_variables`), the same compact batch
 generator: the packages' random streams cannot match). The JAX side runs
 `packed_train=True` with PACKED_PALLAS=1, PACKED_FUSED_BLOCKS=1,
 PACKED_FUSED_MAPS=0 (Pallas kernels in interpret mode); the port runs its
-plain versions through `make_train_step(..., device="cpu")`.
+plain versions through `make_train_step(..., device="cpu",
+fused_maps=False)` (`run_both` with its default). The default
+configuration, fused maps on, is held in
+tests/test_torch_train_step_fused.py.
 
 Bars, float32. In eval mode the two packages' logits agree to 2e-7, but a
 train-mode step does not reach that: every BatchNorm takes its variance as
@@ -94,11 +97,14 @@ def flat(tree, prefix=""):
     return out
 
 
-def run_both(dtype_name, with_grads=True):
+def run_both(dtype_name, with_grads=True, fused_maps=False):
+    """One train step (and an eval step) of both packages on the same
+    weights and batch; `fused_maps` sets PACKED_FUSED_MAPS on the JAX side
+    and the port's argument of the same name."""
     mp = pytest.MonkeyPatch()
     mp.setenv("PACKED_PALLAS", "1")
     mp.setenv("PACKED_FUSED_BLOCKS", "1")
-    mp.setenv("PACKED_FUSED_MAPS", "0")
+    mp.setenv("PACKED_FUSED_MAPS", "1" if fused_maps else "0")
     mp.delenv("PACKED_BANDED", raising=False)
     try:
         rng = np.random.default_rng(0)
@@ -134,11 +140,14 @@ def run_both(dtype_name, with_grads=True):
                            cfg.learning_rate)
         counts = [nb_half_a.launches, nb_half_b.launches,
                   channel_sums.launches]
-        step = tsteps.make_train_step(net, cfg, opt, device="cpu")
+        step = tsteps.make_train_step(net, cfg, opt, device="cpu",
+                                      fused_maps=fused_maps)
         tbatch = {k: torch.from_numpy(a) for k, a in batch.items()}
-        _, tout = tsteps.make_eval_step(net, cfg, device="cpu")(tbatch)
+        _, tout = tsteps.make_eval_step(net, cfg, device="cpu",
+                                        fused_maps=fused_maps)(tbatch)
         with torch.no_grad():  # the train-mode beta, on a copy of the stats
-            beta = tsteps.make_loss_fn(net, cfg, train=True)(
+            beta = tsteps.make_loss_fn(
+                net, cfg, train=True, fused_maps=fused_maps)(
                 tbatch)[2]["beta"].float().numpy()
         net.load_state_dict(state_dict_from_variables(v))
         metrics = step(tbatch, None)
