@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py [--profile]
 
-`--profile` also traces two more train steps of each configuration
+`--profile` also traces two more calls of each engine (full, blocks, blocks
+with the rolled homography) and two more train steps of each configuration
 (`fused_maps` on, the default, and off) with torch.profiler and prints the
-card's busy time per step and its largest kernels. Needs one
+card's busy time per call or step and its largest kernels. Needs one
 CUDA card, nvcc and the repository checkout; exits non-zero on
 any failed check and prints no result without a card. In order:
 
-1. build the ten kernel libraries from
+1. build the twelve kernel libraries from
    `lanedetection_end2end_tpu_torch/csrc/` (one nvcc per source, all at
    once) and print the card's name and power limit;
 2. hold each serving kernel against its plain PyTorch version on CUDA
@@ -25,11 +26,28 @@ any failed check and prints no result without a card. In order:
    output and none) and `head_rowsums_op`; then one whole NB1D block per
    (C, d) and every downsampler and upsampler block forward and backward
    through autograd, on the kernels and on their plain versions;
+2c. the kernels of the blocks-mode engine: `nb1d_chain` at its four
+   256x512 chains and the resize-64 d = 16 edge against its plain version
+   and, bit for bit, against K1 launched block by block (its input left
+   untouched); `wls_moments` (K12) on the masked maps of one blocks-engine
+   call with a general homography (the config's BP trapezoid after a 2
+   degree camera roll) and at the JAX package's three test shapes, against
+   its plain version, bit for bit against a second launch, and its
+   gradient through autograd against autograd of the plain version;
 3. serve 3 batches of 8 random 256x512 images through
    `FusedLaneNetEngine` (train_sh config, seeded random weights with
    non-trivial BatchNorm statistics), check the kernel launch counts of
    those calls and hold beta / line / horizon against the plain float32
    `LaneNet` on the card (TF32 off);
+3b. the same 3 batches through the same engine's blocks path, with the
+   launch counts set to 0 just before: per call 4 `nb1d_chain`, 0 of K1-K4
+   and 0 `wls_moments` with the config's homography (the path driven
+   through `engine._run(..., blocks=True)`, JAX's `mode="blocks"`); then
+   with the rolled homography as the engine's fitter, which sends the
+   public call down the blocks path, 1 `wls_moments` per call, beta held
+   against the f32 `LaneNet` whose fit takes the rolled homography's
+   moments from K12's plain version; ms per batch beside the full
+   engine's;
 4. take e2e train steps through `make_train_step` (same config with
    compute_dtype bfloat16, adam, seeded random weights, a seeded synthetic
    batch of 8): first one step with dropout off on the kernels and the
@@ -48,7 +66,8 @@ any failed check and prints no result without a card. In order:
    `{"ok": true, "device": {...}}` last.
 
 In the kernels line, `launches` counts the wrapper calls of the 3 engine
-calls (serving kernels) or of the 3 default train steps (training
+calls (serving kernels; `nb1d_chain` and `wls_moments`: the 3 + 3 calls of
+phase 3b) or of the 3 default train steps (training
 kernels, with `bwd_launches` beside it; for `channel_sums` of the one
 `fused_maps=False` step), and `ms`, `plain_ms` and `bound_ms` are per
 engine call or per train step (batch 8): the sum over the path's shapes of
@@ -60,6 +79,8 @@ half block's forward, 5 for its backward; x and y for a stride-2 op's
 forward, x, y, dy and dx for its backward) over 3.35 TB/s and the FLOP of
 the taps that land on the plane over 989 TFLOP/s (bf16); `library_ms` is
 null where no single PyTorch call computes the fused function, for
+wls_moments the time of `torch.matmul` (TF32 off) of the squared weights,
+laid out as (B*C, N), with the basis, at the engine's shape, for
 channel_sums the time of `torch.var_mean(x.float(), dim=(0, 1, 2))`, which
 gives the same statistics, and for lane_maps_op the time of one
 `F.conv_transpose2d` on the same bf16 operands at the head's shape, where
@@ -70,7 +91,18 @@ the port.
 Tolerances: a kernel and its plain version do the same bf16-operand,
 f32-accumulate arithmetic in another summation order, so bf16 outputs may
 differ by an output rounding step (2^-8 relative) and the nb1d chain of
-four roundings by a few: max|diff| / max|plain| < 1e-2. The f32 row sums
+four roundings by a few: max|diff| / max|plain| < 1e-2. A whole chain
+(`nb1d_chain`) carries those steps through up to 8 blocks and their
+residuals: measured on an H100, 9.3e-3 after the five 64-channel blocks and
+1.2e-2 after the eight 128-channel ones, for the chain and for K1 block by
+block alike, so a chain is held at 2e-2 of max|plain|, the bar the JAX
+package holds its own chain to (tests/test_pallas_wls.py:180), and must
+moreover equal K1 block by block bit for bit: both run the same device
+code. K12's moments are f32 sums in
+another order than the plain version's float64 ones: max|diff| / max|plain|
+<= 1e-4, the bar the JAX package holds its own kernel to against a float64
+oracle, and two launches agree bit for bit (fixed summation order, no
+atomics). The f32 row sums
 of head_rowsums differ only by f32 summation order: < 1e-4. The engine
 against the f32 LaneNet: the JAX package's own bars (beta max relative
 error < 3e-2, line/horizon rtol = atol = 1e-2). The training kernels'
@@ -135,6 +167,8 @@ import torch
 RESIZE, BATCH, SEED, N_BATCHES = 256, 8, 0, 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
+FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+ROLL_DEGREES = 2.0  # camera roll of the general (non-separable) homography
 TOL_BF16, TOL_F32, TOL_REDUCE, TOL_BLOCK = 1e-2, 1e-4, 2e-3, 2e-2
 TRAIN_STEPS = 3
 BN2_DAMP = 0.1  # scale of bn2.weight for the whole-gradient comparison
@@ -156,6 +190,8 @@ REPLACES = {
     "downsampler_op": "lanedetection_end2end_tpu/ops/pallas_lanemaps.py:371",
     "lane_maps_op": "lanedetection_end2end_tpu/ops/pallas_lanemaps.py:167",
     "head_rowsums_op": "lanedetection_end2end_tpu/ops/pallas_lanemaps.py:547",
+    "nb1d_chain": "lanedetection_end2end_tpu/ops/pallas_nb1d.py:320",
+    "wls_moments": "lanedetection_end2end_tpu/ops/pallas_wls.py:36",
 }
 # kernel -> (forward source, backward source) where they are not `name`.cu
 SOURCES = {
@@ -166,6 +202,7 @@ SOURCES = {
     "head_rowsums_op": ("head_rowsums_op.cu", "head_rowsums_op.cu"),
 }
 SERVING = ("nb1d", "downsampler", "upsampler", "head_rowsums")
+BLOCKS = ("nb1d_chain", "wls_moments")  # the blocks-mode engine's kernels
 CSRC = "lanedetection_end2end_tpu_torch/csrc/"
 
 
@@ -263,8 +300,8 @@ def head_work(t, p):
     return flop, nbytes
 
 
-def bound_ms(flop, nbytes):
-    t_ops, t_bytes = flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+def bound_ms(flop, nbytes, flop_per_s=BF16_FLOP_PER_S):
+    t_ops, t_bytes = flop / flop_per_s, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -735,6 +772,232 @@ def check_lanemap_kernels(dev, g):
     return summary, failures
 
 
+class Recording:
+    """Stands in for an engine's fitter and keeps the weight maps it was
+    given (the masked maps of a real engine call)."""
+
+    def __init__(self, fitter):
+        self.fitter, self.maps = fitter, None
+
+    def __call__(self, maps):
+        self.maps = maps
+        return self.fitter(maps)
+
+
+def roll_fitter(dev):
+    """The fit of the 256x512 config on its BP trapezoid after a camera roll
+    of ROLL_DEGREES about the image centre: a general homography."""
+    from lanedetection_end2end_tpu_torch.geometry import (
+        bev_matrices_pixel, camera_roll)
+    from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
+    M = bev_matrices_pixel(RESIZE)[0] @ camera_roll(ROLL_DEGREES, RESIZE,
+                                                    RESIZE / 2)
+    fit = WLSFitter(M, RESIZE, 2 * RESIZE, 3, normalized=False, reg_ls=1.0,
+                    device=dev)
+    if fit.separable:
+        fail("the rolled homography is separable")
+    return fit
+
+
+class PlainFit:
+    """The general fit of `fitter` with its moments from K12's plain
+    version: the reference fitter of the f32 LaneNet on the card."""
+
+    def __init__(self, fitter):
+        self.fitter = fitter
+
+    def __call__(self, maps):
+        from lanedetection_end2end_tpu_torch.ops.wls_moments import (
+            wls_moments_plain)
+        B, Hm, Wm, C = maps.shape
+        moments = wls_moments_plain(maps.float().reshape(B, Hm * Wm, C),
+                                    self.fitter.basis)
+        return self.fitter._finish(moments, B, C)
+
+
+def chain_work(x, chain):
+    """A chain reads its input plane once and writes its output once; its
+    operations are its blocks' taps that land on the plane."""
+    from lanedetection_end2end_tpu_torch.ops.nb1d import chain_blocks
+    flop = sum(nb1d_work(x, p)[0] for p in chain_blocks(chain))
+    return flop, (2 * x.numel() * 2 + chain["w"].numel() * 2
+                  + chain["vec"].numel() * 4)
+
+
+def check_blocks_kernels(dev, g, packed, maps, basis):
+    """Phase 2c, the kernels of the blocks-mode engine. `nb1d_chain` at its
+    four 256x512 chains and the resize-64 d = 16 edge against its plain
+    version (2e-2 of max|plain|) and, bit for bit, against K1 launched
+    block by block; `wls_moments` on the masked maps `maps` of a real
+    engine call with the rolled homography's `basis`, and at the JAX
+    package's three test shapes, against its plain version (1e-4 of
+    max|plain|), bit for bit against a second launch, and its gradient
+    through autograd against autograd through the plain version (a float64
+    einsum, independent of the wrapper's backward). Returns ({name:
+    summary}, failures)."""
+    from lanedetection_end2end_tpu_torch.ops.nb1d import (
+        chain_blocks, nb1d, nb1d_chain, nb1d_chain_plain)
+    from lanedetection_end2end_tpu_torch.ops.wls_moments import (
+        wls_moments, wls_moments_plain)
+
+    act = lambda *s: torch.randn(*s, generator=g, device=dev).to(
+        torch.bfloat16)
+    B, H, W = BATCH, RESIZE, 2 * RESIZE
+    summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0, "ops_ms": 0.0} for n in BLOCKS}
+    summary["nb1d_chain"].update(k1_ms=0.0, library_ms=None)
+    failures = []
+
+    def record(s, per_call, k_ms, p_ms, b_ms, by):
+        s["ms"] += per_call * k_ms
+        s["plain_ms"] += per_call * p_ms
+        s["bound_ms"] += per_call * b_ms
+        s["ops_ms"] += per_call * b_ms * (by == "operations")
+
+    s = summary["nb1d_chain"]
+    for name, shape, per_call in (
+            ("enc_nb64", (B, H // 4, W // 4, 64), 1),
+            ("enc_nb128", (B, H // 8, W // 8, 128), 1),
+            ("dec_nb64", (B, H // 4, W // 4, 64), 1),
+            ("dec_nb16", (B, H // 2, W // 2, 16), 1),
+            # edge: the resize=64 NB1D-128 plane (8x16), d up to 16 >= H, W
+            ("enc_nb128", (2, 8, 16, 128), 0)):
+        chain = packed[name]
+        x = act(*shape)
+        x0 = x.clone()
+        got = nb1d_chain(x, chain)
+        torch.cuda.synchronize()
+        want = nb1d_chain_plain(x, chain)
+        k1 = x
+        for p in chain_blocks(chain):
+            k1 = nb1d(k1, p)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        same = torch.equal(got, k1)
+        ok = (got.shape == want.shape and got.dtype == want.dtype
+              and torch.isfinite(got.float()).all().item()
+              and rel <= TOL_BLOCK and same and torch.equal(x, x0))
+        k_ms = median_ms(lambda: nb1d_chain(x, chain))
+        p_ms = median_ms(lambda: nb1d_chain_plain(x, chain))
+
+        def blockwise():
+            t = x
+            for p in chain_blocks(chain):
+                t = nb1d(t, p)
+        k1_ms = median_ms(blockwise)
+        b_ms, by = bound_ms(*chain_work(x, chain))
+        label = (f"nb1d_chain {name}{tuple(x.shape)} d="
+                 f"{list(chain['dilations'])}")
+        print(f"check {label}: max|diff| {err:.3e} ({rel:.2e} of max|plain|, "
+              f"tol {TOL_BLOCK:g}), bit for bit equal to K1 block by block: "
+              f"{same}, input untouched: {torch.equal(x, x0)}: "
+              f"{'ok' if ok else 'FAIL'}; chain {k_ms:.4f} ms, K1 block by "
+              f"block {k1_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({by}); x{per_call} per engine call")
+        if not ok:
+            failures.append(label)
+        record(s, per_call, k_ms, p_ms, b_ms, by)
+        s["k1_ms"] += per_call * k1_ms
+
+    s = summary["wls_moments"]
+    B, Hm, Wm, C = maps.shape
+    w = maps.reshape(B, Hm * Wm, C)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    cases = [("engine maps (B, N, C)", w, basis, 1)]
+    cases += [(f"JAX test shape {shape}", rn(*shape[:2]),
+               rn(shape[1], shape[2]), 0)
+              for shape in ((8, 1024, 12), (3, 4096, 30), (32, 2000, 6))]
+    for label, w, bas, per_call in cases:
+        got = wls_moments(w, bas)
+        again = wls_moments(w, bas)
+        torch.cuda.synchronize()
+        want = wls_moments_plain(w, bas)
+        err, rel = rel_err(got, want)
+        wg, wp = (w.clone().requires_grad_(True) for _ in range(2))
+        gm = rn(*want.shape)
+        wls_moments(wg, bas).backward(gm)
+        wls_moments_plain(wp, bas).backward(gm)
+        gerr, grel = rel_err(wg.grad, wp.grad)
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        ok = (got.shape == want.shape and torch.isfinite(got).all().item()
+              and rel <= TOL_F32 and grel <= TOL_F32
+              and torch.equal(got, again))
+        K = bas.shape[1]
+        rows, N = got.shape[0], bas.shape[0]
+        flop = 2 * rows * N * K + rows * N
+        b_ms, by = bound_ms(flop, 4 * (w.numel() + bas.numel() + rows * K),
+                            FP32_FLOP_PER_S)
+        k_ms = median_ms(lambda: wls_moments(w, bas))
+        p_ms = median_ms(lambda: wls_moments_plain(w, bas))
+        w3 = w if w.dim() == 3 else w.unsqueeze(-1)
+        l_ms = median_ms(lambda: torch.matmul(
+            w3.square().permute(0, 2, 1).reshape(rows, N), bas))
+        label = f"wls_moments {label} -> {tuple(got.shape)}"
+        print(f"check {label}: max|diff| {err:.3e} ({rel:.2e} of max|plain|,"
+              f" tol {TOL_F32:g}), gradient against autograd of the plain "
+              f"version {grel:.2e}, two launches bit for bit equal: "
+              f"{torch.equal(got, again)}: {'ok' if ok else 'FAIL'}; kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.matmul of (BC, N) "
+              f"w^2 and the basis (TF32 off) {l_ms:.4f} ms "
+              f"({'faster' if l_ms < k_ms else 'slower'} than the kernel), "
+              f"bound {b_ms:.4f} ms ({by}); x{per_call} per engine call")
+        if not ok:
+            failures.append(label)
+        record(s, per_call, k_ms, p_ms, b_ms, by)
+        if per_call:
+            s["library_ms"] = l_ms
+    return summary, failures
+
+
+def serve(engine, packed, images, wrappers):
+    """Phase 3 / 3b: the engine on each batch of `images`, the wrappers'
+    launch counts set to 0 just before and read just after -> (outputs,
+    ms per batch, launches)."""
+    for w in wrappers.values():
+        w.launches = 0
+    outs, batch_ms = [], []
+    for x in images:
+        t0 = time.perf_counter()
+        outs.append(engine(packed, x))
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+    return outs, batch_ms, {n: w.launches for n, w in wrappers.items()}
+
+
+def hold_serving(outs, images, model, cfg, label):
+    """Hold an engine's outputs against the plain float32 LaneNet `model`
+    at the JAX package's bars; returns the worst errors."""
+    worst = {"beta": 0.0, "line": 0.0, "horizon": 0.0}
+    C = cfg.out_channels
+    for (beta, line, hor), x in zip(outs, images):
+        ref = model(x)
+        if (tuple(beta.shape) != (BATCH, C, cfg.order + 1)
+                or tuple(line.shape) != (BATCH, 4)
+                or tuple(hor.shape) != (BATCH, RESIZE)):
+            fail(f"{label}: output shapes {beta.shape} {line.shape} "
+                 f"{hor.shape}")
+        for t in (beta, line, hor):
+            if not torch.isfinite(t).all():
+                fail(f"{label}: non-finite engine output")
+        rel = ((beta - ref.beta).abs().max()
+               / ref.beta.abs().max()).item()
+        worst["beta"] = max(worst["beta"], rel)
+        for key, a, b in (("line", line, ref.line_logits),
+                          ("horizon", hor, ref.horizon_logits)):
+            excess = ((a - b).abs() - (1e-2 + 1e-2 * b.abs())).max().item()
+            worst[key] = max(worst[key], (a - b).abs().max().item())
+            if excess > 0:
+                fail(f"{label}: {key} logits off the f32 LaneNet by "
+                     f"{(a - b).abs().max().item():.3e}")
+        if rel >= 3e-2:
+            fail(f"{label}: beta relative error {rel:.3e} >= 3e-2")
+    print(f"{label} vs f32 LaneNet: beta max rel {worst['beta']:.3e}, line "
+          f"max|diff| {worst['line']:.3e}, horizon max|diff| "
+          f"{worst['horizon']:.3e}")
+    return worst
+
+
 def synthetic_batch(seed: int) -> dict:
     """A seeded batch of 8 in the dataset's compact form (host tensors)."""
     g = torch.Generator().manual_seed(seed)
@@ -981,15 +1244,17 @@ OWN_KERNELS = (  # device functions of csrc/, as the profiler names them
     "conv3tap_kernel", "wgrad3tap_kernel", "dyv_kernel",
     "channel_sums_kernel", "ds_fwd_kernel", "ds_dx_kernel", "lm_fwd_kernel",
     "l2s_kernel", "wgrad_s2_kernel", "dyv_fold_kernel", "hr_ddec_kernel",
-    "head_rowsums_kernel")
+    "head_rowsums_kernel", "downsampler_kernel", "upsampler_kernel",
+    "nb1d_chain_kernel", "wls_partial_kernel", "wls_sum_kernel")
 
 
 def profile_steps(run_step, step_ms: float, label: str,
                   steps: int = 2) -> None:
-    """`--profile`: trace `steps` more train steps with torch.profiler and
-    print, after `label`, the card's busy time per step, its idle share of
-    the untraced step time `step_ms`, the number of device kernels per
-    step, and the kernels that took most of the card's time."""
+    """`--profile`: trace `steps` more train steps (or engine calls) with
+    torch.profiler and print, after `label`, the card's busy time per step,
+    its idle share of the untraced step time `step_ms`, the number of
+    device kernels per step, and the kernels that took most of the card's
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -1041,7 +1306,9 @@ def main() -> int:
     from lanedetection_end2end_tpu_torch.ops.backbone import (
         downsampler, downsampler_plain, head_rowsums, head_rowsums_plain,
         upsampler, upsampler_plain)
-    from lanedetection_end2end_tpu_torch.ops.nb1d import nb1d, nb1d_plain
+    from lanedetection_end2end_tpu_torch.ops.nb1d import (
+        nb1d, nb1d_chain, nb1d_plain)
+    from lanedetection_end2end_tpu_torch.ops.wls_moments import wls_moments
 
     # the f32 reference must be f32; the kernels' plain versions read
     # bf16-valued operands, exact in either mode
@@ -1049,6 +1316,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = gpu_line()
+    profile = "--profile" in sys.argv[1:]
 
     # 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1150,75 +1418,91 @@ def main() -> int:
           + ", ".join(f"{n} {g:.3f}" for n, g in per_image.items())
           + f", total {sum(per_image.values()):.3f} GFLOP")
 
-    # 3. engine run -----------------------------------------------------
+    # 2c. the blocks-mode engine's kernels ------------------------------
+    # (one warm-up call of the blocks path with the rolled homography
+    # gives the masked maps K12 is held on)
     gi = torch.Generator(device=dev).manual_seed(SEED + 2)
     images = torch.rand(N_BATCHES, BATCH, H, W, 3, generator=gi, device=dev)
+    config_fitter = engine.fitter
+    roll = Recording(roll_fitter(dev))
+    engine._run(packed, images[0], blocks=True)  # cuDNN plans
+    engine.fitter = roll
+    engine._run(packed, images[0], blocks=True)
+    engine.fitter = config_fitter
+    torch.cuda.synchronize()
+    blocks_summary, failures = check_blocks_kernels(
+        dev, g, packed, roll.maps, roll.fitter.basis)
+    if failures:
+        fail("blocks-mode kernel disagrees: " + "; ".join(failures))
+
+    # 3. engine run -----------------------------------------------------
     engine(packed, images[0])  # warm-up (cuDNN plans of the bf16 heads)
     torch.cuda.synchronize()
     wrappers = {"nb1d": nb1d, "downsampler": downsampler,
-                "upsampler": upsampler, "head_rowsums": head_rowsums}
-    for w in wrappers.values():
-        w.launches = 0
-    outs, batch_ms = [], []
-    for i in range(N_BATCHES):
-        t0 = time.perf_counter()
-        outs.append(engine(packed, images[i]))
-        torch.cuda.synchronize()
-        batch_ms.append(1e3 * (time.perf_counter() - t0))
-    launches = {n: w.launches for n, w in wrappers.items()}
+                "upsampler": upsampler, "head_rowsums": head_rowsums,
+                "nb1d_chain": nb1d_chain, "wls_moments": wls_moments}
+    outs, batch_ms, launches = serve(engine, packed, images, wrappers)
     expected = {"nb1d": 17, "downsampler": 3, "upsampler": 2,
-                "head_rowsums": 1}
+                "head_rowsums": 1, "nb1d_chain": 0, "wls_moments": 0}
     print(f"engine launches over {N_BATCHES} calls: {launches}")
     for n, per in expected.items():
         if launches[n] != N_BATCHES * per:
             fail(f"{n}: {launches[n]} launches, expected "
                  f"{N_BATCHES * per}")
-
-    worst = {"beta": 0.0, "line": 0.0, "horizon": 0.0}
-    C = cfg.out_channels
-    for i, (beta, line, hor) in enumerate(outs):
-        ref = model(images[i])
-        if (tuple(beta.shape) != (BATCH, C, cfg.order + 1)
-                or tuple(line.shape) != (BATCH, 4)
-                or tuple(hor.shape) != (BATCH, RESIZE)):
-            fail(f"output shapes {beta.shape} {line.shape} {hor.shape}")
-        for t in (beta, line, hor):
-            if not torch.isfinite(t).all():
-                fail("non-finite engine output")
-        rel = ((beta - ref.beta).abs().max()
-               / ref.beta.abs().max()).item()
-        worst["beta"] = max(worst["beta"], rel)
-        for key, a, b in (("line", line, ref.line_logits),
-                          ("horizon", hor, ref.horizon_logits)):
-            excess = ((a - b).abs() - (1e-2 + 1e-2 * b.abs())).max().item()
-            worst[key] = max(worst[key], (a - b).abs().max().item())
-            if excess > 0:
-                fail(f"{key} logits off the f32 LaneNet by "
-                     f"{(a - b).abs().max().item():.3e}")
-        if rel >= 3e-2:
-            fail(f"beta relative error {rel:.3e} >= 3e-2")
+    hold_serving(outs, images, model, cfg, "engine")
     ms = statistics.median(batch_ms)
-    print(f"engine vs f32 LaneNet: beta max rel {worst['beta']:.3e}, line "
-          f"max|diff| {worst['line']:.3e}, horizon max|diff| "
-          f"{worst['horizon']:.3e}")
     print(f"engine: {ms:.3f} ms per batch of {BATCH} (median of "
           f"{N_BATCHES}: {', '.join(f'{t:.3f}' for t in batch_ms)}), "
           f"{1e3 * BATCH / ms:.1f} images/s")
+    if profile:
+        profile_steps(lambda: engine(packed, images[0]), ms, "engine call")
+
+    # 3b. the blocks path: the config's homography (through the private
+    # hook, JAX's mode="blocks"), then the rolled one (the public call
+    # takes the blocks path by itself, K12 on), each with the counts set
+    # to 0 just before
+    blocks_launches = {}
+    reference_fitter = model.fitter
+    on_blocks = lambda p, x: engine._run(p, x, blocks=True)
+    for label, fitter, ref_fitter, call, per_call in (
+            ("blocks engine", config_fitter, reference_fitter, on_blocks, 0),
+            (f"blocks engine, homography rolled {ROLL_DEGREES:g} degrees",
+             roll.fitter, PlainFit(roll.fitter), engine, 1)):
+        engine.fitter, model.fitter = fitter, ref_fitter
+        outs, b_ms, counts = serve(call, packed, images, wrappers)
+        print(f"{label}: launches over {N_BATCHES} calls: {counts}")
+        want = {"nb1d": 0, "downsampler": 0, "upsampler": 0,
+                "head_rowsums": 0, "nb1d_chain": 4, "wls_moments": per_call}
+        if counts != {n: N_BATCHES * v for n, v in want.items()}:
+            fail(f"{label}: launches {counts}, expected {want} per call")
+        hold_serving(outs, images, model, cfg, label)
+        b_med = statistics.median(b_ms)
+        print(f"{label}: {b_med:.3f} ms per batch of {BATCH} (median of "
+              f"{N_BATCHES}: {', '.join(f'{t:.3f}' for t in b_ms)}), "
+              f"{1e3 * BATCH / b_med:.1f} images/s; full engine in this "
+              f"call {ms:.3f} ms, {1e3 * BATCH / ms:.1f} images/s")
+        for n in BLOCKS:
+            blocks_launches[n] = blocks_launches.get(n, 0) + counts[n]
+        if profile:
+            profile_steps(lambda: call(packed, images[0]), b_med,
+                          f"{label} call")
+    engine.fitter, model.fitter = config_fitter, reference_fitter
 
     # 4. train steps ------------------------------------------------------
     train_launches = train_phase(
         dev, {k: v.detach().clone() for k, v in model.state_dict().items()},
-        profile="--profile" in sys.argv[1:])
+        profile=profile)
 
     # 5. kernels line and result ----------------------------------------
     kernels = []
-    for n, s in {**summary, **train_summary}.items():
+    path_launches = {n: launches[n] for n in SERVING}
+    path_launches.update(blocks_launches)
+    path_launches.update({n: v[0] for n, v in train_launches.items()})
+    for n, s in {**summary, **blocks_summary, **train_summary}.items():
         fwd_source, bwd_source = SOURCES.get(n, (f"{n}.cu", None))
         entry = {
             "name": n, "route": "cuda", "source": CSRC + fwd_source,
-            "replaces": REPLACES[n],
-            "launches": (launches[n] if n in SERVING
-                         else train_launches[n][0]),
+            "replaces": REPLACES[n], "launches": path_launches[n],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": ("operations" if 2 * s.get("ops_ms", 0.0)
@@ -1231,6 +1515,8 @@ def main() -> int:
                 plain_bwd_ms=s["plain_bwd_ms"],
                 bwd_bound_ms=s["bwd_bound_ms"],
                 max_rel_err_reduce=s["max_rel_err_reduce"])
+        if "k1_ms" in s:
+            entry["k1_block_by_block_ms"] = s["k1_ms"]
         if "library_of" in s:
             entry.update(library_of=s["library_of"],
                          ms_at_library_shape=s["ms_at_library_shape"])

@@ -22,121 +22,36 @@
 // bound it, not HBM. C = 16 (decoder, 128x256) is memory-bound.
 //
 // Design: each of the four convolutions is an implicit GEMM
-// [pixels x 3C] @ [3C x C], one launch of `conv3tap_kernel` each. A block
-// of 4 warps owns 64 consecutive pixels (flattened b, h, w) and all C output
-// channels; per tap it stages the shifted input rows (64 x C) and the tap's
-// weight matrix (C x C) in shared memory and runs bf16 WMMA 16x16x16
-// tensor-core products with f32 accumulators in registers. The epilogue
-// (scale, shift, residual, relu, bf16 rounding) is applied from shared
-// memory. The intermediates t1, t2 make a round trip through device memory
-// (L2 at these sizes); fusing the four convolutions, TMA/wgmma tiling and a
-// persistent kernel over the whole encoder are later work.
+// [pixels x 3C] @ [3C x C], one launch of `conv3tap_kernel` each, one
+// 64-pixel tile per block (the tile body is `nb1d.cuh`, which the chain
+// kernel `nb1d_chain.cu` shares). The intermediates t1, t2 make a round trip
+// through device memory (L2 at these sizes); fusing the four convolutions,
+// TMA/wgmma tiling and a persistent kernel over the whole encoder are later
+// work.
 
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "nb1d.cuh"
 
 namespace {
 
-constexpr int TP = 64;        // pixels (GEMM rows) per block
-constexpr int THREADS = 128;  // 4 warps x 16 rows
+using nb1d::THREADS;
+using nb1d::TP;
 
-template <int C>
-constexpr int smem_bytes() {
-  // A (TP x C+8) + B (C x C+8) bf16 tiles, later aliased by the f32 C tile
-  return (TP + C) * (C + 8) * 2 > TP * (C + 4) * 4 ? (TP + C) * (C + 8) * 2
-                                                   : TP * (C + 4) * 4;
-}
-
-// out[p, co] = relu(sum_t sum_ci x[p + tap_t, ci] * w[t, ci, co] * mul[co]
-//                   + add[co] (+ res[p, co]))
-// axis 0: taps at rows h-d, h, h+d; axis 1: taps at columns w-d, w, w+d.
-// mul == nullptr means a scale of 1; res == nullptr means no residual.
 template <int C>
 __global__ void __launch_bounds__(THREADS) conv3tap_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const float* __restrict__ mul, const float* __restrict__ add,
     const bf16* __restrict__ res, bf16* __restrict__ out, int npix, int H,
     int W, int d, int axis) {
-  constexpr int LDA = C + 8;  // bf16 pitch of the A and B tiles
-  constexpr int LDC = C + 4;  // f32 pitch of the accumulator tile
-  constexpr int NF = C / 16;  // 16-wide fragments along ci and co
-  constexpr int VPR = C / 8;  // 16-byte vectors per row
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + TP * LDA;
-  float* sC = reinterpret_cast<float*>(smem);
-
-  const int p0 = blockIdx.x * TP;
-  const int warp = threadIdx.x / 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int n = 0; n < NF; ++n) wmma::fill_fragment(acc[n], 0.0f);
-
-  for (int t = 0; t < 3; ++t) {
-    const int off = (t - 1) * d;
-    for (int i = threadIdx.x; i < TP * VPR; i += THREADS) {
-      const int r = i / VPR, v = i % VPR;
-      const int p = p0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (p < npix) {
-        long long q = -1;
-        if (axis == 0) {
-          const int hh = (p / W) % H + off;
-          if (hh >= 0 && hh < H) q = (long long)p + (long long)off * W;
-        } else {
-          const int ww = p % W + off;
-          if (ww >= 0 && ww < W) q = (long long)p + off;
-        }
-        if (q >= 0) val = reinterpret_cast<const uint4*>(x + q * C)[v];
-      }
-      *reinterpret_cast<uint4*>(sA + r * LDA + v * 8) = val;
-    }
-    const bf16* wt = w + (size_t)t * C * C;
-    for (int i = threadIdx.x; i < C * VPR; i += THREADS) {
-      const int r = i / VPR, v = i % VPR;
-      *reinterpret_cast<uint4*>(sB + r * LDA + v * 8) =
-          reinterpret_cast<const uint4*>(wt + (size_t)r * C)[v];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < NF; ++k) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sA + warp * 16 * LDA + k * 16, LDA);
-#pragma unroll
-      for (int n = 0; n < NF; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, sB + k * 16 * LDA + n * 16, LDA);
-        wmma::mma_sync(acc[n], a, b, acc[n]);
-      }
-    }
-    __syncthreads();  // tiles are overwritten by the next tap / by sC
-  }
-
-#pragma unroll
-  for (int n = 0; n < NF; ++n)
-    wmma::store_matrix_sync(sC + warp * 16 * LDC + n * 16, acc[n], LDC,
-                            wmma::mem_row_major);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < TP * C; i += THREADS) {
-    const int r = i / C, c = i % C;
-    const int p = p0 + r;
-    if (p >= npix) continue;
-    float y = sC[r * LDC + c] * (mul ? mul[c] : 1.0f) + add[c];
-    if (res) y += bf2f(res[(size_t)p * C + c]);
-    out[(size_t)p * C + c] = f2bf(fmaxf(y, 0.0f));
-  }
+  nb1d::conv3tap_tile<C, false>(blockIdx.x * TP, x, w, mul, add, res, out,
+                                npix, H, W, d, axis, smem);
 }
 
 template <int C>
 int launch_conv(const bf16* x, const bf16* w, const float* mul,
                 const float* add, const bf16* res, bf16* out, int npix, int H,
                 int W, int d, int axis, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<C>();
+  constexpr int smem = nb1d::smem_bytes<C>();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         conv3tap_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -80,3 +80,15 @@ def projective_grid(M: np.ndarray, height: int, width: int, normalized: bool
     """BEV-projected sampling grid, shape (H*W, 2) of (x', y'), float64."""
     g = base_grid(height, width, normalized) @ np.asarray(M, np.float64).T
     return g[:, :2] / g[:, 2:3]
+
+
+def camera_roll(degrees: float, cx: float, cy: float) -> np.ndarray:
+    """3x3 rotation of the image plane by `degrees` about (cx, cy): what a
+    camera that is not mounted level adds in front of a BEV homography,
+    M_rolled = M @ camera_roll(...). Such an M is no longer row-separable
+    (M[1,0], M[2,0] != 0), so the fit takes the full-grid path."""
+    t = np.deg2rad(degrees)
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, -s, cx - c * cx + s * cy],
+                     [s, c, cy - s * cx - c * cy],
+                     [0.0, 0.0, 1.0]])

@@ -55,6 +55,14 @@ def zero_rows(cfg: LaneConfig) -> int:
     return ceil(cfg.resize * cfg.mask_percentage)
 
 
+def row_mask(cfg: LaneConfig, device) -> torch.Tensor:
+    """(H, 1, 1) float32: 0 on the top `zero_rows` rows, 1 below; it
+    broadcasts over W and C of (B, H, W, C) weight maps."""
+    mask = torch.ones(cfg.image_height, 1, 1, device=device)
+    mask[:zero_rows(cfg)] = 0.0
+    return mask
+
+
 class LaneNet(nn.Module):
     """The reference `Net`: ERFNet + heads, with the WLS fitter and the row
     mask as constants on `device`."""
@@ -68,9 +76,7 @@ class LaneNet(nn.Module):
         if cfg.clas:
             self.line_classification = Classification("line", cfg.resize)
             self.horizon_estimation = Classification("horizon", cfg.resize)
-        mask = torch.ones(cfg.image_height, 1, 1, device=device)
-        mask[:zero_rows(cfg)] = 0.0
-        self._mask = mask                      # (H, 1, 1): over W and C
+        self._mask = row_mask(cfg, device)
         self._act = activation_fn(cfg.activation_layer)
         self.to(device).eval()
 

@@ -14,11 +14,17 @@ are lane-packing devices and are not ported: both versions here use the
 direct 3-tap convolutions. `nb1d` launches the CUDA kernel
 (`csrc/nb1d.cu`) for a CUDA tensor and uses `nb1d_plain` only for a CPU
 tensor.
+
+`nb1d_chain` runs a chain of same-width blocks (`pack_chain`) as one
+cooperative launch (`csrc/nb1d_chain.cu`, counterpart of JAX `nb1d_chain`)
+on K1's device code: its output is bit for bit that of `nb1d` block by
+block. `nb1d_chain_plain` is the loop of `nb1d_plain` over the blocks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import ctypes
+from typing import Dict, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -112,3 +118,54 @@ def nb1d(x: torch.Tensor, p: Dict) -> torch.Tensor:
 
 
 nb1d.launches = 0
+
+
+def pack_chain(blocks: Sequence[Dict]) -> Dict:
+    """`pack_nb1d` dicts of same-width blocks -> one chain: w (n, 4, 3, C,
+    C) bf16, vec (n, 6, C) f32, dilations (n,) ints."""
+    return {"w": torch.stack([p["w"] for p in blocks]).contiguous(),
+            "vec": torch.stack([p["vec"] for p in blocks]).contiguous(),
+            "dilations": tuple(p["dilation"] for p in blocks)}
+
+
+def chain_blocks(chain: Dict):
+    """The chain's blocks as `pack_nb1d` dicts (views of its tensors)."""
+    return [{"w": w, "vec": v, "dilation": d}
+            for w, v, d in zip(chain["w"], chain["vec"], chain["dilations"])]
+
+
+def nb1d_chain_plain(x: torch.Tensor, chain: Dict) -> torch.Tensor:
+    """Plain version of the chain kernel: `nb1d_plain` block after block."""
+    for p in chain_blocks(chain):
+        x = nb1d_plain(x, p)
+    return x
+
+
+MAX_CHAIN = 16  # blocks per launch (csrc/nb1d_chain.cu)
+
+
+def nb1d_chain(x: torch.Tensor, chain: Dict) -> torch.Tensor:
+    """The chain's blocks on (B, H, W, C) bf16. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (one cooperative
+    launch for the whole chain) or raises. x is only read."""
+    if x.device.type == "cpu":
+        return nb1d_chain_plain(x, chain)
+    B, H, W, C = x.shape
+    dils = chain["dilations"]
+    n = len(dils)
+    if C not in (16, 64, 128) or not 1 <= n <= MAX_CHAIN:
+        raise ValueError(f"nb1d_chain kernel: C={C} not in (16, 64, 128) "
+                         f"or {n} blocks not in 1..{MAX_CHAIN}")
+    xp = check_cuda(x, BF16, name="x")
+    wp = check_cuda(chain["w"], BF16, (n, 4, 3, C, C), "w")
+    vp = check_cuda(chain["vec"], torch.float32, (n, 6, C), "vec")
+    out, t1, t2, a = (torch.empty_like(x) for _ in range(4))
+    launch(kernel("nb1d_chain", "ld_nb1d_chain", "ppppippppiiiip"),
+           x.device, xp, wp, vp, (ctypes.c_int * n)(*dils), n,
+           t1.data_ptr(), t2.data_ptr(), a.data_ptr(), out.data_ptr(),
+           B, H, W, C)
+    nb1d_chain.launches += 1
+    return out
+
+
+nb1d_chain.launches = 0

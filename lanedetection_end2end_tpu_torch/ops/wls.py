@@ -1,9 +1,12 @@
-"""Weighted least-squares polynomial fit: the separable row-sum path.
+"""Weighted least-squares polynomial fit: the separable row-sum path and the
+full-grid moment path.
 
 Counterpart of `lanedetection_end2end_tpu/ops/wls.py` (`WLSFitter`). Per
 lane k the fit solves Z beta = rhs with Z = Y^T diag(W_k^2) Y and
-rhs = Y^T diag(W_k^2) x. Both homographies of the reference map image rows
-to rows (M[1,0] = M[2,0] = 0), so every moment factorizes over rows:
+rhs = Y^T diag(W_k^2) x, over the BEV-projected pixel grid.
+
+Separable homographies (M[1,0] = M[2,0] = 0, both of the reference's) map
+image rows to rows, so every moment factorizes over rows:
 
     Z[i,j] = sum_r Y_i(r) Y_j(r) S0[r]
     rhs[i] = sum_r Y_i(r) (alpha[r] S1[r] + gamma[r] S0[r])
@@ -11,12 +14,17 @@ to rows (M[1,0] = M[2,0] = 0), so every moment factorizes over rows:
 with S0[r] = sum_c w^2[r,c] and S1[r] = sum_c w^2[r,c] xs[c]. The
 contraction of (S0 | S1) with the constant (2H, K) coefficient rows runs in
 float32 as an element-wise product and sum, so no TF32 setting can lower its
-precision (JAX's `Precision.HIGHEST`). The Vandermonde basis is built on
-y/scale and beta rescaled exactly; Tikhonov `reg_ls` plus a trace-relative
-floor make the solve total (all-zero weight maps stay finite).
+precision (JAX's `Precision.HIGHEST`).
 
-Only separable homographies are ported; the full-grid moment path
-(`wls_moments`) is not ported yet.
+A general homography (a camera roll, say) takes the full grid: a constant
+(H*W, K) basis of all products Y_i*Y_j (row-major) then Y_i*x, built once
+on the host, and the moments sum_n w^2[n] basis[n] from K12
+(`ops/wls_moments.py`: its kernel on a CUDA tensor, its plain version on a
+CPU tensor). As in JAX, x there is the raw projected x, not centred.
+
+The Vandermonde basis is built on y/scale and beta rescaled exactly;
+Tikhonov `reg_ls` plus a trace-relative floor make the solve total
+(all-zero weight maps stay finite).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 
 from lanedetection_end2end_tpu_torch.geometry import projective_grid
 from lanedetection_end2end_tpu_torch.ops.solve import spd_solve
+from lanedetection_end2end_tpu_torch.ops.wls_moments import wls_moments
 
 REG_FLOOR = 1e-8  # relative diagonal floor making the solve total
 
@@ -36,10 +45,10 @@ def _vandermonde(y: np.ndarray, order: int) -> np.ndarray:
 
 
 class WLSFitter:
-    """Holds the constant row coefficients on `device` and fits beta.
+    """Holds the fit's constants on `device` and fits beta.
 
     Args:
-      M: 3x3 homography (image -> BEV), host array; must be row-separable.
+      M: 3x3 homography (image -> BEV), host array.
       height/width: weight-map spatial shape.
       order: polynomial order (0..3).
       normalized: True for the BEV profile, False for the BP profile.
@@ -55,9 +64,6 @@ class WLSFitter:
                 f"Requested order {order} for polynomial fit is not implemented")
         M = np.asarray(M, dtype=np.float64)
         self.separable = abs(M[1, 0]) < 1e-12 and abs(M[2, 0]) < 1e-12
-        if not self.separable:
-            raise NotImplementedError(
-                "the port fits row-separable homographies only")
         self.order = order
         self.height, self.width = height, width
         self.reg_ls = float(reg_ls)
@@ -73,6 +79,17 @@ class WLSFitter:
                                            1e-12)
         self.y_scale = scale
         powers = np.arange(order, -1, -1, dtype=np.float64)
+        self._unscale = f32(scale ** -powers)
+        # reg_ls acts on the unscaled Z: reg_ls * scale^(-2p) in scaled coords
+        self._reg_diag = f32(self.reg_ls * scale ** (-2.0 * powers))
+        self.sep_coeff = self.sep_xs = self.basis = None
+
+        if not self.separable:
+            Y = _vandermonde(y_map / scale, order)             # (N, o1)
+            prods = (Y[:, :, None] * Y[:, None, :]).reshape(-1, o1 * o1)
+            self.basis = f32(np.concatenate(
+                [prods, Y * grid[:, 0:1]], axis=1))            # (N, K)
+            return
 
         if normalized:
             xs = np.linspace(0.0, 1.0 - 1.0 / width, width)
@@ -96,13 +113,14 @@ class WLSFitter:
             [np.zeros((height, o1 * o1)), Yr * (alpha * sx)[:, None]], axis=1)
         self.sep_coeff = f32(np.concatenate([c0, c1], axis=0))  # (2H, K)
         self.sep_xs = f32((xs - x0) / sx)                         # (W,)
-        self._unscale = f32(scale ** -powers)
-        # reg_ls acts on the unscaled Z: reg_ls * scale^(-2p) in scaled coords
-        self._reg_diag = f32(self.reg_ls * scale ** (-2.0 * powers))
 
     def __call__(self, wmaps: torch.Tensor) -> torch.Tensor:
         """Fit from activated, masked weight maps (B, H, W, C) -> beta
         (B, C, order+1), highest power first."""
+        B, H, W, C = wmaps.shape
+        if not self.separable:
+            w = wmaps.float().reshape(B, H * W, C)      # a view, lanes inner
+            return self._finish(wls_moments(w, self.basis), B, C)
         w2 = (wmaps * wmaps).float()
         S0 = w2.sum(dim=2).transpose(1, 2)                          # (B,C,H)
         S1 = (w2 * self.sep_xs[None, None, :, None]).sum(dim=2).transpose(1, 2)
@@ -111,6 +129,8 @@ class WLSFitter:
     def beta_from_rowsums(self, S0: torch.Tensor, S1: torch.Tensor
                           ) -> torch.Tensor:
         """Fit from (already masked) W-axis row sums S0, S1 (B, C, H)."""
+        assert self.separable, \
+            "row-sum fitting needs a row-aligned homography"
         B, C = S0.shape[0], S0.shape[1]
         S = torch.cat([S0.reshape(B * C, -1), S1.reshape(B * C, -1)],
                       dim=-1).float()

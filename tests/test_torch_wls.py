@@ -92,7 +92,13 @@ def test_all_zero_rowsums_stay_finite():
 
 
 def test_non_separable_homography_is_refused():
+    """A general homography takes the full-grid path
+    (tests/test_torch_wls_general.py); the row-sum fit refuses it, as JAX's
+    `beta_from_rowsums` does."""
     M = np.eye(3)
     M[2, 0] = 1e-3
-    with pytest.raises(NotImplementedError):
-        WLSFitter(M, 8, 16, 2, normalized=False)
+    fit = WLSFitter(M, 8, 16, 2, normalized=False)
+    assert not fit.separable and fit.sep_coeff is None
+    S = torch.zeros(1, 4, 8)
+    with pytest.raises(AssertionError):
+        fit.beta_from_rowsums(S, S)
