@@ -1,5 +1,6 @@
-// The 3-tap implicit-GEMM convolution shared by the training half-block
-// kernels (nb_half_fwd.cu, nb_half_bwd.cu).
+// The 3-tap implicit-GEMM convolution shared by the training kernels in
+// bf16: the half blocks (nb_half_fwd.cu, nb_half_bwd.cu) and the single
+// convolutions of packed_conv.cu.
 //
 // It is `conv3tap_kernel` of nb1d.cu (64 pixels x all C output channels per
 // block of 4 warps, bf16 WMMA 16x16x16 with f32 accumulators, one tap's
@@ -13,7 +14,8 @@
 //  - a choice of epilogue, which also reduces per-channel f32 sums over
 //    the block's 64 pixels and adds them to a global buffer with atomicAdd
 //    (blocks run in no order, so nothing can be carried between them as
-//    the TPU grid carries its accumulators).
+//    the TPU grid carries its accumulators), and of the output type: bf16,
+//    or f32 (the unrounded sums of packed_conv's forward).
 //
 // A transposed convolution (the input gradient) is this same kernel with
 // the tap matrices transposed and their order reversed, which the wrapper
@@ -34,6 +36,7 @@ constexpr int THREADS = 128;  // 4 warps x 16 rows
 
 enum Epilogue {
   EPI_BIAS_RELU,  // out = bf16(relu(acc + vec[c]))
+  EPI_BIAS,       // out = bf16(acc + vec[c])
   EPI_BIAS_MOM,   // out = bf16(acc + vec[c]); sums += [out, out^2]
   EPI_PLAIN,      // out = bf16(acc)
   EPI_MASK_SUM,   // v = acc * (aux > 0); sums[0] += v; out = bf16(v)
@@ -74,26 +77,16 @@ __device__ __forceinline__ void stage_rows(bf16* sA, const bf16* in,
   constexpr int VPR = C / 8;  // 16-byte vectors per row
   for (int i = threadIdx.x; i < ROWS * VPR; i += NT) {
     const int r = i / VPR, v = i % VPR;
-    const int p = p0 + r;
+    const long long q = tap_pixel(p0 + r, npix, H, W, off, axis);
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (p < npix) {
-      long long q = -1;
-      if (axis == 0) {
-        const int hh = (p / W) % H + off;
-        if (hh >= 0 && hh < H) q = (long long)p + (long long)off * W;
-      } else {
-        const int ww = p % W + off;
-        if (ww >= 0 && ww < W) q = (long long)p + off;
-      }
-      if (q >= 0) {
-        val = reinterpret_cast<const uint4*>(in + q * C)[v];
-        if (mul != nullptr) {
-          bf16* e = reinterpret_cast<bf16*>(&val);
+    if (q >= 0) {
+      val = reinterpret_cast<const uint4*>(in + q * C)[v];
+      if (mul != nullptr) {
+        bf16* e = reinterpret_cast<bf16*>(&val);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int c = v * 8 + j;
-            e[j] = f2bf(fmaxf(bn_affine(bf2f(e[j]), mul[c], add[c]), 0.0f));
-          }
+        for (int j = 0; j < 8; ++j) {
+          const int c = v * 8 + j;
+          e[j] = f2bf(fmaxf(bn_affine(bf2f(e[j]), mul[c], add[c]), 0.0f));
         }
       }
     }
@@ -101,16 +94,20 @@ __device__ __forceinline__ void stage_rows(bf16* sA, const bf16* in,
   }
 }
 
+__device__ __forceinline__ void store_out(bf16* o, float v) { *o = f2bf(v); }
+__device__ __forceinline__ void store_out(float* o, float v) { *o = v; }
+
 // out[p, co] = epilogue(sum_t sum_ci f(in[p + tap_t])[ci] * w[t, ci, co])
 // with taps at -d, 0, +d along rows (axis 0) or columns (axis 1); f is the
-// prologue when pmul != nullptr. `sums` is (2, C) f32 (one row used by
-// EPI_MASK_SUM) and must be zero before the launch.
-template <int C, int EPI>
+// prologue when pmul != nullptr; out is bf16 (rounded where the comments
+// above say bf16) or f32 (TO = float: not rounded). `sums` is (2, C) f32
+// (one row used by EPI_MASK_SUM) and must be zero before the launch.
+template <int C, int EPI, typename TO>
 __global__ void __launch_bounds__(THREADS) conv3tap_kernel(
     const bf16* __restrict__ in, const bf16* __restrict__ w,
     const float* __restrict__ pmul, const float* __restrict__ padd,
     const float* __restrict__ vec, const bf16* __restrict__ aux,
-    bf16* __restrict__ out, float* __restrict__ sums, int npix, int H, int W,
+    TO* __restrict__ out, float* __restrict__ sums, int npix, int H, int W,
     int d, int axis) {
   static_assert(THREADS % C == 0, "a thread owns one channel");
   constexpr int LDA = C + 8;  // bf16 pitch of the A and B tiles
@@ -171,25 +168,26 @@ __global__ void __launch_bounds__(THREADS) conv3tap_kernel(
     const float a = sC[r * LDC + c];
     const size_t idx = (size_t)p * C + c;
     if (EPI == EPI_BIAS_RELU) {
-      out[idx] = f2bf(fmaxf(a + vec[c], 0.0f));
+      store_out(out + idx, fmaxf(a + vec[c], 0.0f));
+    } else if (EPI == EPI_BIAS) {
+      store_out(out + idx, a + vec[c]);
     } else if (EPI == EPI_BIAS_MOM) {
-      const bf16 o = f2bf(a + vec[c]);
-      out[idx] = o;
-      const float f = bf2f(o);  // moments of the rounded value
+      const float f = bf2f(f2bf(a + vec[c]));  // moments of the rounded value
+      store_out(out + idx, f);
       s0 += f;
       s1 += f * f;
     } else if (EPI == EPI_PLAIN) {
-      out[idx] = f2bf(a);
+      store_out(out + idx, a);
     } else if (EPI == EPI_MASK_SUM) {
       const float v = bf2f(aux[idx]) > 0.0f ? a : 0.0f;
       s0 += v;  // bias gradient from the f32 value, before rounding
-      out[idx] = f2bf(v);
+      store_out(out + idx, v);
     } else {
       const float x = bf2f(aux[idx]);
       const float v = bn_affine(x, vec[c], vec[C + c]) > 0.0f ? a : 0.0f;
       s0 += v * x;
       s1 += v;
-      out[idx] = f2bf(v * vec[c]);
+      store_out(out + idx, v * vec[c]);
     }
   }
   if (EPI == EPI_BIAS_MOM || EPI == EPI_MASK_SUM || EPI == EPI_PRO_BWD) {
@@ -208,19 +206,19 @@ __global__ void __launch_bounds__(THREADS) conv3tap_kernel(
   }
 }
 
-template <int C, int EPI>
+template <int C, int EPI, typename TO>
 int launch_conv(const bf16* in, const bf16* w, const float* pmul,
                 const float* padd, const float* vec, const bf16* aux,
-                bf16* out, float* sums, int npix, int H, int W, int d,
+                TO* out, float* sums, int npix, int H, int W, int d,
                 int axis, cudaStream_t stream) {
   constexpr int smem = conv_smem_bytes<C>();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        conv3tap_kernel<C, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        conv3tap_kernel<C, EPI, TO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  conv3tap_kernel<C, EPI><<<grid_1d(npix, TP), THREADS, smem, stream>>>(
+  conv3tap_kernel<C, EPI, TO><<<grid_1d(npix, TP), THREADS, smem, stream>>>(
       in, w, pmul, padd, vec, aux, out, sums, npix, H, W, d, axis);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,7 @@ from lanedetection_end2end_tpu_torch.models.erfnet import ERFNet
 from lanedetection_end2end_tpu_torch.models.heads import Classification
 from lanedetection_end2end_tpu_torch.ops.activations import activation_fn
 from lanedetection_end2end_tpu_torch.ops.packed_graph import (
-    erfnet_train, head_rowsums_train, rowsums)
+    erfnet_train, head_rowsums_train, resolve_fused_maps, rowsums)
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
 
 
@@ -104,26 +104,32 @@ class LaneNet(nn.Module):
     def apply_packed(self, images: torch.Tensor, train: bool = False,
                      generator: Optional[torch.Generator] = None,
                      dtype: torch.dtype = torch.float32,
-                     fused_maps: bool = True) -> LaneNetOutput:
+                     fused_blocks: bool = True,
+                     fused_maps: Optional[bool] = None) -> LaneNetOutput:
         """The e2e forward on the training backbone: same parameters, same
         math as `forward`, with the backbone in `dtype` on NHWC planes
         (`ops/packed_graph.py::erfnet_train`), the fit from the row sums of
         the f32 logits, and the heads in `dtype` on the encoder features.
         The weight maps are never formed (`weightmaps` is None).
 
-        `fused_maps` (default True, the JAX package's default
-        configuration) runs the stride-2 blocks on the lane-map kernels
-        and, in train mode with the square activation, fuses the head with
-        the tail: the logits are never formed either (`seg_logits` is
-        None). In eval mode, or with another activation, the head runs on
-        its own and `rowsums` reduces the logits."""
+        `fused_blocks` (default True, JAX `PACKED_FUSED_BLOCKS=1`) runs
+        the NB1D blocks on the fused half-block kernels, False on K11's
+        single convolutions (`ops/packed_graph.py`). `fused_maps` (None:
+        as `fused_blocks`, the JAX package's rule) runs the stride-2
+        blocks on the lane-map kernels and, in train mode with the square
+        activation, fuses the head with the tail: the logits are never
+        formed either (`seg_logits` is None). In eval mode, or with
+        another activation, the head runs on its own and `rowsums`
+        reduces the logits."""
         self.train(train)
         cfg = self.cfg
+        fused_maps = resolve_fused_maps(fused_blocks, fused_maps)
         fuse_tail = (fused_maps and train
                      and cfg.activation_layer == "square")
         with torch.set_grad_enabled(train):
             enc, dec = erfnet_train(self.net, images, train=train,
                                     generator=generator, dtype=dtype,
+                                    fused_blocks=fused_blocks,
                                     fused_maps=fused_maps,
                                     skip_head=fuse_tail)
             if fuse_tail:

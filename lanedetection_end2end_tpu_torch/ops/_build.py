@@ -27,7 +27,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("nb1d", "downsampler", "upsampler", "head_rowsums",
            "nb_half_fwd", "nb_half_bwd", "channel_sums", "downsampler_op",
-           "lane_maps_op", "head_rowsums_op", "nb1d_chain", "wls_moments")
+           "lane_maps_op", "head_rowsums_op", "nb1d_chain", "wls_moments",
+           "packed_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,9 +116,13 @@ def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape=None,
     if t.dtype != dtype:
         hint = ""
         if dtype == torch.bfloat16 and t.dtype == torch.float32:
-            hint = (": the kernels are instantiated for bfloat16 planes "
-                    "only, their float32 instantiation is not written yet "
-                    "(on the card use compute_dtype='bfloat16')")
+            hint = (": this kernel takes bfloat16 planes; the float32 "
+                    "instantiation is not written yet for the fused "
+                    "training kernels K6-K10 (nb_half_a, nb_half_b, "
+                    "downsampler_op, lane_maps_op, head_rowsums_op). To "
+                    "train in float32 on the card pass fused_blocks=False "
+                    "(K11 packed_conv_act and channel_sums take float32), "
+                    "or use compute_dtype='bfloat16'")
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}{hint}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "

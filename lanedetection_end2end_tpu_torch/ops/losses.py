@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lanedetection_end2end_tpu_torch.device import resolve_device
 from lanedetection_end2end_tpu_torch.geometry import bev_matrices_pixel
 
 
@@ -83,10 +84,13 @@ class BackprojectionLoss:
     and holds them in float32 on `device`. y_eval^3 reaches ~1.4e9, so the
     contraction with the coefficients runs in float32 as an element-wise
     product and sum, which no TF32 setting can lower; never feed it bf16.
+    `device=None` (the default) is the card, and raises without one; pass
+    "cpu" for the CPU.
     """
 
     def __init__(self, resize: int = 256, order: int = 3,
-                 no_mapping: bool = False, device="cpu"):
+                 no_mapping: bool = False, device=None):
+        device = resolve_device(device)
         if order not in (0, 1, 2, 3):
             raise NotImplementedError(
                 f"Requested order {order} for polynomial fit is not implemented")

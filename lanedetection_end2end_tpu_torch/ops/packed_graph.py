@@ -1,12 +1,27 @@
 """The differentiable training backbone on NHWC planes.
 
 Counterpart of `lanedetection_end2end_tpu/ops/packed_graph.py` with
-`PACKED_PALLAS=1 PACKED_FUSED_BLOCKS=1`: every NonBottleneck1D block runs on
-the fused half-block kernels (`ops/nb_block.py`), forward and backward. The
-keyword `fused_maps` of the functions below chooses how the stride-2 blocks
-run, as the JAX package's `PACKED_FUSED_MAPS` does:
+`PACKED_PALLAS=1`. The keyword `fused_blocks` of the functions below
+chooses how the NonBottleneck1D blocks run, as the JAX package's
+`PACKED_FUSED_BLOCKS` does:
 
-- `fused_maps=True` (the default, as in the JAX package): the downsamplers,
+- `fused_blocks=True` (the default, as in the JAX package): each block
+  runs on the fused half-block kernels (`ops/nb_block.py`, K6 / K7),
+  forward and backward, two launches each way;
+- `fused_blocks=False` (`PACKED_FUSED_BLOCKS=0`): each block runs its
+  four convolutions one by one on K11 (`packed_conv_act`,
+  `ops/packed_conv.py`; `conv_h_train`, `conv_w_train`), with the bias,
+  and relu after the 3x1 convolutions, in the kernel's epilogue, and its
+  two train-mode BatchNorms take their moments from `channel_sums`. K11
+  and `channel_sums` take float32 planes as well as bf16, so this path
+  trains in the config's default float32 on the card.
+
+The keyword `fused_maps` chooses how the stride-2 blocks run, as the JAX
+package's `PACKED_FUSED_MAPS` does; left at None it follows
+`fused_blocks`, as the JAX package's `_fused_maps_on` follows
+`PACKED_FUSED_BLOCKS`, and an explicit value wins:
+
+- `fused_maps=True` (the default with fused blocks): the downsamplers,
   the upsamplers and the 2x2 head run on the lane-map kernels of
   `ops/lanemaps.py` (`downsampler_op`, `lane_maps_op`), which also return
   the BatchNorm moments, and `head_rowsums_train` fuses the head with the
@@ -45,7 +60,8 @@ from lanedetection_end2end_tpu_torch.ops.lanemaps import (
     downsampler_op, head_rowsums_op, lane_maps_op)
 from lanedetection_end2end_tpu_torch.ops.nb1d import _taps
 from lanedetection_end2end_tpu_torch.ops.nb_block import nb_half_a, nb_half_b
-from lanedetection_end2end_tpu_torch.ops.packed_conv import channel_sums
+from lanedetection_end2end_tpu_torch.ops.packed_conv import (
+    channel_sums, packed_conv_act)
 
 BN_MOMENTUM = 0.9  # weight of the old running value
 
@@ -104,11 +120,40 @@ def dropout2d(x: torch.Tensor, rate: float,
 # Blocks
 # ----------------------------------------------------------------------
 
+def conv_h_train(x: torch.Tensor, conv, act: bool = False) -> torch.Tensor:
+    """The 3x1 convolution `conv` (a `torch.nn.Conv2d` (C, C, 3, 1) with
+    its dilation) on an NHWC plane, bias and, with `act`, relu fused, in
+    x's dtype: `packed_conv_act` (JAX `conv_h_packed(pallas=True)`)."""
+    return packed_conv_act(x, _taps(conv.weight, 0), conv.bias, "h",
+                           conv.dilation[0], act)
+
+
+def conv_w_train(x: torch.Tensor, conv, act: bool = False) -> torch.Tensor:
+    """The 1x3 convolution `conv` ((C, C, 1, 3)) likewise (JAX
+    `conv_w_packed(pallas=True)`)."""
+    return packed_conv_act(x, _taps(conv.weight, 1), conv.bias, "w",
+                           conv.dilation[1], act)
+
+
 def nb1d_train(x: torch.Tensor, block, *, train: bool, drop: float = 0.0,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               fused_blocks: bool = True) -> torch.Tensor:
     """One NonBottleneck1D block (`models/erfnet.py::NonBottleneck1D`) on an
-    NHWC plane: half A -> BatchNorm-1 math -> half B -> BatchNorm-2 ->
-    dropout -> residual relu. Two kernel calls forward, two backward."""
+    NHWC plane. `fused_blocks=True`: half A -> BatchNorm-1 math -> half B
+    -> BatchNorm-2 -> dropout -> residual relu, two kernel calls forward,
+    two backward. `fused_blocks=False` (JAX `nb1d_packed` with
+    `PACKED_FUSED_BLOCKS=0`): conv3x1 + relu, conv1x3, BatchNorm-1, relu,
+    the dilated pair, BatchNorm-2, dropout, residual relu: four K11 calls
+    and two `channel_sums` (train mode) forward, four K11 calls backward."""
+    if not fused_blocks:
+        y = conv_h_train(x, block.conv3x1_1, act=True)
+        y = conv_w_train(y, block.conv1x3_1)
+        y = torch.relu(batchnorm_train(y, block.bn1, train))
+        y = conv_h_train(y, block.conv3x1_2, act=True)
+        y = conv_w_train(y, block.conv1x3_2)
+        y = batchnorm_train(y, block.bn2, train)
+        y = dropout2d(y, drop, generator, train)
+        return torch.relu(y + x)
     n = x.numel() // x.shape[-1]
     d = block.conv3x1_2.dilation[0]
     y2, mom1 = nb_half_a(x, _taps(block.conv3x1_1.weight, 0),
@@ -194,17 +239,26 @@ def head_train(x: torch.Tensor, conv, *,
 # Backbone and e2e tail
 # ----------------------------------------------------------------------
 
+def resolve_fused_maps(fused_blocks: bool,
+                       fused_maps: Optional[bool]) -> bool:
+    """`fused_maps` left at None follows `fused_blocks` (JAX
+    `_fused_maps_on`); an explicit value wins."""
+    return fused_blocks if fused_maps is None else fused_maps
+
+
 def erfnet_train(net, images: torch.Tensor, *, train: bool,
                  generator: Optional[torch.Generator] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 fused_maps: bool = True, skip_head: bool = False):
+                 fused_blocks: bool = True,
+                 fused_maps: Optional[bool] = None, skip_head: bool = False):
     """The backbone `net` (`models/erfnet.py::ERFNet`) on NHWC images
     (B, H, W, 3): returns (enc (B, H/8, W/8, 128) in `dtype`, logits
     (B, H, W, C) f32), or with `skip_head` the pre-head plane (B, H/2, W/2,
     16) in `dtype` in place of the logits, for a caller that fuses the head
     downstream (`head_rowsums_train`). Dropout (the encoder blocks' own
     rates) draws one mask per block from `generator`; the decoder has
-    none."""
+    none. `fused_maps=None` follows `fused_blocks`."""
+    fused_maps = resolve_fused_maps(fused_blocks, fused_maps)
     x = images.to(dtype)
     enc_mod, dec_mod = net.encoder, net.decoder
     x = downsampler_train(x, enc_mod.initial_block, train=train,
@@ -212,14 +266,14 @@ def erfnet_train(net, images: torch.Tensor, *, train: bool,
     for layer in enc_mod.layers:
         if hasattr(layer, "conv3x1_1"):
             x = nb1d_train(x, layer, train=train, drop=layer.dropprob,
-                           generator=generator)
+                           generator=generator, fused_blocks=fused_blocks)
         else:
             x = downsampler_train(x, layer, train=train,
                                   fused_maps=fused_maps)
     enc = x
     for layer in dec_mod.layers:
         if hasattr(layer, "conv3x1_1"):
-            x = nb1d_train(x, layer, train=train)
+            x = nb1d_train(x, layer, train=train, fused_blocks=fused_blocks)
         else:
             x = upsampler_train(x, layer, train=train, fused_maps=fused_maps)
     if skip_head:

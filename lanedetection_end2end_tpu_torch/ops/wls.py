@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lanedetection_end2end_tpu_torch.device import resolve_device
 from lanedetection_end2end_tpu_torch.geometry import projective_grid
 from lanedetection_end2end_tpu_torch.ops.solve import spd_solve
 from lanedetection_end2end_tpu_torch.ops.wls_moments import wls_moments
@@ -53,12 +54,15 @@ class WLSFitter:
       order: polynomial order (0..3).
       normalized: True for the BEV profile, False for the BP profile.
       reg_ls: Tikhonov strength in unscaled coordinates.
+      device: where the constants live; None (the default) is the card,
+        and raises without one. Pass "cpu" for the CPU.
 
     The solve is always `spd_solve` (the config's `use_cholesky` is inert).
     """
 
     def __init__(self, M: np.ndarray, height: int, width: int, order: int,
-                 normalized: bool, reg_ls: float = 0.0, device="cpu"):
+                 normalized: bool, reg_ls: float = 0.0, device=None):
+        device = resolve_device(device)
         if order not in (0, 1, 2, 3):
             raise NotImplementedError(
                 f"Requested order {order} for polynomial fit is not implemented")

@@ -52,13 +52,24 @@ def prepare_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
-                 train: bool = True, fused_maps: bool = True) -> Callable:
+                 train: bool = True, fused_blocks: bool = True,
+                 fused_maps: Optional[bool] = None) -> Callable:
     """Returns loss_fn(batch, generator) -> (loss, metrics, outputs) on
     `lanenet` (a `models/lanenet.py::LaneNet`), through the training
     backbone of `LaneNet.apply_packed` in `cfg.compute_dtype`.
-    `fused_maps` (default True, the JAX package's default) runs the
-    stride-2 blocks and the tail on the lane-map kernels; False is the JAX
-    package's `PACKED_FUSED_MAPS=0`."""
+    `fused_blocks` (default True, JAX `PACKED_FUSED_BLOCKS=1`) runs the
+    NB1D blocks on the fused half-block kernels, False on K11's single
+    convolutions. `fused_maps` (None: as `fused_blocks`, JAX's rule;
+    True is the JAX default `PACKED_FUSED_MAPS=1`) runs the stride-2
+    blocks and the tail on the lane-map kernels; False is
+    `PACKED_FUSED_MAPS=0`.
+
+    On the card, a float32 step needs `fused_blocks=False` (with
+    `fused_maps` False, as None gives it): K11 and `channel_sums` have
+    float32 kernels, the fused kernels K6-K10 do not yet, and they raise
+    on a float32 plane. The cuDNN convolutions of that path (stride-2
+    blocks, heads) follow PyTorch's TF32 flags, which the step leaves as
+    they are."""
     if phase != "e2e" or cfg.profile != "bp":
         raise NotImplementedError(
             "the port trains the 'bp' profile in phase 'e2e' only")
@@ -71,6 +82,7 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
         batch = prepare_batch(batch)
         out = lanenet.apply_packed(batch["image"], train=train,
                                    generator=generator, dtype=dtype,
+                                   fused_blocks=fused_blocks,
                                    fused_maps=fused_maps)
         metrics: Dict[str, torch.Tensor] = {}
         outputs: Dict[str, torch.Tensor] = {"beta": out.beta}
@@ -114,14 +126,16 @@ def _to_device(batch, device):
 
 def make_train_step(lanenet, cfg: LaneConfig,
                     optimizer: torch.optim.Optimizer, phase: str = "e2e",
-                    device=None, fused_maps: bool = True) -> Callable:
+                    device=None, fused_blocks: bool = True,
+                    fused_maps: Optional[bool] = None) -> Callable:
     """Returns step(batch, generator) -> metrics: one forward, backward and
     optimizer update of `lanenet` in place. Runs on the card unless
     `device="cpu"`; `lanenet` must live on that device. `step.state`
-    is the `TrainState` (model, optimizer, steps taken)."""
+    is the `TrainState` (model, optimizer, steps taken). `fused_blocks`
+    and `fused_maps` as in `make_loss_fn`."""
     device = resolve_device(device)
     loss_fn = make_loss_fn(lanenet, cfg, phase, train=True,
-                           fused_maps=fused_maps)
+                           fused_blocks=fused_blocks, fused_maps=fused_maps)
     state = TrainState(lanenet, optimizer)
 
     def step(batch, generator: Optional[torch.Generator] = None):
@@ -137,12 +151,13 @@ def make_train_step(lanenet, cfg: LaneConfig,
 
 
 def make_eval_step(lanenet, cfg: LaneConfig, phase: str = "e2e",
-                   device=None, fused_maps: bool = True) -> Callable:
+                   device=None, fused_blocks: bool = True,
+                   fused_maps: Optional[bool] = None) -> Callable:
     """Returns step(batch) -> (metrics, outputs): no gradients, running
     BatchNorm statistics, no dropout."""
     device = resolve_device(device)
     loss_fn = make_loss_fn(lanenet, cfg, phase, train=False,
-                           fused_maps=fused_maps)
+                           fused_blocks=fused_blocks, fused_maps=fused_maps)
 
     def step(batch):
         with torch.no_grad():

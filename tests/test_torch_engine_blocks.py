@@ -53,7 +53,8 @@ H, W = RESIZE, 2 * RESIZE
 
 
 def _roll_fitter():
-    return WLSFitter(m_roll(RESIZE), H, W, 3, normalized=False, reg_ls=1.0)
+    return WLSFitter(m_roll(RESIZE), H, W, 3, normalized=False, reg_ls=1.0,
+                     device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -74,6 +74,23 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert make_train_step(net, cfg, opt, device="cpu").state.step == 0
 
 
+def test_fitter_and_loss_default_to_the_card(monkeypatch):
+    """`WLSFitter` and `BackprojectionLoss` hold their constants on the
+    card unless asked for the CPU: without one they raise."""
+    import numpy as np
+
+    from lanedetection_end2end_tpu_torch.ops.losses import BackprojectionLoss
+    from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WLSFitter(np.eye(3), 8, 16, 2, normalized=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BackprojectionLoss(64, 3)
+    assert WLSFitter(np.eye(3), 8, 16, 2, normalized=False,
+                     device="cpu").sep_coeff.device.type == "cpu"
+    assert BackprojectionLoss(64, 3, device="cpu").Y.device.type == "cpu"
+
+
 def test_kernel_wrappers_refuse_other_devices():
     from lanedetection_end2end_tpu_torch.ops.nb1d import nb1d
     x = torch.zeros(1, 2, 2, 16, dtype=torch.bfloat16, device="meta")

@@ -50,7 +50,7 @@ def test_mse_params_loss():
 def test_backprojection_loss(resize, order, no_mapping):
     rng = np.random.default_rng(2)
     jc = jl.BackprojectionLoss(resize, order, no_mapping)
-    tc = tl.BackprojectionLoss(resize, order, no_mapping)
+    tc = tl.BackprojectionLoss(resize, order, no_mapping, device="cpu")
     np.testing.assert_array_equal(tc.Y.numpy(), np.asarray(jc.Y))
     # coefficients of a plausible lane in pixel BEV coordinates
     scale = np.array([resize ** -p for p in range(order, -1, -1)]) * resize
@@ -70,7 +70,7 @@ def test_backprojection_loss_gradient():
     rng = np.random.default_rng(3)
     import jax
     jc = jl.BackprojectionLoss(64, 3)
-    tc = tl.BackprojectionLoss(64, 3)
+    tc = tl.BackprojectionLoss(64, 3, device="cpu")
     p = rng.normal(0, 1e-3, (4, 4)).astype(np.float32)
     p[:, -1] = 60.0
     x_gt = rng.uniform(0, 128, (4, 56)).astype(np.float32)

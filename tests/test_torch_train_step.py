@@ -97,13 +97,15 @@ def flat(tree, prefix=""):
     return out
 
 
-def run_both(dtype_name, with_grads=True, fused_maps=False):
+def run_both(dtype_name, with_grads=True, fused_maps=False,
+             fused_blocks=True):
     """One train step (and an eval step) of both packages on the same
-    weights and batch; `fused_maps` sets PACKED_FUSED_MAPS on the JAX side
-    and the port's argument of the same name."""
+    weights and batch; `fused_maps` and `fused_blocks` set
+    PACKED_FUSED_MAPS and PACKED_FUSED_BLOCKS on the JAX side and the
+    port's arguments of the same names."""
     mp = pytest.MonkeyPatch()
     mp.setenv("PACKED_PALLAS", "1")
-    mp.setenv("PACKED_FUSED_BLOCKS", "1")
+    mp.setenv("PACKED_FUSED_BLOCKS", "1" if fused_blocks else "0")
     mp.setenv("PACKED_FUSED_MAPS", "1" if fused_maps else "0")
     mp.delenv("PACKED_BANDED", raising=False)
     try:
@@ -140,14 +142,13 @@ def run_both(dtype_name, with_grads=True, fused_maps=False):
                            cfg.learning_rate)
         counts = [nb_half_a.launches, nb_half_b.launches,
                   channel_sums.launches]
-        step = tsteps.make_train_step(net, cfg, opt, device="cpu",
-                                      fused_maps=fused_maps)
+        paths = dict(fused_blocks=fused_blocks, fused_maps=fused_maps)
+        step = tsteps.make_train_step(net, cfg, opt, device="cpu", **paths)
         tbatch = {k: torch.from_numpy(a) for k, a in batch.items()}
         _, tout = tsteps.make_eval_step(net, cfg, device="cpu",
-                                        fused_maps=fused_maps)(tbatch)
+                                        **paths)(tbatch)
         with torch.no_grad():  # the train-mode beta, on a copy of the stats
-            beta = tsteps.make_loss_fn(
-                net, cfg, train=True, fused_maps=fused_maps)(
+            beta = tsteps.make_loss_fn(net, cfg, train=True, **paths)(
                 tbatch)[2]["beta"].float().numpy()
         net.load_state_dict(state_dict_from_variables(v))
         metrics = step(tbatch, None)

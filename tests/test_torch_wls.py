@@ -30,7 +30,8 @@ def _fitters(resize, order, reg_ls):
     jM, _ = jax_bev(resize)
     np.testing.assert_array_equal(M, jM)
     H, W = resize, 2 * resize
-    return (WLSFitter(M, H, W, order, normalized=False, reg_ls=reg_ls),
+    return (WLSFitter(M, H, W, order, normalized=False, reg_ls=reg_ls,
+                      device="cpu"),
             JaxFitter(jM, H, W, order, normalized=False, reg_ls=reg_ls,
                       use_pallas=False))
 
@@ -97,7 +98,7 @@ def test_non_separable_homography_is_refused():
     `beta_from_rowsums` does."""
     M = np.eye(3)
     M[2, 0] = 1e-3
-    fit = WLSFitter(M, 8, 16, 2, normalized=False)
+    fit = WLSFitter(M, 8, 16, 2, normalized=False, device="cpu")
     assert not fit.separable and fit.sep_coeff is None
     S = torch.zeros(1, 4, 8)
     with pytest.raises(AssertionError):

@@ -101,7 +101,8 @@ def test_wls_moments_layouts_agree_and_wrapper_is_plain_on_cpu():
 
 def _fitters(M, jM, H, W, order, normalized, reg_ls):
     np.testing.assert_array_equal(M, jM)
-    return (WLSFitter(M, H, W, order, normalized=normalized, reg_ls=reg_ls),
+    return (WLSFitter(M, H, W, order, normalized=normalized, reg_ls=reg_ls,
+                      device="cpu"),
             JaxFitter(jM, H, W, order, normalized=normalized, reg_ls=reg_ls,
                       use_pallas=True, pallas_interpret=True))
 
@@ -115,7 +116,7 @@ def test_separability_matches_jax():
              (bev_matrices_pixel(256)[0], False, True),
              (bev_matrices_normalized()[0], True, True)]
     for M, normalized, separable in cases:
-        fit = WLSFitter(M, 32, 64, 2, normalized=normalized)
+        fit = WLSFitter(M, 32, 64, 2, normalized=normalized, device="cpu")
         jfit = JaxFitter(M, 32, 64, 2, normalized=normalized,
                          use_pallas=False)
         assert fit.separable == jfit.separable == separable
@@ -197,7 +198,8 @@ def test_general_fit_refuses_row_sums_and_config_reaches_fitter():
     """`beta_from_rowsums` keeps JAX's separability assertion; the
     config's fit (order, reg_ls, its BP homography, separable) reaches the
     fitter `make_fitter` builds, equal to JAX's on its constants."""
-    fit = WLSFitter(m_roll(32), 32, 64, 3, normalized=False)
+    fit = WLSFitter(m_roll(32), 32, 64, 3, normalized=False,
+                    device="cpu")
     S = torch.zeros(1, 4, 32)
     with pytest.raises(AssertionError, match="row-aligned"):
         fit.beta_from_rowsums(S, S)
