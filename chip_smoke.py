@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--profile]
 
 `--profile` also traces two more calls of each engine (full, blocks, blocks
-with the rolled homography) and two more train steps of each configuration
-(`fused_maps` on, the default, and off; the unfused path in bf16 and in
-float32) with torch.profiler and prints the card's busy time per call or
+with the rolled homography) and two more train steps of each of the four
+training configurations ({`fused_blocks`} x {`fused_maps`}) in bf16 and in
+float32 with torch.profiler and prints the card's busy time per call or
 step and its largest kernels. Needs one CUDA card, nvcc and the repository
 checkout; exits non-zero on any failed check and prints no result without
 a card. In order:
@@ -17,16 +17,17 @@ a card. In order:
 2. hold each serving kernel against its plain PyTorch version on CUDA
    tensors at every shape the 256x512 serving path gives it (batch 8),
    plus one edge shape with dilation >= plane height, and time both with
-   CUDA events;
-2b. the same for the training kernels: forward and backward of
-   `nb_half_a` and `nb_half_b` at every (C, d, plane) of the 256x512 train
-   step at batch 8 plus the d >= H edge, `channel_sums` at its five
-   shapes, and the stride-2 ops at their seven: `downsampler_op` x3 (inputs
+   CUDA events; then K4 once at each of its six activation codes (square,
+   sigmoid, relu, softplus, abs, none);
+2b. the same for the training kernels, in bf16 and then in float32:
+   forward and backward of `nb_half_a` and `nb_half_b` at every (C, d,
+   plane) of the 256x512 train step at batch 8 plus the d >= H edge, and
+   the stride-2 ops at their seven shapes: `downsampler_op` x3 (inputs
    with planted pooling ties, the input gradient required at all three),
    `lane_maps_op` x3 (the two upsamplers with moments, the head with f32
    output and none) and `head_rowsums_op`; then one whole NB1D block per
    (C, d) and every downsampler and upsampler block forward and backward
-   through autograd, on the kernels and on their plain versions;
+   through autograd (bf16), on the kernels and on their plain versions;
 2d. K11 and `channel_sums` in bf16 and in float32: `packed_conv_act`
    forward and backward (dx, dk, db) and `packed_conv` forward, dx and dW
    at every (plane, d, axis) of the unfused 256x512 train step at batch 8
@@ -59,44 +60,46 @@ a card. In order:
    moments from K12's plain version; ms per batch beside the full
    engine's;
 4. take e2e train steps through `make_train_step` (same config with
-   compute_dtype bfloat16, adam, seeded random weights, a seeded synthetic
-   batch of 8): first one step with dropout off on the kernels and the
-   same step on the plain versions on the card (see below), one eval
-   step with its launches counted (the head on `lane_maps_op`, no fused
-   tail), then, from the seeded weights and with the launch counts set to
-   0, 3 steps with dropout on in the default configuration
-   (`fused_maps=True`): per step exactly 17 launches of each of nb_half_a
-   / nb_half_b forward and backward, 3 + 3 of downsampler_op, 2 + 2 of
-   lane_maps_op, 1 + 1 of head_rowsums_op and 0 of channel_sums, no call
-   of `F.conv_transpose2d` and only the heads' `F.conv2d` / `F.max_pool2d`,
-   no logits plane, finite loss and gradients, parameters moved; then,
-   counted anew, one step with `fused_maps=False` (17 / 17 / 17 / 17 and 5
-   of channel_sums), which keeps that path driven;
+   compute_dtype bfloat16, then again with float32, the config's default;
+   adam, seeded random weights, a seeded synthetic batch of 8): first one
+   step with dropout off on the kernels and the same step on the plain
+   versions on the card (see below), one eval step with its launches
+   counted (the head on `lane_maps_op`, no fused tail), then, from the
+   seeded weights and with the launch counts set to 0, 3 steps with
+   dropout on in the default configuration (`fused_maps=True`): per step
+   exactly 17 launches of each of nb_half_a / nb_half_b forward and
+   backward, 3 + 3 of downsampler_op, 2 + 2 of lane_maps_op, 1 + 1 of
+   head_rowsums_op and 0 of channel_sums, no call of `F.conv_transpose2d`
+   and only the heads' `F.conv2d` / `F.max_pool2d`, no logits plane,
+   finite loss and gradients, parameters moved; then, counted anew, one
+   step with `fused_maps=False` (17 / 17 / 17 / 17 and 5 of
+   channel_sums), which keeps that path driven;
 4d. the unfused path (`fused_blocks=False`, JAX `PACKED_FUSED_BLOCKS=0`),
-   first in bf16, then in float32 (`compute_dtype="float32"`, the config
-   default): one step with dropout off on the kernels against one on the
-   plain versions (bf16 as in 4a; float32 see below), one eval step (68
-   launches of packed_conv_act and nothing else
+   first in bf16, then in float32: one step with dropout off on the
+   kernels against one on the plain versions (bf16 as in 4a; float32 see
+   below), one eval step (68 launches of packed_conv_act and nothing else
    counted), then 3 counted steps with dropout on: per step exactly 68 + 68
    of packed_conv_act, 39 of channel_sums (34 NB1D BatchNorms and 5
-   stride-2 ones) and 0 of every other kernel; last, a float32 step on
-   the fused path (`fused_blocks=True`) must raise from `check_cuda`
-   (K6-K10 are bf16 only) with no launch and no step taken;
+   stride-2 ones) and 0 of every other kernel; then, counted anew, one
+   step with `fused_maps=True`, the fourth cell: 68 + 68 of
+   packed_conv_act, 34 of channel_sums, 3 + 3 / 2 + 2 / 1 + 1 of K8-K10;
 5. print the card line as nvidia-smi gives it, the kernels line, and
    `{"ok": true, "device": {...}}` last.
 
 In the kernels line, `launches` counts the wrapper calls of the 3 engine
 calls (serving kernels; `nb1d_chain` and `wls_moments`: the 3 + 3 calls of
-phase 3b) or of the 3 default train steps (training
+phase 3b) or of the 3 default bf16 train steps (training
 kernels, with `bwd_launches` beside it; for K11 and `channel_sums` of the
-3 bf16 steps of phase 4d, and under `float32` of its 3 float32 steps), and
+3 bf16 steps of phase 4d), and
 `ms`, `plain_ms` and `bound_ms` are per
 engine call or per train step (batch 8): the sum over the path's shapes of
 the median time (or bound) times the launches per call (for K11 and
 `channel_sums` per unfused step; `packed_conv`, which no path runs, is
-weighted as if the step ran it at each of its 68 convolutions). K11 and
-`channel_sums` carry their float32 numbers in a `float32` object beside
-the bf16 ones. The training
+weighted as if the step ran it at each of its 68 convolutions). Every
+training kernel (K6-K11, `channel_sums`) carries its float32 numbers in a
+`float32` object beside the bf16 ones, with the launches of the 3 float32
+default steps (K6-K10) or of the 3 float32 unfused steps (K11,
+`channel_sums`). The training
 kernels carry the same numbers for their backward as `bwd_ms`,
 `plain_bwd_ms`, `bwd_bound_ms`. `bound_ms` is the larger of the bytes
 moved (each input read once, each output written once: 3 planes for a
@@ -109,8 +112,8 @@ wls_moments the time of `torch.matmul` (TF32 off) of the squared weights,
 laid out as (B*C, N), with the basis, at the engine's shape, for
 channel_sums the time of `torch.var_mean(x.float(), dim=(0, 1, 2))`, which
 gives the same statistics, and for lane_maps_op the time of one
-`F.conv_transpose2d` on the same bf16 operands at the head's shape, where
-the op takes no moments (`library_of`; the kernel's own time at that shape,
+`F.conv_transpose2d` on the same operands (bf16, or float32 with TF32 off)
+at the head's shape, where the op takes no moments (`library_of`; the kernel's own time at that shape,
 which no train step runs, is `ms_at_library_shape`), for K11 the cuDNN
 calls of phase 2d (`bwd_library_ms` for the backward). None is used in
 the port.
@@ -139,7 +142,11 @@ the plain version's by one bf16 step: max|diff| / max|plain| < 2e-3. The
 stride-2 ops have no relu inside and their pool routing is a function of
 the input alone, so the same bars hold for them without exception, planted
 ties included; the row sums S of head_rowsums_op at 1e-4, and bit for bit
-against a second launch. K11's backward is held on the plain forward's
+against a second launch. In float32 the planes of K6-K10 (y, dx) are held
+at TOL_F32 = 1e-4 of max|plain| (both sides sum exact f32 products in
+another order; the float32 kernels use FFMA, never TF32) and their f32
+atomic sums at TOL_REDUCE. K4 at every activation code: its f32 row sums at
+TOL_F32. K11's backward is held on the plain forward's
 output, so the kernel and the plain version take the relu mask from the
 same values: bf16 planes (y, dx) at TOL_BF16, f32 planes (packed_conv's y
 in both dtypes, every float32 y and dx) at TOL_F32 = 1e-4 of max|plain|
@@ -187,7 +194,8 @@ above 0.9 and no more than 0.02 below the yardstick, with the norm ratio
 in 0.98-1.02. The kernels' arithmetic itself is held tightly in phase 2b,
 where both versions read the same inputs.
 
-The float32 unfused step amplifies rounding the same way, from f32's
+The float32 steps (the default one and the unfused one) amplify
+rounding the same way, from f32's
 smaller steps: on the seeded weights as drawn its loss agrees with the
 plain step's to 1e-6, but f32 summation order alone moves the whole
 gradient off by 1e-3 in cosine (measured on an H100: the kernel step
@@ -217,6 +225,7 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 ROLL_DEGREES = 2.0  # camera roll of the general (non-separable) homography
 TOL_BF16, TOL_F32, TOL_REDUCE, TOL_BLOCK = 1e-2, 1e-4, 2e-3, 2e-2
 TRAIN_STEPS = 3
+DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 # the float32 unfused step on the kernels against the step on their plain
 # versions: loss relative difference, and (least whole-gradient cosine,
 # largest |norm ratio - 1|) on the seeded weights as drawn and on damped
@@ -362,15 +371,16 @@ def bound_ms(flop, nbytes, flop_per_s=BF16_FLOP_PER_S):
                                        else "bytes")
 
 
-def half_work(shape, d, backward):
-    """One half block: two 3-tap convolutions forward; their two input
-    gradients and two weight gradients backward."""
+def half_work(shape, d, backward, es=2):
+    """One half block on planes of `es` bytes per value: two 3-tap
+    convolutions forward; their two input gradients and two weight
+    gradients backward (the taps read, their f32 gradients written)."""
     B, H, W, C = shape
     valid = lambda n, k: n + 2 * max(0, n - k)
     taps = valid(H, d) * W + valid(W, d) * H
     flop = 2 * C * C * B * taps * (2 if backward else 1)
-    plane = 2 * B * H * W * C
-    small = 2 * 3 * C * C * (4 if backward else 2) + 4 * 6 * C
+    plane = es * B * H * W * C
+    small = 2 * 3 * C * C * (es + (4 if backward else 0)) + 4 * 6 * C
     return flop, (5 if backward else 3) * plane + small
 
 
@@ -580,11 +590,22 @@ def time_and_record(label, s, per_step, verdict, fwd, pfwd, bwd, pbwd, work,
     return f_ms
 
 
-def check_training_kernels(dev, g):
-    """Phase 2b. Returns ({name: summary}, failures)."""
+def plane_tols(dt):
+    """The extra `hold` argument of a plane of dtype `dt`: none in bf16
+    (TOL_BF16 by its dtype), TOL_F32 in float32 (an f32 result is
+    otherwise held at TOL_REDUCE, the bar of atomic sums)."""
+    return (TOL_F32,) if dt == torch.float32 else ()
+
+
+def check_training_kernels(dev, g, dt):
+    """Phase 2b, the half blocks in dtype `dt`. Returns ({name: summary},
+    failures)."""
     from lanedetection_end2end_tpu_torch.ops import nb_block as nb
 
     rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    es = torch.finfo(dt).bits // 8
+    rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
+    pt = plane_tols(dt)
     B, H, W = BATCH, RESIZE, 2 * RESIZE
     p64, p128, p16 = ((B, H // 4, W // 4, 64), (B, H // 8, W // 8, 128),
                       (B, H // 2, W // 2, 16))
@@ -602,14 +623,14 @@ def check_training_kernels(dev, g):
         C = shape[-1]
         wrapper = nb.nb_half_a if half == "a" else nb.nb_half_b
         s = summary[wrapper.__name__]
-        x = rn(*shape).to(torch.bfloat16)
+        x = rn(*shape).to(dt)
         kh, kw = rn(3, C, C) / (3 * C) ** 0.5, rn(3, C, C) / (3 * C) ** 0.5
         bh, bw = 0.1 * rn(C), 0.1 * rn(C)
         mul = add = None
         if half == "b":
             mul = 0.5 + torch.rand(C, generator=g, device=dev)
             add = 0.1 * rn(C)
-        dy, dmom = rn(*shape).to(torch.bfloat16), 1e-3 * rn(2, C)
+        dy, dmom = rn(*shape).to(dt), 1e-3 * rn(2, C)
         call = ((lambda: wrapper(x, kh, bh, kw, bw)) if half == "a" else
                 (lambda: wrapper(x, mul, add, kh, bh, kw, bw, d)))
         with torch.no_grad():
@@ -626,29 +647,32 @@ def check_training_kernels(dev, g):
                       if t is not None]
         names = ["dx"] + (["dmul", "dadd"] if half == "b" else []) + [
             "dkh", "dbh", "dkw", "dbw"]
-        label = f"nb_half_{half}{shape} d={d}"
-        verdict = hold(label, [("y", y, py), ("mom", mom, pmom)]
-                       + list(zip(names, grads, pgrads)), s, failures)
+        label = f"nb_half_{half} {DTYPE_NAMES[dt]} {shape} d={d}"
+        verdict = hold(label, [("y", y, py, *pt), ("mom", mom, pmom),
+                               ("dx", grads[0], pgrads[0], *pt)]
+                       + list(zip(names[1:], grads[1:], pgrads[1:])), s,
+                       failures)
         time_and_record(
             label, s, per_step, verdict, call,
             lambda: nb.half_fwd_plain(x, mul, add, kh, bh, kw, bw, d),
             lambda: nb.half_bwd_kernel(*bwd_args),
             lambda: nb.half_bwd_plain(*bwd_args),
-            lambda bwd: half_work(shape, d, bwd))
+            lambda bwd: half_work(shape, d, bwd, es), rate)
 
     return summary, failures
 
 
-def s2_work(small_pixels, cs, cl, k, planes_bytes, backward):
+def s2_work(small_pixels, cs, cl, k, planes_bytes, backward, es=2):
     """A stride-2 op on `small_pixels` = (B, Hs, Ws): the taps of a k x k
     kernel between cs and cl channels that land on the plane (twice
     backward: the input and the weight gradient), and the bytes of its
-    planes (`planes_bytes`: (forward, backward)) plus the weights."""
+    planes (`planes_bytes`: (forward, backward)) plus the weights (`es`
+    bytes a value read, their f32 gradient written backward)."""
     B, Hs, Ws = small_pixels
     taps = ((3 * Hs - 1) * (3 * Ws - 1) if k == 3 else 4 * Hs * Ws)
     flop = 2 * cs * cl * B * taps * (2 if backward else 1)
     return flop, (planes_bytes[backward]
-                  + cs * cl * k * k * (6 if backward else 2))
+                  + cs * cl * k * k * (es + (4 if backward else 0)))
 
 
 def plant_pool_ties(x):
@@ -663,12 +687,12 @@ def plant_pool_ties(x):
     return x
 
 
-def check_lanemap_kernels(dev, g):
-    """Phase 2b, the stride-2 training ops: `downsampler_op`, `lane_maps_op`
-    and `head_rowsums_op`, forward and backward (the backward kernels and
-    their plain version on the same stashes, with a non-zero moment
-    cotangent), at every shape of the 256x512 train and eval steps.
-    Returns ({name: summary}, failures)."""
+def check_lanemap_kernels(dev, g, dt):
+    """Phase 2b, the stride-2 training ops in dtype `dt`: `downsampler_op`,
+    `lane_maps_op` and `head_rowsums_op`, forward and backward (the
+    backward kernels and their plain version on the same stashes, with a
+    non-zero moment cotangent), at every shape of the 256x512 train and
+    eval steps. Returns ({name: summary}, failures)."""
     import torch.nn.functional as F
 
     from lanedetection_end2end_tpu_torch.config import train_sh_config
@@ -676,8 +700,11 @@ def check_lanemap_kernels(dev, g):
         make_fitter, zero_rows)
     from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
 
-    bf = torch.bfloat16
     rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    es = torch.finfo(dt).bits // 8
+    rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
+    pt = plane_tols(dt)
+    dname = DTYPE_NAMES[dt]
     B, H, W = BATCH, RESIZE, 2 * RESIZE
     summary = {n: dict.fromkeys(TRAIN_KEYS, 0.0) for n in
                ("downsampler_op", "lane_maps_op", "head_rowsums_op")}
@@ -688,9 +715,9 @@ def check_lanemap_kernels(dev, g):
     for (h, w, cin), cout in (((H, W, 3), 16), ((H // 2, W // 2, 16), 64),
                               ((H // 4, W // 4, 64), 128)):
         cc = cout - cin
-        x = plant_pool_ties(torch.relu(rn(B, h, w, cin))).to(bf)
+        x = plant_pool_ties(torch.relu(rn(B, h, w, cin))).to(dt)
         wt, bias = rn(cc, cin, 3, 3) / (9 * cin) ** 0.5, 0.1 * rn(cc)
-        dy, dmom = rn(B, h // 2, w // 2, cout).to(bf), 1e-3 * rn(2, cout)
+        dy, dmom = rn(B, h // 2, w // 2, cout).to(dt), 1e-3 * rn(2, cout)
         with torch.no_grad():
             y, mom = lm.downsampler_op(x, wt, bias)
             torch.cuda.synchronize()
@@ -700,30 +727,34 @@ def check_lanemap_kernels(dev, g):
             torch.cuda.synchronize()
             pgrads = lm.downsampler_bwd_plain(*args)
             nodx = lm.downsampler_bwd_kernel(*args, need_dx=False)
-        label = f"downsampler_op{tuple(x.shape)}->{cout}"
-        verdict = hold(label, [("y", y, py), ("mom", mom, pmom)] + list(zip(
-            ("dx", "dweight", "dbias"), grads, pgrads)) + [
+        label = f"downsampler_op {dname} {tuple(x.shape)}->{cout}"
+        verdict = hold(label, [
+            ("y", y, py, *pt), ("mom", mom, pmom),
+            ("dx", grads[0], pgrads[0], *pt),
+            ("dweight", grads[1], pgrads[1]), ("dbias", grads[2], pgrads[2]),
             ("dweight without dx", nodx[1], pgrads[1])], s, failures)
         if nodx[0] is not None:
             failures.append(f"{label}: dx returned though not needed")
         # forward: x read, y written; backward: x, y, dy read, dx written
-        planes = (2 * (x.numel() + y.numel()), 4 * (x.numel() + y.numel()))
+        planes = (es * (x.numel() + y.numel()),
+                  2 * es * (x.numel() + y.numel()))
         time_and_record(
             label, s, 1, verdict,
             lambda: lm.downsampler_op(x, wt, bias),
             lambda: lm.downsampler_fwd_plain(x, wt, bias),
             lambda: lm.downsampler_bwd_kernel(*args),
             lambda: lm.downsampler_bwd_plain(*args),
-            lambda bwd: s2_work((B, h // 2, w // 2), cc, cin, 3, planes, bwd))
+            lambda bwd: s2_work((B, h // 2, w // 2), cc, cin, 3, planes, bwd,
+                                es), rate)
 
-    # K9: the two upsamplers (bf16 out, moments) and the head as the eval
-    # step runs it (f32 out, no moments)
+    # K9: the two upsamplers (moments, output in the planes' dtype) and the
+    # head as the eval step runs it (f32 out, no moments)
     s = summary["lane_maps_op"]
     for (h, w, cin), cout, k, out_dtype, want_mom, per_step in (
-            ((H // 8, W // 8, 128), 64, 3, bf, True, 1),
-            ((H // 4, W // 4, 64), 16, 3, bf, True, 1),
+            ((H // 8, W // 8, 128), 64, 3, dt, True, 1),
+            ((H // 4, W // 4, 64), 16, 3, dt, True, 1),
             ((H // 2, W // 2, 16), 4, 2, torch.float32, False, 0)):
-        x = rn(B, h, w, cin).to(bf)
+        x = rn(B, h, w, cin).to(dt)
         wt = rn(cin, cout, k, k) / (k * k * cin / 4) ** 0.5
         bias = 0.1 * rn(cout)
         dy = rn(B, 2 * h, 2 * w, cout).to(out_dtype)
@@ -739,34 +770,39 @@ def check_lanemap_kernels(dev, g):
             grads = lm.lane_maps_bwd_kernel(*args)
             torch.cuda.synchronize()
             pgrads = lm.lane_maps_bwd_plain(*args)
-        label = (f"lane_maps_op{tuple(x.shape)}->{cout} k={k} "
-                 f"{str(out_dtype).split('.')[-1]}"
+        label = (f"lane_maps_op {dname} {tuple(x.shape)}->{cout} k={k} "
+                 f"{DTYPE_NAMES[out_dtype]} out"
                  + ("" if want_mom else " no moments"))
-        pairs = [("y", y, py)] + ([("mom", mom, pmom)] if want_mom else [])
-        verdict = hold(label, pairs + list(zip(
-            ("dx", "dweight", "dbias"), grads, pgrads)), s, failures)
+        pairs = [("y", y, py, *pt)] + (
+            [("mom", mom, pmom)] if want_mom else [])
+        verdict = hold(label, pairs + [
+            ("dx", grads[0], pgrads[0], *pt),
+            ("dweight", grads[1], pgrads[1]), ("dbias", grads[2], pgrads[2])],
+            s, failures)
         if (mom is None) != (not want_mom):
             failures.append(f"{label}: moments returned {mom is not None}")
         ybytes = y.numel() * y.element_size()
         # backward reads y only to fold the moment cotangent
-        planes = (2 * x.numel() + ybytes,
-                  4 * x.numel() + ybytes * (1 + want_mom))
+        planes = (es * x.numel() + ybytes,
+                  2 * es * x.numel() + ybytes * (1 + want_mom))
         f_ms = time_and_record(
             label, s, per_step, verdict, op, plain,
             lambda: lm.lane_maps_bwd_kernel(*args),
             lambda: lm.lane_maps_bwd_plain(*args),
-            lambda bwd: s2_work((B, h, w), cin, cout, k, planes, bwd))
+            lambda bwd: s2_work((B, h, w), cin, cout, k, planes, bwd, es),
+            rate)
         if not want_mom:
-            # one PyTorch call on the same bf16 operands (its output is
-            # bf16, the op's f32); timed here, used nowhere in the port
+            # one PyTorch call on the same operands (in bf16 its output is
+            # bf16, the op's f32; TF32 is off); timed here, used nowhere in
+            # the port
             xn = x.permute(0, 3, 1, 2)
-            wb, bb = wt.to(bf), bias.to(bf)
+            wb, bb = wt.to(dt), bias.to(dt)
             with torch.no_grad():
                 s["library_ms"] = median_ms(
                     lambda: F.conv_transpose2d(xn, wb, bb, stride=2))
             s["library_of"] = label
             s["ms_at_library_shape"] = f_ms
-            print(f"check {label}: F.conv_transpose2d on the same bf16 "
+            print(f"check {label}: F.conv_transpose2d on the same {dname} "
                   f"operands {s['library_ms']:.4f} ms")
 
     # K10: the fused tail, with the fitter's column coordinate and mask
@@ -774,7 +810,7 @@ def check_lanemap_kernels(dev, g):
     cfg = train_sh_config(resize=RESIZE, reg_ls=1.0)
     xs = make_fitter(cfg, dev).sep_xs
     zero = zero_rows(cfg)
-    x = rn(B, H // 2, W // 2, 16).to(bf)
+    x = rn(B, H // 2, W // 2, 16).to(dt)
     wt, bias = rn(16, 4, 2, 2) / 4.0, 0.1 * rn(4)
     dS = rn(B, H, 8)
     with torch.no_grad():
@@ -786,9 +822,11 @@ def check_lanemap_kernels(dev, g):
         torch.cuda.synchronize()
         pgrads = lm.head_rowsums_bwd_plain(*args)
         again = lm.head_rowsums_op(x, wt, bias, xs, zero)
-    label = f"head_rowsums_op{tuple(x.shape)}"
-    verdict = hold(label, [("S", S, pS, TOL_F32)] + list(zip(
-        ("dx", "dweight", "dbias"), grads, pgrads)), s, failures)
+    label = f"head_rowsums_op {dname} {tuple(x.shape)}"
+    verdict = hold(label, [
+        ("S", S, pS, TOL_F32), ("dx", grads[0], pgrads[0], *pt),
+        ("dweight", grads[1], pgrads[1]), ("dbias", grads[2], pgrads[2])],
+        s, failures)
     if not torch.equal(S, again) or S[:, :zero].abs().max().item() != 0.0:
         failures.append(f"{label}: S does not reproduce itself bit for bit "
                         "or its masked rows are not zero")
@@ -798,14 +836,14 @@ def check_lanemap_kernels(dev, g):
         # forward: the taps, the activation and the sums; backward: the
         # taps again, ddec, and the input and weight gradients
         flop = logits * ((2 * 16 + 5) if not bwd else (3 * 2 * 16 + 8))
-        nbytes = 2 * x.numel() + 4 * S.numel() + 2 * wt.numel()
-        return flop, nbytes + bwd * 2 * x.numel()
+        nbytes = es * x.numel() + 4 * S.numel() + es * wt.numel()
+        return flop, nbytes + bwd * es * x.numel()
     time_and_record(
         label, s, 1, verdict,
         lambda: lm.head_rowsums_op(x, wt, bias, xs, zero),
         lambda: lm.head_rowsums_fwd_plain(x, wt, bias, xs, zero),
         lambda: lm.head_rowsums_bwd_kernel(*args),
-        lambda: lm.head_rowsums_bwd_plain(*args), head_op_work)
+        lambda: lm.head_rowsums_bwd_plain(*args), head_op_work, rate)
     return summary, failures
 
 
@@ -814,7 +852,6 @@ def check_lanemap_kernels(dev, g):
 # ----------------------------------------------------------------------
 
 K11_KEYS = TRAIN_KEYS + ("library_ms", "bwd_library_ms")
-DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
 def k11_cases():
@@ -1232,16 +1269,20 @@ def _per_step(**launches):
     return {n: launches.get(n, (0, 0)) for n in TRAIN_OPS}
 
 
-# the three training paths: "fused" (the default, fused_maps on), "maps
-# off" (fused_blocks with fused_maps=False) and "unfused"
-# (fused_blocks=False, fused_maps following it)
+# the four training paths, {fused_blocks} x {fused_maps}: "fused" (the
+# default, both on), "maps off" (fused_blocks with fused_maps=False),
+# "unfused" (fused_blocks=False, fused_maps following it) and "unfused
+# maps on" (fused_blocks=False with fused_maps=True)
 PER_STEP = {
     "fused": _per_step(nb_half_a=(17, 17), nb_half_b=(17, 17),
                        downsampler_op=(3, 3), lane_maps_op=(2, 2),
                        head_rowsums_op=(1, 1)),
     "maps off": _per_step(nb_half_a=(17, 17), nb_half_b=(17, 17),
                           channel_sums=(5, 0)),
-    "unfused": _per_step(packed_conv_act=(68, 68), channel_sums=(39, 0))}
+    "unfused": _per_step(packed_conv_act=(68, 68), channel_sums=(39, 0)),
+    "unfused maps on": _per_step(packed_conv_act=(68, 68),
+                                 channel_sums=(34, 0), downsampler_op=(3, 3),
+                                 lane_maps_op=(2, 2), head_rowsums_op=(1, 1))}
 # the eval step: no backward, running statistics; the head on
 # lane_maps_op with fused maps, no fused tail
 PER_EVAL = {
@@ -1255,6 +1296,7 @@ F_CALLS = {"fused": {"conv2d": 8, "max_pool2d": 1, "conv_transpose2d": 0},
            "maps off": {"conv2d": 11, "max_pool2d": 4,
                         "conv_transpose2d": 3}}
 F_CALLS["unfused"] = F_CALLS["maps off"]
+F_CALLS["unfused maps on"] = F_CALLS["fused"]
 
 
 def train_wrappers():
@@ -1491,16 +1533,31 @@ class Trainer:
         return ms
 
 
-def train_phase(dev, sd0, profile=False):
-    """Phase 4, bf16 on the fused blocks. Returns {kernel: (forward,
+def profile_again(step, tr, gen, label):
+    """`--profile` of a path that took one counted step: one warm step
+    timed on the host clock, then two traced."""
+    step(tr.batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(tr.batch, gen)
+    torch.cuda.synchronize()
+    profile_steps(lambda: step(tr.batch, gen),
+                  1e3 * (time.perf_counter() - t0), label)
+
+
+def train_phase(dev, sd0, dtype, profile=False):
+    """Phase 4 in `dtype` on the fused blocks. Returns {kernel: (forward,
     backward) launches} of the 3 default steps."""
-    tr = Trainer(dev, sd0, "bfloat16", fused_blocks=True)
-    tr.hold_bf16()  # 4a
+    tr = Trainer(dev, sd0, dtype, fused_blocks=True)
+    if dtype == "bfloat16":
+        tr.hold_bf16()  # 4a
+    else:
+        tr.hold_f32()
     tr.eval_step("fused")
     with torch.no_grad():
         out = tr.model.apply_packed(
             tr.batch["image"].to(dev).float() / 255.0, train=True,
-            dtype=torch.bfloat16)
+            dtype=getattr(torch, dtype))
     if out.seg_logits is not None or out.weightmaps is not None:
         fail("the default train-mode forward formed the logits plane")
 
@@ -1516,29 +1573,25 @@ def train_phase(dev, sd0, profile=False):
     ms = tr.report(step_ms, losses, f"; {moved} of {n_params} parameter "
                    f"tensors moved")
     if profile:
-        profile_steps(lambda: step(tr.batch, gen), ms, "fused_maps=True")
+        profile_steps(lambda: step(tr.batch, gen), ms,
+                      f"{dtype} fused_maps=True")
 
     # 4c. one step with fused_maps=False: the cuDNN stride-2 blocks with
     # channel_sums, and the elementwise tail over the logits
     step0, _, losses0, step0_ms = tr.counted_steps(1, "maps off", gen,
                                                    fused_maps=False)
-    print(f"train, fused_maps=False: loss {losses0[0]:.6g}, "
+    print(f"train ({tr.label}), fused_maps=False: loss {losses0[0]:.6g}, "
           f"{step0_ms[0]:.3f} ms for the one step (its first: no warm-up)")
     if profile:
-        step0(tr.batch, gen)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step0(tr.batch, gen)
-        torch.cuda.synchronize()
-        profile_steps(lambda: step0(tr.batch, gen),
-                      1e3 * (time.perf_counter() - t0), "fused_maps=False")
+        profile_again(step0, tr, gen, f"{dtype} fused_maps=False")
     return counts
 
 
 def unfused_phase(dev, sd0, profile=False):
     """Phase 4d: the unfused path (`fused_blocks=False`) in bf16 and in
-    float32. Returns {dtype: {kernel: (forward, backward) launches}} of
-    the 3 counted steps of each."""
+    float32, then one step of each with `fused_maps=True`. Returns {dtype:
+    {kernel: (forward, backward) launches}} of the 3 counted steps of
+    each."""
     launches = {}
     for dtype in ("bfloat16", "float32"):
         tr = Trainer(dev, sd0, dtype, fused_blocks=False)
@@ -1555,32 +1608,16 @@ def unfused_phase(dev, sd0, profile=False):
             profile_steps(lambda: step(tr.batch, gen), ms,
                           f"unfused {dtype}")
         launches[dtype] = counts
-    refuse_f32_fused(dev, sd0)
+        # the fourth cell: K11 for the NB1D blocks, K8-K10 for the
+        # stride-2 blocks and the tail
+        step1, _, losses1, step1_ms = tr.counted_steps(
+            1, "unfused maps on", gen, fused_maps=True)
+        print(f"train ({tr.label}), fused_maps=True: loss "
+              f"{losses1[0]:.6g}, {step1_ms[0]:.3f} ms for the one step (its "
+              f"first: no warm-up)")
+        if profile:
+            profile_again(step1, tr, gen, f"unfused {dtype} fused_maps=True")
     return launches
-
-
-def refuse_f32_fused(dev, sd0):
-    """The float32 step on the fused path (the default `fused_blocks=True`)
-    raises from `check_cuda` before any kernel launches: K6-K10 have no
-    float32 kernels yet, and the step must not fall back to their plain
-    versions."""
-    tr = Trainer(dev, sd0, "float32", fused_blocks=True)
-    step = tr.fresh_step()
-    wrappers = train_wrappers()
-    reset_counts(wrappers)
-    try:
-        step(tr.batch, None)
-    except TypeError as e:
-        refusal = str(e)
-    else:
-        fail("the float32 train step with fused_blocks=True ran")
-    counts = read_counts(wrappers)
-    launched = {n: v for n, v in counts.items() if v != (0, 0)}
-    if "fused_blocks=False" not in refusal or launched or step.state.step:
-        fail(f"the float32 train step with fused_blocks=True: {refusal!r}, "
-             f"launches {launched}, {step.state.step} steps taken")
-    print(f"train step ({tr.label}): raises as it should, no launch, no "
-          f"step taken: {refusal}")
 
 
 OWN_KERNELS = (  # device functions of csrc/, as the profiler names them
@@ -1589,7 +1626,8 @@ OWN_KERNELS = (  # device functions of csrc/, as the profiler names them
     "l2s_kernel", "wgrad_s2_kernel", "dyv_fold_kernel", "hr_ddec_kernel",
     "head_rowsums_kernel", "downsampler_kernel", "upsampler_kernel",
     "nb1d_chain_kernel", "wls_partial_kernel", "wls_sum_kernel",
-    "conv3tap_f32_kernel", "wgrad3tap_f32_kernel", "dz_kernel")
+    "conv3tap_f32_kernel", "wgrad3tap_f32_kernel", "dz_kernel",
+    "wgrad_s2_f32_kernel")
 
 
 def profile_steps(run_step, step_ms: float, label: str,
@@ -1647,6 +1685,7 @@ def main() -> int:
         FusedLaneNetEngine)
     from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
     from lanedetection_end2end_tpu_torch.ops import _build
+    from lanedetection_end2end_tpu_torch.ops.activations import ACTIVATIONS
     from lanedetection_end2end_tpu_torch.ops.backbone import (
         downsampler, downsampler_plain, head_rowsums, head_rowsums_plain,
         upsampler, upsampler_plain)
@@ -1744,14 +1783,32 @@ def main() -> int:
         s["bound_ms"] += per_call * b_ms
         s["ops_ms"] += per_call * b_ms * (by == "operations")
         s["flop"] += per_call * flop
+    # K4 at the activation codes the config does not use: launched once
+    # each, not counted in the table's times
+    x = act(B, H // 2, W // 2, 16)
+    for code, name in enumerate(ACTIVATIONS):
+        p = dict(dec["head"], act=code)
+        got = head_rowsums(x, p)
+        torch.cuda.synchronize()
+        want = head_rowsums_plain(x, p)
+        err, rel = rel_err(got, want)
+        ok = (got.shape == want.shape and torch.isfinite(got).all().item()
+              and rel <= TOL_F32)
+        print(f"check head_rowsums{tuple(x.shape)} activation {code} "
+              f"({name}): max|diff| {err:.3e} ({rel:.2e} of max|plain|, tol "
+              f"{TOL_F32:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"head_rowsums activation {name}")
     if failures:
         fail("kernel disagrees with its plain version: "
              + ", ".join(failures))
-    # 2b. training kernels against their plain versions ------------------
-    train_summary, failures = check_training_kernels(dev, g)
-    lanemap_summary, lanemap_failures = check_lanemap_kernels(dev, g)
-    train_summary.update(lanemap_summary)
-    failures += lanemap_failures
+    # 2b. training kernels against their plain versions, bf16 and float32
+    train_summary, failures = {}, []
+    for dt, dname in DTYPE_NAMES.items():
+        halves, f = check_training_kernels(dev, g, dt)
+        lanemaps, f2 = check_lanemap_kernels(dev, g, dt)
+        train_summary[dname] = {**halves, **lanemaps}
+        failures += f + f2
     failures += check_blocks_through_autograd(dev, g, model.net)
     if failures:
         fail("training kernel disagrees with its plain version: "
@@ -1837,19 +1894,27 @@ def main() -> int:
                           f"{label} call")
     engine.fitter, model.fitter = config_fitter, reference_fitter
 
-    # 4. train steps ------------------------------------------------------
+    # 4. train steps on the fused blocks, bf16 then float32 -------------
     sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    train_launches = train_phase(dev, sd0, profile=profile)
+    fused_launches = {dtype: train_phase(dev, sd0, dtype, profile=profile)
+                      for dtype in DTYPE_NAMES.values()}
     # 4d. the unfused path in bf16 and float32
     unfused_launches = unfused_phase(dev, sd0, profile=profile)
-    for n in k11_summary:
-        train_launches[n] = unfused_launches["bfloat16"][n]
+    # each kernel's launches from the main path's counted steps of its
+    # dtype: the default steps for K6-K10, the unfused ones for K11 and
+    # channel_sums
+    train_launches = {dtype: dict(fused_launches[dtype]) for dtype in
+                      fused_launches}
+    for dtype, counts in train_launches.items():
+        for n in k11_summary:
+            counts[n] = unfused_launches[dtype][n]
 
     # 5. kernels line and result ----------------------------------------
     kernels = []
     path_launches = {n: launches[n] for n in SERVING}
     path_launches.update(blocks_launches)
-    path_launches.update({n: v[0] for n, v in train_launches.items()})
+    path_launches.update({n: v[0]
+                          for n, v in train_launches["bfloat16"].items()})
 
     def numbers(s):
         return {"max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -1866,25 +1931,32 @@ def main() -> int:
             out["bwd_library_ms"] = s["bwd_library_ms"]
         return out
 
-    # K11 and channel_sums: the bf16 numbers in the entry, the float32 ones
-    # (and launches of the float32 unfused steps) beside them
-    by_dtype = {n: v["bfloat16"] for n, v in k11_summary.items()}
-    for n, s in {**summary, **blocks_summary, **train_summary,
-                 **by_dtype}.items():
+    # the training kernels: the bf16 numbers in the entry, the float32 ones
+    # (and launches of the float32 steps) beside them
+    by_dtype = {dname: {**train_summary[dname],
+                        **{n: v[dname] for n, v in k11_summary.items()}}
+                for dname in DTYPE_NAMES.values()}
+    for n, s in {**summary, **blocks_summary,
+                 **by_dtype["bfloat16"]}.items():
         fwd_source, bwd_source = SOURCES.get(n, (f"{n}.cu", None))
         entry = {"name": n, "route": "cuda", "source": CSRC + fwd_source,
                  "replaces": REPLACES[n], "launches": path_launches[n],
                  **numbers(s)}
         if bwd_source is not None:
             entry.update(bwd_source=CSRC + bwd_source,
-                         bwd_launches=train_launches[n][1], **bwd_numbers(s))
-        if n in k11_summary:
-            f = k11_summary[n]["float32"]
-            f32 = unfused_launches["float32"][n]
+                         bwd_launches=train_launches["bfloat16"][n][1],
+                         **bwd_numbers(s))
+        if n in by_dtype["float32"]:
+            f = by_dtype["float32"][n]
+            f32 = train_launches["float32"][n]
             entry["float32"] = {"launches": f32[0], **numbers(f)}
             if bwd_source is not None:
                 entry["float32"].update(bwd_launches=f32[1],
                                         **bwd_numbers(f))
+            if "library_of" in f:
+                entry["float32"].update(
+                    library_of=f["library_of"],
+                    ms_at_library_shape=f["ms_at_library_shape"])
         if "k1_ms" in s:
             entry["k1_block_by_block_ms"] = s["k1_ms"]
         if "library_of" in s:

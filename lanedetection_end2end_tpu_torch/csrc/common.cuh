@@ -16,6 +16,24 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 
+// Element i of a bf16 or f32 array as a float; store v in the array's type
+// and return the value as stored.
+__device__ __forceinline__ float ldf(const bf16* p, long long i) {
+  return bf2f(p[i]);
+}
+__device__ __forceinline__ float ldf(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float stf(bf16* p, long long i, float v) {
+  const bf16 o = f2bf(v);
+  p[i] = o;
+  return bf2f(o);
+}
+__device__ __forceinline__ float stf(float* p, long long i, float v) {
+  p[i] = v;
+  return v;
+}
+
 static inline int grid_1d(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
 }

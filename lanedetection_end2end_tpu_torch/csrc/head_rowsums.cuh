@@ -16,9 +16,10 @@
 // coordinate of the fitter (ops/wls.py). Output (B, H, 2C) f32 = [S0 | S1].
 // The full-resolution logits never reach device memory.
 //
-// Bound on the card: the input t (B, H/2, W/2, 16) bf16 is read once and
-// only 2C floats per row are written; ~2*16 FLOP per output logit, ~20
-// FLOP per byte: HBM bounds it.
+// Bound on the card: the input t (B, H/2, W/2, 16) is read once (bf16 when
+// serving, bf16 or float32 in training) and only 2C floats per row are
+// written; ~2*16 FLOP per output logit, ~20 FLOP per byte in bf16: HBM
+// bounds it (in float32 the two bounds are about equal).
 //
 // Design: one block per output row (b, r); threads stride over the W
 // columns, keep per-lane partial sums in registers (C <= 8, unrolled with
@@ -48,9 +49,11 @@ __device__ __forceinline__ float weight_sq(float v, int act) {
   return a * a;
 }
 
-// t: (B, H/2, W/2, cin); w: (2, 2, cin, C) [i][j][ci][c]; S: (B, H, 2C)
+// t: (B, H/2, W/2, cin); w: (2, 2, cin, C) [i][j][ci][c], both of type T;
+// S: (B, H, 2C)
+template <typename T>
 __global__ void __launch_bounds__(THREADS) head_rowsums_kernel(
-    const bf16* __restrict__ t, const bf16* __restrict__ w,
+    const T* __restrict__ t, const T* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ xs,
     float* __restrict__ S, int H, int W, int cin, int C, int zero_rows,
     int act) {
@@ -62,18 +65,18 @@ __global__ void __launch_bounds__(THREADS) head_rowsums_kernel(
 
   if (r >= zero_rows) {
     const int Wh = W / 2;
-    const bf16* trow = t + ((size_t)b * (H / 2) + (r >> 1)) * Wh * cin;
+    const T* trow = t + ((size_t)b * (H / 2) + (r >> 1)) * Wh * cin;
     for (int col = threadIdx.x; col < W; col += blockDim.x) {
-      const bf16* tp = trow + (size_t)(col >> 1) * cin;
-      const bf16* wp = w + (size_t)(((r & 1) * 2 + (col & 1)) * cin) * C;
+      const T* tp = trow + (size_t)(col >> 1) * cin;
+      const T* wp = w + (size_t)(((r & 1) * 2 + (col & 1)) * cin) * C;
       float dec[MAXC];
 #pragma unroll
       for (int c = 0; c < MAXC; ++c) dec[c] = c < C ? bias[c] : 0.0f;
       for (int ci = 0; ci < cin; ++ci) {
-        const float xv = bf2f(tp[ci]);
+        const float xv = ldf(tp, ci);
 #pragma unroll
         for (int c = 0; c < MAXC; ++c)
-          if (c < C) dec[c] = fmaf(xv, bf2f(wp[ci * C + c]), dec[c]);
+          if (c < C) dec[c] = fmaf(xv, ldf(wp, ci * C + c), dec[c]);
       }
       const float xc = xs[col];
 #pragma unroll
@@ -112,18 +115,18 @@ __global__ void __launch_bounds__(THREADS) head_rowsums_kernel(
   }
 }
 
-// t: (B, H/2, W/2, cin) bf16; w: (2, 2, cin, C) bf16; bias: (C,) f32; xs:
-// (W,) f32; S: (B, H, 2C) f32. A row of S belongs to one block, so the
-// result has no atomics and reproduces itself bit for bit.
-static inline int launch_head_rowsums(const void* t, const void* w,
-                                      const void* bias, const void* xs,
-                                      void* S, int B, int H, int W, int cin,
-                                      int C, int zero_rows, int act,
-                                      void* stream) {
+// t: (B, H/2, W/2, cin) and w: (2, 2, cin, C) of type T (bf16 or f32);
+// bias: (C,) f32; xs: (W,) f32; S: (B, H, 2C) f32. A row of S belongs to
+// one block, so the result has no atomics and reproduces itself bit for
+// bit.
+template <typename T>
+int launch_head_rowsums(const void* t, const void* w, const void* bias,
+                        const void* xs, void* S, int B, int H, int W, int cin,
+                        int C, int zero_rows, int act, void* stream) {
   if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
-  head_rowsums_kernel<<<B * H, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(t), static_cast<const bf16*>(w),
+  head_rowsums_kernel<T><<<B * H, THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(t), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(xs),
       static_cast<float*>(S), H, W, cin, C, zero_rows, act);
   return (int)cudaGetLastError();

@@ -6,14 +6,16 @@
 // (lanedetection_end2end_tpu/ops/pallas_lanemaps.py:83, :100; the op at
 // :167), which compute two output row phases with lane-map matmuls (the
 // column phases folded into the maps) and interleave them. Here, on NHWC
-// bf16 with the ConvTranspose2d parameter (cin, cout, k, k), unflipped:
+// planes of one type T, bf16 or float32, with the ConvTranspose2d
+// parameter (cin, cout, k, k), unflipped:
 //
 //   forward   y = ConvTranspose(x) + bias, rounded once to bf16 or kept
-//             f32, written once at (B, 2H, 2W, cout);
+//             f32 (float32 planes: f32 only), written once at
+//             (B, 2H, 2W, cout);
 //             mom = [sum y; sum y^2] of the rounded y, when asked for
 //   backward  dyv = dy + ds1 + 2 * y * ds2 in f32 (dy alone without
-//             moments);  dbias = sum dyv;  dp = bf16(dyv)
-//             dx = bf16(stride-2 convolution of dp with the weight)
+//             moments);  dbias = sum dyv;  dp = T(dyv)
+//             dx = T(stride-2 convolution of dp with the weight)
 //             dweight[ci][co][ky][kx] = sum_pixels x * dp
 //
 // torch's transposed convolution writes x[h] into output row 2h - pad + ky:
@@ -22,8 +24,9 @@
 // pixel's parity).
 //
 // Bound on the card: forward reads x and writes y (four times the pixels);
-// backward reads x, y, dy and writes dx; at most ~190 FLOP per byte
-// (128 -> 64), under the ~295 FLOP/byte ridge: bytes.
+// backward reads x, y, dy and writes dx; at most ~190 FLOP per byte in
+// bf16 (128 -> 64), under the ~295 FLOP/byte ridge: bytes; in float32 half
+// that, above FFMA's ~20: operations for the two upsamplers.
 //
 // Design: the pieces of conv_s2.cuh. Forward: one thread per output value,
 // channel fastest, grid-stride so each thread stays on one channel and the
@@ -40,9 +43,9 @@ namespace {
 
 // x: (B, H, W, cin); wt: (k, k, cin, cout); y: (B, 2H, 2W, cout);
 // mom: (2, cout) or null
-template <typename TOut>
+template <typename T, typename TOut>
 __global__ void __launch_bounds__(EW_THREADS) lm_fwd_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ wt,
+    const T* __restrict__ x, const T* __restrict__ wt,
     const float* __restrict__ bias, TOut* __restrict__ y,
     float* __restrict__ mom, int B, int H, int W, int cin, int cout, int k,
     int pad) {
@@ -55,7 +58,7 @@ __global__ void __launch_bounds__(EW_THREADS) lm_fwd_kernel(
     const long long pix = i / cout;
     const int X = (int)(pix % Wo), Y = (int)((pix / Wo) % Ho);
     const int b = (int)(pix / ((long long)Wo * Ho));
-    const bf16* xb = x + (size_t)b * H * W * cin;
+    const T* xb = x + (size_t)b * H * W * cin;
     const float v =
         gather_small(xb, wt, H, W, cin, cin, cout, k, pad, Y, X, co) +
         bias[co];
@@ -66,13 +69,13 @@ __global__ void __launch_bounds__(EW_THREADS) lm_fwd_kernel(
   if (mom != nullptr) block_channel_add(s0, s1, cout, mom, mom + cout);
 }
 
-template <typename TOut>
+template <typename T, typename TOut>
 int lm_fwd(const void* x, const void* wt, const void* bias, void* y,
            void* mom, int B, int H, int W, int cin, int cout, int k, int pad,
            cudaStream_t s) {
   const long long n = (long long)B * 4 * H * W * cout;
-  lm_fwd_kernel<TOut><<<ew_blocks(n), EW_THREADS, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wt),
+  lm_fwd_kernel<T, TOut><<<ew_blocks(n), EW_THREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wt),
       static_cast<const float*>(bias), static_cast<TOut*>(y),
       static_cast<float*>(mom), B, H, W, cin, cout, k, pad);
   return (int)cudaGetLastError();
@@ -81,6 +84,29 @@ int lm_fwd(const void* x, const void* wt, const void* bias, void* y,
 bool bad_geometry(int cout, int k, int pad) {
   return EW_THREADS % cout != 0 || !((k == 3 && pad == 1) ||
                                      (k == 2 && pad == 0));
+}
+
+// dyv fold, input gradient and weight gradient on planes of type T; dy
+// and y of type TOut.
+template <typename T, typename TOut>
+int lm_bwd(const void* x, const void* y, const void* dy, const void* dmom,
+           const void* wt, void* dp, void* dx, void* dweight, void* dbias,
+           int B, int H, int W, int cin, int cout, int k, int pad,
+           cudaStream_t s) {
+  const long long n = (long long)B * 4 * H * W * cout;
+  T* dpt = static_cast<T*>(dp);
+  int rc = launch_dyv_fold(static_cast<const TOut*>(dy),
+                           static_cast<const TOut*>(y),
+                           static_cast<const float*>(dmom), dpt,
+                           static_cast<float*>(dbias), n, cout, s);
+  if (rc) return rc;
+  rc = launch_l2s(static_cast<const T*>(dpt), static_cast<const T*>(wt),
+                  static_cast<T*>(dx), B, H, W, cout, cin, k, pad, s);
+  if (rc) return rc;
+  return launch_wgrad_s2(static_cast<const T*>(x),
+                         static_cast<const T*>(dpt),
+                         static_cast<float*>(dweight), B, H, W, cin, cin,
+                         cout, k, pad, s);
 }
 
 }  // namespace
@@ -94,10 +120,23 @@ LD_API int ld_lane_maps_op_fwd(const void* x, const void* wt,
                                int pad, int out_f32, void* stream) {
   if (bad_geometry(cout, k, pad)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? lm_fwd<float>(x, wt, bias, y, mom, B, H, W, cin, cout, k,
-                                 pad, s)
-                 : lm_fwd<bf16>(x, wt, bias, y, mom, B, H, W, cin, cout, k,
-                                pad, s);
+  return out_f32 ? lm_fwd<bf16, float>(x, wt, bias, y, mom, B, H, W, cin,
+                                       cout, k, pad, s)
+                 : lm_fwd<bf16, bf16>(x, wt, bias, y, mom, B, H, W, cin,
+                                      cout, k, pad, s);
+}
+
+// The same on float32 planes and taps (x, wt f32); y is f32, and out_f32
+// must be 1.
+LD_API int ld_lane_maps_op_fwd_f32(const void* x, const void* wt,
+                                   const void* bias, void* y, void* mom,
+                                   int B, int H, int W, int cin, int cout,
+                                   int k, int pad, int out_f32,
+                                   void* stream) {
+  if (bad_geometry(cout, k, pad) || !out_f32)
+    return (int)cudaErrorInvalidValue;
+  return lm_fwd<float, float>(x, wt, bias, y, mom, B, H, W, cin, cout, k,
+                              pad, static_cast<cudaStream_t>(stream));
 }
 
 // x as above; y, dy: (B, 2H, 2W, cout) bf16, or f32 when out_f32 (y is read
@@ -112,21 +151,23 @@ LD_API int ld_lane_maps_op_bwd(const void* x, const void* y, const void* dy,
                                int pad, int out_f32, void* stream) {
   if (bad_geometry(cout, k, pad)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)B * 4 * H * W * cout;
-  const float* dm = static_cast<const float*>(dmom);
-  bf16* dpb = static_cast<bf16*>(dp);
-  float* db = static_cast<float*>(dbias);
-  int rc = out_f32 ? launch_dyv_fold(static_cast<const float*>(dy),
-                                     static_cast<const float*>(y), dm, dpb,
-                                     db, n, cout, s)
-                   : launch_dyv_fold(static_cast<const bf16*>(dy),
-                                     static_cast<const bf16*>(y), dm, dpb, db,
-                                     n, cout, s);
-  if (rc) return rc;
-  rc = launch_l2s(dpb, static_cast<const bf16*>(wt), static_cast<bf16*>(dx),
-                  B, H, W, cout, cin, k, pad, s);
-  if (rc) return rc;
-  return launch_wgrad_s2(static_cast<const bf16*>(x), dpb,
-                         static_cast<float*>(dweight), B, H, W, cin, cin,
-                         cout, k, pad, s);
+  return out_f32 ? lm_bwd<bf16, float>(x, y, dy, dmom, wt, dp, dx, dweight,
+                                       dbias, B, H, W, cin, cout, k, pad, s)
+                 : lm_bwd<bf16, bf16>(x, y, dy, dmom, wt, dp, dx, dweight,
+                                      dbias, B, H, W, cin, cout, k, pad, s);
+}
+
+// The same on float32 planes and taps: x, y, dy, wt, dp, dx f32, and
+// out_f32 must be 1.
+LD_API int ld_lane_maps_op_bwd_f32(const void* x, const void* y,
+                                   const void* dy, const void* dmom,
+                                   const void* wt, void* dp, void* dx,
+                                   void* dweight, void* dbias, int B, int H,
+                                   int W, int cin, int cout, int k, int pad,
+                                   int out_f32, void* stream) {
+  if (bad_geometry(cout, k, pad) || !out_f32)
+    return (int)cudaErrorInvalidValue;
+  return lm_bwd<float, float>(x, y, dy, dmom, wt, dp, dx, dweight, dbias, B,
+                              H, W, cin, cout, k, pad,
+                              static_cast<cudaStream_t>(stream));
 }

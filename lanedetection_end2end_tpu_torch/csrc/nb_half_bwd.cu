@@ -2,34 +2,37 @@
 //
 // Replaces the TPU bodies `_half_a_bwd_kernel` and `_half_b_bwd_kernel`
 // (lanedetection_end2end_tpu/ops/pallas_nb_block.py:212, :339), in their
-// order and with their rounding points (bf16 products, f32 sums, the bias
-// gradients summed from the f32 values before rounding):
+// order and with their rounding points (products in the plane's dtype T,
+// bf16 or float32, f32 sums, the bias gradients summed from the f32 values
+// before rounding; in float32 nothing is rounded):
 //
 //   dyv   = dyout + ds1 + 2 * yout * ds2        f32: the moment cotangent
-//   dbw   = sum dyv;   dy = bf16(dyv)
+//   dbw   = sum dyv;   dy = T(dyv)
 //   dkw[t] = shift_t(ymid)^T @ dy
-//   dmid  = convT_1x3_d(dy, kw) * (ymid > 0);  dbh = sum dmid;  -> bf16
+//   dmid  = convT_1x3_d(dy, kw) * (ymid > 0);  dbh = sum dmid;  -> T
 //   dkh[t] = shift_t(z)^T @ dmid                z = x (A) or the recomputed
-//                                               prologue bf16(relu(x*mul+add))
+//                                               prologue T(relu(x*mul+add))
 //   dz    = convT_3x1_d(dmid, kh)
-//   half A: dx = bf16(dz)
+//   half A: dx = T(dz)
 //   half B: dz *= (x*mul+add > 0); dmul = sum dz*x; dadd = sum dz;
-//           dx = bf16(dz * mul)
+//           dx = T(dz * mul)
 //
 // Bound on the card: the two input gradients and the two weight gradients
-// are 24*C^2 FLOP per pixel against 5 planes of bf16 (x, ymid, yout, dyout
-// read, dx written): 2.4*C FLOP per byte, so the bytes bound it for
-// C <= 64 and the operations roughly match them at C = 128.
+// are 24*C^2 FLOP per pixel against 5 planes (x, ymid, yout, dyout read, dx
+// written). In bf16 that is 2.4*C FLOP per byte, so the bytes bound it for
+// C <= 64 and the operations roughly match them at C = 128; in float32, on
+// FFMA at 67 TFLOP/s, 1.2*C FLOP per byte: the operations bound it for
+// C = 64 and 128.
 //
 // Design: five launches. (1) `dyv_kernel`, one elementwise pass with a
-// per-channel reduction. (2, 4) the weight gradient `wgrad3tap_kernel`
-// (wgrad3tap.cuh: bf16 WMMA over pixel tiles, f32 atomicAdd at the end).
-// (3, 5) the shared convolution (conv3tap.cuh) on transposed taps with the
-// masking epilogues. f32 atomics make the last bits of dk, db, dmul and
-// dadd depend on the order blocks finish in. Every f32 output must be zero
-// before the call.
+// per-channel reduction. (2, 4) the weight gradient (bf16: wgrad3tap.cuh's
+// WMMA over pixel tiles; float32: conv3tap_f32.cuh's FFMA, never TF32; f32
+// atomicAdd at the end). (3, 5) the shared convolution (conv3tap.cuh or
+// conv3tap_f32.cuh) on transposed taps with the masking epilogues. f32
+// atomics make the last bits of dk, db, dmul and dadd depend on the order
+// blocks finish in. Every f32 output must be zero before the call.
 
-#include "wgrad3tap.cuh"
+#include "conv3tap_f32.cuh"
 
 using namespace ldconv;
 
@@ -37,11 +40,11 @@ namespace {
 
 constexpr int EW_THREADS = 256;
 
-// out = bf16(dy + ds1[c] + 2 * y * ds2[c]); db[c] += the f32 value.
-template <int C>
+// out = T(dy + ds1[c] + 2 * y * ds2[c]); db[c] += the f32 value.
+template <typename T, int C>
 __global__ void __launch_bounds__(EW_THREADS) dyv_kernel(
-    const bf16* __restrict__ dy, const bf16* __restrict__ y,
-    const float* __restrict__ dmom, bf16* __restrict__ out,
+    const T* __restrict__ dy, const T* __restrict__ y,
+    const float* __restrict__ dmom, T* __restrict__ out,
     float* __restrict__ db, int npix) {
   constexpr int VPR = C / 8;
   constexpr int RPI = EW_THREADS / VPR;  // rows per block iteration
@@ -58,19 +61,17 @@ __global__ void __launch_bounds__(EW_THREADS) dyv_kernel(
   }
   for (long long p = (long long)blockIdx.x * RPI + threadIdx.x / VPR;
        p < npix; p += (long long)gridDim.x * RPI) {
-    const uint4 a = reinterpret_cast<const uint4*>(dy + p * C)[v];
-    const uint4 b = reinterpret_cast<const uint4*>(y + p * C)[v];
-    const bf16* ae = reinterpret_cast<const bf16*>(&a);
-    const bf16* be = reinterpret_cast<const bf16*>(&b);
-    uint4 o;
-    bf16* oe = reinterpret_cast<bf16*>(&o);
+    const long long off = p * C + v * 8;
+    float a[8], b[8], o[8];
+    load8(dy + off, a);
+    load8(y + off, b);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float f = bf2f(ae[j]) + ds1[j] + 2.0f * bf2f(be[j]) * ds2[j];
+      const float f = a[j] + ds1[j] + 2.0f * b[j] * ds2[j];
       acc[j] += f;
-      oe[j] = f2bf(f);
+      o[j] = f;
     }
-    reinterpret_cast<uint4*>(out + p * C)[v] = o;
+    store8(out + off, o);  // rounded to T
   }
   if (fold_lanes(acc, VPR)) {
 #pragma unroll
@@ -80,18 +81,18 @@ __global__ void __launch_bounds__(EW_THREADS) dyv_kernel(
   for (int i = threadIdx.x; i < C; i += EW_THREADS) atomicAdd(db + i, sdb[i]);
 }
 
-template <int C>
-int half_bwd(const bf16* x, const float* muladd, const bf16* ymid,
-             const bf16* yout, const bf16* dyout, const float* dmom,
-             const bf16* khT, const bf16* kwT, bf16* dyv, bf16* dmid,
-             bf16* dx, float* dkh, float* dbh, float* dkw, float* dbw,
-             float* dmuladd, int npix, int H, int W, int d, cudaStream_t s) {
+template <typename T, int C>
+int half_bwd(const T* x, const float* muladd, const T* ymid, const T* yout,
+             const T* dyout, const float* dmom, const T* khT, const T* kwT,
+             T* dyv, T* dmid, T* dx, float* dkh, float* dbh, float* dkw,
+             float* dbw, float* dmuladd, int npix, int H, int W, int d,
+             cudaStream_t s) {
   const float* mul = muladd;
   const float* add = muladd ? muladd + C : nullptr;
   constexpr int RPI = EW_THREADS / (C / 8);
   const int blocks = min(grid_1d(npix, RPI), 132 * 8);
-  dyv_kernel<C><<<blocks, EW_THREADS, 0, s>>>(dyout, yout, dmom, dyv, dbw,
-                                              npix);
+  dyv_kernel<T, C><<<blocks, EW_THREADS, 0, s>>>(dyout, yout, dmom, dyv, dbw,
+                                                 npix);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   rc = launch_wgrad<C>(ymid, nullptr, nullptr, dyv, dkw, npix, H, W, d, 1, s);
@@ -109,6 +110,37 @@ int half_bwd(const bf16* x, const float* muladd, const bf16* ymid,
                                      dx, dmuladd, npix, H, W, d, 0, s);
 }
 
+template <typename T>
+int half_bwd_entry(const void* x, const void* muladd, const void* ymid,
+                   const void* yout, const void* dyout, const void* dmom,
+                   const void* khT, const void* kwT, void* dyv, void* dmid,
+                   void* dx, void* dkh, void* dbh, void* dkw, void* dbw,
+                   void* dmuladd, int B, int H, int W, int C, int d,
+                   void* stream) {
+  const int npix = B * H * W;
+  auto s = static_cast<cudaStream_t>(stream);
+#define LD_ARGS                                                              \
+  static_cast<const T*>(x), static_cast<const float*>(muladd),              \
+      static_cast<const T*>(ymid), static_cast<const T*>(yout),             \
+      static_cast<const T*>(dyout), static_cast<const float*>(dmom),        \
+      static_cast<const T*>(khT), static_cast<const T*>(kwT),               \
+      static_cast<T*>(dyv), static_cast<T*>(dmid), static_cast<T*>(dx),     \
+      static_cast<float*>(dkh), static_cast<float*>(dbh),                   \
+      static_cast<float*>(dkw), static_cast<float*>(dbw),                   \
+      static_cast<float*>(dmuladd), npix, H, W, d, s
+  switch (C) {
+    case 16:
+      return half_bwd<T, 16>(LD_ARGS);
+    case 64:
+      return half_bwd<T, 64>(LD_ARGS);
+    case 128:
+      return half_bwd<T, 128>(LD_ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LD_ARGS
+}
+
 }  // namespace
 
 // x, ymid, yout, dyout, dyv, dmid, dx: (B, H, W, C) bf16 contiguous (dyv,
@@ -122,27 +154,20 @@ LD_API int ld_nb_half_bwd(const void* x, const void* muladd, const void* ymid,
                           void* dyv, void* dmid, void* dx, void* dkh,
                           void* dbh, void* dkw, void* dbw, void* dmuladd,
                           int B, int H, int W, int C, int d, void* stream) {
-  const int npix = B * H * W;
-  auto s = static_cast<cudaStream_t>(stream);
-#define LD_ARGS                                                              \
-  static_cast<const bf16*>(x), static_cast<const float*>(muladd),           \
-      static_cast<const bf16*>(ymid), static_cast<const bf16*>(yout),       \
-      static_cast<const bf16*>(dyout), static_cast<const float*>(dmom),     \
-      static_cast<const bf16*>(khT), static_cast<const bf16*>(kwT),         \
-      static_cast<bf16*>(dyv), static_cast<bf16*>(dmid),                    \
-      static_cast<bf16*>(dx), static_cast<float*>(dkh),                     \
-      static_cast<float*>(dbh), static_cast<float*>(dkw),                   \
-      static_cast<float*>(dbw), static_cast<float*>(dmuladd), npix, H, W, d, \
-      s
-  switch (C) {
-    case 16:
-      return half_bwd<16>(LD_ARGS);
-    case 64:
-      return half_bwd<64>(LD_ARGS);
-    case 128:
-      return half_bwd<128>(LD_ARGS);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LD_ARGS
+  return half_bwd_entry<bf16>(x, muladd, ymid, yout, dyout, dmom, khT, kwT,
+                              dyv, dmid, dx, dkh, dbh, dkw, dbw, dmuladd, B,
+                              H, W, C, d, stream);
+}
+
+// The same on float32 planes and taps: every bf16 argument above f32.
+LD_API int ld_nb_half_bwd_f32(const void* x, const void* muladd,
+                              const void* ymid, const void* yout,
+                              const void* dyout, const void* dmom,
+                              const void* khT, const void* kwT, void* dyv,
+                              void* dmid, void* dx, void* dkh, void* dbh,
+                              void* dkw, void* dbw, void* dmuladd, int B,
+                              int H, int W, int C, int d, void* stream) {
+  return half_bwd_entry<float>(x, muladd, ymid, yout, dyout, dmom, khT, kwT,
+                               dyv, dmid, dx, dkh, dbh, dkw, dbw, dmuladd, B,
+                               H, W, C, d, stream);
 }

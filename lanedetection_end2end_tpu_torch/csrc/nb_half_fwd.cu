@@ -2,38 +2,42 @@
 //
 // Replaces the TPU bodies `_half_a_fwd_kernel` and `_half_b_fwd_kernel`
 // (lanedetection_end2end_tpu/ops/pallas_nb_block.py:198, :321). On NHWC
-// bf16 (B, H, W, C), C in {16, 64, 128}:
+// (B, H, W, C) planes of one dtype T, bf16 or float32, C in {16, 64, 128}:
 //
 //   z    = x                                  (half A)
-//   z    = bf16(relu(x * mul + add))          (half B: BatchNorm-1 prologue)
-//   ymid = bf16(relu(conv3x1_d(z)    + bh))
-//   yout = bf16(conv1x3_d(ymid)      + bw)
+//   z    = T(relu(x * mul + add))             (half B: BatchNorm-1 prologue)
+//   ymid = T(relu(conv3x1_d(z)    + bh))
+//   yout = T(conv1x3_d(ymid)      + bw)
 //   mom  = [sum yout, sum yout^2] per channel, f32, of the rounded yout
 //
-// Both ymid and yout are written: the backward reads them. bf16 operands,
-// f32 accumulation, rounding points as in the TPU kernel (:203-206,
-// :326-333). The TPU's (3, 128, 128) block-diagonal `kexp`, its `sel`
-// matrix and the banded W-conv are lane-packing devices and are not
-// ported: taps are (3, ci, co) and the moments (2, C).
+// Both ymid and yout are written: the backward reads them. Operands of
+// type T, f32 accumulation, rounding points as in the TPU kernel (:203-206,
+// :326-333), which keeps the plane's dtype: in float32 nothing is rounded.
+// The TPU's (3, 128, 128) block-diagonal `kexp`, its `sel` matrix and the
+// banded W-conv are lane-packing devices and are not ported: taps are
+// (3, ci, co) and the moments (2, C).
 //
-// Bound on the card: 12*C^2 FLOP per pixel against 3 planes of bf16
-// (x read, ymid and yout written): 2*C FLOP per byte, below the H100's
-// ~295 FLOP/byte ridge for every C here, so the bytes bound it.
+// Bound on the card: 12*C^2 FLOP per pixel against 3 planes (x read, ymid
+// and yout written). In bf16 that is 2*C FLOP per byte, below the H100's
+// ~295 FLOP/byte ridge for every C here, so the bytes bound it; in float32,
+// on FFMA at 67 TFLOP/s (ridge about 20 FLOP per byte), C FLOP per byte:
+// the operations bound it for C = 64 and 128.
 //
-// Design: two launches of the shared implicit-GEMM convolution
-// (conv3tap.cuh), the second with the moments epilogue. The intermediate
-// ymid is needed by the backward anyway, so its round trip through device
-// memory is no extra traffic. `mom` must be zero before the call.
+// Design: two launches of the shared implicit-GEMM convolution (bf16:
+// conv3tap.cuh on WMMA; float32: conv3tap_f32.cuh on FFMA, never TF32),
+// the second with the moments epilogue. The intermediate ymid is needed by
+// the backward anyway, so its round trip through device memory is no extra
+// traffic. `mom` must be zero before the call.
 
-#include "conv3tap.cuh"
+#include "conv3tap_f32.cuh"
 
 using namespace ldconv;
 
 namespace {
 
-template <int C>
-int half_fwd(const bf16* x, const bf16* kh, const float* bh, const bf16* kw,
-             const float* bw, const float* muladd, bf16* ymid, bf16* yout,
+template <typename T, int C>
+int half_fwd(const T* x, const T* kh, const float* bh, const T* kw,
+             const float* bw, const float* muladd, T* ymid, T* yout,
              float* mom, int npix, int H, int W, int d, cudaStream_t s) {
   const float* mul = muladd;
   const float* add = muladd ? muladd + C : nullptr;
@@ -42,6 +46,32 @@ int half_fwd(const bf16* x, const bf16* kh, const float* bh, const bf16* kw,
   if (rc) return rc;
   return launch_conv<C, EPI_BIAS_MOM>(ymid, kw, nullptr, nullptr, bw, nullptr,
                                       yout, mom, npix, H, W, d, 1, s);
+}
+
+template <typename T>
+int half_fwd_entry(const void* x, const void* kh, const void* bh,
+                   const void* kw, const void* bw, const void* muladd,
+                   void* ymid, void* yout, void* mom, int B, int H, int W,
+                   int C, int d, void* stream) {
+  const int npix = B * H * W;
+  auto s = static_cast<cudaStream_t>(stream);
+#define LD_ARGS                                                              \
+  static_cast<const T*>(x), static_cast<const T*>(kh),                      \
+      static_cast<const float*>(bh), static_cast<const T*>(kw),             \
+      static_cast<const float*>(bw), static_cast<const float*>(muladd),     \
+      static_cast<T*>(ymid), static_cast<T*>(yout),                         \
+      static_cast<float*>(mom), npix, H, W, d, s
+  switch (C) {
+    case 16:
+      return half_fwd<T, 16>(LD_ARGS);
+    case 64:
+      return half_fwd<T, 64>(LD_ARGS);
+    case 128:
+      return half_fwd<T, 128>(LD_ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LD_ARGS
 }
 
 }  // namespace
@@ -53,23 +83,16 @@ LD_API int ld_nb_half_fwd(const void* x, const void* kh, const void* bh,
                           const void* kw, const void* bw, const void* muladd,
                           void* ymid, void* yout, void* mom, int B, int H,
                           int W, int C, int d, void* stream) {
-  const int npix = B * H * W;
-  auto s = static_cast<cudaStream_t>(stream);
-#define LD_ARGS                                                              \
-  static_cast<const bf16*>(x), static_cast<const bf16*>(kh),                \
-      static_cast<const float*>(bh), static_cast<const bf16*>(kw),          \
-      static_cast<const float*>(bw), static_cast<const float*>(muladd),     \
-      static_cast<bf16*>(ymid), static_cast<bf16*>(yout),                   \
-      static_cast<float*>(mom), npix, H, W, d, s
-  switch (C) {
-    case 16:
-      return half_fwd<16>(LD_ARGS);
-    case 64:
-      return half_fwd<64>(LD_ARGS);
-    case 128:
-      return half_fwd<128>(LD_ARGS);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LD_ARGS
+  return half_fwd_entry<bf16>(x, kh, bh, kw, bw, muladd, ymid, yout, mom, B,
+                              H, W, C, d, stream);
+}
+
+// The same on float32 planes and taps: x, ymid, yout, kh, kw f32.
+LD_API int ld_nb_half_fwd_f32(const void* x, const void* kh, const void* bh,
+                              const void* kw, const void* bw,
+                              const void* muladd, void* ymid, void* yout,
+                              void* mom, int B, int H, int W, int C, int d,
+                              void* stream) {
+  return half_fwd_entry<float>(x, kh, bh, kw, bw, muladd, ymid, yout, mom, B,
+                               H, W, C, d, stream);
 }

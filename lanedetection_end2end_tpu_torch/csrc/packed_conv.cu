@@ -40,7 +40,6 @@
 // be zero before the call.
 
 #include "conv3tap_f32.cuh"
-#include "wgrad3tap.cuh"
 
 using namespace ldconv;
 
@@ -86,16 +85,18 @@ __global__ void __launch_bounds__(EW_THREADS) dz_kernel(
   for (int i = threadIdx.x; i < C; i += EW_THREADS) atomicAdd(db + i, sdb[i]);
 }
 
-// ---- forward -------------------------------------------------------------
+// ---- forward ------------------------------------------------------------
 
-template <int C>
-int fwd(const bf16* x, const bf16* w, const float* bias, void* y, int npix,
-        int H, int W, int d, int axis, int act, cudaStream_t s) {
+// launch_conv and launch_wgrad take bf16 planes (conv3tap.cuh, wgrad3tap.cuh)
+// or f32 ones (conv3tap_f32.cuh): the overload follows T.
+template <typename T, int C>
+int fwd(const T* x, const T* w, const float* bias, void* y, int npix, int H,
+        int W, int d, int axis, int act, cudaStream_t s) {
   if (bias == nullptr)  // packed_conv: f32 output, no bias
     return launch_conv<C, EPI_PLAIN>(x, w, nullptr, nullptr, nullptr, nullptr,
                                      static_cast<float*>(y), nullptr, npix, H,
                                      W, d, axis, s);
-  bf16* out = static_cast<bf16*>(y);
+  T* out = static_cast<T*>(y);
   if (act)
     return launch_conv<C, EPI_BIAS_RELU>(x, w, nullptr, nullptr, bias,
                                          nullptr, out, nullptr, npix, H, W, d,
@@ -104,48 +105,7 @@ int fwd(const bf16* x, const bf16* w, const float* bias, void* y, int npix,
                                   nullptr, npix, H, W, d, axis, s);
 }
 
-template <int C>
-int fwd(const float* x, const float* w, const float* bias, void* y, int npix,
-        int H, int W, int d, int axis, int act, cudaStream_t s) {
-  using namespace ldconv32;
-  float* out = static_cast<float*>(y);
-  if (bias == nullptr)
-    return launch_conv_f32<C, E32_PLAIN>(x, w, nullptr, out, npix, H, W, d,
-                                         axis, s);
-  if (act)
-    return launch_conv_f32<C, E32_BIAS_RELU>(x, w, bias, out, npix, H, W, d,
-                                             axis, s);
-  return launch_conv_f32<C, E32_BIAS>(x, w, bias, out, npix, H, W, d, axis,
-                                      s);
-}
-
 // ---- backward ------------------------------------------------------------
-
-template <int C>
-int conv_t(const bf16* dz, const bf16* wT, bf16* dx, int npix, int H, int W,
-           int d, int axis, cudaStream_t s) {
-  return launch_conv<C, EPI_PLAIN>(dz, wT, nullptr, nullptr, nullptr, nullptr,
-                                   dx, nullptr, npix, H, W, d, axis, s);
-}
-
-template <int C>
-int conv_t(const float* dz, const float* wT, float* dx, int npix, int H,
-           int W, int d, int axis, cudaStream_t s) {
-  return ldconv32::launch_conv_f32<C, ldconv32::E32_PLAIN>(
-      dz, wT, nullptr, dx, npix, H, W, d, axis, s);
-}
-
-template <int C>
-int wgrad(const bf16* x, const bf16* dz, float* dk, int npix, int H, int W,
-          int d, int axis, cudaStream_t s) {
-  return launch_wgrad<C>(x, nullptr, nullptr, dz, dk, npix, H, W, d, axis, s);
-}
-
-template <int C>
-int wgrad(const float* x, const float* dz, float* dk, int npix, int H, int W,
-          int d, int axis, cudaStream_t s) {
-  return ldconv32::launch_wgrad_f32<C>(x, dz, dk, npix, H, W, d, axis, s);
-}
 
 template <typename T, int C>
 int bwd(const T* x, const T* dy, const T* y, const T* wT, T* dz, T* dx,
@@ -167,9 +127,11 @@ int bwd(const T* x, const T* dy, const T* y, const T* wT, T* dz, T* dx,
     const int rc = (int)cudaGetLastError();
     if (rc) return rc;
   }
-  int rc = conv_t<C>(src, wT, dx, npix, H, W, d, axis, s);
+  int rc = launch_conv<C, EPI_PLAIN>(src, wT, nullptr, nullptr, nullptr,
+                                     nullptr, dx, nullptr, npix, H, W, d,
+                                     axis, s);
   if (rc) return rc;
-  return wgrad<C>(x, src, dk, npix, H, W, d, axis, s);
+  return launch_wgrad<C>(x, nullptr, nullptr, src, dk, npix, H, W, d, axis, s);
 }
 
 }  // namespace
@@ -184,8 +146,8 @@ LD_API int ld_packed_conv_fwd(const void* x, const void* w, const void* bias,
   auto s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
 #define LD_FWD(T, CC)                                                      \
-  fwd<CC>(static_cast<const T*>(x), static_cast<const T*>(w), b, y, npix, \
-          H, W, d, axis, act, s)
+  fwd<T, CC>(static_cast<const T*>(x), static_cast<const T*>(w), b, y,    \
+             npix, H, W, d, axis, act, s)
 #define LD_DISPATCH(T)           \
   switch (C) {                   \
     case 16:                     \

@@ -108,22 +108,27 @@ def launch(fn, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
 
 
+# the C entry suffix of a kernel that takes planes of either dtype
+PLANE_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}
+
+
+def plane_symbol(symbol: str, dtype: torch.dtype) -> str:
+    """The C entry of a training kernel for planes of `dtype`: `symbol`
+    for bfloat16, `symbol + '_f32'` for float32; TypeError for any other
+    dtype."""
+    if dtype not in PLANE_SUFFIX:
+        raise TypeError(f"{symbol}: the kernel takes bfloat16 or float32 "
+                        f"planes, got {dtype}")
+    return symbol + PLANE_SUFFIX[dtype]
+
+
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, shape=None,
                name: str = "tensor") -> int:
     """Validate what a kernel takes; returns the data pointer."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
-        hint = ""
-        if dtype == torch.bfloat16 and t.dtype == torch.float32:
-            hint = (": this kernel takes bfloat16 planes; the float32 "
-                    "instantiation is not written yet for the fused "
-                    "training kernels K6-K10 (nb_half_a, nb_half_b, "
-                    "downsampler_op, lane_maps_op, head_rowsums_op). To "
-                    "train in float32 on the card pass fused_blocks=False "
-                    "(K11 packed_conv_act and channel_sums take float32), "
-                    "or use compute_dtype='bfloat16'")
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}{hint}")
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

@@ -33,8 +33,10 @@ JAX package's where-chain chooses: in each column the upper row if it is
 >= the lower, then the left column's winner if it is >= the right's.
 
 A CUDA tensor launches the kernels (`csrc/downsampler_op.cu`,
-`csrc/lane_maps_op.cu`, `csrc/head_rowsums_op.cu`; bf16 planes) or raises;
-a CPU tensor takes the plain versions below (`*_fwd_plain`, differentiable
+`csrc/lane_maps_op.cu`, `csrc/head_rowsums_op.cu`; bf16 or float32 planes,
+each dtype its own C entry, every plane of a call in one dtype, except that
+bf16 planes may give an f32 `lane_maps_op` output) or raises; a CPU tensor
+takes the plain versions below (`*_fwd_plain`, differentiable
 by autograd as they stand, and `*_bwd_plain`, the kernels' order), in any
 float dtype. The TPU's lane maps, `plan`, `sel`, `red`, `pool` and `btile`
 matrices are lane-packing devices and are not ported.
@@ -52,7 +54,7 @@ import torch.nn.functional as F
 from torch.nn.grad import conv2d_weight
 
 from lanedetection_end2end_tpu_torch.ops._build import (
-    check_cuda, kernel, launch)
+    check_cuda, kernel, launch, plane_symbol)
 from lanedetection_end2end_tpu_torch.ops.backbone import _nchw, _nhwc
 from lanedetection_end2end_tpu_torch.ops.nb_block import (
     _SUM, _moments, _ptr, _rounder)
@@ -197,16 +199,32 @@ def _check_weight(weight, bias, cs: int, cl: int, k: int):
     return w, b
 
 
-def _taps_first(w: torch.Tensor, out_axis: int) -> torch.Tensor:
-    """(cs, cl, k, k) f32 -> (k, k, ., .) bf16 with the output channel of
-    the product (axis `out_axis` of the parameter) last."""
+def _taps_first(w: torch.Tensor, out_axis: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """(cs, cl, k, k) f32 -> (k, k, ., .) in the planes' `dtype` with the
+    output channel of the product (axis `out_axis` of the parameter)
+    last."""
     order = (2, 3, 1, 0) if out_axis == 0 else (2, 3, 0, 1)
-    return w.permute(*order).to(BF16).contiguous()
+    return w.permute(*order).to(dtype).contiguous()
+
+
+def _check_plane(x: torch.Tensor, symbol: str) -> str:
+    """Validate the input plane -> the C entry `symbol` for its dtype."""
+    symbol = plane_symbol(symbol, x.dtype)
+    check_cuda(x, x.dtype, name="x")
+    return symbol
 
 
 def _check_mom_channels(C: int, name: str):
     if C not in _MOM_CHANNELS:
         raise ValueError(f"{name}: {C} channels not in {_MOM_CHANNELS}")
+
+
+def _check_out_dtype(plane: torch.dtype, out: torch.dtype):
+    """lane_maps_op writes bf16 or f32 from bf16 planes, f32 from f32."""
+    if out not in ((BF16, F32) if plane == BF16 else (F32,)):
+        raise TypeError(f"lane_maps_op: output dtype {out} from {plane} "
+                        "planes")
 
 
 def _dmom(dmom, C: int) -> Optional[torch.Tensor]:
@@ -221,16 +239,15 @@ def _downsampler_fwd_cuda(x, weight, bias):
     B, H, W, cin = x.shape
     cc = weight.shape[0]
     cout = cc + cin
-    check_cuda(x, BF16, name="x")
+    symbol = _check_plane(x, "ld_downsampler_op_fwd")
     if H % 2 or W % 2:
         raise ValueError(f"downsampler_op: odd plane {H}x{W}")
     _check_mom_channels(cout, "downsampler_op")
     w, b = _check_weight(weight, bias, cc, cin, 3)
-    wt = _taps_first(w, 0)                                # (3, 3, cin, cc)
-    y = torch.empty(B, H // 2, W // 2, cout, dtype=BF16, device=x.device)
+    wt = _taps_first(w, 0, x.dtype)                       # (3, 3, cin, cc)
+    y = torch.empty(B, H // 2, W // 2, cout, dtype=x.dtype, device=x.device)
     mom = torch.zeros(2, cout, dtype=F32, device=x.device)
-    launch(kernel("downsampler_op", "ld_downsampler_op_fwd",
-                  "p" * 5 + "i" * 5 + "p"),
+    launch(kernel("downsampler_op", symbol, "p" * 5 + "i" * 5 + "p"),
            x.device, x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
            mom.data_ptr(), B, H, W, cin, cout)
     downsampler_op.launches += 1
@@ -243,21 +260,20 @@ def downsampler_bwd_kernel(x, y, dy, dmom, weight, need_dx: bool = True):
     B, H, W, cin = x.shape
     cc = weight.shape[0]
     cout = cc + cin
-    check_cuda(x, BF16, name="x")
+    symbol = _check_plane(x, "ld_downsampler_op_bwd")
     _check_mom_channels(cout, "downsampler_op")
     dy = dy.contiguous()
     for t, name in ((y, "y"), (dy, "dy")):
-        check_cuda(t, BF16, (B, H // 2, W // 2, cout), name)
+        check_cuda(t, x.dtype, (B, H // 2, W // 2, cout), name)
     dmom = _dmom(dmom, cout)
     w = weight.float().contiguous()
     check_cuda(w, F32, (cc, cin, 3, 3), "weight")
-    wt = _taps_first(w, 1)                                # (3, 3, cc, cin)
+    wt = _taps_first(w, 1, x.dtype)                       # (3, 3, cc, cin)
     dz = torch.empty_like(y)
     dx = torch.empty_like(x) if need_dx else None
     acc = torch.zeros(w.numel() + cout, dtype=F32, device=x.device)
     dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
-    launch(kernel("downsampler_op", "ld_downsampler_op_bwd",
-                  "p" * 9 + "i" * 5 + "p"),
+    launch(kernel("downsampler_op", symbol, "p" * 9 + "i" * 5 + "p"),
            x.device, x.data_ptr(), y.data_ptr(), dy.data_ptr(),
            dmom.data_ptr(), wt.data_ptr(), dz.data_ptr(), _ptr(dx),
            dweight.data_ptr(), dbias.data_ptr(), B, H, W, cin, cout)
@@ -269,17 +285,15 @@ def _lane_maps_fwd_cuda(x, weight, bias, k, out_dtype, want_mom):
     B, H, W, cin = x.shape
     cout = weight.shape[1]
     pad = _convt_pad(k).get("padding", 0)
-    check_cuda(x, BF16, name="x")
-    if out_dtype not in (BF16, F32):
-        raise TypeError(f"lane_maps_op: out_dtype {out_dtype}")
+    symbol = _check_plane(x, "ld_lane_maps_op_fwd")
+    _check_out_dtype(x.dtype, out_dtype)
     _check_mom_channels(cout, "lane_maps_op")
     w, b = _check_weight(weight, bias, cin, cout, k)
-    wt = _taps_first(w, 1)                                # (k, k, cin, cout)
+    wt = _taps_first(w, 1, x.dtype)                       # (k, k, cin, cout)
     y = torch.empty(B, 2 * H, 2 * W, cout, dtype=out_dtype, device=x.device)
     mom = (torch.zeros(2, cout, dtype=F32, device=x.device) if want_mom
            else None)
-    launch(kernel("lane_maps_op", "ld_lane_maps_op_fwd",
-                  "p" * 5 + "i" * 8 + "p"),
+    launch(kernel("lane_maps_op", symbol, "p" * 5 + "i" * 8 + "p"),
            x.device, x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
            _ptr(mom), B, H, W, cin, cout, k, pad, int(out_dtype == F32))
     lane_maps_op.launches += 1
@@ -292,24 +306,22 @@ def lane_maps_bwd_kernel(x, y, dy, dmom, weight, k: int):
     B, H, W, cin = x.shape
     cout = weight.shape[1]
     pad = _convt_pad(k).get("padding", 0)
-    check_cuda(x, BF16, name="x")
+    symbol = _check_plane(x, "ld_lane_maps_op_bwd")
     _check_mom_channels(cout, "lane_maps_op")
     dy = dy.contiguous()
-    if dy.dtype not in (BF16, F32):
-        raise TypeError(f"lane_maps_op: output dtype {dy.dtype}")
+    _check_out_dtype(x.dtype, dy.dtype)
     check_cuda(dy, dy.dtype, (B, 2 * H, 2 * W, cout), "dy")
     dmom = _dmom(dmom, cout)
     if dmom is not None:
         check_cuda(y, dy.dtype, dy.shape, "y")
     w = weight.float().contiguous()
     check_cuda(w, F32, (cin, cout, k, k), "weight")
-    wt = _taps_first(w, 0)                                # (k, k, cout, cin)
-    dp = torch.empty(dy.shape, dtype=BF16, device=x.device)
+    wt = _taps_first(w, 0, x.dtype)                       # (k, k, cout, cin)
+    dp = torch.empty(dy.shape, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     acc = torch.zeros(w.numel() + cout, dtype=F32, device=x.device)
     dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
-    launch(kernel("lane_maps_op", "ld_lane_maps_op_bwd",
-                  "p" * 9 + "i" * 8 + "p"),
+    launch(kernel("lane_maps_op", symbol, "p" * 9 + "i" * 8 + "p"),
            x.device, x.data_ptr(), _ptr(y if dmom is not None else None),
            dy.data_ptr(), _ptr(dmom), wt.data_ptr(), dp.data_ptr(),
            dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), B, H, W, cin,
@@ -318,26 +330,28 @@ def lane_maps_bwd_kernel(x, y, dy, dmom, weight, k: int):
     return dx, dweight, dbias
 
 
-def _check_head(x, weight, bias, xs):
+def _check_head(x, weight, bias, xs, symbol):
+    """-> (weight, bias, xs on the card, the C entry `symbol` for x's
+    dtype)."""
     B, Hh, Wh, cin = x.shape
     C = weight.shape[1]
-    check_cuda(x, BF16, name="x")
+    symbol = _check_plane(x, symbol)
     if C not in (1, 2, 4, 8):
         raise ValueError(f"head_rowsums_op: {C} lanes not in (1, 2, 4, 8)")
     w, b = _check_weight(weight, bias, cin, C, 2)
     xs = xs.float().contiguous()
     check_cuda(xs, F32, (2 * Wh,), "xs")
-    return w, b, xs
+    return w, b, xs, symbol
 
 
 def _head_rowsums_fwd_cuda(x, weight, bias, xs, zero_rows):
     B, Hh, Wh, cin = x.shape
     C = weight.shape[1]
-    w, b, xs = _check_head(x, weight, bias, xs)
-    wt = _taps_first(w, 1)                                # (2, 2, cin, C)
+    w, b, xs, symbol = _check_head(x, weight, bias, xs,
+                                   "ld_head_rowsums_op_fwd")
+    wt = _taps_first(w, 1, x.dtype)                       # (2, 2, cin, C)
     S = torch.empty(B, 2 * Hh, 2 * C, dtype=F32, device=x.device)
-    launch(kernel("head_rowsums_op", "ld_head_rowsums_op_fwd",
-                  "p" * 5 + "i" * 6 + "p"),
+    launch(kernel("head_rowsums_op", symbol, "p" * 5 + "i" * 6 + "p"),
            x.device, x.data_ptr(), wt.data_ptr(), b.data_ptr(),
            xs.data_ptr(), S.data_ptr(), B, 2 * Hh, 2 * Wh, cin, C,
            int(zero_rows))
@@ -350,17 +364,17 @@ def head_rowsums_bwd_kernel(x, dS, weight, bias, xs, zero_rows: int):
     `head_rowsums_bwd_plain`."""
     B, Hh, Wh, cin = x.shape
     C = weight.shape[1]
-    w, b, xs = _check_head(x, weight, bias, xs)
+    w, b, xs, symbol = _check_head(x, weight, bias, xs,
+                                   "ld_head_rowsums_op_bwd")
     dS = dS.float().contiguous()
     check_cuda(dS, F32, (B, 2 * Hh, 2 * C), "dS")
-    wf = _taps_first(w, 1)                                # (2, 2, cin, C)
-    wt = _taps_first(w, 0)                                # (2, 2, C, cin)
-    dp = torch.empty(B, 2 * Hh, 2 * Wh, C, dtype=BF16, device=x.device)
+    wf = _taps_first(w, 1, x.dtype)                       # (2, 2, cin, C)
+    wt = _taps_first(w, 0, x.dtype)                       # (2, 2, C, cin)
+    dp = torch.empty(B, 2 * Hh, 2 * Wh, C, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     acc = torch.zeros(w.numel() + C, dtype=F32, device=x.device)
     dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
-    launch(kernel("head_rowsums_op", "ld_head_rowsums_op_bwd",
-                  "p" * 10 + "i" * 6 + "p"),
+    launch(kernel("head_rowsums_op", symbol, "p" * 10 + "i" * 6 + "p"),
            x.device, x.data_ptr(), dS.data_ptr(), wf.data_ptr(),
            wt.data_ptr(), b.data_ptr(), xs.data_ptr(), dp.data_ptr(),
            dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), B, 2 * Hh,

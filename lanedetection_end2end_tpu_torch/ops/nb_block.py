@@ -19,7 +19,8 @@ kernels step by step, with the moment cotangent `ds1 + 2 y ds2` folded into
 the output gradient and, for half B, the prologue recomputed.
 
 A CUDA tensor launches the kernels (`csrc/nb_half_fwd.cu`,
-`csrc/nb_half_bwd.cu`; bf16 planes, C in {16, 64, 128}) or raises; a CPU
+`csrc/nb_half_bwd.cu`; bf16 or float32 planes, each dtype its own C entry,
+every plane of a call in one dtype, C in {16, 64, 128}) or raises; a CPU
 tensor takes the plain versions below (`half_fwd_plain`, `half_bwd_plain`),
 forward and backward, in any float dtype. The TPU's block-diagonal `kexp`, `sel` and banded W-conv matrices
 are lane-packing devices and are not ported.
@@ -35,10 +36,9 @@ from typing import Optional, Tuple
 import torch
 
 from lanedetection_end2end_tpu_torch.ops._build import (
-    check_cuda, kernel, launch)
+    check_cuda, kernel, launch, plane_symbol)
 from lanedetection_end2end_tpu_torch.ops.nb1d import _conv3
 
-BF16 = torch.bfloat16
 _SUM = (0, 1, 2)  # the pixel axes of an NHWC plane
 
 
@@ -136,12 +136,14 @@ def nb_half_b_plain(y2, mul, add, kh, bh, kw, bw, d: int):
 # Kernel launches
 # ----------------------------------------------------------------------
 
-def _check_plane(x: torch.Tensor, name: str) -> Tuple[int, int, int, int]:
+def _check_plane(x: torch.Tensor, symbol: str):
+    """-> (B, H, W, C, the C entry `symbol` for x's dtype)."""
     B, H, W, C = x.shape
     if C not in (16, 64, 128):
         raise ValueError(f"nb_half kernels: C={C} not in (16, 64, 128)")
-    check_cuda(x, BF16, name=name)
-    return B, H, W, C
+    symbol = plane_symbol(symbol, x.dtype)
+    check_cuda(x, x.dtype, name="x")
+    return B, H, W, C, symbol
 
 
 def _muladd(mul, add, C: int) -> Optional[torch.Tensor]:
@@ -157,17 +159,17 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _half_fwd_cuda(x, mul, add, kh, bh, kw, bw, d: int):
-    B, H, W, C = _check_plane(x, "x")
-    khb, kwb = kh.to(BF16).contiguous(), kw.to(BF16).contiguous()
+    B, H, W, C, symbol = _check_plane(x, "ld_nb_half_fwd")
+    khb, kwb = kh.to(x.dtype).contiguous(), kw.to(x.dtype).contiguous()
     bhf, bwf = bh.float().contiguous(), bw.float().contiguous()
     for t, shape, name in ((khb, (3, C, C), "kh"), (kwb, (3, C, C), "kw")):
-        check_cuda(t, BF16, shape, name)
+        check_cuda(t, x.dtype, shape, name)
     for t, name in ((bhf, "bh"), (bwf, "bw")):
         check_cuda(t, torch.float32, (C,), name)
     ma = _muladd(mul, add, C)
     ymid, yout = torch.empty_like(x), torch.empty_like(x)
     mom = torch.zeros(2, C, dtype=torch.float32, device=x.device)
-    launch(kernel("nb_half_fwd", "ld_nb_half_fwd", "pppppppppiiiiip"),
+    launch(kernel("nb_half_fwd", symbol, "pppppppppiiiiip"),
            x.device, x.data_ptr(), khb.data_ptr(), bhf.data_ptr(),
            kwb.data_ptr(), bwf.data_ptr(), _ptr(ma), ymid.data_ptr(),
            yout.data_ptr(), mom.data_ptr(), B, H, W, C, d)
@@ -178,14 +180,14 @@ def _half_fwd_cuda(x, mul, add, kh, bh, kw, bw, d: int):
 def half_bwd_kernel(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int):
     """Launch the backward kernels on CUDA tensors; arguments and result as
     `half_bwd_plain`."""
-    B, H, W, C = _check_plane(x, "x")
+    B, H, W, C, symbol = _check_plane(x, "ld_nb_half_bwd")
     dyout = dyout.contiguous()
     for t, name in ((ymid, "ymid"), (yout, "yout"), (dyout, "dyout")):
-        check_cuda(t, BF16, x.shape, name)
+        check_cuda(t, x.dtype, x.shape, name)
     dmom = dmom.float().contiguous()
     check_cuda(dmom, torch.float32, (2, C), "dmom")
-    khT = _transposed_taps(kh).to(BF16).contiguous()
-    kwT = _transposed_taps(kw).to(BF16).contiguous()
+    khT = _transposed_taps(kh).to(x.dtype).contiguous()
+    kwT = _transposed_taps(kw).to(x.dtype).contiguous()
     ma = _muladd(mul, add, C)
     dyv, dmid, dx = (torch.empty_like(x) for _ in range(3))
     # one zeroed f32 buffer for everything the kernels accumulate into
@@ -194,7 +196,7 @@ def half_bwd_kernel(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int):
     dkh, dkw = acc[:n_k].view(3, C, C), acc[n_k:2 * n_k].view(3, C, C)
     dbh, dbw = acc[2 * n_k:2 * n_k + C], acc[2 * n_k + C:2 * n_k + 2 * C]
     dma = acc[2 * n_k + 2 * C:].view(2, C) if ma is not None else None
-    launch(kernel("nb_half_bwd", "ld_nb_half_bwd", "p" * 16 + "iiiiip"),
+    launch(kernel("nb_half_bwd", symbol, "p" * 16 + "iiiiip"),
            x.device, x.data_ptr(), _ptr(ma), ymid.data_ptr(),
            yout.data_ptr(), dyout.data_ptr(), dmom.data_ptr(),
            khT.data_ptr(), kwT.data_ptr(), dyv.data_ptr(), dmid.data_ptr(),

@@ -64,12 +64,11 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
     blocks and the tail on the lane-map kernels; False is
     `PACKED_FUSED_MAPS=0`.
 
-    On the card, a float32 step needs `fused_blocks=False` (with
-    `fused_maps` False, as None gives it): K11 and `channel_sums` have
-    float32 kernels, the fused kernels K6-K10 do not yet, and they raise
-    on a float32 plane. The cuDNN convolutions of that path (stride-2
-    blocks, heads) follow PyTorch's TF32 flags, which the step leaves as
-    they are."""
+    Every kernel of every path takes bf16 and float32 planes on the card,
+    so both dtypes train there with any `fused_blocks` and `fused_maps`.
+    The cuDNN convolutions (the stride-2 blocks with `fused_maps=False`,
+    the heads) follow PyTorch's TF32 flags, which the step leaves as they
+    are."""
     if phase != "e2e" or cfg.profile != "bp":
         raise NotImplementedError(
             "the port trains the 'bp' profile in phase 'e2e' only")

@@ -98,15 +98,25 @@ def test_kernel_wrappers_refuse_other_devices():
         nb1d(x, {"w": x, "vec": x, "dilation": 1})
 
 
-def test_check_cuda_names_the_missing_float32_kernels(monkeypatch):
-    """The kernels take bf16 planes; a float32 plane on the card raises
-    with a message that says so (it never takes the plain version)."""
+def test_check_cuda_takes_float32_planes_and_refuses_a_mismatch():
+    """The kernels take bf16 and float32 planes: a float32 plane on the
+    card passes `check_cuda(t, torch.float32)`, and a dtype other than the
+    one asked for still raises (it never takes the plain version)."""
     from lanedetection_end2end_tpu_torch.ops import _build
 
     class OnCard:  # stands in for a CUDA tensor: this host has no card
         device = torch.device("cuda", 0)
         dtype = torch.float32
+        shape = (2, 4, 4, 16)
 
-    with pytest.raises(TypeError, match="float32 instantiation is not "
-                                        "written yet"):
+        def is_contiguous(self):
+            return True
+
+        def data_ptr(self):
+            return 4096
+
+    assert _build.check_cuda(OnCard(), torch.float32, (2, 4, 4, 16),
+                             "x") == 4096
+    with pytest.raises(TypeError, match="expected torch.bfloat16, got "
+                                        "torch.float32"):
         _build.check_cuda(OnCard(), torch.bfloat16, name="x")
