@@ -11,7 +11,7 @@ step and its largest kernels. Needs one CUDA card, nvcc and the repository
 checkout; exits non-zero on any failed check and prints no result without
 a card. In order:
 
-1. build the thirteen kernel libraries from
+1. build the fifteen kernel libraries from
    `lanedetection_end2end_tpu_torch/csrc/` (one nvcc per source, all at
    once) and print the card's name and power limit;
 2. hold each serving kernel against its plain PyTorch version on CUDA
@@ -48,8 +48,10 @@ a card. In order:
 3. serve 3 batches of 8 random 256x512 images through
    `FusedLaneNetEngine` (train_sh config, seeded random weights with
    non-trivial BatchNorm statistics), check the kernel launch counts of
-   those calls and hold beta / line / horizon against the plain float32
-   `LaneNet` on the card (TF32 off);
+   those calls (per call 1 `encoder_fused` and 1 `decoder_fused`, the
+   whole encoder and the whole decoder as one cooperative launch each, and
+   0 of K1-K4, `nb1d_chain`, `wls_moments`) and hold beta / line / horizon
+   against the plain float32 `LaneNet` on the card (TF32 off);
 3b. the same 3 batches through the same engine's blocks path, with the
    launch counts set to 0 just before: per call 4 `nb1d_chain`, 0 of K1-K4
    and 0 `wls_moments` with the config's homography (the path driven
@@ -59,6 +61,17 @@ a card. In order:
    against the f32 `LaneNet` whose fit takes the rolled homography's
    moments from K12's plain version; ms per batch beside the full
    engine's;
+3c. the block path (`encoder_blocks` -> `decoder_blocks`: 17 K1, 3 K2, 2
+   K3, 1 K4 per call) on the same 3 batches with the launch counts set to
+   0 just before; `encoder_fused` and `decoder_fused` bit for bit against
+   it on every batch and at the resize-64 edge (the 8x16 NB1D-128 plane
+   with d = 16 >= H, W), against their plain versions, timed beside the
+   block sequence, the plain versions and the bound; then the row-12
+   harness (`lanedetection_end2end_tpu_torch/tools/prof_block_stack.py`,
+   the block applied 8 times per `nb1d_chain` launch) at batch 32 with 1,
+   2 and 4 images per launch, its counted pass of 32 + 16 + 8 launches,
+   the stacked outputs bit for bit the single-image ones, and its
+   block-img/s per stack;
 4. take e2e train steps through `make_train_step` (same config with
    compute_dtype bfloat16, then again with float32, the config's default;
    adam, seeded random weights, a seeded synthetic batch of 8): first one
@@ -87,15 +100,23 @@ a card. In order:
    `{"ok": true, "device": {...}}` last.
 
 In the kernels line, `launches` counts the wrapper calls of the 3 engine
-calls (serving kernels; `nb1d_chain` and `wls_moments`: the 3 + 3 calls of
-phase 3b) or of the 3 default bf16 train steps (training
+calls (`encoder_fused`, `decoder_fused`; `nb1d_chain` and `wls_moments`:
+the 3 + 3 calls of phase 3b), of the 3 calls of the block path (K1-K4,
+phase 3c), of the harness's counted pass (`row12`, which names
+`nb1d_chain.cu` as its source) or of the 3 default bf16 train steps (training
 kernels, with `bwd_launches` beside it; for K11 and `channel_sums` of the
 3 bf16 steps of phase 4d), and
 `ms`, `plain_ms` and `bound_ms` are per
 engine call or per train step (batch 8): the sum over the path's shapes of
 the median time (or bound) times the launches per call (for K11 and
 `channel_sums` per unfused step; `packed_conv`, which no path runs, is
-weighted as if the step ran it at each of its 68 convolutions). Every
+weighted as if the step ran it at each of its 68 convolutions).
+`encoder_fused` and `decoder_fused` carry their time per call beside
+`block_sequence_ms`, that of the 23 wrapper calls of K1-K4 computing the
+same outputs, and their bound counts only the bytes that must cross HBM
+(the image, the constants and enc; enc, the constants and S); `row12`'s
+`ms` is one pass of 32 single-image launches, with `block_img_per_s` per
+stack. Every
 training kernel (K6-K11, `channel_sums`) carries its float32 numbers in a
 `float32` object beside the bf16 ones, with the launches of the 3 float32
 default steps (K6-K10) or of the 3 float32 unfused steps (K11,
@@ -128,8 +149,18 @@ residuals: measured on an H100, 9.3e-3 after the five 64-channel blocks and
 block alike, so a chain is held at 2e-2 of max|plain|, the bar the JAX
 package holds its own chain to (tests/test_pallas_wls.py:180), and must
 moreover equal K1 block by block bit for bit: both run the same device
-code. K12's moments are f32 sums in
-another order than the plain version's float64 ones: max|diff| / max|plain|
+code. Likewise the whole encoder and the whole decoder run K1-K4's device
+code (the decoder's head K4's row body, in K4's order of operations) and
+must equal the block sequence bit for bit; against their plain versions
+they carry the chains' rounding steps through 16 and 7 stages: enc is
+held at TOL_BLOCK of max|plain| (measured on an H100: up to 1.63e-2,
+the NB1D-128 chain alone 1.2e-2), and the decoder's f32 row sums S,
+sums of the fourth power of logits computed from those bf16 planes, at
+TOL_S = 5e-3 (measured up to 2.04e-3). A control, the plain decoder with every
+logit 1 + 2^-8 times too large (S off by about 4 x 2^-8 = 1.6e-2, under
+TOL_BLOCK), must read above TOL_S in the same run. K12's
+moments are f32 sums in another order than the plain version's float64
+ones: max|diff| / max|plain|
 <= 1e-4, the bar the JAX package holds its own kernel to against a float64
 oracle, and two launches agree bit for bit (fixed summation order, no
 atomics). The f32 row sums
@@ -224,6 +255,8 @@ BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
 FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 ROLL_DEGREES = 2.0  # camera roll of the general (non-separable) homography
 TOL_BF16, TOL_F32, TOL_REDUCE, TOL_BLOCK = 1e-2, 1e-4, 2e-3, 2e-2
+TOL_S = 5e-3  # the fused decoder's row sums S against its plain version
+EDGE_BATCHES = 4  # batches of 2 at the resize-64 edge in phase 3c
 TRAIN_STEPS = 3
 DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 # the float32 unfused step on the kernels against the step on their plain
@@ -255,6 +288,9 @@ REPLACES = {
     "packed_conv_act":
         "lanedetection_end2end_tpu/ops/pallas_packed_conv.py:245",
     "packed_conv": "lanedetection_end2end_tpu/ops/pallas_packed_conv.py:112",
+    "encoder_fused": "lanedetection_end2end_tpu/models/fused_graph.py:178",
+    "decoder_fused": "lanedetection_end2end_tpu/models/fused_graph.py:178",
+    "row12": "tools/prof_block_stack.py:67",
 }
 # kernel -> (forward source, backward source) where they are not `name`.cu
 SOURCES = {
@@ -265,8 +301,10 @@ SOURCES = {
     "head_rowsums_op": ("head_rowsums_op.cu", "head_rowsums_op.cu"),
     "packed_conv_act": ("packed_conv.cu", "packed_conv.cu"),
     "packed_conv": ("packed_conv.cu", "packed_conv.cu"),
+    "row12": ("nb1d_chain.cu", None),
 }
 SERVING = ("nb1d", "downsampler", "upsampler", "head_rowsums")
+FUSED = ("encoder_fused", "decoder_fused")  # the full engine's kernels
 BLOCKS = ("nb1d_chain", "wls_moments")  # the blocks-mode engine's kernels
 CSRC = "lanedetection_end2end_tpu_torch/csrc/"
 
@@ -1242,6 +1280,219 @@ def hold_serving(outs, images, model, cfg, label):
     return worst
 
 
+# ----------------------------------------------------------------------
+# Phase 3c: the whole encoder and the whole decoder, one launch each, and
+# the row-12 harness
+# ----------------------------------------------------------------------
+
+def _meta(*shape):
+    return torch.empty(*shape, device="meta")
+
+
+STAGE_WORK = {"down": down_work, "up": up_work, "nb1d": nb1d_work,
+              "head": head_work}
+
+
+def stages_flop(p, stages, shape):
+    """The operations of the fused kernel's stages run on `shape`, each
+    stage on the shape the one before it gives."""
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        stage, stage_kind)
+    flop = 0
+    for key in stages:
+        kind, q = stage_kind(key), stage(p, key)
+        flop += STAGE_WORK[kind](_meta(*shape), q)[0]
+        B, H, W, _ = shape
+        if kind == "down":
+            shape = (B, H // 2, W // 2, q["mul"].numel())
+        elif kind == "up":
+            shape = (B, 2 * H, 2 * W, q["w"].shape[-1])
+    return flop
+
+
+def encoder_work(p, B, H, W):
+    """The whole encoder on (B, H, W, 3): its stages' operations; bytes
+    that must cross HBM: the image, the constants and enc, once each."""
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import ENC_STAGES
+    nbytes = (2 * B * H * W * 3 + 2 * p["wbuf"].numel()
+              + 4 * p["vbuf"].numel() + 2 * B * (H // 8) * (W // 8) * 128)
+    return stages_flop(p, ENC_STAGES, (B, H, W, 3)), nbytes
+
+
+def decoder_work(p, B, H, W):
+    """The whole decoder to S (B, H, 2C): its stages' operations; bytes
+    that must cross HBM: enc, the constants and S, once each."""
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import DEC_STAGES
+    C = p["head"]["bias"].numel()
+    nbytes = (2 * B * (H // 8) * (W // 8) * 128 + 2 * p["wbuf"].numel()
+              + 4 * p["vbuf"].numel() + 4 * B * H * 2 * C)
+    return stages_flop(p, DEC_STAGES, (B, H // 8, W // 8, 128)), nbytes
+
+
+def check_fused_backbone(dev, g, sd, packed, images):
+    """Phase 3c. The block path (`encoder_blocks` -> `decoder_blocks`, 23
+    wrapper calls of K1-K4) on the engine's batches with the launch counts
+    set to 0 just before and read just after; then `encoder_fused` and
+    `decoder_fused` bit for bit against it on every batch (the decoder on
+    the block path's features) and on EDGE_BATCHES batches at the
+    resize-64 edge (the 8x16 NB1D-128 plane, d = 16 >= H, W), on each
+    against their plain versions (enc at
+    TOL_BLOCK, S at TOL_S, beside the control that TOL_S must catch), and
+    timed beside the block sequence and the bound. Returns
+    ({name: summary}, block-path launches, failures)."""
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.models.fused_graph import (
+        decoder_blocks, encoder_blocks, pack_decoder)
+    from lanedetection_end2end_tpu_torch.models.lanenet import make_fitter
+    from lanedetection_end2end_tpu_torch.ops import backbone as bb
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, decoder_plain, encoder_fused_kernel,
+        encoder_plain)
+    from lanedetection_end2end_tpu_torch.ops.nb1d import nb1d
+
+    wrappers = {"nb1d": nb1d, "downsampler": bb.downsampler,
+                "upsampler": bb.upsampler, "head_rowsums": bb.head_rowsums}
+    failures = []
+    for w in wrappers.values():
+        w.launches = 0
+    refs = []
+    for x in images:
+        e = encoder_blocks(x, packed["enc"])
+        refs.append((x.to(torch.bfloat16).contiguous(), e,
+                     decoder_blocks(e, packed["dec"])))
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    per_call = {"nb1d": 17, "downsampler": 3, "upsampler": 2,
+                "head_rowsums": 1}
+    print(f"block path (encoder_blocks, decoder_blocks) launches over "
+          f"{len(images)} calls: {launches}")
+    if launches != {n: len(images) * v for n, v in per_call.items()}:
+        failures.append(f"block path launches {launches}, expected "
+                        f"{per_call} per call")
+
+    cfg64 = train_sh_config(resize=64, reg_ls=1.0)
+    dec64 = pack_decoder(sd, cfg64, make_fitter(cfg64, dev))
+    refs_edge = []
+    for _ in range(EDGE_BATCHES):
+        xe = torch.rand(2, 64, 128, 3, generator=g, device=dev).to(
+            torch.bfloat16).contiguous()
+        enc_e = encoder_blocks(xe, packed["enc"])
+        refs_edge.append((xe, enc_e, decoder_blocks(enc_e, dec64)))
+    summary = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0, "ops_ms": 0.0, "blocks_ms": 0.0,
+                   "library_ms": None}
+               for n in ("encoder_fused", "decoder_fused")}
+    for label, cases, dec, timed in (
+            (f"{BATCH}x{RESIZE}x{2 * RESIZE}", refs, packed["dec"], True),
+            ("resize-64 edge", refs_edge, dec64, False)):
+        # the control: the plain decoder with every logit 1 + 2^-8 times
+        # too large, which the bar on S must catch
+        head = dec["head"]
+        up = 1 + 2 ** -8
+        dec_c = dict(dec, head=dict(head, w=head["w"].float() * up,
+                                    bias=head["bias"] * up))
+        control = float("inf")
+        seen = {n: {"same": True, "sound": True, "err": 0.0, "rel": 0.0}
+                for n in summary}
+        for x, enc_b, S_b in cases:
+            S_p = decoder_plain(enc_b, dec)
+            control = min(control, rel_err(decoder_plain(enc_b, dec_c),
+                                           S_p)[1])
+            for name, got, ref, want in (
+                    ("encoder_fused", encoder_fused_kernel(x, packed["enc"]),
+                     enc_b, encoder_plain(x, packed["enc"])),
+                    ("decoder_fused", decoder_fused_kernel(enc_b, dec), S_b,
+                     S_p)):
+                err, rel = rel_err(got, want)
+                v = seen[name]
+                v["same"] &= torch.equal(got, ref)
+                v["sound"] &= (got.shape == want.shape
+                               and got.dtype == want.dtype
+                               and torch.isfinite(got.float()).all().item())
+                v["err"], v["rel"] = max(v["err"], err), max(v["rel"], rel)
+        x, enc_b, _ = cases[0]
+        for name, tol, work, fused, blocks, plain in (
+                ("encoder_fused", TOL_BLOCK, encoder_work,
+                 lambda: encoder_fused_kernel(x, packed["enc"]),
+                 lambda: encoder_blocks(x, packed["enc"]),
+                 lambda: encoder_plain(x, packed["enc"])),
+                ("decoder_fused", TOL_S, decoder_work,
+                 lambda: decoder_fused_kernel(enc_b, dec),
+                 lambda: decoder_blocks(enc_b, dec),
+                 lambda: decoder_plain(enc_b, dec))):
+            v, s = seen[name], summary[name]
+            ok = v["same"] and v["sound"] and v["rel"] <= tol
+            s["max_abs_err"] = max(s["max_abs_err"], v["err"])
+            line = (f"check {name} {label}: bit for bit equal to the block "
+                    f"sequence on {len(cases)} batch(es): {v['same']}; "
+                    f"largest max|diff| vs plain {v['err']:.3e} "
+                    f"({v['rel']:.2e} of max|plain|, tol {tol:g})")
+            if name == "decoder_fused":
+                caught = control > tol
+                ok &= caught
+                line += (f"; control, logits x (1 + 2^-8): least "
+                         f"{control:.2e} of max|plain|, "
+                         f"{'' if caught else 'NOT '}above the tol")
+            line += f": {'ok' if ok else 'FAIL'}"
+            if timed:
+                B, H, W, _ = x.shape
+                k_ms, b_ms, p_ms = (median_ms(f)
+                                    for f in (fused, blocks, plain))
+                bnd, by = bound_ms(*work(packed["enc"] if name ==
+                                         "encoder_fused" else dec, B, H, W))
+                s.update(ms=k_ms, blocks_ms=b_ms, plain_ms=p_ms,
+                         bound_ms=bnd, ops_ms=bnd * (by == "operations"))
+                line += (f"; fused {k_ms:.4f} ms, block sequence {b_ms:.4f}"
+                         f" ms, plain {p_ms:.4f} ms, bound {bnd:.4f} ms "
+                         f"({by}); x1 per engine call")
+            print(line)
+            if not ok:
+                failures.append(f"{name} {label}")
+    return summary, launches, failures
+
+
+def check_row12(dev):
+    """Phase 3c, last: the row-12 harness
+    (`lanedetection_end2end_tpu_torch/tools/prof_block_stack.py`) at
+    --bs 32 --reps 8 --stacks 1,2,4: one pass at each stack with the
+    `nb1d_chain` count set to 0 just before and read just after (32 + 16 +
+    8 launches), the stacked outputs bit for bit the S = 1 outputs and
+    within TOL_BLOCK of the plain chain, then block-img/s per stack as the
+    JAX tool prints it. Returns (summary, launches, failures)."""
+    from lanedetection_end2end_tpu_torch.ops.nb1d import (
+        nb1d_chain, nb1d_chain_plain)
+    from lanedetection_end2end_tpu_torch.tools.prof_block_stack import (
+        block_img_per_s, run_stacked, setup)
+    bs, reps, stacks = 32, 8, (1, 2, 4)
+    x, chain = setup(bs, reps, dev)
+    nb1d_chain.launches = 0
+    outs = {s: run_stacked(x, chain, s) for s in stacks}
+    torch.cuda.synchronize()
+    launches = nb1d_chain.launches
+    equal = all(torch.equal(outs[s], outs[1]) for s in stacks)
+    err, rel = rel_err(outs[1], nb1d_chain_plain(x, chain))
+    ok = (equal and launches == sum(bs // s for s in stacks)
+          and torch.isfinite(outs[1].float()).all().item()
+          and rel <= TOL_BLOCK)
+    print(f"check row12 harness (nb1d_chain, {reps} x NB1D-128 d=2 on "
+          f"{tuple(x.shape)}): {launches} launches, stacks {stacks} bit for "
+          f"bit equal: {equal}, max|diff| vs plain {err:.3e} ({rel:.2e} of "
+          f"max|plain|, tol {TOL_BLOCK:g}): {'ok' if ok else 'FAIL'}")
+    rates = {s: block_img_per_s(x, chain, s) for s in stacks}
+    for s in stacks:
+        print(f"BS={bs} REPS={reps} STACK={s}: {rates[s]:.1f} block-img/s")
+    k_ms = median_ms(lambda: run_stacked(x, chain, 1))
+    p_ms = median_ms(lambda: nb1d_chain_plain(x, chain))
+    b_ms, by = bound_ms(*chain_work(x, chain))
+    print(f"row12: {bs} launches of 1 image {k_ms:.4f} ms, plain {p_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({by})")
+    summary = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "ops_ms": b_ms * (by == "operations"),
+               "library_ms": None,
+               "block_img_per_s": {str(s): r for s, r in rates.items()}}
+    return summary, launches, [] if ok else ["row12 harness"]
+
+
 def synthetic_batch(seed: int) -> dict:
     """A seeded batch of 8 in the dataset's compact form (host tensors)."""
     g = torch.Generator().manual_seed(seed)
@@ -1627,7 +1878,7 @@ OWN_KERNELS = (  # device functions of csrc/, as the profiler names them
     "head_rowsums_kernel", "downsampler_kernel", "upsampler_kernel",
     "nb1d_chain_kernel", "wls_partial_kernel", "wls_sum_kernel",
     "conv3tap_f32_kernel", "wgrad3tap_f32_kernel", "dz_kernel",
-    "wgrad_s2_f32_kernel")
+    "wgrad_s2_f32_kernel", "encoder_fused_kernel", "decoder_fused_kernel")
 
 
 def profile_steps(run_step, step_ms: float, label: str,
@@ -1689,6 +1940,8 @@ def main() -> int:
     from lanedetection_end2end_tpu_torch.ops.backbone import (
         downsampler, downsampler_plain, head_rowsums, head_rowsums_plain,
         upsampler, upsampler_plain)
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, encoder_fused_kernel)
     from lanedetection_end2end_tpu_torch.ops.nb1d import (
         nb1d, nb1d_chain, nb1d_plain)
     from lanedetection_end2end_tpu_torch.ops.wls_moments import wls_moments
@@ -1846,10 +2099,13 @@ def main() -> int:
     torch.cuda.synchronize()
     wrappers = {"nb1d": nb1d, "downsampler": downsampler,
                 "upsampler": upsampler, "head_rowsums": head_rowsums,
+                "encoder_fused": encoder_fused_kernel,
+                "decoder_fused": decoder_fused_kernel,
                 "nb1d_chain": nb1d_chain, "wls_moments": wls_moments}
     outs, batch_ms, launches = serve(engine, packed, images, wrappers)
-    expected = {"nb1d": 17, "downsampler": 3, "upsampler": 2,
-                "head_rowsums": 1, "nb1d_chain": 0, "wls_moments": 0}
+    expected = {"nb1d": 0, "downsampler": 0, "upsampler": 0,
+                "head_rowsums": 0, "encoder_fused": 1, "decoder_fused": 1,
+                "nb1d_chain": 0, "wls_moments": 0}
     print(f"engine launches over {N_BATCHES} calls: {launches}")
     for n, per in expected.items():
         if launches[n] != N_BATCHES * per:
@@ -1878,7 +2134,8 @@ def main() -> int:
         outs, b_ms, counts = serve(call, packed, images, wrappers)
         print(f"{label}: launches over {N_BATCHES} calls: {counts}")
         want = {"nb1d": 0, "downsampler": 0, "upsampler": 0,
-                "head_rowsums": 0, "nb1d_chain": 4, "wls_moments": per_call}
+                "head_rowsums": 0, "encoder_fused": 0, "decoder_fused": 0,
+                "nb1d_chain": 4, "wls_moments": per_call}
         if counts != {n: N_BATCHES * v for n, v in want.items()}:
             fail(f"{label}: launches {counts}, expected {want} per call")
         hold_serving(outs, images, model, cfg, label)
@@ -1893,6 +2150,14 @@ def main() -> int:
             profile_steps(lambda: call(packed, images[0]), b_med,
                           f"{label} call")
     engine.fitter, model.fitter = config_fitter, reference_fitter
+
+    # 3c. the whole encoder and decoder against the block path, and the
+    # row-12 harness
+    fused_summary, block_launches, failures = check_fused_backbone(
+        dev, g, model.state_dict(), packed, images)
+    row12_summary, row12_launches, f = check_row12(dev)
+    if failures + f:
+        fail("fused backbone or row-12 harness: " + "; ".join(failures + f))
 
     # 4. train steps on the fused blocks, bf16 then float32 -------------
     sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1911,8 +2176,9 @@ def main() -> int:
 
     # 5. kernels line and result ----------------------------------------
     kernels = []
-    path_launches = {n: launches[n] for n in SERVING}
-    path_launches.update(blocks_launches)
+    path_launches = dict(block_launches)
+    path_launches.update({n: launches[n] for n in FUSED})
+    path_launches.update(blocks_launches, row12=row12_launches)
     path_launches.update({n: v[0]
                           for n, v in train_launches["bfloat16"].items()})
 
@@ -1936,8 +2202,8 @@ def main() -> int:
     by_dtype = {dname: {**train_summary[dname],
                         **{n: v[dname] for n, v in k11_summary.items()}}
                 for dname in DTYPE_NAMES.values()}
-    for n, s in {**summary, **blocks_summary,
-                 **by_dtype["bfloat16"]}.items():
+    for n, s in {**summary, **fused_summary, **blocks_summary,
+                 "row12": row12_summary, **by_dtype["bfloat16"]}.items():
         fwd_source, bwd_source = SOURCES.get(n, (f"{n}.cu", None))
         entry = {"name": n, "route": "cuda", "source": CSRC + fwd_source,
                  "replaces": REPLACES[n], "launches": path_launches[n],
@@ -1959,6 +2225,10 @@ def main() -> int:
                     ms_at_library_shape=f["ms_at_library_shape"])
         if "k1_ms" in s:
             entry["k1_block_by_block_ms"] = s["k1_ms"]
+        if "blocks_ms" in s:
+            entry["block_sequence_ms"] = s["blocks_ms"]
+        if "block_img_per_s" in s:
+            entry["block_img_per_s"] = s["block_img_per_s"]
         if "library_of" in s:
             entry.update(library_of=s["library_of"],
                          ms_at_library_shape=s["ms_at_library_shape"])

@@ -34,6 +34,35 @@ __device__ __forceinline__ float stf(float* p, long long i, float v) {
   return v;
 }
 
+// Loads of activation planes. kCoherent reads through L2 only
+// (ld.global.cg): a persistent kernel (nb1d_chain.cu, encoder_fused.cu,
+// decoder_fused.cu) rewrites its planes within one launch, so no SM may
+// keep a stale line of them in its L1, nor read them through the read-only
+// path.
+template <bool kCoherent>
+__device__ __forceinline__ uint4 load_vec(const bf16* p) {
+  if (kCoherent) return __ldcg(reinterpret_cast<const uint4*>(p));
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+template <bool kCoherent>
+__device__ __forceinline__ float load_bf(const bf16* p) {
+  if (kCoherent)
+    return bf2f(__ushort_as_bfloat16(
+        __ldcg(reinterpret_cast<const unsigned short*>(p))));
+  return bf2f(*p);
+}
+
+// A value of a bf16 or f32 plane as a float, as `load_bf` reads it.
+template <bool kCoherent>
+__device__ __forceinline__ float load_f(const bf16* p) {
+  return load_bf<kCoherent>(p);
+}
+template <bool kCoherent>
+__device__ __forceinline__ float load_f(const float* p) {
+  return kCoherent ? __ldcg(p) : *p;
+}
+
 static inline int grid_1d(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
 }
@@ -91,4 +120,62 @@ __device__ __forceinline__ bool fold_lanes(float (&v)[N], int group) {
       v[j] += __shfl_xor_sync(0xffffffffu, v[j], off);
   }
   return (threadIdx.x & 31) < group;
+}
+
+// The stage table of a persistent kernel, passed to it by value: stage s's
+// weights at offset w[s] of the bf16 weight buffer, its vectors at v[s] of
+// the f32 vector buffer, its dilation d[s]. Read from 3 * N host ints laid
+// out as (w offsets, v offsets, dilations).
+template <int N>
+struct StageTable {
+  int w[N];
+  int v[N];
+  int d[N];
+};
+
+template <int N>
+static inline StageTable<N> read_table(const void* table) {
+  StageTable<N> tab;
+  const int* t = static_cast<const int*>(table);
+  for (int s = 0; s < N; ++s) {
+    tab.w[s] = t[s];
+    tab.v[s] = t[N + s];
+    tab.d[s] = t[2 * N + s];
+  }
+  return tab;
+}
+
+// Launch `kern` as one cooperative grid of `threads`-thread blocks with
+// `smem` bytes of dynamic shared memory: as many blocks as can be resident
+// at once (the occupancy at `smem` times the SM count), at most `units`.
+// Returns the launch's error: a card that refuses the launch is an error,
+// never a smaller grid or another path.
+template <typename Kernel>
+static inline int launch_cooperative(Kernel kern, int threads, int smem,
+                                     long long units, void** args,
+                                     cudaStream_t stream) {
+  cudaError_t e;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const long long most = (long long)per_sm * sms;
+  const int grid = (int)(units < 1 ? 1 : units < most ? units : most);
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                  dim3(grid), dim3(threads), args, smem,
+                                  stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

@@ -22,8 +22,10 @@
 // so a warp reads one input pixel (a broadcast) and a contiguous run of
 // weights (coalesced, L1/L2 resident) for each tap. CUDA cores, no
 // tensor cores: this block is under 3% of the backbone's FLOP.
+// The per-output body is in downsampler.cuh, shared with the
+// whole-encoder kernel encoder_fused.cu.
 
-#include "common.cuh"
+#include "downsampler.cuh"
 
 namespace {
 
@@ -35,40 +37,10 @@ __global__ void downsampler_kernel(const bf16* __restrict__ x,
                                    const float* __restrict__ add,
                                    bf16* __restrict__ out, int B, int H, int W,
                                    int cin, int cout) {
-  const int Ho = H / 2, Wo = W / 2, cc = cout - cin;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * Ho * Wo * cout) return;
-  const int co = (int)(idx % cout);
-  const long long pix = idx / cout;
-  const int wo = (int)(pix % Wo);
-  const int ho = (int)((pix / Wo) % Ho);
-  const int b = (int)(pix / ((long long)Wo * Ho));
-  const bf16* xb = x + (size_t)b * H * W * cin;
-
-  float v;
-  if (co < cc) {
-    float acc = 0.0f;
-    for (int kh = 0; kh < 3; ++kh) {
-      const int h = 2 * ho + kh - 1;
-      if (h < 0 || h >= H) continue;
-      for (int kw = 0; kw < 3; ++kw) {
-        const int wi = 2 * wo + kw - 1;
-        if (wi < 0 || wi >= W) continue;
-        const bf16* xp = xb + ((size_t)h * W + wi) * cin;
-        const bf16* wp = w + (size_t)(kh * 3 + kw) * cin * cc + co;
-        for (int ci = 0; ci < cin; ++ci)
-          acc = fmaf(bf2f(xp[ci]), bf2f(wp[(size_t)ci * cc]), acc);
-      }
-    }
-    v = acc;
-  } else {
-    const int c = co - cc;
-    const bf16* xp = xb + ((size_t)(2 * ho) * W + 2 * wo) * cin + c;
-    const size_t row = (size_t)W * cin;
-    v = fmaxf(fmaxf(bf2f(xp[0]), bf2f(xp[cin])),
-              fmaxf(bf2f(xp[row]), bf2f(xp[row + cin])));
-  }
-  out[idx] = f2bf(fmaxf(v * mul[co] + add[co], 0.0f));
+  if (idx >= (long long)B * (H / 2) * (W / 2) * cout) return;
+  ldds::downsampler_values<false, 1>(idx, x, w, mul, add, out, H, W, cin,
+                                     cout);
 }
 
 }  // namespace

@@ -24,7 +24,9 @@
 // Design: one block per output row (b, r); threads stride over the W
 // columns, keep per-lane partial sums in registers (C <= 8, unrolled with
 // predicates), then reduce with warp shuffles and shared memory. Masked
-// rows skip the computation and write zeros.
+// rows skip the computation and write zeros. The row body (`head_row`) is
+// shared with the whole-decoder kernel (decoder_fused.cu), which runs it
+// with 128 threads in K4's order of operations.
 
 #pragma once
 
@@ -49,61 +51,82 @@ __device__ __forceinline__ float weight_sq(float v, int act) {
   return a * a;
 }
 
-// t: (B, H/2, W/2, cin); w: (2, 2, cin, C) [i][j][ci][c], both of type T;
-// S: (B, H, 2C)
-template <typename T>
-__global__ void __launch_bounds__(THREADS) head_rowsums_kernel(
-    const T* __restrict__ t, const T* __restrict__ w,
-    const float* __restrict__ bias, const float* __restrict__ xs,
-    float* __restrict__ S, int H, int W, int cin, int C, int zero_rows,
-    int act) {
-  const int row = blockIdx.x;  // b * H + r
+// One row `row` = b * H + r of S, as THREADS threads would compute it,
+// run by the NT threads (NT divides THREADS) of the calling block: thread i
+// plays the virtual threads i, i + NT, ...; each virtual thread strides
+// over the W columns by THREADS, its warp's partial sums fold by shuffles
+// into part[virtual warp], and the THREADS/32 parts add up in order. The
+// same operations in the same order for any NT, so a row of S is bit for
+// bit the same whether 256 threads (head_rowsums_kernel) or the 128 of the
+// whole-decoder kernel (decoder_fused.cu) compute it. t: (B, H/2, W/2,
+// cin); w: (2, 2, cin, C) [i][j][ci][c], both of type T; S: (B, H, 2C);
+// part: THREADS/32 x 2*MAXC floats of shared memory. kCoherent reads t
+// through L2 only (load_f, common.cuh): the fused kernel writes t earlier
+// in the same launch. Ends after reading `part`: a caller that runs a
+// second row in the same block puts a __syncthreads() between the two.
+template <int NT, typename T, bool kCoherent>
+__device__ __forceinline__ void head_row(
+    int row, const T* t, const T* w, const float* bias, const float* xs,
+    float* S, int H, int W, int cin, int C, int zero_rows, int act,
+    float (*part)[2 * MAXC]) {
+  static_assert(THREADS % NT == 0 && NT % 32 == 0, "NT divides THREADS");
+  constexpr int V = THREADS / NT;  // virtual threads per thread
   const int r = row % H, b = row / H;
-  float s0[MAXC], s1[MAXC];
+  float s0[V][MAXC], s1[V][MAXC];
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) s0[c] = s1[c] = 0.0f;
+  for (int v = 0; v < V; ++v)
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) s0[v][c] = s1[v][c] = 0.0f;
 
   if (r >= zero_rows) {
     const int Wh = W / 2;
     const T* trow = t + ((size_t)b * (H / 2) + (r >> 1)) * Wh * cin;
-    for (int col = threadIdx.x; col < W; col += blockDim.x) {
-      const T* tp = trow + (size_t)(col >> 1) * cin;
-      const T* wp = w + (size_t)(((r & 1) * 2 + (col & 1)) * cin) * C;
-      float dec[MAXC];
 #pragma unroll
-      for (int c = 0; c < MAXC; ++c) dec[c] = c < C ? bias[c] : 0.0f;
-      for (int ci = 0; ci < cin; ++ci) {
-        const float xv = ldf(tp, ci);
+    for (int v = 0; v < V; ++v) {
+      for (int col = threadIdx.x + v * NT; col < W; col += THREADS) {
+        const T* tp = trow + (size_t)(col >> 1) * cin;
+        const T* wp = w + (size_t)(((r & 1) * 2 + (col & 1)) * cin) * C;
+        float dec[MAXC];
 #pragma unroll
-        for (int c = 0; c < MAXC; ++c)
-          if (c < C) dec[c] = fmaf(xv, ldf(wp, ci * C + c), dec[c]);
-      }
-      const float xc = xs[col];
+        for (int c = 0; c < MAXC; ++c) dec[c] = c < C ? bias[c] : 0.0f;
+        for (int ci = 0; ci < cin; ++ci) {
+          const float xv = load_f<kCoherent>(tp + ci);
 #pragma unroll
-      for (int c = 0; c < MAXC; ++c) {
-        if (c < C) {
-          const float w2 = weight_sq(dec[c], act);
-          s0[c] += w2;
-          s1[c] += w2 * xc;
+          for (int c = 0; c < MAXC; ++c)
+            if (c < C) dec[c] = fmaf(xv, ldf(wp, ci * C + c), dec[c]);
+        }
+        const float xc = xs[col];
+#pragma unroll
+        for (int c = 0; c < MAXC; ++c) {
+          if (c < C) {
+            const float w2 = weight_sq(dec[c], act);
+            s0[v][c] += w2;
+            s1[v][c] += w2 * xc;
+          }
         }
       }
     }
   }
 
-  __shared__ float part[THREADS / 32][2 * MAXC];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    for (int o = 16; o > 0; o >>= 1) {
-      s0[c] += __shfl_down_sync(0xffffffffu, s0[c], o);
-      s1[c] += __shfl_down_sync(0xffffffffu, s1[c], o);
+  for (int v = 0; v < V; ++v) {
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      for (int o = 16; o > 0; o >>= 1) {
+        s0[v][c] += __shfl_down_sync(0xffffffffu, s0[v][c], o);
+        s1[v][c] += __shfl_down_sync(0xffffffffu, s1[v][c], o);
+      }
     }
   }
   if (lane == 0) {
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      part[warp][c] = s0[c];
-      part[warp][MAXC + c] = s1[c];
+    for (int v = 0; v < V; ++v) {
+#pragma unroll
+      for (int c = 0; c < MAXC; ++c) {
+        part[warp + v * (NT / 32)][c] = s0[v][c];
+        part[warp + v * (NT / 32)][MAXC + c] = s1[v][c];
+      }
     }
   }
   __syncthreads();
@@ -113,6 +136,19 @@ __global__ void __launch_bounds__(THREADS) head_rowsums_kernel(
     for (int k = 0; k < THREADS / 32; ++k) v += part[k][which * MAXC + c];
     S[(size_t)row * 2 * C + which * C + c] = v;
   }
+}
+
+// t: (B, H/2, W/2, cin); w: (2, 2, cin, C) [i][j][ci][c], both of type T;
+// S: (B, H, 2C); one block of THREADS threads per row
+template <typename T>
+__global__ void __launch_bounds__(THREADS) head_rowsums_kernel(
+    const T* __restrict__ t, const T* __restrict__ w,
+    const float* __restrict__ bias, const float* __restrict__ xs,
+    float* __restrict__ S, int H, int W, int cin, int C, int zero_rows,
+    int act) {
+  __shared__ float part[THREADS / 32][2 * MAXC];
+  head_row<THREADS, T, false>(blockIdx.x, t, w, bias, xs, S, H, W, cin, C,
+                              zero_rows, act, part);
 }
 
 // t: (B, H/2, W/2, cin) and w: (2, 2, cin, C) of type T (bf16 or f32);

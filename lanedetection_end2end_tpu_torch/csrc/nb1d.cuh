@@ -1,9 +1,10 @@
 // K1's per-tile body: one 64-pixel tile of one 3-tap convolution of an
 // ERFNet NonBottleneck1D block (inference, BatchNorm folded), shared by the
-// single-block kernel (`nb1d.cu`, one launch per convolution) and the chain
-// kernel (`nb1d_chain.cu`, one cooperative launch per chain of blocks).
-// Both run this same code on the same inputs, so the chain's output is bit
-// for bit that of K1 launched block by block.
+// single-block kernel (`nb1d.cu`, one launch per convolution) and, through
+// `block_passes`, by the persistent kernels (`nb1d_chain.cu`,
+// `encoder_fused.cu`, `decoder_fused.cu`, one cooperative launch each).
+// All run this same code on the same inputs, so their outputs are bit for
+// bit those of K1 launched block by block.
 //
 //   out[p, co] = relu(sum_t sum_ci x[p + tap_t, ci] * w[t, ci, co] * mul[co]
 //                     + add[co] (+ res[p, co]))
@@ -18,6 +19,7 @@
 // bf16 rounding) reads the accumulators back from shared memory.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <mma.h>
 
 #include "common.cuh"
@@ -32,23 +34,6 @@ constexpr int smem_bytes() {
   // A (TP x C+8) + B (C x C+8) bf16 tiles, later aliased by the f32 C tile
   return (TP + C) * (C + 8) * 2 > TP * (C + 4) * 4 ? (TP + C) * (C + 8) * 2
                                                    : TP * (C + 4) * 4;
-}
-
-// Loads of the activation planes. kCoherent reads through L2 only
-// (ld.global.cg): the chain kernel rewrites its planes within one launch,
-// so no SM may keep a stale line of them in its L1.
-template <bool kCoherent>
-__device__ __forceinline__ uint4 load_vec(const bf16* p) {
-  if (kCoherent) return __ldcg(reinterpret_cast<const uint4*>(p));
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-template <bool kCoherent>
-__device__ __forceinline__ float load_bf(const bf16* p) {
-  if (kCoherent)
-    return bf2f(__ushort_as_bfloat16(
-        __ldcg(reinterpret_cast<const unsigned short*>(p))));
-  return bf2f(*p);
 }
 
 // One tile, pixels [p0, p0 + TP). Starts by writing shared memory and ends
@@ -127,6 +112,38 @@ __device__ __forceinline__ void conv3tap_tile(
     float y = sC[r * LDC + c] * (mul ? mul[c] : 1.0f) + add[c];
     if (res) y += load_bf<kCoherent>(res + (size_t)p * C + c);
     out[(size_t)p * C + c] = f2bf(fmaxf(y, 0.0f));
+  }
+}
+
+// One whole block inside a persistent cooperative grid: cur -> dst
+// through the scratch planes t1 and t2 in four grid-stride passes of the
+// grid's blocks over the tiles (K1's four convolutions), with a grid.sync()
+// between passes: a tap reads rows up to d away, which other blocks write.
+// The caller syncs after the fourth pass. w: (4, 3, C, C) [conv][tap][ci]
+// [co]; v: (6, C) = b1 m1 a1 b3 m2 a2; cur is only read.
+template <int C>
+__device__ __forceinline__ void block_passes(
+    cooperative_groups::grid_group& grid, const bf16* cur, const bf16* w,
+    const float* v, int d, bf16* t1, bf16* t2, bf16* dst, int npix, int H,
+    int W, unsigned char* smem) {
+  const int ntiles = (npix + TP - 1) / TP;
+  const size_t wc = (size_t)3 * C * C;
+  for (int pass = 0; pass < 4; ++pass) {
+    const bf16* in = pass == 0 ? cur : pass == 2 ? t2 : t1;
+    bf16* o = pass == 1 ? t2 : pass == 3 ? dst : t1;
+    const float* mul = pass == 1 ? v + C : pass == 3 ? v + 4 * C : nullptr;
+    const float* add = v + (pass == 0   ? 0
+                            : pass == 1 ? 2 * C
+                            : pass == 2 ? 3 * C
+                                        : 5 * C);
+    const bf16* res = pass == 3 ? cur : nullptr;
+    const int dd = pass < 2 ? 1 : d;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      conv3tap_tile<C, true>(tile * TP, in, w + pass * wc, mul, add, res, o,
+                             npix, H, W, dd, pass % 2, smem);
+      __syncthreads();  // the next tile overwrites shared memory
+    }
+    if (pass < 3) grid.sync();
   }
 }
 

@@ -17,8 +17,9 @@
 //     dst = relu(conv1x3_d(t1) * m2 + a2 + cur)
 //
 // Each convolution is one grid-stride pass of the CTAs over 64-pixel
-// tiles, running K1's tile body (`nb1d.cuh`), and a grid.sync() separates
-// the passes: a tap reads rows up to d = 16 away, which other CTAs write.
+// tiles, running K1's tile body (`nb1d.cuh::block_passes`), and a
+// grid.sync() separates the passes: a tap reads rows up to d = 16 away,
+// which other CTAs write.
 // The block outputs alternate between `a` and `out` so that the last one
 // lands in `out`; the caller's x is only read. Same code on the same
 // inputs: the output is bit for bit K1's launched block by block.
@@ -52,31 +53,13 @@ __global__ void __launch_bounds__(THREADS) nb1d_chain_kernel(
     bf16* t1, bf16* t2, bf16* a, bf16* out, int npix, int H, int W) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  const int ntiles = (npix + TP - 1) / TP;
-  const size_t wc = (size_t)3 * C * C;
   const bf16* cur = x;
   for (int b = 0; b < n; ++b) {
-    const bf16* wb = w + (size_t)b * 4 * wc;  // (4, 3, C, C) of block b
-    const float* v = vec + (size_t)b * 6 * C;  // b1 m1 a1 b3 m2 a2
-    const int d = dil.d[b];
     bf16* dst = ((n - 1 - b) % 2 == 0) ? out : a;
-    for (int pass = 0; pass < 4; ++pass) {
-      const bf16* in = pass == 0 ? cur : pass == 2 ? t2 : t1;
-      bf16* o = pass == 1 ? t2 : pass == 3 ? dst : t1;
-      const float* mul = pass == 1 ? v + C : pass == 3 ? v + 4 * C : nullptr;
-      const float* add = v + (pass == 0   ? 0
-                              : pass == 1 ? 2 * C
-                              : pass == 2 ? 3 * C
-                                          : 5 * C);
-      const bf16* res = pass == 3 ? cur : nullptr;
-      const int dd = pass < 2 ? 1 : d;
-      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        nb1d::conv3tap_tile<C, true>(tile * TP, in, wb + pass * wc, mul, add,
-                                     res, o, npix, H, W, dd, pass % 2, smem);
-        __syncthreads();  // the next tile overwrites shared memory
-      }
-      if (b + 1 < n || pass < 3) grid.sync();
-    }
+    nb1d::block_passes<C>(grid, cur, w + (size_t)b * 12 * C * C,
+                          vec + (size_t)b * 6 * C, dil.d[b], t1, t2, dst,
+                          npix, H, W, smem);
+    if (b + 1 < n) grid.sync();
     cur = dst;
   }
 }
@@ -85,33 +68,10 @@ template <int C>
 int launch_chain(const bf16* x, const bf16* w, const float* vec,
                  Dilations dil, int n, bf16* t1, bf16* t2, bf16* a,
                  bf16* out, int npix, int H, int W, cudaStream_t s) {
-  constexpr int smem = nb1d::smem_bytes<C>();
-  void (*kern)(const bf16*, const bf16*, const float*, Dilations, int, bf16*,
-               bf16*, bf16*, bf16*, int, int, int) = nb1d_chain_kernel<C>;
-  cudaError_t e;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop) return (int)cudaErrorNotSupported;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int ntiles = grid_1d(npix, TP);
-  const int grid = ntiles < per_sm * sms ? ntiles : per_sm * sms;
   void* args[] = {&x, &w, &vec, &dil, &n, &t1, &t2, &a, &out, &npix, &H, &W};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
-                                  dim3(grid), dim3(THREADS), args, smem, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_cooperative(nb1d_chain_kernel<C>, THREADS,
+                            nb1d::smem_bytes<C>(), grid_1d(npix, TP), args,
+                            s);
 }
 
 }  // namespace

@@ -21,8 +21,10 @@
 // Design: one thread per output value (pixel, channel), channels fastest;
 // the input pixel is a warp broadcast, the weights a coalesced run. CUDA
 // cores only: both upsamplers are ~3% of the backbone's FLOP.
+// The per-output body is in upsampler.cuh, shared with the
+// whole-decoder kernel decoder_fused.cu.
 
-#include "common.cuh"
+#include "upsampler.cuh"
 
 namespace {
 
@@ -33,43 +35,10 @@ __global__ void upsampler_kernel(const bf16* __restrict__ x,
                                  const float* __restrict__ add,
                                  bf16* __restrict__ out, int B, int H, int W,
                                  int cin, int cout) {
-  const int Ho = 2 * H, Wo = 2 * W;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * Ho * Wo * cout) return;
-  const int co = (int)(idx % cout);
-  const long long pix = idx / cout;
-  const int xo = (int)(pix % Wo);
-  const int yo = (int)((pix / Wo) % Ho);
-  const int b = (int)(pix / ((long long)Wo * Ho));
-  const bf16* xb = x + (size_t)b * H * W * cin;
-
-  // (kernel index, input index) per phase: even -> (1, i); odd -> (2, i),
-  // (0, i+1)
-  int kys[2], hs[2], nky, kxs[2], ws[2], nkx;
-  const int h0 = yo >> 1, w0 = xo >> 1;
-  if (yo & 1) {
-    kys[0] = 2; hs[0] = h0; kys[1] = 0; hs[1] = h0 + 1; nky = 2;
-  } else {
-    kys[0] = 1; hs[0] = h0; nky = 1;
-  }
-  if (xo & 1) {
-    kxs[0] = 2; ws[0] = w0; kxs[1] = 0; ws[1] = w0 + 1; nkx = 2;
-  } else {
-    kxs[0] = 1; ws[0] = w0; nkx = 1;
-  }
-
-  float acc = 0.0f;
-  for (int i = 0; i < nky; ++i) {
-    if (hs[i] >= H) continue;
-    for (int j = 0; j < nkx; ++j) {
-      if (ws[j] >= W) continue;
-      const bf16* xp = xb + ((size_t)hs[i] * W + ws[j]) * cin;
-      const bf16* wp = w + (size_t)(kys[i] * 3 + kxs[j]) * cin * cout + co;
-      for (int ci = 0; ci < cin; ++ci)
-        acc = fmaf(bf2f(xp[ci]), bf2f(wp[(size_t)ci * cout]), acc);
-    }
-  }
-  out[idx] = f2bf(fmaxf(acc * mul[co] + add[co], 0.0f));
+  if (idx >= (long long)B * (2 * H) * (2 * W) * cout) return;
+  ldus::upsampler_values<false, 1>(idx, x, w, mul, add, out, H, W, cin,
+                                   cout);
 }
 
 }  // namespace

@@ -7,9 +7,10 @@ per checkpoint. The heads run as plain PyTorch in bf16 on the bf16 encoder
 features. Two paths, JAX's two modes; each call takes the one its fitter
 needs:
 
-- "full", for a separable fitter: the backbone on the hand-written
-  kernels K1-K4 (`models/fused_graph.py`), the decoder ending in the WLS
-  row sums, and the separable fit from them;
+- "full", for a separable fitter: the backbone as two hand-written
+  cooperative launches (`models/fused_graph.py`: the whole encoder, then
+  the whole decoder ending in the WLS row sums), and the separable fit
+  from them;
 - "blocks", for a non-separable fitter (a general homography assigned to
   `engine.fitter`, say): the 17 NB1D blocks as four `nb1d_chain` launches
   (5 x 64, 8 x 128, 2 x 64, 2 x 16 channels), the stride-2 blocks and the
@@ -103,9 +104,10 @@ class FusedLaneNetEngine:
         """Fold BN and lay out the kernel constants on the device (once per
         checkpoint): the blocks path's chains, its stride-2 blocks and
         output head as bf16 eval modules (BatchNorm in f32), and, for a
-        separable fitter, the full path's K1-K4 constants (the decoder
-        bakes in the fitter's row-sum coordinates); the heads as bf16
-        eval modules."""
+        separable fitter, the full path's constants (the fused encoder's and
+        decoder's flat buffers beside the per-block dicts; the decoder
+        bakes in the fitter's row-sum coordinates); the heads as bf16 eval
+        modules."""
         sd = {k: v.detach().to(self.device) for k, v in state_dict.items()}
         packed = {name: pack_chain([pack_nb1d(sd, prefix, d)
                                     for prefix, d in blocks])

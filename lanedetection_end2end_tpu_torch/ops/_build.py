@@ -28,7 +28,7 @@ BUILD_DIR = PKG / "_build"
 SOURCES = ("nb1d", "downsampler", "upsampler", "head_rowsums",
            "nb_half_fwd", "nb_half_bwd", "channel_sums", "downsampler_op",
            "lane_maps_op", "head_rowsums_op", "nb1d_chain", "wls_moments",
-           "packed_conv")
+           "packed_conv", "encoder_fused", "decoder_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -162,13 +162,16 @@ def test_blocks_engine_wrapper_calls(run, monkeypatch):
 
 def test_full_mode_switches_to_blocks_for_a_general_homography(
         run, monkeypatch):
-    """One engine, one `prepare`: a call takes the full path (K1-K4) while
+    """One engine, one `prepare`: a call takes the full path (the whole
+    encoder and the whole decoder, on the CPU their plain versions) while
     the fitter is separable and the blocks path once a general fitter is
     assigned; an engine whose fitter is general when it prepares packs no
-    K1-K4 constants and serves the same outputs."""
-    calls = dict.fromkeys(("nb1d_chain", "nb1d", "wls_moments"), 0)
+    full-path constants and serves the same outputs."""
+    calls = dict.fromkeys(("nb1d_chain", "encoder_plain", "decoder_plain",
+                           "wls_moments"), 0)
     _counting(monkeypatch, infer_engine, "nb1d_chain", calls)
-    _counting(monkeypatch, fused_graph, "nb1d", calls)
+    _counting(monkeypatch, fused_graph, "encoder_plain", calls)
+    _counting(monkeypatch, fused_graph, "decoder_plain", calls)
     _counting(monkeypatch, port_wls, "wls_moments", calls)
     eng, packed, x = run["eng"], run["packed"], run["x"]
     cfg = train_sh_config(resize=RESIZE, reg_ls=1.0)
@@ -178,8 +181,10 @@ def test_full_mode_switches_to_blocks_for_a_general_homography(
         eng(packed, x)
         seen.append(dict(calls))
         calls.update(dict.fromkeys(calls, 0))
-    assert seen == [{"nb1d_chain": 0, "nb1d": 17, "wls_moments": 0},
-                    {"nb1d_chain": 4, "nb1d": 0, "wls_moments": 1}]
+    assert seen == [{"nb1d_chain": 0, "encoder_plain": 1, "decoder_plain": 1,
+                     "wls_moments": 0},
+                    {"nb1d_chain": 4, "encoder_plain": 0, "decoder_plain": 0,
+                     "wls_moments": 1}]
     monkeypatch.setattr(infer_engine, "make_fitter",
                         lambda cfg, device: _roll_fitter())
     general = FusedLaneNetEngine(cfg, device="cpu")
