@@ -21,7 +21,8 @@ a card. In order:
    sigmoid, relu, softplus, abs, none);
 2b. the same for the training kernels, in bf16 and then in float32:
    forward and backward of `nb_half_a` and `nb_half_b` at every (C, d,
-   plane) of the 256x512 train step at batch 8 plus the d >= H edge, and
+   plane) of the 256x512 train step at batch 8 plus the d >= H edge (in
+   float32 each beside its single-TF32 control, see below), and
    the stride-2 ops at their seven shapes: `downsampler_op` x3 (inputs
    with planted pooling ties, the input gradient required at all three),
    `lane_maps_op` x3 (the two upsamplers with moments, the head with f32
@@ -32,7 +33,8 @@ a card. In order:
    forward and backward (dx, dk, db) and `packed_conv` forward, dx and dW
    at every (plane, d, axis) of the unfused 256x512 train step at batch 8
    (64 channels d = 1, 128 channels d = 1, 2, 4, 8, 16, 16 channels
-   d = 1, each as a 3x1 convolution with relu and a 1x3 one without), and
+   d = 1, each as a 3x1 convolution with relu and a 1x3 one without; in
+   float32 each weight gradient beside its single-TF32 control), and
    `channel_sums` at its five stride-2 and three NB1D planes, against the
    plain versions, timed beside them and beside one cuDNN call
    (`F.conv2d` + relu forward, `aten.convolution_backward` with the relu
@@ -126,8 +128,11 @@ kernels carry the same numbers for their backward as `bwd_ms`,
 moved (each input read once, each output written once: 3 planes for a
 half block's forward, 5 for its backward; x and y for a stride-2 op's
 forward, x, y, dy and dx for its backward) over 3.35 TB/s and the FLOP of
-the taps that land on the plane over 989 TFLOP/s (bf16) or 67 TFLOP/s
-(float32, FFMA); `library_ms` is
+the taps that land on the plane over 989 TFLOP/s (bf16), over 495 / 3 =
+165 TFLOP/s for the float32 tiles of K6, K7 and K11, which take three TF32
+tensor-core products per f32 product (3xTF32; their FFMA bound at 67
+TFLOP/s beside it as `ffma_bound_ms` / `bwd_ffma_bound_ms`), or over 67
+TFLOP/s (float32 K8-K10, FFMA); `library_ms` is
 null where no single PyTorch call computes the fused function, for
 wls_moments the time of `torch.matmul` (TF32 off) of the squared weights,
 laid out as (B*C, N), with the basis, at the engine's shape, for
@@ -174,18 +179,28 @@ stride-2 ops have no relu inside and their pool routing is a function of
 the input alone, so the same bars hold for them without exception, planted
 ties included; the row sums S of head_rowsums_op at 1e-4, and bit for bit
 against a second launch. In float32 the planes of K6-K10 (y, dx) are held
-at TOL_F32 = 1e-4 of max|plain| (both sides sum exact f32 products in
-another order; the float32 kernels use FFMA, never TF32) and their f32
-atomic sums at TOL_REDUCE. K4 at every activation code: its f32 row sums at
-TOL_F32. K11's backward is held on the plain forward's
+at TOL_F32 = 1e-4 of max|plain| and their f32 atomic sums at TOL_REDUCE,
+except the weight gradients of K6, K7 and K11, held at TOL_F32 too.
+K8-K10 sum exact f32 products (FFMA) in another order than the plain
+versions. K6, K7 and K11 multiply on the tensor cores in 3xTF32: each f32
+operand split into a TF32 high part and a TF32 remainder, three TF32
+products per f32 product, which loses about 2^-22 of each product, below
+f32 rounding (ops/tf32x3.py; about 1e-7 of max|plain| against a float64
+convolution or weight gradient in the CPU tests). One TF32 product alone
+keeps 10 mantissa bits and reads about 3e-4 there, so beside each float32
+K6 / K7 reading (y, dx, dkh, dkw) and each float32 K11 weight gradient a
+control, the plain version with the operands of its convolutions or of
+its weight gradients rounded to TF32, must read above TOL_F32 in the same
+run: the bar tells the split from a single product, in the convolutions
+and in the weight gradients alike. K4 at every activation code: its f32
+row sums at TOL_F32. K11's backward is held on the plain forward's
 output, so the kernel and the plain version take the relu mask from the
 same values: bf16 planes (y, dx) at TOL_BF16, f32 planes (packed_conv's y
-in both dtypes, every float32 y and dx) at TOL_F32 = 1e-4 of max|plain|
-(both sides sum exact f32 products in another order; the float32 kernels
-use FFMA, never TF32, whose 10-bit mantissa would miss that bar), the
-weight and bias gradients, summed with f32 atomics over up to 262,144
-pixels, at TOL_REDUCE; `channel_sums` at TOL_REDUCE in bf16 and TOL_F32
-in float32.
+in both dtypes, every float32 y and dx) and the float32 weight gradients
+at TOL_F32 = 1e-4 of max|plain| (the 3xTF32 products keep f32 accuracy;
+one TF32 product would miss that bar), the bias gradients and the bf16
+weight gradients, summed with f32 atomics over up to 262,144 pixels, at
+TOL_REDUCE; `channel_sums` at TOL_REDUCE in bf16 and TOL_F32 in float32.
 
 A whole block through autograd has two independent forwards, so a relu
 whose argument lies within a rounding step of zero may open on one side
@@ -253,6 +268,9 @@ RESIZE, BATCH, SEED, N_BATCHES = 256, 8, 0, 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
 FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+# float32 products as three TF32 tensor-core products (3xTF32, the float32
+# tiles of csrc/conv3tap_f32.cuh): the H100's 495 TFLOP/s dense TF32 over 3
+TF32X3_FLOP_PER_S = 495e12 / 3
 ROLL_DEGREES = 2.0  # camera roll of the general (non-separable) homography
 TOL_BF16, TOL_F32, TOL_REDUCE, TOL_BLOCK = 1e-2, 1e-4, 2e-3, 2e-2
 TOL_S = 5e-3  # the fused decoder's row sums S against its plain version
@@ -610,16 +628,27 @@ def time_and_record(label, s, per_step, verdict, fwd, pfwd, bwd, pbwd, work,
     """Time a training kernel's forward and backward and their plain
     versions (medians), compute both bounds from `work(backward)` ->
     (flop, bytes) at `flop_per_s`, print the check line and add `per_step`
-    times each number to the summary `s`. Returns the forward's ms."""
+    times each number to the summary `s`. At TF32X3_FLOP_PER_S (the
+    float32 tiles on the tensor cores) the FFMA bounds, at
+    FP32_FLOP_PER_S, are printed and summed beside them (`ffma_bound_ms`,
+    `bwd_ffma_bound_ms`). Returns the forward's ms."""
     with torch.no_grad():
         f_ms, pf_ms = median_ms(fwd), median_ms(pfwd)
         pb_ms, b_ms = median_ms(pbwd), median_ms(bwd)
     fb, f_by = bound_ms(*work(False), flop_per_s)
     bb, b_by = bound_ms(*work(True), flop_per_s)
+    ffma = ""
+    if flop_per_s == TF32X3_FLOP_PER_S:
+        ffb, ffbb = (bound_ms(*work(bwd_), FP32_FLOP_PER_S)[0]
+                     for bwd_ in (False, True))
+        s["ffma_bound_ms"] = s.get("ffma_bound_ms", 0.0) + per_step * ffb
+        s["bwd_ffma_bound_ms"] = (s.get("bwd_ffma_bound_ms", 0.0)
+                                  + per_step * ffbb)
+        ffma = f"; FFMA bounds {ffb:.4f} / {ffbb:.4f}"
     print(f"check {label}: {verdict}; forward {f_ms:.4f} ms (plain "
           f"{pf_ms:.4f}, bound {fb:.4f} {f_by}), backward {b_ms:.4f} ms "
-          f"(plain {pb_ms:.4f}, bound {bb:.4f} {b_by}); x{per_step} per "
-          f"train step")
+          f"(plain {pb_ms:.4f}, bound {bb:.4f} {b_by}){ffma}; x{per_step} "
+          f"per train step")
     for key, v in (("ms", f_ms), ("plain_ms", pf_ms), ("bound_ms", fb),
                    ("ops_ms", fb * (f_by == "operations")),
                    ("bwd_ms", b_ms), ("plain_bwd_ms", pb_ms),
@@ -635,14 +664,40 @@ def plane_tols(dt):
     return (TOL_F32,) if dt == torch.float32 else ()
 
 
+def tf32_control(label, rows, failures):
+    """The float32 tiles' control: each product result of the kernels (y,
+    dx, the weight gradients) against the plain version, printed beside
+    the plain version computed from TF32-rounded operands (one TF32
+    product, what the tiles would give without the 3xTF32 split); rows:
+    (name, kernel result, plain result, control). Every control must read
+    above TOL_F32, the bar these results are held to, or the bar could not
+    tell the split from a single product."""
+    with torch.no_grad():
+        reads = [(n, rel_err(got, want)[1], rel_err(ctl, want)[1])
+                 for n, got, want, ctl in rows]
+    ok = min(c for _, _, c in reads) > TOL_F32
+    print(f"control {label}: kernel "
+          + ", ".join(f"{n} {k:.2e}" for n, k, _ in reads)
+          + " of max|plain|; one TF32 product "
+          + ", ".join(f"{n} {c:.2e}" for n, _, c in reads)
+          + f" (must exceed {TOL_F32:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: the single-TF32 control reads "
+                        + ", ".join(f"{n} {c:.2e}" for n, _, c in reads)
+                        + f", not all above {TOL_F32:g}")
+
+
 def check_training_kernels(dev, g, dt):
     """Phase 2b, the half blocks in dtype `dt`. Returns ({name: summary},
     failures)."""
     from lanedetection_end2end_tpu_torch.ops import nb_block as nb
 
+    from lanedetection_end2end_tpu_torch.ops.tf32x3 import (
+        conv3_tf32, wgrad3_tf32)
+
     rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
     es = torch.finfo(dt).bits // 8
-    rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
+    rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else TF32X3_FLOP_PER_S
     pt = plane_tols(dt)
     B, H, W = BATCH, RESIZE, 2 * RESIZE
     p64, p128, p16 = ((B, H // 4, W // 4, 64), (B, H // 8, W // 8, 128),
@@ -686,10 +741,24 @@ def check_training_kernels(dev, g, dt):
         names = ["dx"] + (["dmul", "dadd"] if half == "b" else []) + [
             "dkh", "dbh", "dkw", "dbw"]
         label = f"nb_half_{half} {DTYPE_NAMES[dt]} {shape} d={d}"
+        # the weight gradients of the float32 tiles at TOL_F32, beside
+        # their control; the other f32 sums at TOL_REDUCE
         verdict = hold(label, [("y", y, py, *pt), ("mom", mom, pmom),
                                ("dx", grads[0], pgrads[0], *pt)]
-                       + list(zip(names[1:], grads[1:], pgrads[1:])), s,
-                       failures)
+                       + [(n, a, b, *(pt if n.startswith("dk") else ()))
+                          for n, a, b in zip(names[1:], grads[1:],
+                                             pgrads[1:])], s, failures)
+        if dt == torch.float32:
+            with torch.no_grad():
+                cy = nb.half_fwd_plain(x, mul, add, kh, bh, kw, bw, d,
+                                       conv=conv3_tf32)[0]
+                cdx = nb.half_bwd_plain(*bwd_args, conv=conv3_tf32)[0]
+                cw = nb.half_bwd_plain(*bwd_args, wgrad=wgrad3_tf32)
+            got, want = dict(zip(names, grads)), dict(zip(names, pgrads))
+            tf32_control(label, [("y", y, py, cy), ("dx", got["dx"],
+                                                    want["dx"], cdx)]
+                         + [(n, got[n], want[n], cw[i])
+                            for n, i in (("dkh", 3), ("dkw", 5))], failures)
         time_and_record(
             label, s, per_step, verdict, call,
             lambda: nb.half_fwd_plain(x, mul, add, kh, bh, kw, bw, d),
@@ -953,6 +1022,7 @@ def check_k11(dev, g):
     its plain version, timed beside the plain version and one cuDNN call.
     Returns ({name: {dtype: summary}}, failures)."""
     from lanedetection_end2end_tpu_torch.ops import packed_conv as pc
+    from lanedetection_end2end_tpu_torch.ops.tf32x3 import wgrad3_tf32
 
     rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
     summary = {n: {dt: dict.fromkeys(K11_KEYS, 0.0)
@@ -961,8 +1031,10 @@ def check_k11(dev, g):
     failures = []
     for dt, dname in DTYPE_NAMES.items():
         es = torch.finfo(dt).bits // 8
-        rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
+        rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else TF32X3_FLOP_PER_S
         plane_tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+        # float32 weight gradients at TOL_F32, beside their control
+        dk_tol = () if dt == torch.bfloat16 else (TOL_F32,)
         for shape, d, axis, per_step in k11_cases():
             C, act = shape[-1], axis == "h"
             x = rn(*shape).to(dt)
@@ -984,11 +1056,21 @@ def check_k11(dev, g):
                 pgrads = pc.packed_conv_act_bwd_plain(*args)
                 pcgrads = pc.packed_conv_bwd_plain(x, dyc, k, axis, d)
             label = f"{dname} {shape} d={d} axis={axis}"
+            if dt == torch.float32:
+                with torch.no_grad():
+                    tf32_control(f"K11 {label}", [
+                        ("dk", grads[1], pgrads[1],
+                         pc.packed_conv_act_bwd_plain(
+                             *args, wgrad=wgrad3_tf32)[1]),
+                        ("dW", cgrads[1], pcgrads[1],
+                         pc.packed_conv_bwd_plain(
+                             x, dyc, k, axis, d, wgrad=wgrad3_tf32)[1])],
+                        failures)
             for name, pairs, fwd, pfwd, bwd, pbwd, lib, act_ in (
                     ("packed_conv_act",
                      [("y", y, py, plane_tol),
                       ("dx", grads[0], pgrads[0], plane_tol),
-                      ("dk", grads[1], pgrads[1]),
+                      ("dk", grads[1], pgrads[1], *dk_tol),
                       ("db", grads[2], pgrads[2])],
                      lambda: pc.packed_conv_act(x, k, b, axis, d, act),
                      lambda: pc.packed_conv_act_fwd_plain(x, k, b, axis, d,
@@ -999,7 +1081,7 @@ def check_k11(dev, g):
                     ("packed_conv",
                      [("y", yc, pyc, TOL_F32),
                       ("dx", cgrads[0], pcgrads[0], plane_tol),
-                      ("dW", cgrads[1], pcgrads[1])],
+                      ("dW", cgrads[1], pcgrads[1], *dk_tol)],
                      lambda: pc.packed_conv(x, k, axis, d),
                      lambda: pc.packed_conv_fwd_plain(x, k, axis, d),
                      lambda: pc.packed_conv_bwd_kernel(*cargs, bias=False),
@@ -2183,18 +2265,22 @@ def main() -> int:
                           for n, v in train_launches["bfloat16"].items()})
 
     def numbers(s):
-        return {"max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                "bound_by": ("operations" if 2 * s.get("ops_ms", 0.0)
-                             > s["bound_ms"] else "bytes"),
-                "library_ms": s.get("library_ms")}
+        out = {"max_abs_err": s["max_abs_err"], "ms": s["ms"],
+               "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+               "bound_by": ("operations" if 2 * s.get("ops_ms", 0.0)
+                            > s["bound_ms"] else "bytes"),
+               "library_ms": s.get("library_ms")}
+        if "ffma_bound_ms" in s:
+            out["ffma_bound_ms"] = s["ffma_bound_ms"]
+        return out
 
     def bwd_numbers(s):
         out = {"bwd_ms": s["bwd_ms"], "plain_bwd_ms": s["plain_bwd_ms"],
                "bwd_bound_ms": s["bwd_bound_ms"],
                "max_rel_err_reduce": s["max_rel_err_reduce"]}
-        if "bwd_library_ms" in s:
-            out["bwd_library_ms"] = s["bwd_library_ms"]
+        for key in ("bwd_library_ms", "bwd_ffma_bound_ms"):
+            if key in s:
+                out[key] = s[key]
         return out
 
     # the training kernels: the bf16 numbers in the entry, the float32 ones

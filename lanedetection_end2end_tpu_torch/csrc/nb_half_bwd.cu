@@ -20,17 +20,19 @@
 // Bound on the card: the two input gradients and the two weight gradients
 // are 24*C^2 FLOP per pixel against 5 planes (x, ymid, yout, dyout read, dx
 // written). In bf16 that is 2.4*C FLOP per byte, so the bytes bound it for
-// C <= 64 and the operations roughly match them at C = 128; in float32, on
-// FFMA at 67 TFLOP/s, 1.2*C FLOP per byte: the operations bound it for
-// C = 64 and 128.
+// C <= 64 and the operations roughly match them at C = 128. In float32 it
+// is 1.2*C FLOP per byte, on the tensor cores in 3xTF32 (165 TFLOP/s,
+// ridge about 49 FLOP per byte): the operations bound it for C = 64 and
+// 128, the bytes for C = 16.
 //
 // Design: five launches. (1) `dyv_kernel`, one elementwise pass with a
 // per-channel reduction. (2, 4) the weight gradient (bf16: wgrad3tap.cuh's
-// WMMA over pixel tiles; float32: conv3tap_f32.cuh's FFMA, never TF32; f32
-// atomicAdd at the end). (3, 5) the shared convolution (conv3tap.cuh or
-// conv3tap_f32.cuh) on transposed taps with the masking epilogues. f32
-// atomics make the last bits of dk, db, dmul and dadd depend on the order
-// blocks finish in. Every f32 output must be zero before the call.
+// WMMA over pixel tiles; float32: conv3tap_f32.cuh's 3xTF32 wgmma over
+// pixel chunks, mma.sync at C = 16; f32 atomicAdd at the end). (3, 5) the
+// shared convolution (conv3tap.cuh or conv3tap_f32.cuh) on transposed taps
+// with the masking epilogues. f32 atomics make the last bits of dk, db,
+// dmul and dadd depend on the order blocks finish in. Every f32 output
+// must be zero before the call.
 
 #include "conv3tap_f32.cuh"
 

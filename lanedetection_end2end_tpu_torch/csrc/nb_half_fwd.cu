@@ -19,15 +19,16 @@
 //
 // Bound on the card: 12*C^2 FLOP per pixel against 3 planes (x read, ymid
 // and yout written). In bf16 that is 2*C FLOP per byte, below the H100's
-// ~295 FLOP/byte ridge for every C here, so the bytes bound it; in float32,
-// on FFMA at 67 TFLOP/s (ridge about 20 FLOP per byte), C FLOP per byte:
-// the operations bound it for C = 64 and 128.
+// ~295 FLOP/byte ridge for every C here, so the bytes bound it. In float32
+// it is C FLOP per byte, taken on the tensor cores as three TF32 products
+// per f32 product (3xTF32, 495 / 3 = 165 TFLOP/s, ridge about 49 FLOP per
+// byte): the operations bound it for C = 64 and 128, the bytes for C = 16.
 //
 // Design: two launches of the shared implicit-GEMM convolution (bf16:
-// conv3tap.cuh on WMMA; float32: conv3tap_f32.cuh on FFMA, never TF32),
-// the second with the moments epilogue. The intermediate ymid is needed by
-// the backward anyway, so its round trip through device memory is no extra
-// traffic. `mom` must be zero before the call.
+// conv3tap.cuh on WMMA; float32: conv3tap_f32.cuh, wgmma in 3xTF32 with a
+// cp.async ring), the second with the moments epilogue. The intermediate
+// ymid is needed by the backward anyway, so its round trip through device
+// memory is no extra traffic. `mom` must be zero before the call.
 
 #include "conv3tap_f32.cuh"
 

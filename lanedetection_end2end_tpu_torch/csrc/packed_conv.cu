@@ -26,13 +26,15 @@
 // Bound on the card: a convolution is 6*C^2 FLOP per pixel against two
 // planes (x read, y written), its backward 12*C^2 against four (x, dy, y
 // read, dx written). In bf16 that is 1.5*C FLOP per byte, under the H100's
-// ~295 ridge: the bytes bound it. In f32, on FFMA at 67 TFLOP/s, the ridge
-// is about 20 FLOP per byte and the convolution gives 0.75*C: the
-// operations bound it for C = 64 and 128.
+// ~295 ridge: the bytes bound it. In f32 the convolution gives 0.75*C FLOP
+// per byte, taken on the tensor cores as three TF32 products per f32
+// product (3xTF32, 165 TFLOP/s, ridge about 49 FLOP per byte): the
+// operations bound it for C = 128, C = 64 sits at the ridge, the bytes
+// bound C = 16.
 //
 // Design: bf16 runs the shared WMMA implicit GEMM (conv3tap.cuh) with a
 // bias, bias + relu or f32-output epilogue, and the shared weight gradient
-// (wgrad3tap.cuh); f32 runs the FFMA tiles of conv3tap_f32.cuh. The
+// (wgrad3tap.cuh); f32 runs the 3xTF32 tiles of conv3tap_f32.cuh. The
 // backward is up to three launches: `dz_kernel` (the relu mask and the
 // bias gradient in one elementwise pass, skipped for packed_conv), the
 // transposed convolution and the weight gradient. dk and db are summed

@@ -83,21 +83,27 @@ def _moments(y: torch.Tensor) -> torch.Tensor:
 # the explicit backward in the kernels' order
 # ----------------------------------------------------------------------
 
-def half_fwd_plain(x, mul, add, kh, bh, kw, bw, d: int):
+def half_fwd_plain(x, mul, add, kh, bh, kw, bw, d: int, conv=_conv3):
     """Plain forward of either half -> (yout, ymid, mom): both stashes, as
-    the forward kernel writes them. mul/add None for half A."""
+    the forward kernel writes them. mul/add None for half A. `conv` is the
+    3-tap convolution (`_conv3`, full f32; `ops/tf32x3.py` has its TF32
+    forms)."""
     rnd = _rounder(x.dtype)
     z = x.float()
     if mul is not None:
         z = rnd(torch.relu(z * mul + add))
-    ymid = rnd(torch.relu(_conv3(z, rnd(kh), 0, d) + bh))
-    yout = rnd(_conv3(ymid, rnd(kw), 1, d) + bw)
+    ymid = rnd(torch.relu(conv(z, rnd(kh), 0, d) + bh))
+    yout = rnd(conv(ymid, rnd(kw), 1, d) + bw)
     return yout.to(x.dtype), ymid.to(x.dtype), _moments(yout)
 
 
-def half_bwd_plain(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int):
+def half_bwd_plain(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int,
+                   conv=_conv3, wgrad=_wgrad3):
     """Plain version of the backward kernels, in their order ->
-    (dx, dmul, dadd, dkh, dbh, dkw, dbw); dmul/dadd None for half A."""
+    (dx, dmul, dadd, dkh, dbh, dkw, dbw); dmul/dadd None for half A.
+    `conv` as in `half_fwd_plain`, for the two input gradients; `wgrad`
+    the weight gradient (`_wgrad3`, full f32; `ops/tf32x3.py` has its TF32
+    forms)."""
     rnd = _rounder(x.dtype)
     xf, ymid_f = x.float(), ymid.float()
     z = xf
@@ -107,12 +113,12 @@ def half_bwd_plain(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int):
     dyv = dyout.float() + dmom[0] + 2.0 * yout.float() * dmom[1]
     dbw = dyv.sum(_SUM)
     dy = rnd(dyv)
-    dkw = _wgrad3(ymid_f, dy, 1, d)
-    dmid_f = _conv3(dy, _transposed_taps(rnd(kw)), 1, d) * (ymid_f > 0)
+    dkw = wgrad(ymid_f, dy, 1, d)
+    dmid_f = conv(dy, _transposed_taps(rnd(kw)), 1, d) * (ymid_f > 0)
     dbh = dmid_f.sum(_SUM)
     dmid = rnd(dmid_f)
-    dkh = _wgrad3(z, dmid, 0, d)
-    dz = _conv3(dmid, _transposed_taps(rnd(kh)), 0, d)
+    dkh = wgrad(z, dmid, 0, d)
+    dz = conv(dmid, _transposed_taps(rnd(kh)), 0, d)
     if mul is None:
         return dz.to(x.dtype), None, None, dkh, dbh, dkw, dbw
     dz = dz * (zf > 0)

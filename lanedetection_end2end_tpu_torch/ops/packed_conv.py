@@ -66,14 +66,16 @@ def packed_conv_act_fwd_plain(x, k, b, axis: str, d: int, act: bool):
     return y.to(x.dtype)
 
 
-def packed_conv_act_bwd_plain(x, y, dy, k, axis: str, d: int, act: bool):
+def packed_conv_act_bwd_plain(x, y, dy, k, axis: str, d: int, act: bool,
+                              wgrad=_wgrad3):
     """Plain version of the backward kernels -> (dx, dk, db); dy in x's
-    dtype."""
+    dtype. `wgrad` is the weight gradient (`_wgrad3`, full f32;
+    `ops/tf32x3.py` has its TF32 forms)."""
     dz = dy.float()
     if act:
         dz = dz * (y > 0)
     dx = _conv3(dz, _transposed_taps(_rounder(x.dtype)(k)), AXES[axis], d)
-    return (dx.to(x.dtype), _wgrad3(x.float(), dz, AXES[axis], d),
+    return (dx.to(x.dtype), wgrad(x.float(), dz, AXES[axis], d),
             dz.sum(_SUM))
 
 
@@ -82,12 +84,13 @@ def packed_conv_fwd_plain(x, k, axis: str, d: int) -> torch.Tensor:
     return _conv3(x.float(), _rounder(x.dtype)(k), AXES[axis], d)
 
 
-def packed_conv_bwd_plain(x, dy, k, axis: str, d: int):
+def packed_conv_bwd_plain(x, dy, k, axis: str, d: int, wgrad=_wgrad3):
     """Plain version of `packed_conv`'s backward kernels -> (dx, dk); dy
-    f32, rounded to x's dtype first."""
+    f32, rounded to x's dtype first; `wgrad` as in
+    `packed_conv_act_bwd_plain`."""
     dyr = dy.to(x.dtype).float()
     dx = _conv3(dyr, _transposed_taps(_rounder(x.dtype)(k)), AXES[axis], d)
-    return dx.to(x.dtype), _wgrad3(x.float(), dyr, AXES[axis], d)
+    return dx.to(x.dtype), wgrad(x.float(), dyr, AXES[axis], d)
 
 
 def channel_sums_plain(x: torch.Tensor) -> torch.Tensor:
