@@ -26,9 +26,13 @@ a card. In order:
    the stride-2 ops at their seven shapes: `downsampler_op` x3 (inputs
    with planted pooling ties, the input gradient required at all three),
    `lane_maps_op` x3 (the two upsamplers with moments, the head with f32
-   output and none) and `head_rowsums_op`; then one whole NB1D block per
-   (C, d) and every downsampler and upsampler block forward and backward
-   through autograd (bf16), on the kernels and on their plain versions;
+   output and none) and `head_rowsums_op`, in float32 each K8 / K9
+   product result (y, dx, dweight) beside its single-TF32 control, and
+   every K8 / K9 shape timed beside cuDNN's products (`F.conv2d`,
+   `F.conv_transpose2d`, `conv2d_weight`, TF32 off); then one whole
+   NB1D block per (C, d) and every downsampler and upsampler block
+   forward and backward through autograd (bf16), on the kernels and on
+   their plain versions;
 2d. K11 and `channel_sums` in bf16 and in float32: `packed_conv_act`
    forward and backward (dx, dk, db) and `packed_conv` forward, dx and dW
    at every (plane, d, axis) of the unfused 256x512 train step at batch 8
@@ -129,20 +133,23 @@ moved (each input read once, each output written once: 3 planes for a
 half block's forward, 5 for its backward; x and y for a stride-2 op's
 forward, x, y, dy and dx for its backward) over 3.35 TB/s and the FLOP of
 the taps that land on the plane over 989 TFLOP/s (bf16), over 495 / 3 =
-165 TFLOP/s for the float32 tiles of K6, K7 and K11, which take three TF32
+165 TFLOP/s for the float32 tiles of K6-K9 and K11, which take three TF32
 tensor-core products per f32 product (3xTF32; their FFMA bound at 67
 TFLOP/s beside it as `ffma_bound_ms` / `bwd_ffma_bound_ms`), or over 67
-TFLOP/s (float32 K8-K10, FFMA); `library_ms` is
+TFLOP/s (float32 K10, FFMA); `library_ms` is
 null where no single PyTorch call computes the fused function, for
 wls_moments the time of `torch.matmul` (TF32 off) of the squared weights,
 laid out as (B*C, N), with the basis, at the engine's shape, for
 channel_sums the time of `torch.var_mean(x.float(), dim=(0, 1, 2))`, which
-gives the same statistics, and for lane_maps_op the time of one
-`F.conv_transpose2d` on the same operands (bf16, or float32 with TF32 off)
-at the head's shape, where the op takes no moments (`library_of`; the kernel's own time at that shape,
-which no train step runs, is `ms_at_library_shape`), for K11 the cuDNN
-calls of phase 2d (`bwd_library_ms` for the backward). None is used in
-the port.
+gives the same statistics, for downsampler_op and lane_maps_op cuDNN's
+products alone on the same operands (bf16, or float32 with TF32 off) at
+the train step's shapes, which no single call computes with the bias, the
+pool and the moments (`library_of` says which calls; forward: `F.conv2d`
+3x3/s2/p1, `F.conv_transpose2d`; `bwd_library_ms`: the transposed
+convolution or the convolution for dx plus `conv2d_weight`; K9's 2x2 head,
+on the eval step only, apart as `head_library_ms` beside the kernel's
+`head_ms`), for K11 the cuDNN calls of phase 2d (`bwd_library_ms` for the
+backward). None is used in the port.
 
 Tolerances: a kernel and its plain version do the same bf16-operand,
 f32-accumulate arithmetic in another summation order, so bf16 outputs may
@@ -180,15 +187,17 @@ the input alone, so the same bars hold for them without exception, planted
 ties included; the row sums S of head_rowsums_op at 1e-4, and bit for bit
 against a second launch. In float32 the planes of K6-K10 (y, dx) are held
 at TOL_F32 = 1e-4 of max|plain| and their f32 atomic sums at TOL_REDUCE,
-except the weight gradients of K6, K7 and K11, held at TOL_F32 too.
-K8-K10 sum exact f32 products (FFMA) in another order than the plain
-versions. K6, K7 and K11 multiply on the tensor cores in 3xTF32: each f32
+except the weight gradients of K6-K9 and K11, held at TOL_F32 too. K10,
+the first downsampler and K9's 2x2 head sum exact f32 products (FFMA) in
+another order than the plain versions. K6-K9 and K11 multiply on the
+tensor cores in 3xTF32: each f32
 operand split into a TF32 high part and a TF32 remainder, three TF32
 products per f32 product, which loses about 2^-22 of each product, below
 f32 rounding (ops/tf32x3.py; about 1e-7 of max|plain| against a float64
 convolution or weight gradient in the CPU tests). One TF32 product alone
 keeps 10 mantissa bits and reads about 3e-4 there, so beside each float32
-K6 / K7 reading (y, dx, dkh, dkw) and each float32 K11 weight gradient a
+K6 / K7 reading (y, dx, dkh, dkw), each float32 K8 / K9 reading (y, dx,
+dweight) and each float32 K11 weight gradient a
 control, the plain version with the operands of its convolutions or of
 its weight gradients rounded to TF32, must read above TOL_F32 in the same
 run: the bar tells the split from a single product, in the convolutions
@@ -321,6 +330,9 @@ SOURCES = {
     "packed_conv": ("packed_conv.cu", "packed_conv.cu"),
     "row12": ("nb1d_chain.cu", None),
 }
+# what a kernel's library_ms measures where it is not one call of the
+# same function (K8 / K9: cuDNN's products only), and K9's head shape
+LIBRARY_NOTES = ("library_of", "head_library_ms", "head_ms")
 SERVING = ("nb1d", "downsampler", "upsampler", "head_rowsums")
 FUSED = ("encoder_fused", "decoder_fused")  # the full engine's kernels
 BLOCKS = ("nb1d_chain", "wls_moments")  # the blocks-mode engine's kernels
@@ -631,7 +643,7 @@ def time_and_record(label, s, per_step, verdict, fwd, pfwd, bwd, pbwd, work,
     times each number to the summary `s`. At TF32X3_FLOP_PER_S (the
     float32 tiles on the tensor cores) the FFMA bounds, at
     FP32_FLOP_PER_S, are printed and summed beside them (`ffma_bound_ms`,
-    `bwd_ffma_bound_ms`). Returns the forward's ms."""
+    `bwd_ffma_bound_ms`). Returns the forward's and the backward's ms."""
     with torch.no_grad():
         f_ms, pf_ms = median_ms(fwd), median_ms(pfwd)
         pb_ms, b_ms = median_ms(pbwd), median_ms(bwd)
@@ -654,7 +666,7 @@ def time_and_record(label, s, per_step, verdict, fwd, pfwd, bwd, pbwd, work,
                    ("bwd_ms", b_ms), ("plain_bwd_ms", pb_ms),
                    ("bwd_bound_ms", bb)):
         s[key] += per_step * v
-    return f_ms
+    return f_ms, b_ms
 
 
 def plane_tols(dt):
@@ -794,22 +806,47 @@ def plant_pool_ties(x):
     return x
 
 
+def s2_library(label, s, per_step, k_ms, lib_fwd, lib_bwd):
+    """Time cuDNN's products beside a stride-2 op at one shape, in CUDA
+    events, and add `per_step` times them to `library_ms` /
+    `bwd_library_ms` of the summary `s`. They are the products only (no
+    single call computes the bias, the pool, the moment fold or the
+    moments): `lib_fwd` the op's forward convolution, `lib_bwd` its input
+    and weight gradients; `k_ms` the op's (forward, backward) times."""
+    with torch.no_grad():
+        l_f, l_b = median_ms(lib_fwd), median_ms(lib_bwd)
+    for key, v in (("library_ms", l_f), ("bwd_library_ms", l_b)):
+        s[key] = s.get(key, 0.0) + per_step * v
+    print(f"library {label}: cuDNN products only, forward {l_f:.4f} ms "
+          f"(kernel {k_ms[0]:.4f}, {k_ms[0] / l_f:.2f}x), backward "
+          f"{l_b:.4f} ms (kernel {k_ms[1]:.4f}, {k_ms[1] / l_b:.2f}x)")
+    return l_f, l_b
+
+
 def check_lanemap_kernels(dev, g, dt):
     """Phase 2b, the stride-2 training ops in dtype `dt`: `downsampler_op`,
     `lane_maps_op` and `head_rowsums_op`, forward and backward (the
     backward kernels and their plain version on the same stashes, with a
     non-zero moment cotangent), at every shape of the 256x512 train and
-    eval steps. Returns ({name: summary}, failures)."""
+    eval steps; in float32 each product result (y, dx, dweight) beside its
+    single-TF32 control, and every shape of K8 / K9 timed beside cuDNN's
+    products. Returns ({name: summary}, failures)."""
     import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
 
     from lanedetection_end2end_tpu_torch.config import train_sh_config
     from lanedetection_end2end_tpu_torch.models.lanenet import (
         make_fitter, zero_rows)
     from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
+    from lanedetection_end2end_tpu_torch.ops.tf32x3 import (
+        conv_s2_tf32, convt_s2_tf32, wgrad_s2_tf32)
 
     rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
     es = torch.finfo(dt).bits // 8
-    rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
+    f32 = dt == torch.float32
+    # K8 / K9 take three TF32 products per f32 product in float32 (their
+    # FFMA bound beside it); K10 runs on FFMA
+    rate = BF16_FLOP_PER_S if not f32 else TF32X3_FLOP_PER_S
     pt = plane_tols(dt)
     dname = DTYPE_NAMES[dt]
     B, H, W = BATCH, RESIZE, 2 * RESIZE
@@ -819,6 +856,9 @@ def check_lanemap_kernels(dev, g, dt):
 
     # K8: the three downsamplers, planted ties, dx required at all three
     s = summary["downsampler_op"]
+    s["library_of"] = ("cuDNN's products only at the three downsamplers: "
+                       "F.conv2d 3x3/s2/p1 forward; F.conv_transpose2d + "
+                       "conv2d_weight backward (TF32 off)")
     for (h, w, cin), cout in (((H, W, 3), 16), ((H // 2, W // 2, 16), 64),
                               ((H // 4, W // 4, 64), 128)):
         cc = cout - cin
@@ -838,14 +878,25 @@ def check_lanemap_kernels(dev, g, dt):
         verdict = hold(label, [
             ("y", y, py, *pt), ("mom", mom, pmom),
             ("dx", grads[0], pgrads[0], *pt),
-            ("dweight", grads[1], pgrads[1]), ("dbias", grads[2], pgrads[2]),
-            ("dweight without dx", nodx[1], pgrads[1])], s, failures)
+            ("dweight", grads[1], pgrads[1], *pt),
+            ("dbias", grads[2], pgrads[2]),
+            ("dweight without dx", nodx[1], pgrads[1], *pt)], s, failures)
         if nodx[0] is not None:
             failures.append(f"{label}: dx returned though not needed")
+        if f32:
+            with torch.no_grad():
+                cy = lm.downsampler_fwd_plain(x, wt, bias,
+                                              conv=conv_s2_tf32)[0]
+                cdx = lm.downsampler_bwd_plain(*args, convt=convt_s2_tf32)[0]
+                cdw = lm.downsampler_bwd_plain(*args, wgrad=wgrad_s2_tf32)[1]
+            tf32_control(label, [("y", y, py, cy),
+                                 ("dx", grads[0], pgrads[0], cdx),
+                                 ("dweight", grads[1], pgrads[1], cdw)],
+                         failures)
         # forward: x read, y written; backward: x, y, dy read, dx written
         planes = (es * (x.numel() + y.numel()),
                   2 * es * (x.numel() + y.numel()))
-        time_and_record(
+        k_ms = time_and_record(
             label, s, 1, verdict,
             lambda: lm.downsampler_op(x, wt, bias),
             lambda: lm.downsampler_fwd_plain(x, wt, bias),
@@ -853,10 +904,22 @@ def check_lanemap_kernels(dev, g, dt):
             lambda: lm.downsampler_bwd_plain(*args),
             lambda bwd: s2_work((B, h // 2, w // 2), cc, cin, 3, planes, bwd,
                                 es), rate)
+        xn, wl = x.permute(0, 3, 1, 2), wt.to(dt)
+        dzn = dy[..., :cc].permute(0, 3, 1, 2)
+        s2_library(label, s, 1, k_ms,
+                   lambda: F.conv2d(xn, wl, stride=2, padding=1),
+                   lambda: (F.conv_transpose2d(dzn, wl, stride=2, padding=1,
+                                               output_padding=1),
+                            conv2d_weight(xn, wl.shape, dzn, stride=2,
+                                          padding=1)))
 
     # K9: the two upsamplers (moments, output in the planes' dtype) and the
     # head as the eval step runs it (f32 out, no moments)
     s = summary["lane_maps_op"]
+    s["library_of"] = ("cuDNN's products only at the two upsamplers: "
+                       "F.conv_transpose2d forward; F.conv2d + "
+                       "conv2d_weight backward (TF32 off); the head's shape "
+                       "apart as head_library_ms beside head_ms")
     for (h, w, cin), cout, k, out_dtype, want_mom, per_step in (
             ((H // 8, W // 8, 128), 64, 3, dt, True, 1),
             ((H // 4, W // 4, 64), 16, 3, dt, True, 1),
@@ -884,33 +947,44 @@ def check_lanemap_kernels(dev, g, dt):
             [("mom", mom, pmom)] if want_mom else [])
         verdict = hold(label, pairs + [
             ("dx", grads[0], pgrads[0], *pt),
-            ("dweight", grads[1], pgrads[1]), ("dbias", grads[2], pgrads[2])],
-            s, failures)
+            ("dweight", grads[1], pgrads[1], *pt),
+            ("dbias", grads[2], pgrads[2])], s, failures)
         if (mom is None) != (not want_mom):
             failures.append(f"{label}: moments returned {mom is not None}")
+        if f32:
+            with torch.no_grad():
+                cy = lm.lane_maps_fwd_plain(x, wt, bias, k, out_dtype,
+                                            want_mom, convt=convt_s2_tf32)[0]
+                cdx = lm.lane_maps_bwd_plain(*args, conv=conv_s2_tf32)[0]
+                cdw = lm.lane_maps_bwd_plain(*args, wgrad=wgrad_s2_tf32)[1]
+            tf32_control(label, [("y", y, py, cy),
+                                 ("dx", grads[0], pgrads[0], cdx),
+                                 ("dweight", grads[1], pgrads[1], cdw)],
+                         failures)
         ybytes = y.numel() * y.element_size()
         # backward reads y only to fold the moment cotangent
         planes = (es * x.numel() + ybytes,
                   2 * es * x.numel() + ybytes * (1 + want_mom))
-        f_ms = time_and_record(
+        k_ms = time_and_record(
             label, s, per_step, verdict, op, plain,
             lambda: lm.lane_maps_bwd_kernel(*args),
             lambda: lm.lane_maps_bwd_plain(*args),
             lambda bwd: s2_work((B, h, w), cin, cout, k, planes, bwd, es),
             rate)
+        # cuDNN on the same operands (in bf16 its output is bf16; TF32 is
+        # off); timed here, used nowhere in the port
+        xn, wb = x.permute(0, 3, 1, 2), wt.to(dt)
+        dpn = dy.to(dt).permute(0, 3, 1, 2)
+        pad = 1 if k == 3 else 0
+        l_f, _ = s2_library(
+            label, s, per_step, k_ms,
+            lambda: F.conv_transpose2d(xn, wb, stride=2, padding=pad,
+                                       output_padding=pad),
+            lambda: (F.conv2d(dpn, wb, stride=2, padding=pad),
+                     conv2d_weight(dpn, wb.shape, xn, stride=2,
+                                   padding=pad)))
         if not want_mom:
-            # one PyTorch call on the same operands (in bf16 its output is
-            # bf16, the op's f32; TF32 is off); timed here, used nowhere in
-            # the port
-            xn = x.permute(0, 3, 1, 2)
-            wb, bb = wt.to(dt), bias.to(dt)
-            with torch.no_grad():
-                s["library_ms"] = median_ms(
-                    lambda: F.conv_transpose2d(xn, wb, bb, stride=2))
-            s["library_of"] = label
-            s["ms_at_library_shape"] = f_ms
-            print(f"check {label}: F.conv_transpose2d on the same {dname} "
-                  f"operands {s['library_ms']:.4f} ms")
+            s["head_library_ms"], s["head_ms"] = l_f, k_ms[0]
 
     # K10: the fused tail, with the fitter's column coordinate and mask
     s = summary["head_rowsums_op"]
@@ -950,7 +1024,8 @@ def check_lanemap_kernels(dev, g, dt):
         lambda: lm.head_rowsums_op(x, wt, bias, xs, zero),
         lambda: lm.head_rowsums_fwd_plain(x, wt, bias, xs, zero),
         lambda: lm.head_rowsums_bwd_kernel(*args),
-        lambda: lm.head_rowsums_bwd_plain(*args), head_op_work, rate)
+        lambda: lm.head_rowsums_bwd_plain(*args), head_op_work,
+        BF16_FLOP_PER_S if not f32 else FP32_FLOP_PER_S)
     return summary, failures
 
 
@@ -1955,12 +2030,19 @@ def unfused_phase(dev, sd0, profile=False):
 
 OWN_KERNELS = (  # device functions of csrc/, as the profiler names them
     "conv3tap_kernel", "wgrad3tap_kernel", "dyv_kernel",
-    "channel_sums_kernel", "ds_fwd_kernel", "ds_dx_kernel", "lm_fwd_kernel",
+    "channel_sums_kernel", "ds_dx_kernel", "lm_fwd_kernel",
     "l2s_kernel", "wgrad_s2_kernel", "dyv_fold_kernel", "hr_ddec_kernel",
     "head_rowsums_kernel", "downsampler_kernel", "upsampler_kernel",
     "nb1d_chain_kernel", "wls_partial_kernel", "wls_sum_kernel",
     "conv3tap_f32_kernel", "wgrad3tap_f32_kernel", "dz_kernel",
-    "wgrad_s2_f32_kernel", "encoder_fused_kernel", "decoder_fused_kernel")
+    "wgrad_s2_f32_kernel", "encoder_fused_kernel", "decoder_fused_kernel",
+    "s2_gemm_kernel", "s2_wgrad_kernel", "ds1_fwd_kernel", "ds1_wgrad_kernel")
+# the stride-2 ops' device kernels, by the op tag in their template
+# arguments (csrc/conv_s2.cuh: op_k8, op_k9, op_k10, and the epilogues
+# op_k8_fwd, ...) or by a name only one op launches
+STRIDE2_OPS = {"K8": ("op_k8", "ds_dx_kernel", "ds1_"),
+               "K9": ("op_k9", "lm_fwd_kernel"),
+               "K10": ("op_k10", "hr_ddec_kernel", "head_rowsums_kernel")}
 
 
 def profile_steps(run_step, step_ms: float, label: str,
@@ -2002,6 +2084,13 @@ def profile_steps(run_step, step_ms: float, label: str,
           f"step (" + ", ".join(f"{n} {v:.3f}" for n, v in groups.items()
                                 if v > 0)
           + f"), everything else {busy - own:.3f} ms")
+    ops = {op: sum(e.self_device_time_total for e in rows
+                   if any(t in e.key for t in tags)) / 1e3 / steps
+           for op, tags in STRIDE2_OPS.items()}
+    if any(ops.values()):
+        print(f"profile {label}: stride-2 ops "
+              + ", ".join(f"{op} {v:.3f}" for op, v in ops.items())
+              + " ms per step")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:16]:
         print(f"profile {label}:   "
@@ -2305,19 +2394,15 @@ def main() -> int:
             if bwd_source is not None:
                 entry["float32"].update(bwd_launches=f32[1],
                                         **bwd_numbers(f))
-            if "library_of" in f:
-                entry["float32"].update(
-                    library_of=f["library_of"],
-                    ms_at_library_shape=f["ms_at_library_shape"])
+            entry["float32"].update({k: f[k] for k in LIBRARY_NOTES
+                                     if k in f})
         if "k1_ms" in s:
             entry["k1_block_by_block_ms"] = s["k1_ms"]
         if "blocks_ms" in s:
             entry["block_sequence_ms"] = s["blocks_ms"]
         if "block_img_per_s" in s:
             entry["block_img_per_s"] = s["block_img_per_s"]
-        if "library_of" in s:
-            entry.update(library_of=s["library_of"],
-                         ms_at_library_shape=s["ms_at_library_shape"])
+        entry.update({k: s[k] for k in LIBRARY_NOTES if k in s})
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

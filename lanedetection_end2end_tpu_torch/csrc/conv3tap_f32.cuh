@@ -79,6 +79,7 @@
 
 #include <stdint.h>
 
+#include "tc_common.cuh"
 #include "wgrad3tap.cuh"
 
 namespace ldconv32 {
@@ -93,38 +94,13 @@ using ldconv::EPI_BIAS_RELU;
 using ldconv::EPI_MASK_SUM;
 using ldconv::EPI_PLAIN;
 using ldconv::EPI_PRO_BWD;
+using ldtc::cp_async16;
+using ldtc::cp_async_commit;
+using ldtc::cp_async_wait;
+using ldtc::mma_tf32;
+using ldtc::split_tf32;
 
 // ---- PTX -----------------------------------------------------------------
-
-// 16 bytes from global to shared memory, or 16 zero bytes where !valid
-// (src-size 0: nothing is read; src must still be a mapped address)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// a = hi + lo, both TF32 (round to nearest, ties away). The low 13 bits of
-// a cvt's result are unspecified, so hi is masked before the subtraction,
-// which is then exact.
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
-  hi &= 0xffffe000u;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
-}
 
 // 4 bytes from global to shared memory (the B operands, scattered into
 // wgmma's core-matrix layout), or 4 zero bytes where !valid
@@ -279,18 +255,6 @@ struct Wgmma<128> {
         : "memory");
   }
 };
-
-// c += a @ b on one 16 x 8 x 8 TF32 tile of one warp (mma.sync, f32
-// accumulation), the fragments as in Wgmma's rows 0 .. 15: thread (g, tg)
-// holds a[g][tg], a[g+8][tg], a[g][tg+4], a[g+8][tg+4], b[tg][g],
-// b[tg+4][g] and c[g + 8h][2tg + e] in c[2h + e].
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // acc (MT m64 tiles x N) += the 8-deep step's products of the split
 // operands: lo_a hi_b + hi_a lo_b + hi_a hi_b, smallest terms first.

@@ -31,6 +31,11 @@
 // whose 10-bit mantissa would miss the float32 bar of 1e-4), added to the
 // f32 result with atomicAdd (blocks run in no order, so nothing is carried
 // between them as the TPU grid carries its accumulators).
+//
+// K8 and K9 run the three products on the tensor cores at the backbone's
+// stride-2 shapes (conv_s2_mma.cuh), and the first downsampler (cin = 3)
+// on kernels of its own (downsampler_op.cu); the pieces here serve K10,
+// K9's 2x2 head and the first downsampler's input gradient.
 #pragma once
 
 #include <mma.h>
@@ -42,6 +47,13 @@ namespace lds2 {
 using namespace nvcuda;
 
 constexpr int EW_THREADS = 256;
+
+// The op a shared kernel runs for, a template argument of the kernels of
+// this header and conv_s2_mma.cuh, so a profile's kernel names tell K8,
+// K9 and K10 apart.
+struct op_k8 {};
+struct op_k9 {};
+struct op_k10 {};
 
 static inline int ew_blocks(long long n) {
   const long long b = (n + EW_THREADS - 1) / EW_THREADS;
@@ -127,7 +139,7 @@ __device__ __forceinline__ void block_channel_add(float s0, float s1, int C,
 //   db[c] += f;  out = TP(f)
 // dy, y: n values, channel fastest, of the forward's output type T; db:
 // (C,) f32, zero on entry.
-template <typename T, typename TP>
+template <typename T, typename TP, class Tag>
 __global__ void __launch_bounds__(EW_THREADS) dyv_fold_kernel(
     const T* __restrict__ dy, const T* __restrict__ y,
     const float* __restrict__ dmom, TP* __restrict__ out,
@@ -145,19 +157,19 @@ __global__ void __launch_bounds__(EW_THREADS) dyv_fold_kernel(
   block_channel_add(acc, 0.0f, C, db, nullptr);
 }
 
-template <typename T, typename TP>
+template <class Tag, typename T, typename TP>
 int launch_dyv_fold(const T* dy, const T* y, const float* dmom, TP* out,
                     float* db, long long n, int C, cudaStream_t s) {
   if (C < 1 || EW_THREADS % C != 0) return (int)cudaErrorInvalidValue;
-  dyv_fold_kernel<T, TP><<<ew_blocks(n), EW_THREADS, 0, s>>>(dy, y, dmom, out,
-                                                             db, n, C);
+  dyv_fold_kernel<T, TP, Tag><<<ew_blocks(n), EW_THREADS, 0, s>>>(
+      dy, y, dmom, out, db, n, C);
   return (int)cudaGetLastError();
 }
 
 // out[b, h, w, cs] = T(gather_large): the input gradient of a transposed
 // convolution. large: (B, 2Hs, 2Ws, CL); wt: (k, k, CL, CS); out: (B, Hs,
 // Ws, CS); all of type T.
-template <typename T>
+template <typename T, class Tag>
 __global__ void __launch_bounds__(EW_THREADS) l2s_kernel(
     const T* __restrict__ large, const T* __restrict__ wt,
     T* __restrict__ out, int B, int Hs, int Ws, int CL, int CS, int k,
@@ -175,11 +187,12 @@ __global__ void __launch_bounds__(EW_THREADS) l2s_kernel(
   }
 }
 
-template <typename T>
+template <class Tag, typename T>
 int launch_l2s(const T* large, const T* wt, T* out, int B, int Hs, int Ws,
                int CL, int CS, int k, int pad, cudaStream_t s) {
-  l2s_kernel<T><<<ew_blocks((long long)B * Hs * Ws * CS), EW_THREADS, 0, s>>>(
-      large, wt, out, B, Hs, Ws, CL, CS, k, pad);
+  l2s_kernel<T, Tag>
+      <<<ew_blocks((long long)B * Hs * Ws * CS), EW_THREADS, 0, s>>>(
+          large, wt, out, B, Hs, Ws, CL, CS, k, pad);
   return (int)cudaGetLastError();
 }
 
@@ -238,7 +251,7 @@ constexpr int wgrad_s2_smem_bytes() {
 // the 16 rows cs = 16 * (w % (CSP/16)) and every (8 / (CSP/16))-th 16-pixel
 // step. small: (B, Hs, Ws, CST) of which the first CS channels count;
 // large: (B, 2Hs, 2Ws, CL); dW: (CS, CL, k, k) f32, zero on entry.
-template <int CSP, int CLP>
+template <int CSP, int CLP, class Tag>
 __global__ void __launch_bounds__(WG_THREADS) wgrad_s2_kernel(
     const bf16* __restrict__ small, const bf16* __restrict__ large,
     float* __restrict__ dW, int B, int Hs, int Ws, int CST, int CS, int CL,
@@ -300,7 +313,7 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_s2_kernel(
 // threads keeps a (CSP/16) x (CLP/16) tile of the (cs, cl) result, rows
 // and columns interleaved by 16 so neighbouring threads read neighbouring
 // shared-memory words, and adds it to dW with atomicAdd at the end.
-template <int CSP, int CLP>
+template <int CSP, int CLP, class Tag>
 __global__ void __launch_bounds__(WG_THREADS) wgrad_s2_f32_kernel(
     const float* __restrict__ small, const float* __restrict__ large,
     float* __restrict__ dW, int B, int Hs, int Ws, int CST, int CS, int CL,
@@ -377,33 +390,33 @@ int launch_wgrad_s2_kernel(K kern, int smem, int tile, const T* small,
   return (int)cudaGetLastError();
 }
 
-template <int CSP, int CLP>
+template <int CSP, int CLP, class Tag>
 int launch_wgrad_s2_as(const bf16* small, const bf16* large, float* dW, int B,
                        int Hs, int Ws, int CST, int CS, int CL, int k,
                        int pad, cudaStream_t s) {
-  return launch_wgrad_s2_kernel(wgrad_s2_kernel<CSP, CLP>,
+  return launch_wgrad_s2_kernel(wgrad_s2_kernel<CSP, CLP, Tag>,
                                 wgrad_s2_smem_bytes<CSP, CLP>(), WG_TP, small,
                                 large, dW, B, Hs, Ws, CST, CS, CL, k, pad, s);
 }
 
-template <int CSP, int CLP>
+template <int CSP, int CLP, class Tag>
 int launch_wgrad_s2_as(const float* small, const float* large, float* dW,
                        int B, int Hs, int Ws, int CST, int CS, int CL, int k,
                        int pad, cudaStream_t s) {
-  return launch_wgrad_s2_kernel(wgrad_s2_f32_kernel<CSP, CLP>,
+  return launch_wgrad_s2_kernel(wgrad_s2_f32_kernel<CSP, CLP, Tag>,
                                 WG32_TP * (CSP + CLP) * 4, WG32_TP, small,
                                 large, dW, B, Hs, Ws, CST, CS, CL, k, pad, s);
 }
 
 // dW (CS, CL, k, k) f32, zero on entry, += the weight gradient between the
 // first CS channels of `small` and the CL of `large`, both bf16 or both f32.
-template <typename T>
+template <class Tag, typename T>
 int launch_wgrad_s2(const T* small, const T* large, float* dW, int B, int Hs,
                     int Ws, int CST, int CS, int CL, int k, int pad,
                     cudaStream_t s) {
-#define LD_WG(CSP, CLP)                                                     \
-  launch_wgrad_s2_as<CSP, CLP>(small, large, dW, B, Hs, Ws, CST, CS, CL, k, \
-                               pad, s)
+#define LD_WG(CSP, CLP)                                                      \
+  launch_wgrad_s2_as<CSP, CLP, Tag>(small, large, dW, B, Hs, Ws, CST, CS, CL, \
+                                    k, pad, s)
   if (CL <= 16 && CS <= 16) return LD_WG(16, 16);
   if (CL <= 16 && CS <= 64) return LD_WG(64, 16);
   if (CL <= 64 && CS <= 64) return LD_WG(64, 64);

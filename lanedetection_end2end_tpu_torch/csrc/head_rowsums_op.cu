@@ -92,12 +92,13 @@ int hr_bwd(const void* x, const void* dS, const void* wf, const void* wt,
                            zero_rows);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  rc = launch_l2s(static_cast<const T*>(dpt), static_cast<const T*>(wt),
-                  static_cast<T*>(dx), B, H / 2, W / 2, C, cin, 2, 0, s);
+  rc = launch_l2s<op_k10>(static_cast<const T*>(dpt),
+                          static_cast<const T*>(wt), static_cast<T*>(dx), B,
+                          H / 2, W / 2, C, cin, 2, 0, s);
   if (rc) return rc;
-  return launch_wgrad_s2(xt, static_cast<const T*>(dpt),
-                         static_cast<float*>(dweight), B, H / 2, W / 2, cin,
-                         cin, C, 2, 0, s);
+  return launch_wgrad_s2<op_k10>(xt, static_cast<const T*>(dpt),
+                                 static_cast<float*>(dweight), B, H / 2,
+                                 W / 2, cin, cin, C, 2, 0, s);
 }
 
 }  // namespace

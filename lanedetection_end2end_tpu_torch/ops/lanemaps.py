@@ -62,6 +62,11 @@ from lanedetection_end2end_tpu_torch.ops.nb_block import (
 BF16 = torch.bfloat16
 F32 = torch.float32
 _MOM_CHANNELS = (4, 16, 64, 128)  # the channel reductions need 256 % C == 0
+# the (cin, cout) the kernels take at k = 3: K8 the config's three
+# downsamplers, K9 its two upsamplers (on the tensor cores but for the
+# first downsampler); K9 at k = 2 takes up to 16 channels each side
+_DOWN_SHAPES = ((3, 16), (16, 64), (64, 128))
+_UP_SHAPES = ((128, 64), (64, 16))
 
 
 def _fold_moments(dy, y, dmom):
@@ -84,6 +89,36 @@ def _convt_pad(k: int) -> dict:
 # Plain versions
 # ----------------------------------------------------------------------
 
+def _nchw_as_is(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2)  # of any dtype: float64 references too
+
+
+def conv_s2(large, w, k: int):
+    """The k x k stride-2 convolution (k = 3: padding 1; k = 2: none) of a
+    large NHWC plane (B, 2Hs, 2Ws, cl) with the parameter w (cs, cl, k, k)
+    -> the small plane (B, Hs, Ws, cs), in the plane's float dtype
+    (`gather_large` of the kernels)."""
+    return _nhwc(F.conv2d(_nchw_as_is(large), w.to(large.dtype), stride=2,
+                          padding=_convt_pad(k).get("padding", 0)))
+
+
+def convt_s2(small, w, k: int):
+    """Its transpose (k = 3 with output padding 1): (B, Hs, Ws, cs) ->
+    (B, 2Hs, 2Ws, cl) (`gather_small`)."""
+    return _nhwc(F.conv_transpose2d(_nchw_as_is(small), w.to(small.dtype),
+                                    **_convt_pad(k)))
+
+
+def wgrad_s2(small, large, k: int):
+    """The weight gradient between the two planes: dW[cs, cl, ky, kx] = the
+    sum over small pixels of small * large at the pixel the tap ties to it
+    -> (cs, cl, k, k) (`wgrad_s2`)."""
+    return conv2d_weight(_nchw_as_is(large), (small.shape[-1],
+                                              large.shape[-1], k, k),
+                         _nchw_as_is(small), stride=2,
+                         padding=_convt_pad(k).get("padding", 0))
+
+
 def _pool_chain(x: torch.Tensor):
     """2x2 max pool of an NHWC plane by the where-chain -> (p, m1, m2):
     m1 (B, H/2, W, C) keeps the upper row, m2 (B, H/2, W/2, C) the left
@@ -96,31 +131,33 @@ def _pool_chain(x: torch.Tensor):
     return torch.where(m2, a, b), m1, m2
 
 
-def downsampler_fwd_plain(x, weight, bias):
-    """Plain PyTorch version of `downsampler_op` -> (y, mom)."""
+def downsampler_fwd_plain(x, weight, bias, conv=conv_s2):
+    """Plain PyTorch version of `downsampler_op` -> (y, mom). `conv` is the
+    stride-2 convolution (`conv_s2`, full f32; `ops/tf32x3.py` has the
+    float32 tiles' 3xTF32 arithmetic and its single-TF32 control)."""
     rnd = _rounder(x.dtype)
     xf = x.float()
-    conv = F.conv2d(_nchw(xf), rnd(weight), bias.float(), stride=2,
-                    padding=1)
-    y = rnd(torch.cat([_nhwc(conv), _pool_chain(xf)[0]], dim=-1))
+    z = conv(xf, rnd(weight), 3) + bias.float()
+    y = rnd(torch.cat([z, _pool_chain(xf)[0]], dim=-1))
     return y.to(x.dtype), _moments(y)
 
 
-def downsampler_bwd_plain(x, y, dy, dmom, weight, need_dx: bool = True):
+def downsampler_bwd_plain(x, y, dy, dmom, weight, need_dx: bool = True,
+                          convt=convt_s2, wgrad=wgrad_s2):
     """Plain version of the backward kernels, in their order ->
-    (dx | None, dweight, dbias)."""
+    (dx | None, dweight, dbias); `convt` and `wgrad` as `conv` of the
+    forward."""
     rnd = _rounder(x.dtype)
     cc = weight.shape[0]
     xf = x.float()
     dyv = _fold_moments(dy, y, dmom)
     dbias = dyv[..., :cc].sum(_SUM)
     dz = rnd(dyv)
-    dzc = dz[..., :cc].permute(0, 3, 1, 2)
-    dweight = conv2d_weight(_nchw(xf), weight.shape, dzc, stride=2, padding=1)
+    dzc = dz[..., :cc]
+    dweight = wgrad(dzc, xf, 3)
     if not need_dx:
         return None, dweight, dbias
-    dx = _nhwc(F.conv_transpose2d(dzc, rnd(weight), stride=2, padding=1,
-                                  output_padding=1))
+    dx = convt(dzc, rnd(weight), 3)
     _, m1, m2 = _pool_chain(xf)
     gp = dz[..., cc:]
     g_p1 = torch.stack([gp * m2, gp * ~m2], dim=3).flatten(2, 3)
@@ -129,31 +166,30 @@ def downsampler_bwd_plain(x, y, dy, dmom, weight, need_dx: bool = True):
 
 
 def lane_maps_fwd_plain(x, weight, bias, k: int, out_dtype=None,
-                        want_mom: bool = True):
-    """Plain PyTorch version of `lane_maps_op` -> (y, mom | None)."""
+                        want_mom: bool = True, convt=convt_s2):
+    """Plain PyTorch version of `lane_maps_op` -> (y, mom | None); `convt`
+    as `conv` of `downsampler_fwd_plain`."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    y = _nhwc(F.conv_transpose2d(_nchw(x), _rounder(x.dtype)(weight),
-                                 bias.float(), **_convt_pad(k)))
+    y = convt(x.float(), _rounder(x.dtype)(weight), k) + bias.float()
     y = _rounder(out_dtype)(y)
     return y.to(out_dtype), (_moments(y) if want_mom else None)
 
 
-def _convt_grads(x, dp, weight, k: int):
+def _convt_grads(x, dp, weight, k: int, conv=conv_s2, wgrad=wgrad_s2):
     """Input and weight gradient of the transposed convolution from the
     rounded output gradient dp (B, 2H, 2W, cout), f32 values."""
-    pad = _convt_pad(k).get("padding", 0)
-    dpn = dp.permute(0, 3, 1, 2)
-    dx = F.conv2d(dpn, _rounder(x.dtype)(weight), stride=2, padding=pad)
-    dweight = conv2d_weight(dpn, weight.shape, _nchw(x), stride=2,
-                            padding=pad)
-    return _nhwc(dx).to(x.dtype), dweight
+    dx = conv(dp, _rounder(x.dtype)(weight), k)
+    return dx.to(x.dtype), wgrad(x.float(), dp, k)
 
 
-def lane_maps_bwd_plain(x, y, dy, dmom, weight, k: int):
+def lane_maps_bwd_plain(x, y, dy, dmom, weight, k: int, conv=conv_s2,
+                        wgrad=wgrad_s2):
     """Plain version of the backward kernels -> (dx, dweight, dbias);
-    y and dmom None when the op returned no moments."""
+    y and dmom None when the op returned no moments; `conv` and `wgrad` as
+    in `downsampler_bwd_plain`."""
     dyv = _fold_moments(dy, y, dmom)
-    dx, dweight = _convt_grads(x, _rounder(x.dtype)(dyv), weight, k)
+    dx, dweight = _convt_grads(x, _rounder(x.dtype)(dyv), weight, k, conv,
+                               wgrad)
     return dx, dweight, dyv.sum(_SUM)
 
 
@@ -220,6 +256,14 @@ def _check_mom_channels(C: int, name: str):
         raise ValueError(f"{name}: {C} channels not in {_MOM_CHANNELS}")
 
 
+def _check_shape(name: str, cin: int, cout: int, k: int = 3):
+    """The channels of a stride-2 op: one of the shapes the kernels take."""
+    shapes = _DOWN_SHAPES if name == "downsampler_op" else _UP_SHAPES
+    if not ((cin, cout) in shapes if k == 3 else cin <= 16 and cout <= 16):
+        raise ValueError(f"{name}: {cin} -> {cout} channels at k={k} is not "
+                         "a shape the kernels take")
+
+
 def _check_out_dtype(plane: torch.dtype, out: torch.dtype):
     """lane_maps_op writes bf16 or f32 from bf16 planes, f32 from f32."""
     if out not in ((BF16, F32) if plane == BF16 else (F32,)):
@@ -242,7 +286,7 @@ def _downsampler_fwd_cuda(x, weight, bias):
     symbol = _check_plane(x, "ld_downsampler_op_fwd")
     if H % 2 or W % 2:
         raise ValueError(f"downsampler_op: odd plane {H}x{W}")
-    _check_mom_channels(cout, "downsampler_op")
+    _check_shape("downsampler_op", cin, cout)
     w, b = _check_weight(weight, bias, cc, cin, 3)
     wt = _taps_first(w, 0, x.dtype)                       # (3, 3, cin, cc)
     y = torch.empty(B, H // 2, W // 2, cout, dtype=x.dtype, device=x.device)
@@ -261,7 +305,7 @@ def downsampler_bwd_kernel(x, y, dy, dmom, weight, need_dx: bool = True):
     cc = weight.shape[0]
     cout = cc + cin
     symbol = _check_plane(x, "ld_downsampler_op_bwd")
-    _check_mom_channels(cout, "downsampler_op")
+    _check_shape("downsampler_op", cin, cout)
     dy = dy.contiguous()
     for t, name in ((y, "y"), (dy, "dy")):
         check_cuda(t, x.dtype, (B, H // 2, W // 2, cout), name)
@@ -288,6 +332,7 @@ def _lane_maps_fwd_cuda(x, weight, bias, k, out_dtype, want_mom):
     symbol = _check_plane(x, "ld_lane_maps_op_fwd")
     _check_out_dtype(x.dtype, out_dtype)
     _check_mom_channels(cout, "lane_maps_op")
+    _check_shape("lane_maps_op", cin, cout, k)
     w, b = _check_weight(weight, bias, cin, cout, k)
     wt = _taps_first(w, 1, x.dtype)                       # (k, k, cin, cout)
     y = torch.empty(B, 2 * H, 2 * W, cout, dtype=out_dtype, device=x.device)
@@ -308,6 +353,7 @@ def lane_maps_bwd_kernel(x, y, dy, dmom, weight, k: int):
     pad = _convt_pad(k).get("padding", 0)
     symbol = _check_plane(x, "ld_lane_maps_op_bwd")
     _check_mom_channels(cout, "lane_maps_op")
+    _check_shape("lane_maps_op", cin, cout, k)
     dy = dy.contiguous()
     _check_out_dtype(x.dtype, dy.dtype)
     check_cuda(dy, dy.dtype, (B, 2 * H, 2 * W, cout), "dy")
