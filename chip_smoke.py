@@ -72,7 +72,13 @@ a card. In order:
    0 just before; `encoder_fused` and `decoder_fused` bit for bit against
    it on every batch and at the resize-64 edge (the 8x16 NB1D-128 plane
    with d = 16 >= H, W), against their plain versions, timed beside the
-   block sequence, the plain versions and the bound; then the row-12
+   block sequence, the plain versions and the bound; one occupancy line
+   per fused kernel (registers and local bytes a thread, blocks and warps
+   resident per SM, grid, shared memory, and the grid barriers the kernel
+   counts in a call: no local memory, at least 16 warps per SM, 28 and 10
+   barriers); the block sequence timed stage by stage (K1 at each (C, d),
+   K2 at its three shapes, K3 at its two, K4), with cuDNN's products alone
+   at the five stride-2 shapes (`library` lines); then the row-12
    harness (`lanedetection_end2end_tpu_torch/tools/prof_block_stack.py`,
    the block applied 8 times per `nb1d_chain` launch) at batch 32 with 1,
    2 and 4 images per launch, its counted pass of 32 + 16 + 8 launches,
@@ -141,7 +147,10 @@ null where no single PyTorch call computes the fused function, for
 wls_moments the time of `torch.matmul` (TF32 off) of the squared weights,
 laid out as (B*C, N), with the basis, at the engine's shape, for
 channel_sums the time of `torch.var_mean(x.float(), dim=(0, 1, 2))`, which
-gives the same statistics, for downsampler_op and lane_maps_op cuDNN's
+gives the same statistics, for the serving downsampler and upsampler
+(K2, K3) cuDNN's bf16 product alone at their shapes per engine call
+(`F.conv2d` 3x3/s2/p1, `F.conv_transpose2d`, channels_last; no pool,
+BatchNorm or relu), for downsampler_op and lane_maps_op cuDNN's
 products alone on the same operands (bf16, or float32 with TF32 off) at
 the train step's shapes, which no single call computes with the bias, the
 pool and the moments (`library_of` says which calls; forward: `F.conv2d`
@@ -1486,6 +1495,116 @@ def decoder_work(p, B, H, W):
     return stages_flop(p, DEC_STAGES, (B, H // 8, W // 8, 128)), nbytes
 
 
+# grid barriers per call of each fused kernel, one between each pair of its
+# passes: the encoder's 3 stride-2 passes and 13 NB1D blocks of 2 passes,
+# the decoder's 2 stride-2 passes, 4 NB1D blocks of 2 passes and the head
+FUSED_BARRIERS = {"encoder_fused": 28, "decoder_fused": 10}
+MIN_WARPS_PER_SM = 16  # twice the 8 of the fused kernels' first design
+
+
+def fused_occupancy(dev, packed, x, enc_b, failures):
+    """Phase 3c: one line per fused kernel with what the card gives its
+    launch at the engine's shape (`ops/backbone_fused.py::fused_info`:
+    registers and local bytes a thread from cudaFuncGetAttributes, blocks
+    and warps resident per SM, grid) and the grid barriers the kernel
+    counted in one more call; no local memory, at least MIN_WARPS_PER_SM
+    warps per SM and FUSED_BARRIERS barriers, or a failure. Returns {name:
+    info}."""
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, encoder_fused_kernel, fused_info)
+    B, H, W, _ = x.shape
+    out = {}
+    for name, which, p, run in (
+            ("encoder_fused", "encoder", packed["enc"],
+             lambda: encoder_fused_kernel(x, packed["enc"])),
+            ("decoder_fused", "decoder", packed["dec"],
+             lambda: decoder_fused_kernel(enc_b, packed["dec"]))):
+        info = fused_info(which, p, B, H, W, dev)
+        run()
+        wrapper = (encoder_fused_kernel if which == "encoder"
+                   else decoder_fused_kernel)
+        barriers = wrapper.barriers.item()
+        ok = (barriers == FUSED_BARRIERS[name] and info["local_bytes"] == 0
+              and info["warps_per_sm"] >= MIN_WARPS_PER_SM)
+        print(f"occupancy {name}: {info['registers']} registers and "
+              f"{info['local_bytes']} local bytes a thread, "
+              f"{info['blocks_per_sm']} blocks of {info['threads']} threads "
+              f"({info['warps_per_sm']} warps) per SM, grid {info['grid']} "
+              f"blocks on {info['sms']} SMs, {info['smem_bytes']} bytes of "
+              f"shared memory a block, {barriers} grid barriers per call "
+              f"(expected {FUSED_BARRIERS[name]}; no local memory, at least "
+              f"{MIN_WARPS_PER_SM} warps per SM): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} occupancy")
+        out[name] = dict(info, barriers=barriers)
+    return out
+
+
+def stage_label(kind, x, q):
+    """The block-sequence kernel a stage calls, with its shape."""
+    if kind in ("down", "up"):
+        cout = (q["mul"].numel() if kind == "down" else q["w"].shape[-1])
+        return f"{'K2' if kind == 'down' else 'K3'} {x.shape[-1]}->{cout}"
+    if kind == "nb1d":
+        return f"K1 C={x.shape[-1]} d={q['dilation']}"
+    return "K4"
+
+
+def time_block_stages(packed, x, fused_ms):
+    """Phase 3c: the block sequence (`encoder_blocks`, `decoder_blocks`)
+    timed stage by stage, each wrapper call of K1-K4 on its own input
+    (CUDA events, median of 20), so the fused kernels' time splits by
+    stage; then cuDNN's products alone at the serving stride-2 shapes
+    (`library` lines: bf16 channels_last `F.conv2d` 3x3/s2/p1 beside K2,
+    `F.conv_transpose2d` 3x3/s2/p1/op1 beside K3), as phase 2b's lines
+    sit beside K8 / K9. Returns ({part: {label: ms}}, {kernel: library ms per
+    engine call})."""
+    import torch.nn.functional as F
+    from lanedetection_end2end_tpu_torch.models.fused_graph import BLOCKS
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        DEC_STAGES, ENC_STAGES, stage, stage_kind)
+    stages_ms, library = {}, {"downsampler": 0.0, "upsampler": 0.0}
+    for part, name, stages in (("enc", "encoder_fused", ENC_STAGES),
+                               ("dec", "decoder_fused", DEC_STAGES)):
+        by, counts = {}, {}
+        for key in stages:
+            kind, q = stage_kind(key), stage(packed[part], key)
+            op, xin = BLOCKS[kind], x
+            label = stage_label(kind, xin, q)
+            k_ms = median_ms(lambda: op(xin, q))
+            by[label] = by.get(label, 0.0) + k_ms
+            counts[label] = counts.get(label, 0) + 1
+            if kind in ("down", "up"):
+                xn = xin.permute(0, 3, 1, 2)  # channels_last NCHW view
+                if kind == "down":
+                    wl = q["w"].permute(3, 2, 0, 1).contiguous(
+                        memory_format=torch.channels_last)
+                    lib = lambda: F.conv2d(xn, wl, stride=2, padding=1)
+                    call = "F.conv2d 3x3/s2/p1"
+                else:
+                    wl = q["w"].permute(2, 3, 0, 1).contiguous(
+                        memory_format=torch.channels_last)
+                    lib = lambda: F.conv_transpose2d(
+                        xn, wl, stride=2, padding=1, output_padding=1)
+                    call = "F.conv_transpose2d 3x3/s2/p1/op1"
+                with torch.no_grad():
+                    l_ms = median_ms(lib)
+                library["downsampler" if kind == "down"
+                        else "upsampler"] += l_ms
+                print(f"library {label} {tuple(xin.shape)}: cuDNN {call} "
+                      f"alone, bf16 channels_last, {l_ms:.4f} ms ({label} "
+                      f"{k_ms:.4f} ms, {k_ms / l_ms:.2f}x)")
+            x = op(x, q)
+        total = sum(by.values())
+        print(f"{name} block sequence by stage (ms per engine call, "
+              f"wrapper calls timed one by one): "
+              + ", ".join(f"{k} x{counts[k]} {v:.4f}" for k, v in by.items())
+              + f"; sum {total:.4f}, the fused kernel {fused_ms[name]:.4f} "
+              f"({fused_ms[name] / total:.2f} of the sum)")
+        stages_ms[name] = by
+    return stages_ms, library
+
+
 def check_fused_backbone(dev, g, sd, packed, images):
     """Phase 3c. The block path (`encoder_blocks` -> `decoder_blocks`, 23
     wrapper calls of K1-K4) on the engine's batches with the launch counts
@@ -1605,7 +1724,13 @@ def check_fused_backbone(dev, g, sd, packed, images):
             print(line)
             if not ok:
                 failures.append(f"{name} {label}")
-    return summary, launches, failures
+    x, enc_b, _ = refs[0]
+    occupancy = fused_occupancy(dev, packed, x, enc_b, failures)
+    stages_ms, library = time_block_stages(
+        packed, x, {n: s["ms"] for n, s in summary.items()})
+    for n, s in summary.items():
+        s.update(occupancy=occupancy[n], stage_ms=stages_ms[n])
+    return summary, launches, library, failures
 
 
 def check_row12(dev):
@@ -2324,8 +2449,15 @@ def main() -> int:
 
     # 3c. the whole encoder and decoder against the block path, and the
     # row-12 harness
-    fused_summary, block_launches, failures = check_fused_backbone(
+    fused_summary, block_launches, library, failures = check_fused_backbone(
         dev, g, model.state_dict(), packed, images)
+    for n, v in library.items():
+        summary[n].update(library_ms=v, library_of=(
+            "cuDNN's product alone at each serving shape, bf16 "
+            "channels_last: " + ("F.conv2d 3x3/s2/p1 (no pool, BatchNorm or "
+                                 "relu)" if n == "downsampler" else
+                                 "F.conv_transpose2d 3x3/s2/p1/op1 (no "
+                                 "BatchNorm or relu)")))
     row12_summary, row12_launches, f = check_row12(dev)
     if failures + f:
         fail("fused backbone or row-12 harness: " + "; ".join(failures + f))
@@ -2402,6 +2534,9 @@ def main() -> int:
             entry["block_sequence_ms"] = s["blocks_ms"]
         if "block_img_per_s" in s:
             entry["block_img_per_s"] = s["block_img_per_s"]
+        for key in ("occupancy", "stage_ms"):
+            if key in s:
+                entry[key] = s[key]
         entry.update({k: s[k] for k in LIBRARY_NOTES if k in s})
         kernels.append(entry)
     print(card)

@@ -40,12 +40,6 @@ __device__ __forceinline__ float stf(float* p, long long i, float v) {
 // keep a stale line of them in its L1, nor read them through the read-only
 // path.
 template <bool kCoherent>
-__device__ __forceinline__ uint4 load_vec(const bf16* p) {
-  if (kCoherent) return __ldcg(reinterpret_cast<const uint4*>(p));
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-template <bool kCoherent>
 __device__ __forceinline__ float load_bf(const bf16* p) {
   if (kCoherent)
     return bf2f(__ushort_as_bfloat16(
@@ -61,6 +55,22 @@ __device__ __forceinline__ float load_f(const bf16* p) {
 template <bool kCoherent>
 __device__ __forceinline__ float load_f(const float* p) {
   return kCoherent ? __ldcg(p) : *p;
+}
+
+// The inference BatchNorm folded to a scale and a shift, then relu.
+__device__ __forceinline__ float bn_relu(float a, float mul, float add) {
+  return fmaxf(fmaf(a, mul, add), 0.0f);
+}
+
+// Two neighbouring bf16 values of a plane as floats, read through L2 only
+// (the address must be 4-byte aligned).
+__device__ __forceinline__ float2 load_bf2_cg(const bf16* p) {
+  const unsigned int u = __ldcg(reinterpret_cast<const unsigned int*>(p));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ void store_bf2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 static inline int grid_1d(long long n, int threads) {
@@ -133,6 +143,21 @@ struct StageTable {
   int d[N];
 };
 
+// The table in shared memory, copied by thread 0 with constant indices (a
+// kernel parameter indexed at run time would be copied to local memory):
+// st[s], st[N + s], st[2N + s] = w[s], v[s], d[s]. The caller syncs.
+template <int N>
+__device__ __forceinline__ void stage_table_to_shared(const StageTable<N>& t,
+                                                      int* st) {
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int s = 0; s < N; ++s) {
+    st[s] = t.w[s];
+    st[N + s] = t.v[s];
+    st[2 * N + s] = t.d[s];
+  }
+}
+
 template <int N>
 static inline StageTable<N> read_table(const void* table) {
   StageTable<N> tab;
@@ -145,37 +170,76 @@ static inline StageTable<N> read_table(const void* table) {
   return tab;
 }
 
-// Launch `kern` as one cooperative grid of `threads`-thread blocks with
-// `smem` bytes of dynamic shared memory: as many blocks as can be resident
-// at once (the occupancy at `smem` times the SM count), at most `units`.
-// Returns the launch's error: a card that refuses the launch is an error,
-// never a smaller grid or another path.
+// The grid of a cooperative launch of `kern` with `threads`-thread blocks
+// and `smem` bytes of dynamic shared memory: as many blocks as can be
+// resident at once (the occupancy at `smem` times the SM count), at most
+// `units`. Sets *grid and *per_sm (blocks resident on one SM); returns the
+// error of any query (the card lacking cooperative launches included).
 template <typename Kernel>
-static inline int launch_cooperative(Kernel kern, int threads, int smem,
-                                     long long units, void** args,
-                                     cudaStream_t stream) {
+static inline int cooperative_grid(Kernel kern, int threads, int smem,
+                                   long long units, int* grid, int* per_sm) {
   cudaError_t e;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return (int)e;
   }
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  int dev = 0, sms = 0, coop = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads,
                                                     smem);
   if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long most = (long long)per_sm * sms;
-  const int grid = (int)(units < 1 ? 1 : units < most ? units : most);
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
-                                  dim3(grid), dim3(threads), args, smem,
-                                  stream);
+  if (*per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const long long most = (long long)*per_sm * sms;
+  *grid = (int)(units < 1 ? 1 : units < most ? units : most);
+  return 0;
+}
+
+// Launch `kern` as one cooperative grid (cooperative_grid) on `stream`.
+// Returns the launch's error: a card that refuses the launch is an error,
+// never a smaller grid or another path.
+template <typename Kernel>
+static inline int launch_cooperative(Kernel kern, int threads, int smem,
+                                     long long units, void** args,
+                                     cudaStream_t stream) {
+  int grid = 0, per_sm = 0;
+  const int rc = cooperative_grid(kern, threads, smem, units, &grid, &per_sm);
+  if (rc) return rc;
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kern), dim3(grid), dim3(threads), args,
+      smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// What a persistent kernel's launch gets from the card, for a report:
+// info[0..7] = registers a thread, local (spilled) bytes a thread, blocks
+// resident on one SM, warps resident on one SM, grid blocks, dynamic
+// shared memory bytes a block, threads a block, SMs.
+template <typename Kernel>
+static inline int cooperative_info(Kernel kern, int threads, int smem,
+                                   long long units, int* info) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return (int)e;
+  int grid = 0, per_sm = 0, dev = 0, sms = 0;
+  const int rc = cooperative_grid(kern, threads, smem, units, &grid, &per_sm);
+  if (rc) return rc;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = per_sm;
+  info[3] = per_sm * threads / 32;
+  info[4] = grid;
+  info[5] = smem;
+  info[6] = threads;
+  info[7] = sms;
+  return 0;
 }

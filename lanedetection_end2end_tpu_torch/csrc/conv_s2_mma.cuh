@@ -6,9 +6,10 @@
 // into one f32 accumulator, smallest first; ops/tf32x3.py states the same
 // arithmetic in PyTorch).
 //
-//   s2_gemm_kernel, an implicit GEMM: M = small-plane pixels, 64 a block of
-//   4 warps (16 rows each, all N columns); N = the output channels; K =
-//   taps x CK input channels, in chunks of KC channels of one tap. Two
+//   s2_tile, an implicit GEMM: M = small-plane pixels, 16 per warp (all N
+//   columns each), 64 a block of 4 warps in K8 / K9's s2_gemm_kernel, 128
+//   a block of 8 in the serving kernels; N = the output channels; K = taps
+//   x CK input channels, in chunks of KC channels of one tap. Two
 //   geometries feed its A rows:
 //     ConvGeo  - gather_large, the 3x3/s2/p1 convolution (K8 forward, K9
 //                input gradient): row (p, tap) is the large plane's pixel
@@ -48,7 +49,10 @@
 //
 // The callers fix the shapes that take these tiles: the stride-2 blocks of
 // the config's backbone, K8 at 16 -> 64 and 64 -> 128 and K9's two
-// upsamplers.
+// upsamplers; the serving K2 and K3 (downsampler.cuh, upsampler.cuh, with
+// epilogues of their own: BatchNorm folded, relu, one bf16 rounding) at
+// the same four shapes, standalone and inside encoder_fused.cu /
+// decoder_fused.cu.
 #pragma once
 
 #include "conv_s2.cuh"
@@ -281,46 +285,54 @@ __device__ __forceinline__ void flush_moments(const float* red, int C,
 
 // ---- the implicit GEMM -----------------------------------------------------
 
-template <typename T, int CK, int N>
+// One tile of NW warps: BM = 16 NW GEMM rows (a warp's 16 rows take all N
+// columns), K walked in chunks of KC channels of one tap.
+template <typename T, int CK, int N, int NW = 4>
 struct GemmTile {
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int BM = 16 * NW;
   static constexpr int EPV = 16 / (int)sizeof(T);  // elements a copy
   static constexpr int KC = CK % 32 == 0 ? 32 : 16;  // channels a chunk
   static constexpr int CPT = CK / KC;                // chunks a tap
   static constexpr int LDA = KC + EPV;  // pitches, 16 bytes of padding
   static constexpr int LDB = N + 8;
-  static constexpr int A_ELEMS = MM_BM * LDA, B_ELEMS = KC * LDB;
+  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = KC * LDB;
   static constexpr int STAGE = A_ELEMS + B_ELEMS;
   static constexpr int SMEM = MM_STAGES * STAGE * (int)sizeof(T);
   static constexpr int VA = KC / EPV, VB = N / EPV;  // copies a row
-  static constexpr int RPT = MM_BM * VA / MM_THREADS;  // A rows a thread
+  static constexpr int RPT = BM * VA / THREADS;      // A rows a thread
   static constexpr int NT = N / 8;
   static_assert(CK % KC == 0 && KC % Mma<T>::KS == 0 && NT % 2 == 0 &&
-                    MM_THREADS % VA == 0 && RPT * MM_THREADS == MM_BM * VA &&
+                    THREADS % VA == 0 && RPT * THREADS == BM * VA &&
                     N <= MM_MAXC,
                 "a tile the block can stage");
 };
 
 // out = op's epilogue of sum_taps sum_c A(p, tap)[c] * wt[tap][c][n] for
-// the 64 rows p of this block and phase blockIdx.y; op.wt is taps-first (9,
-// CK, N) of type T.
-template <typename T, int CK, int N, class Op>
-__global__ void __launch_bounds__(MM_THREADS) s2_gemm_kernel(const Op op) {
-  using G = GemmTile<T, CK, N>;
+// the BM rows p0 .. p0 + BM - 1 and phase `phase`, computed by the
+// block's 32 NW threads through the ring in `smem` (G::SMEM bytes); op.wt
+// is taps-first (9, CK, N) of type T; `red` is the op's shared memory for
+// block sums (2 MM_MAXC floats, or nullptr for an op that keeps none).
+// The tile function of K8 and K9 (s2_gemm_kernel, 4 warps) and of the
+// serving kernels' stride-2 passes (downsampler.cuh, upsampler.cuh: 8
+// warps, standalone and inside the fused kernels): each output's sum runs
+// over the same chunks in the same order whatever NW is. Starts by
+// writing `smem` and ends after reading it: a caller that runs a second
+// tile in the same block puts a __syncthreads() between the two.
+template <typename T, int CK, int N, int NW, class Op>
+__device__ __forceinline__ void s2_tile(const Op& op, int p0, int phase,
+                                        T* smem, float* red) {
+  using G = GemmTile<T, CK, N, NW>;
   using M = Mma<T>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ float red[2 * MM_MAXC];  // the block's moment sums
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int phase = blockIdx.y, p0 = blockIdx.x * MM_BM;
   const int warp = threadIdx.x >> 5;
   const int nchunks = op.taps(phase) * G::CPT;
-  for (int i = threadIdx.x; i < 2 * MM_MAXC; i += MM_THREADS) red[i] = 0.0f;
 
-  // this thread copies A rows r0 + j * (MM_THREADS / VA), 16 bytes at v
+  // this thread copies A rows r0 + j * (THREADS / VA), 16 bytes at v
   const int v = threadIdx.x % G::VA, r0 = threadIdx.x / G::VA;
   Pix rows[G::RPT];
 #pragma unroll
   for (int j = 0; j < G::RPT; ++j)
-    rows[j] = pix_of(p0 + r0 + j * (MM_THREADS / G::VA), op.npix, op.Hs,
+    rows[j] = pix_of(p0 + r0 + j * (G::THREADS / G::VA), op.npix, op.Hs,
                      op.Ws);
 
   auto stage = [&](int i) { return smem + (i % MM_STAGES) * G::STAGE; };
@@ -333,11 +345,11 @@ __global__ void __launch_bounds__(MM_THREADS) s2_gemm_kernel(const Op op) {
       bool ok;
       const T* src = op.a_src(rows[j], t, phase, ok);
       ldtc::cp_async16(
-          sA + (r0 + j * (MM_THREADS / G::VA)) * G::LDA + v * G::EPV,
+          sA + (r0 + j * (G::THREADS / G::VA)) * G::LDA + v * G::EPV,
           ok ? src + c0 + v * G::EPV : src, ok);
     }
     const T* wt = op.wt + ((size_t)op.tap_index(t, phase) * CK + c0) * N;
-    for (int e = threadIdx.x; e < G::KC * G::VB; e += MM_THREADS) {
+    for (int e = threadIdx.x; e < G::KC * G::VB; e += G::THREADS) {
       const int r = e / G::VB, c = e % G::VB;
       ldtc::cp_async16(sB + r * G::LDB + c * G::EPV, wt + r * N + c * G::EPV,
                        true);
@@ -380,6 +392,17 @@ __global__ void __launch_bounds__(MM_THREADS) s2_gemm_kernel(const Op op) {
   }
   ldtc::cp_async_wait<0>();
   op.epilogue(acc, p0, phase, red);
+}
+
+// K8 / K9's kernel: one 4-warp tile of 64 rows per block, phase blockIdx.y.
+template <typename T, int CK, int N, class Op>
+__global__ void __launch_bounds__(MM_THREADS) s2_gemm_kernel(const Op op) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ float red[2 * MM_MAXC];  // the block's moment sums
+  for (int i = threadIdx.x; i < 2 * MM_MAXC; i += MM_THREADS) red[i] = 0.0f;
+  // (the tile's first barrier orders these stores before the epilogue)
+  s2_tile<T, CK, N, MM_THREADS / 32>(op, blockIdx.x * MM_BM, blockIdx.y,
+                                     reinterpret_cast<T*>(smem_raw), red);
 }
 
 template <typename T, int CK, int N, class Op>

@@ -21,88 +21,73 @@
 // it sits at or above the H100's ~295 FLOP/byte ridge: the tensor cores
 // bound it, not HBM. C = 16 (decoder, 128x256) is memory-bound.
 //
-// Design: each of the four convolutions is an implicit GEMM
-// [pixels x 3C] @ [3C x C], one launch of `conv3tap_kernel` each, one
-// 64-pixel tile per block (the tile body is `nb1d.cuh`, which the chain
-// kernel `nb1d_chain.cu` shares). The intermediates t1, t2 make a round trip
-// through device memory (L2 at these sizes); fusing the four convolutions,
-// TMA/wgmma tiling and a persistent kernel over the whole encoder are later
-// work.
+// Design: the block is two launches of the row tile of `nb1d.cuh` (pass A:
+// the two d = 1 convolutions, x -> mid; pass B: the two dilated ones and
+// the residual, mid -> out), one tile of R whole rows per block; t1 stays
+// in the tile's shared memory, t2 = mid makes one round trip through
+// device memory. The persistent kernels run the same passes with a
+// grid-wide barrier in place of the second launch.
 
 #include "nb1d.cuh"
 
 namespace {
 
 using nb1d::THREADS;
-using nb1d::TP;
 
 template <int C>
-__global__ void __launch_bounds__(THREADS) conv3tap_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w,
-    const float* __restrict__ mul, const float* __restrict__ add,
-    const bf16* __restrict__ res, bf16* __restrict__ out, int npix, int H,
-    int W, int d, int axis) {
+__global__ void __launch_bounds__(THREADS, 2)
+    nb1d_pass_kernel(const nb1d::Pass ps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  nb1d::conv3tap_tile<C, false>(blockIdx.x * TP, x, w, mul, add, res, out,
-                                npix, H, W, d, axis, smem);
+  nb1d::pass_tiles<C>(ps, false, smem, blockIdx.x, gridDim.x);
 }
 
 template <int C>
-int launch_conv(const bf16* x, const bf16* w, const float* mul,
-                const float* add, const bf16* res, bf16* out, int npix, int H,
-                int W, int d, int axis, cudaStream_t stream) {
-  constexpr int smem = nb1d::smem_bytes<C>();
+int launch_pass(const nb1d::Pass& ps, cudaStream_t stream) {
+  const int smem = nb1d::smem_bytes<C>(ps.W, ps.d);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        conv3tap_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nb1d_pass_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
   }
-  conv3tap_kernel<C><<<grid_1d(npix, TP), THREADS, smem, stream>>>(
-      x, w, mul, add, res, out, npix, H, W, d, axis);
+  const int R = nb1d::Cfg<C>::MT / ps.W;
+  nb1d_pass_kernel<C><<<(ps.rows + R - 1) / R, THREADS, smem, stream>>>(ps);
   return (int)cudaGetLastError();
 }
 
 template <int C>
-int launch_block(const bf16* x, const bf16* w, const float* vec, bf16* t1,
-                 bf16* t2, bf16* out, int npix, int H, int W, int d,
-                 cudaStream_t s) {
+int launch_block(const bf16* x, const bf16* w, const float* vec, bf16* mid,
+                 bf16* out, int B, int H, int W, int d, cudaStream_t s) {
   // w: (4, 3, C, C) [conv][tap][ci][co]; vec: (6, C) = b1 m1 a1 b3 m2 a2
-  const size_t wc = (size_t)3 * C * C;
-  int rc;
-  rc = launch_conv<C>(x, w, nullptr, vec, nullptr, t1, npix, H, W, 1, 0, s);
+  if (W > nb1d::Cfg<C>::MT) return (int)cudaErrorInvalidValue;
+  const int rows = B * H;
+  const int rc =
+      launch_pass<C>(nb1d::pass_a<C>(x, w, vec, mid, rows, H, W), s);
   if (rc) return rc;
-  rc = launch_conv<C>(t1, w + wc, vec + C, vec + 2 * C, nullptr, t2, npix, H,
-                      W, 1, 1, s);
-  if (rc) return rc;
-  rc = launch_conv<C>(t2, w + 2 * wc, nullptr, vec + 3 * C, nullptr, t1, npix,
-                      H, W, d, 0, s);
-  if (rc) return rc;
-  return launch_conv<C>(t1, w + 3 * wc, vec + 4 * C, vec + 5 * C, x, out,
-                        npix, H, W, d, 1, s);
+  return launch_pass<C>(nb1d::pass_b<C>(x, mid, w, vec, d, out, rows, H, W),
+                        s);
 }
 
 }  // namespace
 
-// x, out, t1, t2: (B, H, W, C) bf16 contiguous; t1/t2 are scratch.
-LD_API int ld_nb1d(const void* x, const void* w, const void* vec, void* t1,
-                   void* t2, void* out, int B, int H, int W, int C, int d,
+// x, out, mid: (B, H, W, C) bf16 contiguous; mid is scratch; W at most
+// 8192 / C (the row tile holds whole rows).
+LD_API int ld_nb1d(const void* x, const void* w, const void* vec, void* mid,
+                   void* out, int B, int H, int W, int C, int d,
                    void* stream) {
-  const int npix = B * H * W;
   auto s = static_cast<cudaStream_t>(stream);
   auto X = static_cast<const bf16*>(x);
   auto Wt = static_cast<const bf16*>(w);
   auto V = static_cast<const float*>(vec);
-  auto T1 = static_cast<bf16*>(t1);
-  auto T2 = static_cast<bf16*>(t2);
+  auto M = static_cast<bf16*>(mid);
   auto O = static_cast<bf16*>(out);
   switch (C) {
     case 16:
-      return launch_block<16>(X, Wt, V, T1, T2, O, npix, H, W, d, s);
+      return launch_block<16>(X, Wt, V, M, O, B, H, W, d, s);
     case 64:
-      return launch_block<64>(X, Wt, V, T1, T2, O, npix, H, W, d, s);
+      return launch_block<64>(X, Wt, V, M, O, B, H, W, d, s);
     case 128:
-      return launch_block<128>(X, Wt, V, T1, T2, O, npix, H, W, d, s);
+      return launch_block<128>(X, Wt, V, M, O, B, H, W, d, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,7 +5,8 @@
 // convolution into lane-map matmuls and interleaves the row phases. Here it
 // is computed directly on NHWC bf16: ConvTranspose2d(3x3, stride 2,
 // padding 1, output_padding 1), then relu(acc * mul + add) with the conv
-// bias folded into `add`, f32 accumulation, one bf16 rounding.
+// bias folded into `add`, f32 accumulation, one bf16 rounding. It runs
+// 128->64 and 64->16 and takes no other shape.
 //
 // Weights are the torch layout (cin, cout, kH, kW) permuted to
 // (kH, kW, cin, cout), UNFLIPPED. torch's transposed conv writes x[h] into
@@ -18,27 +19,35 @@
 // for 128->64 and ~72 for 64->16, both under the ~295 FLOP/byte ridge, so
 // HBM bounds it.
 //
-// Design: one thread per output value (pixel, channel), channels fastest;
-// the input pixel is a warp broadcast, the weights a coalesced run. CUDA
-// cores only: both upsamplers are ~3% of the backbone's FLOP.
-// The per-output body is in upsampler.cuh, shared with the
-// whole-decoder kernel decoder_fused.cu.
+// Design (device code in upsampler.cuh, shared with the whole-decoder
+// kernel decoder_fused.cu): the tensor-core tile of K9 (conv_s2_mma.cuh)
+// by output parity, blockIdx.y = phase, 128 small-plane pixels a block of
+// 8 warps, the epilogue in registers.
 
 #include "upsampler.cuh"
 
 namespace {
 
-// x: (B, H, W, cin); w: (3, 3, cin, cout); out: (B, 2H, 2W, cout)
-__global__ void upsampler_kernel(const bf16* __restrict__ x,
-                                 const bf16* __restrict__ w,
-                                 const float* __restrict__ mul,
-                                 const float* __restrict__ add,
-                                 bf16* __restrict__ out, int B, int H, int W,
-                                 int cin, int cout) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * (2 * H) * (2 * W) * cout) return;
-  ldus::upsampler_values<false, 1>(idx, x, w, mul, add, out, H, W, cin,
-                                   cout);
+template <int CK, int N>
+__global__ void __launch_bounds__(32 * ldds::NW)
+    us_kernel(const ldus::op_us_serve op) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  lds2::s2_tile<bf16, CK, N, ldds::NW>(op, blockIdx.x * ldds::BM, blockIdx.y,
+                                       reinterpret_cast<bf16*>(smem),
+                                       nullptr);
+}
+
+template <int CK, int N>
+int launch_us(const ldus::op_us_serve& op, cudaStream_t s) {
+  constexpr int smem = lds2::GemmTile<bf16, CK, N, ldds::NW>::SMEM;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        us_kernel<CK, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((op.npix + ldds::BM - 1) / ldds::BM, 4);
+  us_kernel<CK, N><<<grid, 32 * ldds::NW, smem, s>>>(op);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -46,12 +55,12 @@ __global__ void upsampler_kernel(const bf16* __restrict__ x,
 LD_API int ld_upsampler(const void* x, const void* w, const void* mul,
                         const void* add, void* out, int B, int H, int W,
                         int cin, int cout, void* stream) {
-  const long long n = (long long)B * (2 * H) * (2 * W) * cout;
-  constexpr int threads = 256;
-  upsampler_kernel<<<grid_1d(n, threads), threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  auto s = static_cast<cudaStream_t>(stream);
+  const ldus::op_us_serve op = ldus::us_op(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(mul), static_cast<const float*>(add),
       static_cast<bf16*>(out), B, H, W, cin, cout);
-  return (int)cudaGetLastError();
+  if (cin == 128 && cout == 64) return launch_us<128, 64>(op, s);
+  if (cin == 64 && cout == 16) return launch_us<64, 16>(op, s);
+  return (int)cudaErrorInvalidValue;
 }

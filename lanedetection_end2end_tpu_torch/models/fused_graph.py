@@ -17,7 +17,7 @@ between each pair and keeps the planes in device memory (L2 at batch 8):
 
 A CPU tensor takes the plain versions; a CUDA tensor runs the fused
 kernels or raises. `encoder_blocks` / `decoder_blocks` are the same
-sequences as 23 wrapper calls of K1-K4 (74 launches), whose device code
+sequences as 23 wrapper calls of K1-K4 (40 launches), whose device code
 the fused kernels run: they are the bit-for-bit reference of the fused
 kernels on the card, and nothing on the serving path calls them. JAX's
 `NB1D_STACK` knob (images stacked per grid step for the MXU's M dimension)

@@ -6,9 +6,14 @@ Counterpart of `lanedetection_end2end_tpu/ops/pallas_backbone.py`
 row-mask and row-sum tail of `models/fused_graph.py::_decoder_plane_b`. The
 TPU "lane maps" are lane-packing devices and are not ported: the kernels
 (`csrc/downsampler.cu`, `csrc/upsampler.cu`, `csrc/head_rowsums.cu`)
-compute the convolutions directly on NHWC bf16 with f32 accumulation. Each
-wrapper uses its plain version only for a CPU tensor; for a CUDA tensor it
-launches its kernel or raises.
+compute the convolutions directly on NHWC bf16 with f32 accumulation, the
+stride-2 ones on the tensor-core tiles of the training ops
+(`csrc/conv_s2_mma.cuh`: the 3x3/s2 convolution as an implicit GEMM with
+the pool channels from the same windows, the transposed convolution by
+output parity) but the 3 -> 16 downsampler (FFMA, a thread per output
+pixel). They take the backbone's shapes only: `DOWN_SHAPES`, `UP_SHAPES`.
+Each wrapper uses its plain version only for a CPU tensor; for a CUDA
+tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,6 +31,11 @@ from lanedetection_end2end_tpu_torch.ops.nb1d import fold_bn
 
 BF16 = torch.bfloat16
 F32 = torch.float32
+
+
+# (cin, cout) of the downsamplers and upsamplers the kernels take
+DOWN_SHAPES = ((3, 16), (16, 64), (64, 128))
+UP_SHAPES = ((128, 64), (64, 16))
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -68,8 +78,10 @@ def downsampler(x: torch.Tensor, p: Dict) -> torch.Tensor:
     B, H, W, cin = x.shape
     cc = p["w"].shape[-1]
     cout = cc + cin
-    if H % 2 or W % 2:
-        raise ValueError(f"downsampler kernel: odd plane {H}x{W}")
+    if H % 2 or W % 2 or (cin, cout) not in DOWN_SHAPES:
+        raise ValueError(f"downsampler kernel: plane {H}x{W}, {cin} -> "
+                         f"{cout} channels, expected an even plane and one "
+                         f"of {DOWN_SHAPES}")
     xp = check_cuda(x, BF16, name="x")
     wp = check_cuda(p["w"], BF16, (3, 3, cin, cc), "w")
     mp = check_cuda(p["mul"], F32, (cout,), "mul")
@@ -111,6 +123,9 @@ def upsampler(x: torch.Tensor, p: Dict) -> torch.Tensor:
         return upsampler_plain(x, p)
     B, H, W, cin = x.shape
     cout = p["w"].shape[-1]
+    if (cin, cout) not in UP_SHAPES:
+        raise ValueError(f"upsampler kernel: {cin} -> {cout} channels, "
+                         f"expected one of {UP_SHAPES}")
     xp = check_cuda(x, BF16, name="x")
     wp = check_cuda(p["w"], BF16, (3, 3, cin, cout), "w")
     mp = check_cuda(p["mul"], F32, (cout,), "mul")

@@ -8,17 +8,22 @@ intermediate plane in VMEM:
 
 - `encoder_fused_kernel` (`csrc/encoder_fused.cu`): images (B, H, W, 3)
   bf16 -> enc (B, H/8, W/8, 128) bf16 through the initial downsampler,
-  down1, 5 NB1D-64 blocks, down2 and 8 dilated NB1D-128 blocks: 55 passes
-  with a grid-wide barrier between each pair;
+  down1, 5 NB1D-64 blocks, down2 and 8 dilated NB1D-128 blocks: 29 passes
+  with a grid-wide barrier between each pair (28);
 - `decoder_fused_kernel` (`csrc/decoder_fused.cu`): enc -> S (B, H, 2C)
   f32 = [S0 | S1] through up1, 2 NB1D-64, up2, 2 NB1D-16 and the head with
-  activation, row mask and WLS row sums: 19 passes.
+  activation, row mask and WLS row sums: 11 passes, 10 barriers.
 
 Each pass runs the device code of K1-K4 (`ops/nb1d.py`, `ops/backbone.py`),
 so the outputs are bit for bit those of the block sequence
-(`models/fused_graph.py::encoder_blocks` / `decoder_blocks`). The planes
-stay in device memory (L2 at these sizes): one card's blocks cannot hold an
-image's planes the way a TPU core's VMEM does.
+(`models/fused_graph.py::encoder_blocks` / `decoder_blocks`): the stride-2
+passes on the tensor-core tiles of `csrc/conv_s2_mma.cuh` (the 3 -> 16
+downsampler on FFMA), an NB1D block as two passes of the row tile of
+`csrc/nb1d.cuh`. The planes stay in device memory (L2 at these sizes): one
+card's blocks cannot hold an image's planes the way a TPU core's VMEM
+does. Each launch writes the grid barriers it ran to a device int, kept
+on the wrapper as `barriers` after a call; `fused_info` reads what the
+card gives a launch (registers, spills, resident warps, grid).
 
 The constants are laid out once per checkpoint (`flat_constants`, called by
 `pack_encoder` / `pack_decoder`, the counterpart of JAX's `_flatten_packed`):
@@ -135,26 +140,38 @@ def _flat(packed: Dict, n: int):
     return wp, vp, packed["table"], 3 * n
 
 
+# the widest images the fused kernels take: their NB1D row tiles hold whole
+# rows, NB1D-64 of W/4 and NB1D-128 of W/8 pixels (`ops/nb1d.py::
+# max_width`), NB1D-16 of W/2 in the decoder
+MAX_WIDTH = 512
+SCRATCH_PLANES = 3  # the block input, the pass A output, the block output
+
+
 def encoder_fused_kernel(x: torch.Tensor, packed: Dict) -> torch.Tensor:
     """The whole encoder in one cooperative launch: x (B, H, W, 3) bf16,
-    H and W multiples of 8 -> enc (B, H/8, W/8, 128) bf16. Raises for
-    anything else, and for a CPU tensor."""
+    H and W multiples of 8, W <= MAX_WIDTH -> enc (B, H/8, W/8, 128) bf16.
+    Raises for anything else, and for a CPU tensor."""
     B, H, W, cin = x.shape
-    if cin != 3 or H % 8 or W % 8:
+    if cin != 3 or H % 8 or W % 8 or W > MAX_WIDTH:
         raise ValueError(f"encoder_fused kernel: images {tuple(x.shape)}, "
-                         "expected (B, H, W, 3) with H, W multiples of 8")
+                         "expected (B, H, W, 3) with H, W multiples of 8, "
+                         f"W <= {MAX_WIDTH}")
     xp = check_cuda(x, BF16, name="images")
     wp, vp, table, n = _flat(packed, len(ENC_STAGES))
-    scratch = torch.empty(4 * 4 * B * H * W, dtype=BF16, device=x.device)
+    scratch = torch.empty(SCRATCH_PLANES * 4 * B * H * W, dtype=BF16,
+                          device=x.device)
     out = torch.empty(B, H // 8, W // 8, 128, dtype=BF16, device=x.device)
-    launch(kernel("encoder_fused", "ld_encoder_fused", "ppppippiiip"),
+    barriers = torch.empty(1, dtype=torch.int32, device=x.device)
+    launch(kernel("encoder_fused", "ld_encoder_fused", "ppppipppiiip"),
            x.device, xp, wp, vp, table, n, scratch.data_ptr(),
-           out.data_ptr(), B, H, W)
+           out.data_ptr(), barriers.data_ptr(), B, H, W)
     encoder_fused_kernel.launches += 1
+    encoder_fused_kernel.barriers = barriers
     return out
 
 
 encoder_fused_kernel.launches = 0
+encoder_fused_kernel.barriers = None
 
 
 def decoder_fused_kernel(enc: torch.Tensor, packed: Dict) -> torch.Tensor:
@@ -164,19 +181,47 @@ def decoder_fused_kernel(enc: torch.Tensor, packed: Dict) -> torch.Tensor:
     B, h, w, cin = enc.shape
     head = packed["head"]
     C = head["bias"].shape[0]
-    if cin != 128 or head["xs"].shape[0] != 8 * w:
+    if cin != 128 or head["xs"].shape[0] != 8 * w or 8 * w > MAX_WIDTH:
         raise ValueError(f"decoder_fused kernel: enc {tuple(enc.shape)}, "
                          f"expected (B, h, w, 128) with 8w = "
-                         f"{head['xs'].shape[0]} columns")
+                         f"{head['xs'].shape[0]} columns, 8w <= {MAX_WIDTH}")
     ep = check_cuda(enc, BF16, name="enc")
     wp, vp, table, n = _flat(packed, len(DEC_STAGES))
-    scratch = torch.empty(4 * 256 * B * h * w, dtype=BF16, device=enc.device)
+    scratch = torch.empty(SCRATCH_PLANES * 256 * B * h * w, dtype=BF16,
+                          device=enc.device)
     S = torch.empty(B, 8 * h, 2 * C, dtype=F32, device=enc.device)
-    launch(kernel("decoder_fused", "ld_decoder_fused", "ppppippiiiiiip"),
+    barriers = torch.empty(1, dtype=torch.int32, device=enc.device)
+    launch(kernel("decoder_fused", "ld_decoder_fused", "ppppipppiiiiiip"),
            enc.device, ep, wp, vp, table, n, scratch.data_ptr(),
-           S.data_ptr(), B, h, w, C, head["zero_rows"], head["act"])
+           S.data_ptr(), barriers.data_ptr(), B, h, w, C, head["zero_rows"],
+           head["act"])
     decoder_fused_kernel.launches += 1
+    decoder_fused_kernel.barriers = barriers
     return S
 
 
 decoder_fused_kernel.launches = 0
+decoder_fused_kernel.barriers = None
+
+INFO_KEYS = ("registers", "local_bytes", "blocks_per_sm", "warps_per_sm",
+             "grid", "smem_bytes", "threads", "sms")
+
+
+def fused_info(which: str, packed: Dict, B: int, H: int, W: int,
+               device) -> Dict[str, int]:
+    """What the card gives one launch of the whole encoder ("encoder", on
+    images (B, H, W, 3)) or the whole decoder ("decoder", on its enc (B,
+    H/8, W/8, 128)): registers and local (spilled) bytes a thread, blocks
+    and warps resident on one SM, grid blocks, dynamic shared memory a
+    block, threads a block, SMs (`INFO_KEYS`). Builds the kernel; needs
+    the card."""
+    stages = ENC_STAGES if which == "encoder" else DEC_STAGES
+    _, _, table, n = _flat(packed, len(stages))
+    shape = (B, H, W) if which == "encoder" else (B, H // 8, W // 8)
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    fn = kernel(f"{which}_fused", f"ld_{which}_fused_info", "ppiiii")
+    with torch.cuda.device(device):
+        rc = fn(info, table, n, *shape)
+    if rc != 0:
+        raise RuntimeError(f"ld_{which}_fused_info failed: CUDA error {rc}")
+    return dict(zip(INFO_KEYS, info))

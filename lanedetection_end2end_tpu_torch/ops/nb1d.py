@@ -12,13 +12,17 @@ f32 accumulation over bf16 operands, rounded to bf16 at the points the TPU
 kernel rounds. The TPU's block-diagonal, banded and Winograd tap matrices
 are lane-packing devices and are not ported: both versions here use the
 direct 3-tap convolutions. `nb1d` launches the CUDA kernel
-(`csrc/nb1d.cu`) for a CUDA tensor and uses `nb1d_plain` only for a CPU
-tensor.
+(`csrc/nb1d.cu`, two launches of a row tile: pass A the two d = 1
+convolutions, pass B the two dilated ones and the residual; each pass runs
+its 3x1 convolution into rows kept in shared memory and its 1x3 one from
+them) for a CUDA tensor and uses `nb1d_plain` only for a CPU tensor. A
+tile holds whole image rows, so the kernels take planes up to
+`max_width(C)` = 8192 / C pixels wide.
 
 `nb1d_chain` runs a chain of same-width blocks (`pack_chain`) as one
 cooperative launch (`csrc/nb1d_chain.cu`, counterpart of JAX `nb1d_chain`)
-on K1's device code: its output is bit for bit that of `nb1d` block by
-block. `nb1d_chain_plain` is the loop of `nb1d_plain` over the blocks.
+on K1's device code, two grid passes a block: its output is bit for bit
+that of `nb1d` block by block. `nb1d_chain_plain` is the loop of `nb1d_plain` over the blocks.
 """
 
 from __future__ import annotations
@@ -97,22 +101,34 @@ def nb1d_plain(x: torch.Tensor, p: Dict) -> torch.Tensor:
     return y.to(BF16).contiguous()
 
 
+def max_width(C: int) -> int:
+    """The widest plane the row tile of `csrc/nb1d.cuh` takes at C
+    channels: a tile holds whole rows of 8192 / C pixels at most."""
+    return 8192 // C
+
+
+def _check_plane(name: str, C: int, W: int) -> None:
+    if C not in (16, 64, 128):
+        raise ValueError(f"{name} kernel: C={C} not in (16, 64, 128)")
+    if W > max_width(C):
+        raise ValueError(f"{name} kernel: rows of {W} pixels, the row tile "
+                         f"takes at most {max_width(C)} at C={C}")
+
+
 def nb1d(x: torch.Tensor, p: Dict) -> torch.Tensor:
     """One NB1D block on (B, H, W, C) bf16. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (four convolution launches)
-    or raises."""
+    version; a CUDA tensor launches the kernel (two pass launches) or
+    raises."""
     if x.device.type == "cpu":
         return nb1d_plain(x, p)
     B, H, W, C = x.shape
-    if C not in (16, 64, 128):
-        raise ValueError(f"nb1d kernel: C={C} not in (16, 64, 128)")
+    _check_plane("nb1d", C, W)
     xp = check_cuda(x, BF16, name="x")
     wp = check_cuda(p["w"], BF16, (4, 3, C, C), "w")
     vp = check_cuda(p["vec"], torch.float32, (6, C), "vec")
-    out, t1, t2 = (torch.empty_like(x) for _ in range(3))
-    launch(kernel("nb1d", "ld_nb1d", "ppppppiiiiip"), x.device, xp, wp, vp,
-           t1.data_ptr(), t2.data_ptr(), out.data_ptr(), B, H, W, C,
-           p["dilation"])
+    out, mid = torch.empty_like(x), torch.empty_like(x)
+    launch(kernel("nb1d", "ld_nb1d", "pppppiiiiip"), x.device, xp, wp, vp,
+           mid.data_ptr(), out.data_ptr(), B, H, W, C, p["dilation"])
     nb1d.launches += 1
     return out
 
@@ -153,17 +169,17 @@ def nb1d_chain(x: torch.Tensor, chain: Dict) -> torch.Tensor:
     B, H, W, C = x.shape
     dils = chain["dilations"]
     n = len(dils)
-    if C not in (16, 64, 128) or not 1 <= n <= MAX_CHAIN:
-        raise ValueError(f"nb1d_chain kernel: C={C} not in (16, 64, 128) "
-                         f"or {n} blocks not in 1..{MAX_CHAIN}")
+    _check_plane("nb1d_chain", C, W)
+    if not 1 <= n <= MAX_CHAIN:
+        raise ValueError(f"nb1d_chain kernel: {n} blocks not in "
+                         f"1..{MAX_CHAIN}")
     xp = check_cuda(x, BF16, name="x")
     wp = check_cuda(chain["w"], BF16, (n, 4, 3, C, C), "w")
     vp = check_cuda(chain["vec"], torch.float32, (n, 6, C), "vec")
-    out, t1, t2, a = (torch.empty_like(x) for _ in range(4))
-    launch(kernel("nb1d_chain", "ld_nb1d_chain", "ppppippppiiiip"),
+    out, mid, a = (torch.empty_like(x) for _ in range(3))
+    launch(kernel("nb1d_chain", "ld_nb1d_chain", "ppppipppiiiip"),
            x.device, xp, wp, vp, (ctypes.c_int * n)(*dils), n,
-           t1.data_ptr(), t2.data_ptr(), a.data_ptr(), out.data_ptr(),
-           B, H, W, C)
+           mid.data_ptr(), a.data_ptr(), out.data_ptr(), B, H, W, C)
     nb1d_chain.launches += 1
     return out
 

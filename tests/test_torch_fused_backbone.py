@@ -7,8 +7,9 @@ rebuild every stage's constants from them. The CUDA wrappers
 (`encoder_fused_kernel`, `decoder_fused_kernel`) run here on CPU tensors
 with the module's `kernel`, `launch` and `check_cuda` stubbed, as in
 tests/test_torch_f32_fused.py: each asks for its C entry with as many
-arguments as its signature spells, and refuses what the kernel does not
-take before any launch. On the CPU `encoder_fused` / `decoder_fused` take
+arguments as its signature spells (the device int the kernel counts its
+grid barriers into among them), and refuses what the kernel does not take
+before any launch (images wider than the NB1D row tiles included). On the CPU `encoder_fused` / `decoder_fused` take
 the plain versions, which equal the block sequences exactly and match the
 JAX package's `encoder_fused` / `decoder_fused` (Pallas in interpret mode)
 at the bars of tests/test_torch_engine.py: max|diff| / max|JAX| < 2e-2,
@@ -156,6 +157,7 @@ def stubs(monkeypatch):
         monkeypatch.setattr(bf, name, getattr(s, name))
     for f in (bf.encoder_fused_kernel, bf.decoder_fused_kernel):
         monkeypatch.setattr(f, "launches", 0)
+        monkeypatch.setattr(f, "barriers", None)
     return s
 
 
@@ -174,7 +176,12 @@ def test_encoder_wrapper_asks_for_its_entry(stubs, model):
     assert [(n, s) for n, s, _ in stubs.calls] == [
         ("encoder_fused", "ld_encoder_fused")]
     args = stubs.calls[0][2]
+    # images, wbuf, vbuf, table, n, scratch, out, barriers, B, H, W
+    assert len(args) == 11
     assert args[4] == 3 * len(bf.ENC_STAGES)           # table entries
+    barriers = bf.encoder_fused_kernel.barriers         # the kernel's count
+    assert barriers.shape == (1,) and barriers.dtype == torch.int32
+    assert args[7] == barriers.data_ptr()
     assert args[-3:] == (BATCH, RESIZE, 2 * RESIZE)     # B, H, W
     assert out.shape == (BATCH, RESIZE // 8, RESIZE // 4, 128)
     assert out.dtype == BF16
@@ -187,7 +194,13 @@ def test_decoder_wrapper_asks_for_its_entry(stubs, model):
         ("decoder_fused", "ld_decoder_fused")]
     args = stubs.calls[0][2]
     head = model["dec"]["head"]
+    # enc, wbuf, vbuf, table, n, scratch, S, barriers, B, h, w, C,
+    # zero_rows, act
+    assert len(args) == 14
     assert args[4] == 3 * len(bf.DEC_STAGES)
+    barriers = bf.decoder_fused_kernel.barriers
+    assert barriers.shape == (1,) and barriers.dtype == torch.int32
+    assert args[7] == barriers.data_ptr()
     # B, h, w, C, zero_rows, activation code
     assert args[-6:] == (BATCH, RESIZE // 8, RESIZE // 4, 4,
                          head["zero_rows"], head["act"])
@@ -201,6 +214,8 @@ BAD = {
         "enc", lambda: _images(W=RESIZE).transpose(1, 2), ValueError),
     "encoder height not a multiple of 8": (
         "enc", lambda: _images(H=RESIZE - 4), ValueError),
+    "encoder wider than the row tiles": (
+        "enc", lambda: _images(B=1, H=8, W=2 * bf.MAX_WIDTH), ValueError),
     "encoder not 3 channels": (
         "enc", lambda: torch.zeros(BATCH, RESIZE, 2 * RESIZE, 4,
                                    dtype=BF16), ValueError),
@@ -222,6 +237,16 @@ def test_wrapper_refuses_before_any_launch(stubs, model, case):
     with pytest.raises(err):
         wrapper(make(), model[part])
     assert stubs.calls == [] and wrapper.launches == 0
+
+
+def test_decoder_wrapper_refuses_rows_wider_than_its_tiles(stubs, model):
+    """A head that maps 2 * MAX_WIDTH columns: the decoder's NB1D-16 rows
+    (W/2 pixels) would not fit a row tile."""
+    head = dict(model["dec"]["head"], xs=torch.zeros(2 * bf.MAX_WIDTH))
+    enc = torch.zeros(1, 1, 2 * bf.MAX_WIDTH // 8, 128, dtype=BF16)
+    with pytest.raises(ValueError):
+        bf.decoder_fused_kernel(enc, dict(model["dec"], head=head))
+    assert stubs.calls == [] and bf.decoder_fused_kernel.launches == 0
 
 
 @pytest.mark.parametrize("part", ["enc", "dec"])
