@@ -84,6 +84,18 @@ a card. In order:
    2 and 4 images per launch, its counted pass of 32 + 16 + 8 launches,
    the stacked outputs bit for bit the single-image ones, and its
    block-img/s per stack;
+3d. the wide phase: the engine of `train_sh_config(resize=512)` on 2
+   batches of 2 seeded 512x1024 images, whose NB1D rows are wider than
+   a row tile (the tile then owns a segment of a row and computes its
+   halo columns), on the full path and on the blocks path, each with its
+   launch counts set to 0 just before (1 + 1 fused kernels, or 4 chains,
+   per call), held to the plain float32 `LaneNet` at the JAX bars; the
+   fused kernels bit for bit their block sequence and against their
+   plain versions (TOL_BLOCK, TOL_S), and their occupancy line for the
+   segments' build, held as in 3c; K1 at each channel count and one
+   `nb1d_chain` against their plain versions on rows wider than a tile,
+   partial last segments included (W = MT + 16), the chain also bit for
+   bit K1 block by block;
 4. take e2e train steps through `make_train_step` (same config with
    compute_dtype bfloat16, then again with float32, the config's default;
    adam, seeded random weights, a seeded synthetic batch of 8): first one
@@ -108,8 +120,17 @@ a card. In order:
    stride-2 ones) and 0 of every other kernel; then, counted anew, one
    step with `fused_maps=True`, the fourth cell: 68 + 68 of
    packed_conv_act, 34 of channel_sums, 3 + 3 / 2 + 2 / 1 + 1 of K8-K10;
-5. print the card line as nvidia-smi gives it, the kernels line, and
-   `{"ok": true, "device": {...}}` last.
+4e. the race check: this script again with `--race-child` (one
+   `encoder_fused`, one `decoder_fused` and one `nb1d_chain` call at
+   resize 64, and one `nb1d_chain` call on rows wider than its tile) in a
+   child process under `compute-sanitizer --tool racecheck`, then
+   `--tool synccheck`; a reported hazard or error, a non-zero exit or a
+   timeout fails the run; where the tool is missing or refuses the card
+   ("Device not supported"), the kernels line says so and no race check
+   is claimed;
+5. print the card line as nvidia-smi gives it, the kernels line (with
+   the wide phase's and the race check's results beside the kernels),
+   and `{"ok": true, "device": {...}}` last.
 
 In the kernels line, `launches` counts the wrapper calls of the 3 engine
 calls (`encoder_fused`, `decoder_fused`; `nb1d_chain` and `wls_moments`:
@@ -193,12 +214,14 @@ another order, with atomics, over operands of which a few may differ from
 the plain version's by one bf16 step: max|diff| / max|plain| < 2e-3. The
 stride-2 ops have no relu inside and their pool routing is a function of
 the input alone, so the same bars hold for them without exception, planted
-ties included; the row sums S of head_rowsums_op at 1e-4, and bit for bit
-against a second launch. In float32 the planes of K6-K10 (y, dx) are held
-at TOL_F32 = 1e-4 of max|plain| and their f32 atomic sums at TOL_REDUCE,
-except the weight gradients of K6-K9 and K11, held at TOL_F32 too. K10,
-the first downsampler and K9's 2x2 head sum exact f32 products (FFMA) in
-another order than the plain versions. K6-K9 and K11 multiply on the
+ties included; the row sums S of head_rowsums_op at 1e-4, and S, dx,
+dweight and dbias bit for bit against a second launch (K10 sums its
+gradients in a fixed order, no atomics). In float32 the planes of K6-K10
+(y, dx) are held at TOL_F32 = 1e-4 of max|plain| and their f32 atomic
+sums at TOL_REDUCE, except the weight gradients of K6-K9 and K11 and
+K10's fixed-order dweight and dbias, held at TOL_F32 too. K10, the first
+downsampler and K9's 2x2 head sum exact f32 products (FFMA) in another
+order than the plain versions. K6-K9 and K11 multiply on the
 tensor cores in 3xTF32: each f32
 operand split into a TF32 high part and a TF32 remainder, three TF32
 products per f32 product, which loses about 2^-22 of each product, below
@@ -1012,21 +1035,34 @@ def check_lanemap_kernels(dev, g, dt):
         torch.cuda.synchronize()
         pgrads = lm.head_rowsums_bwd_plain(*args)
         again = lm.head_rowsums_op(x, wt, bias, xs, zero)
+        grads2 = lm.head_rowsums_bwd_kernel(*args)
     label = f"head_rowsums_op {dname} {tuple(x.shape)}"
+    # the weight and bias gradients are fixed-order f32 sums (no atomics):
+    # in float32 at TOL_F32, in bf16 at TOL_REDUCE (dp rounded to bf16 on
+    # both sides, a rounding step may flip), and bit for bit a second launch
+    sums_tol = (TOL_F32,) if f32 else ()
     verdict = hold(label, [
         ("S", S, pS, TOL_F32), ("dx", grads[0], pgrads[0], *pt),
-        ("dweight", grads[1], pgrads[1]), ("dbias", grads[2], pgrads[2])],
-        s, failures)
+        ("dweight", grads[1], pgrads[1], *sums_tol),
+        ("dbias", grads[2], pgrads[2], *sums_tol)], s, failures)
     if not torch.equal(S, again) or S[:, :zero].abs().max().item() != 0.0:
         failures.append(f"{label}: S does not reproduce itself bit for bit "
                         "or its masked rows are not zero")
+    same = [n for n, a, b in zip(("dx", "dweight", "dbias"), grads, grads2)
+            if not torch.equal(a, b)]
+    print(f"check {label}: dx, dweight, dbias of a second backward launch "
+          f"bit for bit equal: {'ok' if not same else 'FAIL ' + str(same)}")
+    if same:
+        failures.append(f"{label}: {', '.join(same)} do not reproduce "
+                        "themselves bit for bit")
     logits = B * (H - zero) * W * 4
 
     def head_op_work(bwd):
-        # forward: the taps, the activation and the sums; backward: the
-        # taps again, ddec, and the input and weight gradients
+        # forward: the taps, the activation and the sums over the live
+        # rows; backward: the taps again, ddec, and the input and weight
+        # gradients; bytes: x read (and dx written) once, S or dS once
         flop = logits * ((2 * 16 + 5) if not bwd else (3 * 2 * 16 + 8))
-        nbytes = es * x.numel() + 4 * S.numel() + es * wt.numel()
+        nbytes = es * x.numel() + 4 * S.numel() + 4 * wt.numel()
         return flop, nbytes + bwd * es * x.numel()
     time_and_record(
         label, s, 1, verdict,
@@ -1420,9 +1456,10 @@ def hold_serving(outs, images, model, cfg, label):
     C = cfg.out_channels
     for (beta, line, hor), x in zip(outs, images):
         ref = model(x)
-        if (tuple(beta.shape) != (BATCH, C, cfg.order + 1)
-                or tuple(line.shape) != (BATCH, 4)
-                or tuple(hor.shape) != (BATCH, RESIZE)):
+        n, h = x.shape[:2]
+        if (tuple(beta.shape) != (n, C, cfg.order + 1)
+                or tuple(line.shape) != (n, 4)
+                or tuple(hor.shape) != (n, h)):
             fail(f"{label}: output shapes {beta.shape} {line.shape} "
                  f"{hor.shape}")
         for t in (beta, line, hor):
@@ -1502,9 +1539,11 @@ FUSED_BARRIERS = {"encoder_fused": 28, "decoder_fused": 10}
 MIN_WARPS_PER_SM = 16  # twice the 8 of the fused kernels' first design
 
 
-def fused_occupancy(dev, packed, x, enc_b, failures):
-    """Phase 3c: one line per fused kernel with what the card gives its
-    launch at the engine's shape (`ops/backbone_fused.py::fused_info`:
+def fused_occupancy(dev, packed, x, enc_b, failures, where=""):
+    """Phases 3c and 3d (`where`: " wide"): one line per fused kernel with
+    what the card gives its launch at the engine's shape, the build of
+    whole rows at 256x512 and that of segments at 512x1024
+    (`ops/backbone_fused.py::fused_info`:
     registers and local bytes a thread from cudaFuncGetAttributes, blocks
     and warps resident per SM, grid) and the grid barriers the kernel
     counted in one more call; no local memory, at least MIN_WARPS_PER_SM
@@ -1526,7 +1565,7 @@ def fused_occupancy(dev, packed, x, enc_b, failures):
         barriers = wrapper.barriers.item()
         ok = (barriers == FUSED_BARRIERS[name] and info["local_bytes"] == 0
               and info["warps_per_sm"] >= MIN_WARPS_PER_SM)
-        print(f"occupancy {name}: {info['registers']} registers and "
+        print(f"occupancy {name}{where}: {info['registers']} registers and "
               f"{info['local_bytes']} local bytes a thread, "
               f"{info['blocks_per_sm']} blocks of {info['threads']} threads "
               f"({info['warps_per_sm']} warps) per SM, grid {info['grid']} "
@@ -1535,7 +1574,7 @@ def fused_occupancy(dev, packed, x, enc_b, failures):
               f"(expected {FUSED_BARRIERS[name]}; no local memory, at least "
               f"{MIN_WARPS_PER_SM} warps per SM): {'ok' if ok else 'FAIL'}")
         if not ok:
-            failures.append(f"{name} occupancy")
+            failures.append(f"{name}{where} occupancy")
         out[name] = dict(info, barriers=barriers)
     return out
 
@@ -1773,6 +1812,249 @@ def check_row12(dev):
                "library_ms": None,
                "block_img_per_s": {str(s): r for s, r in rates.items()}}
     return summary, launches, [] if ok else ["row12 harness"]
+
+
+# ----------------------------------------------------------------------
+# Wide phase: images wider than the NB1D row tiles
+# ----------------------------------------------------------------------
+
+WIDE_RESIZE, WIDE_BATCH = 512, 2  # 512x1024 images, batches of 2
+
+
+def check_wide(dev):
+    """The wide phase. The engine of `train_sh_config(resize=512)` on 2
+    batches of 2 seeded 512x1024 images, whose NB1D rows are wider than a
+    row tile (NB1D-128 rows of 128 pixels on 64-pixel tiles, NB1D-64 of 256
+    on 128, NB1D-16 of 512 on 256: two segments a row): the full path and
+    the blocks path, each with the launch counts set to 0 just before and
+    read just after (per call 1 + 1 fused kernels, or 4 chains), held to
+    the plain float32 `LaneNet` at the JAX bars; `encoder_fused` and
+    `decoder_fused` bit for bit their block sequence on the first batch and
+    against their plain versions (TOL_BLOCK, TOL_S), and the occupancy
+    line of their segments' build (`fused_occupancy`); then K1 at each
+    channel count and one `nb1d_chain` against their plain versions at
+    rows wider than a tile (the engine's planes, and W = MT + 16: a partial
+    last segment), the chain also bit for bit K1 block by block. Returns
+    (summary, failures)."""
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.models.fused_graph import (
+        decoder_blocks, encoder_blocks)
+    from lanedetection_end2end_tpu_torch.models.infer_engine import (
+        FusedLaneNetEngine)
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, decoder_plain, encoder_fused_kernel,
+        encoder_plain)
+    from lanedetection_end2end_tpu_torch.ops.nb1d import (
+        chain_blocks, nb1d, nb1d_chain, nb1d_chain_plain, nb1d_plain)
+
+    R = WIDE_RESIZE
+    cfg = train_sh_config(resize=R, reg_ls=1.0)
+    model = LaneNet(cfg, device=dev)
+    model.load_state_dict(random_state_dict(model, SEED))
+    engine = FusedLaneNetEngine(cfg)
+    packed = engine.prepare(model.state_dict())
+    gw = torch.Generator(device=dev).manual_seed(SEED + 3)
+    images = torch.rand(2, WIDE_BATCH, R, 2 * R, 3, generator=gw, device=dev)
+    wrappers = {"encoder_fused": encoder_fused_kernel,
+                "decoder_fused": decoder_fused_kernel,
+                "nb1d_chain": nb1d_chain, "nb1d": nb1d}
+    failures, summary = [], {}
+    blocks = lambda p, x: engine._run(p, x, blocks=True)
+    for label, call, per_call in (
+            ("wide engine", engine, {"encoder_fused": 1, "decoder_fused": 1,
+                                     "nb1d_chain": 0, "nb1d": 0}),
+            ("wide blocks engine", blocks,
+             {"encoder_fused": 0, "decoder_fused": 0, "nb1d_chain": 4,
+              "nb1d": 0})):
+        call(packed, images[0])  # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        outs, ms, counts = serve(call, packed, images, wrappers)
+        print(f"{label} {WIDE_BATCH}x{R}x{2 * R}: launches over "
+              f"{len(images)} calls: {counts}")
+        if counts != {n: len(images) * v for n, v in per_call.items()}:
+            failures.append(f"{label}: launches {counts}, expected "
+                            f"{per_call} per call")
+        worst = hold_serving(outs, images, model, cfg, label)
+        med = statistics.median(ms)
+        print(f"{label}: {med:.3f} ms per batch of {WIDE_BATCH} "
+              f"({', '.join(f'{t:.3f}' for t in ms)})")
+        summary[label.replace(" ", "_")] = dict(worst, ms_per_batch=med)
+
+    # the fused kernels against their block sequence and plain versions
+    x = images[0].to(torch.bfloat16).contiguous()
+    enc_f = encoder_fused_kernel(x, packed["enc"])
+    enc_b = encoder_blocks(x, packed["enc"])
+    S_f = decoder_fused_kernel(enc_b, packed["dec"])
+    S_b = decoder_blocks(enc_b, packed["dec"])
+    torch.cuda.synchronize()
+    for name, got, ref, want, tol, run in (
+            ("encoder_fused", enc_f, enc_b, encoder_plain(x, packed["enc"]),
+             TOL_BLOCK, lambda: encoder_fused_kernel(x, packed["enc"])),
+            ("decoder_fused", S_f, S_b, decoder_plain(enc_b, packed["dec"]),
+             TOL_S, lambda: decoder_fused_kernel(enc_b, packed["dec"]))):
+        err, rel = rel_err(got, want)
+        same = torch.equal(got, ref)
+        ok = (same and rel <= tol and got.shape == want.shape
+              and torch.isfinite(got.float()).all().item())
+        k_ms = median_ms(run)
+        print(f"check {name} wide {tuple(x.shape)}: bit for bit equal to the "
+              f"block sequence: {same}; max|diff| vs plain {err:.3e} "
+              f"({rel:.2e} of max|plain|, tol {tol:g}): "
+              f"{'ok' if ok else 'FAIL'}; fused {k_ms:.4f} ms")
+        if not ok:
+            failures.append(f"{name} wide")
+        summary[name] = {"bit_for_bit": same, "max_rel_err": rel,
+                         "ms": k_ms}
+    occupancy = fused_occupancy(dev, packed, x, enc_b, failures, " wide")
+    for name, info in occupancy.items():
+        summary[name]["occupancy"] = info
+
+    # K1 and a chain at rows wider than a tile (MT = 64, 128, 256 pixels at
+    # C = 128, 64, 16), the engine's planes and a partial last segment
+    act = lambda *shp: torch.randn(*shp, generator=gw, device=dev).to(
+        torch.bfloat16)
+    enc, dec = packed["enc"], packed["dec"]
+    H4, H8 = R // 4, R // 8
+    for shape, p in (((WIDE_BATCH, H8, R // 4, 128), enc["nb128"][0]),
+                     ((2, 8, 64 + 16, 128), enc["nb128"][3]),
+                     ((WIDE_BATCH, H4, R // 2, 64), enc["nb64"][0]),
+                     ((2, 8, 128 + 16, 64), dec["nb64"][1]),
+                     ((WIDE_BATCH, R // 2, R, 16), dec["nb16"][0]),
+                     ((2, 8, 256 + 16, 16), dec["nb16"][1])):
+        xk = act(*shape)
+        got = nb1d(xk, p)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, nb1d_plain(xk, p))
+        ok = rel <= TOL_BF16 and torch.isfinite(got.float()).all().item()
+        print(f"check nb1d wide {shape} d={p['dilation']}: max|diff| "
+              f"{err:.3e} ({rel:.2e} of max|plain|, tol {TOL_BF16:g}): "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"nb1d wide {shape}")
+    chain = packed["enc_nb128"]
+    xk = act(2, 8, 64 + 16, 128)
+    got = nb1d_chain(xk, chain)
+    k1 = xk
+    for p in chain_blocks(chain):
+        k1 = nb1d(k1, p)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, nb1d_chain_plain(xk, chain))
+    same = torch.equal(got, k1)
+    ok = same and rel <= TOL_BLOCK
+    print(f"check nb1d_chain wide enc_nb128{tuple(xk.shape)}: max|diff| "
+          f"{err:.3e} ({rel:.2e} of max|plain|, tol {TOL_BLOCK:g}), bit for "
+          f"bit equal to K1 block by block: {same}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("nb1d_chain wide")
+    return summary, failures
+
+
+# ----------------------------------------------------------------------
+# Race check: the row tile under compute-sanitizer
+# ----------------------------------------------------------------------
+
+SANITIZER_TOOLS = ("racecheck", "synccheck")
+SANITIZER_TIMEOUT = 300  # seconds per tool
+# the tool's own refusal of the card, which runs no check
+SANITIZER_REFUSAL = "Device not supported"
+
+
+def race_child() -> int:
+    """`--race-child`, the program the race check runs under
+    compute-sanitizer: one `encoder_fused`, one `decoder_fused` and one
+    `nb1d_chain` call at resize 64 (batch 2, seeded random weights), and
+    one more `nb1d_chain` call on rows wider than its tile (1x4x80 at C =
+    128: a full and a partial segment)."""
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.models.infer_engine import (
+        FusedLaneNetEngine)
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, encoder_fused_kernel)
+    from lanedetection_end2end_tpu_torch.ops.nb1d import nb1d_chain
+    dev = torch.device("cuda", 0)
+    cfg = train_sh_config(resize=64, reg_ls=1.0)
+    model = LaneNet(cfg, device="cpu")
+    engine = FusedLaneNetEngine(cfg, device=dev)
+    packed = engine.prepare(random_state_dict(model, SEED))
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.rand(2, 64, 128, 3, generator=g, device=dev).to(torch.bfloat16)
+    enc = encoder_fused_kernel(x, packed["enc"])
+    S = decoder_fused_kernel(enc, packed["dec"])
+    y = nb1d_chain(enc, packed["enc_nb128"])
+    wide = torch.randn(1, 4, 80, 128, generator=g, device=dev).to(
+        torch.bfloat16)
+    z = nb1d_chain(wide, packed["enc_nb128"])
+    torch.cuda.synchronize()
+    finite = all(torch.isfinite(t.float()).all().item() for t in (S, y, z))
+    print(f"race child: outputs finite: {finite}")
+    return 0 if finite else 1
+
+
+def sanitizer_verdict(rc, text: str) -> str:
+    """What one compute-sanitizer run found: "not run" where the tool
+    refused the card (SANITIZER_REFUSAL), "clean" where it exited 0 and
+    every RACECHECK / ERROR SUMMARY line of its output counts 0, else
+    "fail" (a hazard, an error, a child that failed, or rc None: the run
+    timed out)."""
+    import re
+    if SANITIZER_REFUSAL in text:
+        return "not run"
+    counts = re.findall(r"(?:RACECHECK|ERROR) SUMMARY: (\d+)", text)
+    return "clean" if rc == 0 and not any(map(int, counts)) else "fail"
+
+
+def race_check():
+    """The race-check phase: `race_child` in a child process under
+    compute-sanitizer's racecheck (shared-memory hazards) and synccheck
+    (barrier misuse), each with --error-exitcode 1 and judged by
+    `sanitizer_verdict`: "fail" fails the run. The tool is looked for
+    beside nvcc, then on PATH; where there is none, or it refuses the card,
+    the report says so and no race check is claimed. Returns (report,
+    failures)."""
+    import os
+    import shutil
+    import signal
+    from lanedetection_end2end_tpu_torch.ops._build import _nvcc
+    tool = os.path.join(os.path.dirname(_nvcc()), "compute-sanitizer")
+    if not os.path.exists(tool):
+        tool = shutil.which("compute-sanitizer")
+    if tool is None:
+        msg = "not run: compute-sanitizer not found beside nvcc or on PATH"
+        print(f"race check: {msg}")
+        return {"tool": None, "result": msg}, []
+    report, failures = {"tool": tool}, []
+    for name in SANITIZER_TOOLS:
+        t0 = time.perf_counter()
+        cmd = [tool, "--tool", name, "--error-exitcode", "1",
+               sys.executable, os.path.abspath(__file__), "--race-child"]
+        # its own process group, so that a timeout stops the tool and the
+        # program under it together
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=SANITIZER_TIMEOUT)
+            rc = proc.returncode
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            text, _ = proc.communicate()
+            rc = None
+        verdict = sanitizer_verdict(rc, text)
+        said = [ln.strip("= ").strip() for ln in text.splitlines()
+                if SANITIZER_REFUSAL in ln or "SUMMARY" in ln]
+        result = (f"{verdict} (exit {rc}"
+                  f"{', timed out' if rc is None else ''}"
+                  f"{': ' + '; '.join(said) if said else ''})")
+        print(f"race check {name}: {result} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if verdict == "fail":
+            failures.append(f"compute-sanitizer --tool {name}: {result}")
+            print(text[-3000:])
+        report[name] = {"result": verdict, "exit": rc, "said": said,
+                        "seconds": time.perf_counter() - t0}
+    return report, failures
 
 
 def synthetic_batch(seed: int) -> dict:
@@ -2156,18 +2438,21 @@ def unfused_phase(dev, sd0, profile=False):
 OWN_KERNELS = (  # device functions of csrc/, as the profiler names them
     "conv3tap_kernel", "wgrad3tap_kernel", "dyv_kernel",
     "channel_sums_kernel", "ds_dx_kernel", "lm_fwd_kernel",
-    "l2s_kernel", "wgrad_s2_kernel", "dyv_fold_kernel", "hr_ddec_kernel",
-    "head_rowsums_kernel", "downsampler_kernel", "upsampler_kernel",
+    "l2s_kernel", "wgrad_s2_kernel", "dyv_fold_kernel", "hr_bwd_kernel",
+    "hr_sum_kernel", "head_rowsums_kernel", "downsampler_kernel",
+    "upsampler_kernel",
     "nb1d_chain_kernel", "wls_partial_kernel", "wls_sum_kernel",
     "conv3tap_f32_kernel", "wgrad3tap_f32_kernel", "dz_kernel",
     "wgrad_s2_f32_kernel", "encoder_fused_kernel", "decoder_fused_kernel",
     "s2_gemm_kernel", "s2_wgrad_kernel", "ds1_fwd_kernel", "ds1_wgrad_kernel")
 # the stride-2 ops' device kernels, by the op tag in their template
-# arguments (csrc/conv_s2.cuh: op_k8, op_k9, op_k10, and the epilogues
-# op_k8_fwd, ...) or by a name only one op launches
+# arguments (csrc/conv_s2.cuh: op_k8, op_k9, and the epilogues op_k8_fwd,
+# ...) or by a name only one op launches (K10: its forward, the pass of its
+# backward and the fixed-order sum)
 STRIDE2_OPS = {"K8": ("op_k8", "ds_dx_kernel", "ds1_"),
                "K9": ("op_k9", "lm_fwd_kernel"),
-               "K10": ("op_k10", "hr_ddec_kernel", "head_rowsums_kernel")}
+               "K10": ("hr_bwd_kernel", "hr_sum_kernel",
+                       "head_rowsums_kernel")}
 
 
 def profile_steps(run_step, step_ms: float, label: str,
@@ -2227,6 +2512,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--race-child" in sys.argv[1:]:
+        return race_child()
     from lanedetection_end2end_tpu_torch.config import train_sh_config
     from lanedetection_end2end_tpu_torch.models.infer_engine import (
         FusedLaneNetEngine)
@@ -2462,6 +2749,11 @@ def main() -> int:
     if failures + f:
         fail("fused backbone or row-12 harness: " + "; ".join(failures + f))
 
+    # 3d. images wider than the row tiles, both engine paths ------------
+    wide_summary, failures = check_wide(dev)
+    if failures:
+        fail("wide phase: " + "; ".join(failures))
+
     # 4. train steps on the fused blocks, bf16 then float32 -------------
     sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     fused_launches = {dtype: train_phase(dev, sd0, dtype, profile=profile)
@@ -2476,6 +2768,11 @@ def main() -> int:
     for dtype, counts in train_launches.items():
         for n in k11_summary:
             counts[n] = unfused_launches[dtype][n]
+
+    # 4e. the race check of the row tile under compute-sanitizer --------
+    race_report, failures = race_check()
+    if failures:
+        fail("race check: " + "; ".join(failures))
 
     # 5. kernels line and result ----------------------------------------
     kernels = []
@@ -2540,7 +2837,8 @@ def main() -> int:
         entry.update({k: s[k] for k in LIBRARY_NOTES if k in s})
         kernels.append(entry)
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "wide": wide_summary,
+                      "race_check": race_report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 // The stride-2 pieces shared by the training lane-map kernels
-// (downsampler_op.cu, lane_maps_op.cu, head_rowsums_op.cu).
+// (downsampler_op.cu, lane_maps_op.cu).
 //
 // The TPU kernels (lanedetection_end2end_tpu/ops/pallas_lanemaps.py) express
 // every strided or transposed convolution as matmuls with "lane maps" built
@@ -34,7 +34,7 @@
 //
 // K8 and K9 run the three products on the tensor cores at the backbone's
 // stride-2 shapes (conv_s2_mma.cuh), and the first downsampler (cin = 3)
-// on kernels of its own (downsampler_op.cu); the pieces here serve K10,
+// on kernels of its own (downsampler_op.cu); the pieces here serve
 // K9's 2x2 head and the first downsampler's input gradient.
 #pragma once
 
@@ -49,11 +49,10 @@ using namespace nvcuda;
 constexpr int EW_THREADS = 256;
 
 // The op a shared kernel runs for, a template argument of the kernels of
-// this header and conv_s2_mma.cuh, so a profile's kernel names tell K8,
-// K9 and K10 apart.
+// this header and conv_s2_mma.cuh, so a profile's kernel names tell K8
+// and K9 apart.
 struct op_k8 {};
 struct op_k9 {};
-struct op_k10 {};
 
 static inline int ew_blocks(long long n) {
   const long long b = (n + EW_THREADS - 1) / EW_THREADS;

@@ -20,11 +20,12 @@
 //
 // The full-resolution logits never reach memory, as in JAX: S (B, H, 2C)
 // f32 = [S0 | S1] is all the last pass writes. The head pass runs K4's row
-// body with K4's 256 threads a row (`head_row<256>`), so S is bit for bit
-// that of K4 after K3 and K1 launched block by block (models/fused_graph.
-// py::decoder_blocks), like every plane before it. Planes written in the
-// launch are read through L2 only. Ahead of the barrier before an NB1D
-// pass, each block issues the first weight chunks of its first tile.
+// body (`head_rows`: an input row, two rows of S, a block), so S is bit
+// for bit that of K4 after K3 and K1 launched block by block
+// (models/fused_graph.py::decoder_blocks), like every plane before it.
+// Planes written in the launch are read through L2 only. Ahead of the
+// barrier before an NB1D pass, each block issues the first weight chunks
+// of its first tile.
 //
 // Constants: one bf16 weight buffer and one f32 vector buffer laid out once
 // by `pack_decoder` (ops/backbone_fused.py), with a table of offsets passed
@@ -59,6 +60,9 @@ constexpr int CIN_HEAD = 16;
 
 // enc: (B, h, w, 128); P0..P2: scratch planes of 256*B*h*w values each;
 // S: (B, 8h, 2C); *barriers: the grid barriers run
+// kSeg: the NB1D rows are wider than their tiles (w > 64: 2w > 128 and 4w
+// > 256 together), nb1d.cuh's segments' code.
+template <bool kSeg>
 __global__ void __launch_bounds__(THREADS, 2) decoder_fused_kernel(
     const bf16* enc, const bf16* wb, const float* vb, StageTable<STAGES> tab,
     bf16* P0, bf16* P1, bf16* P2, float* S, int* barriers, int B, int h,
@@ -83,16 +87,16 @@ __global__ void __launch_bounds__(THREADS, 2) decoder_fused_kernel(
       smem);
   // 2 x NB1D-64 on (B, 2h, 2w, 64): P0 -> P1 -> P0, pass A outputs in P2
   const int H4 = 2 * h, W4 = 2 * w, H2 = 4 * h, W2 = 4 * w;
-  bool pre =
-      nb1d::issue_block_weights<64>(wb + sw[NB64], B * H4, H4, W4, smem);
+  bool pre = nb1d::issue_block_weights<64, kSeg>(wb + sw[NB64], B * H4, H4,
+                                                 W4, smem);
   sync();
 #pragma unroll 1  // one copy of the block's code
   for (int i = NB64; i < UP2; ++i) {
     const bool even = (i - NB64) % 2 == 0;
-    nb1d::block_passes<64>(grid, even ? P0 : P1, wb + sw[i], vb + sv[i],
-                           sd[i], P2, even ? P1 : P0, B * H4, H4, W4, smem,
-                           pre, nsync);
-    pre = i + 1 < UP2 && nb1d::issue_block_weights<64>(
+    nb1d::block_passes<64, kSeg>(grid, even ? P0 : P1, wb + sw[i],
+                                 vb + sv[i], sd[i], P2, even ? P1 : P0,
+                                 B * H4, H4, W4, smem, pre, nsync);
+    pre = i + 1 < UP2 && nb1d::issue_block_weights<64, kSeg>(
                              wb + sw[i + 1], B * H4, H4, W4, smem);
     sync();
   }
@@ -100,29 +104,31 @@ __global__ void __launch_bounds__(THREADS, 2) decoder_fused_kernel(
   ldds::s2_pass<64, 16>(ldus::us_op(P0, wb + sw[UP2], v3, v3 + CIN_HEAD, P1,
                                     B, H4, W4, 64, CIN_HEAD),
                         4, smem);
-  pre = nb1d::issue_block_weights<16>(wb + sw[NB16], B * H2, H2, W2, smem);
+  pre = nb1d::issue_block_weights<16, kSeg>(wb + sw[NB16], B * H2, H2, W2,
+                                            smem);
   sync();
   // 2 x NB1D-16 on (B, 4h, 4w, 16): P1 -> P0 -> P1
 #pragma unroll 1  // one copy of the block's code
   for (int i = NB16; i < HEAD; ++i) {
     const bool even = (i - NB16) % 2 == 0;
-    nb1d::block_passes<16>(grid, even ? P1 : P0, wb + sw[i], vb + sv[i],
-                           sd[i], P2, even ? P0 : P1, B * H2, H2, W2, smem,
-                           pre, nsync);
-    pre = i + 1 < HEAD && nb1d::issue_block_weights<16>(
+    nb1d::block_passes<16, kSeg>(grid, even ? P1 : P0, wb + sw[i],
+                                 vb + sv[i], sd[i], P2, even ? P0 : P1,
+                                 B * H2, H2, W2, smem, pre, nsync);
+    pre = i + 1 < HEAD && nb1d::issue_block_weights<16, kSeg>(
                               wb + sw[i + 1], B * H2, H2, W2, smem);
     sync();
   }
-  // head + activation + mask + row sums on P1, one row of S per block at a
-  // time
+  // head + activation + mask + row sums on P1: the taps into shared
+  // memory once, then an input row (two rows of S) per block at a time
   const int H = 8 * h, W = 8 * w;
-  const bf16* hw = wb + sw[HEAD];
-  const float* bias = vb + sv[HEAD];
-  auto part = reinterpret_cast<float(*)[2 * ldhead::MAXC]>(smem);
-  for (int row = blockIdx.x; row < B * H; row += gridDim.x) {
-    ldhead::head_row<THREADS, bf16, true>(row, P1, hw, bias, bias + C, S, H,
-                                          W, CIN_HEAD, C, zero_rows, act,
-                                          part);
+  float* taps = reinterpret_cast<float*>(smem);
+  float* part = taps + ldhead::TAP_FLOATS;
+  ldhead::load_taps<bf16, false>(wb + sw[HEAD], vb + sv[HEAD], C, taps);
+  __syncthreads();
+  const float* xs = vb + sv[HEAD] + C;
+  for (int hrow = blockIdx.x; hrow < B * (H / 2); hrow += gridDim.x) {
+    ldhead::head_rows<bf16, true>(hrow, P1, taps, xs, S, H, W, C, zero_rows,
+                                  act, part);
     __syncthreads();  // the next row rewrites `part`
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *barriers = nsync;
@@ -132,10 +138,9 @@ __global__ void __launch_bounds__(THREADS, 2) decoder_fused_kernel(
 // units (the largest pass's tiles or rows).
 int launch_shape(const StageTable<STAGES>& tab, int B, int h, int w,
                  int* smem, long long* units) {
-  if (B < 1 || 2 * w > nb1d::Cfg<64>::MT || 4 * w > nb1d::Cfg<16>::MT)
-    return (int)cudaErrorInvalidValue;
+  if (B < 1) return (int)cudaErrorInvalidValue;
   auto most = [](int a, int b) { return a > b ? a : b; };
-  int s = (int)sizeof(float) * (ldhead::THREADS / 32) * 2 * ldhead::MAXC;
+  int s = ldhead::SMEM_BYTES;
   s = most(s, lds2::GemmTile<bf16, 128, 64, ldds::NW>::SMEM);
   s = most(s, lds2::GemmTile<bf16, 64, 16, ldds::NW>::SMEM);
   for (int i = NB64; i < UP2; ++i)
@@ -143,22 +148,20 @@ int launch_shape(const StageTable<STAGES>& tab, int B, int h, int w,
   for (int i = NB16; i < HEAD; ++i)
     s = most(s, nb1d::smem_bytes<16>(4 * w, tab.d[i]));
   *smem = s;
-  long long u = (long long)B * 8 * h;  // the head's rows
+  long long u = (long long)B * 4 * h;  // the head's input rows
   auto more = [&](long long v) { u = v > u ? v : u; };
   const long long pix = (long long)B * h * w;
   more(4 * ((pix + ldds::BM - 1) / ldds::BM));      // up1's tiles x phases
   more(4 * ((4 * pix + ldds::BM - 1) / ldds::BM));  // up2's
-  const int R64 = nb1d::Cfg<64>::MT / (2 * w);
-  const int R16 = nb1d::Cfg<16>::MT / (4 * w);
-  more(((long long)B * 2 * h + R64 - 1) / R64);
-  more(((long long)B * 4 * h + R16 - 1) / R16);
+  more(nb1d::tile_count<64>(B * 2 * h, 2 * w));
+  more(nb1d::tile_count<16>(B * 4 * h, 4 * w));
   *units = u;
   return 0;
 }
 
 }  // namespace
 
-// enc: (B, h, w, 128) bf16, w <= 64; wbuf bf16, vbuf f32 (16-byte aligned
+// enc: (B, h, w, 128) bf16; wbuf bf16, vbuf f32 (16-byte aligned
 // segments); table: n = 3 * 7 host ints (w offsets, v offsets,
 // dilations); scratch: 3 planes of 256*B*h*w bf16; S: (B, 8h, 2C) f32, C
 // <= 8; barriers: 1 device int, the grid barriers the launch ran.
@@ -184,8 +187,11 @@ LD_API int ld_decoder_fused(const void* enc, const void* wbuf,
   auto N = static_cast<int*>(barriers);
   void* args[] = {&E, &Wb, &Vb, &tab, &P0, &P1,        &P2, &Sp,
                   &N, &B,  &h,  &w,   &C,  &zero_rows, &act};
-  return launch_cooperative(decoder_fused_kernel, THREADS, smem, units, args,
-                            static_cast<cudaStream_t>(stream));
+  if (nb1d::seg_rows<64>(2 * w))
+    return launch_cooperative(decoder_fused_kernel<true>, THREADS, smem,
+                              units, args, static_cast<cudaStream_t>(stream));
+  return launch_cooperative(decoder_fused_kernel<false>, THREADS, smem, units,
+                            args, static_cast<cudaStream_t>(stream));
 }
 
 // The launch the card would make for ld_decoder_fused at this shape and
@@ -198,6 +204,9 @@ LD_API int ld_decoder_fused_info(void* info, const void* table, int n, int B,
   long long units = 0;
   const int rc = launch_shape(tab, B, h, w, &smem, &units);
   if (rc) return rc;
-  return cooperative_info(decoder_fused_kernel, THREADS, smem, units,
+  if (nb1d::seg_rows<64>(2 * w))
+    return cooperative_info(decoder_fused_kernel<true>, THREADS, smem, units,
+                            static_cast<int*>(info));
+  return cooperative_info(decoder_fused_kernel<false>, THREADS, smem, units,
                           static_cast<int*>(info));
 }

@@ -25,8 +25,8 @@
 // each block issues the first weight chunks of its first tile of that
 // pass.
 //
-// Images: (B, H, W, 3) bf16; enc: (B, H/8, W/8, 128) bf16; W <= 512 (the
-// NB1D row tiles hold whole rows: W/4 <= 128, W/8 <= 64). The constants
+// Images: (B, H, W, 3) bf16; enc: (B, H/8, W/8, 128) bf16 (NB1D rows
+// wider than a tile, W/4 > 128 or W/8 > 64, run as segments). The constants
 // are one bf16 weight buffer and one f32 vector buffer laid out once by
 // `pack_encoder` (ops/backbone_fused.py), with a table of offsets passed by
 // value: stage s's weights at wb + w[s] (taps-first, the order the tiles
@@ -58,7 +58,9 @@ constexpr int STAGES = 16;  // initial, down1, 5 x NB1D-64, down2, 8 x NB1D-128
 constexpr int NB64 = 2, DOWN2 = 7, NB128 = 8;  // first stage of each group
 
 // P0..P2: scratch planes of 4*B*H*W values each; *barriers: the grid
-// barriers run
+// barriers run. kSeg: the NB1D rows are wider than their tiles (W > 512:
+// W/4 > 128 and W/8 > 64 together), nb1d.cuh's segments' code.
+template <bool kSeg>
 __global__ void __launch_bounds__(THREADS, 2) encoder_fused_kernel(
     const bf16* img, const bf16* wb, const float* vb, StageTable<STAGES> tab,
     bf16* P0, bf16* P1, bf16* P2, bf16* out, int* barriers, int B, int H,
@@ -88,16 +90,16 @@ __global__ void __launch_bounds__(THREADS, 2) encoder_fused_kernel(
   // 5 x NB1D-64 on (B, H/4, W/4, 64): P1 -> P0 -> P1 -> P0 -> P1 -> P0,
   // the pass A outputs in P2
   const int H4 = H / 4, W4 = W / 4, H8 = H / 8, W8 = W / 8;
-  bool pre =
-      nb1d::issue_block_weights<64>(wb + sw[NB64], B * H4, H4, W4, smem);
+  bool pre = nb1d::issue_block_weights<64, kSeg>(wb + sw[NB64], B * H4, H4,
+                                                 W4, smem);
   sync();
 #pragma unroll 1  // one copy of the block's code
   for (int i = NB64; i < DOWN2; ++i) {
     const bool even = (i - NB64) % 2 == 0;
-    nb1d::block_passes<64>(grid, even ? P1 : P0, wb + sw[i], vb + sv[i],
-                           sd[i], P2, even ? P0 : P1, B * H4, H4, W4, smem,
-                           pre, nsync);
-    pre = i + 1 < DOWN2 && nb1d::issue_block_weights<64>(
+    nb1d::block_passes<64, kSeg>(grid, even ? P1 : P0, wb + sw[i],
+                                 vb + sv[i], sd[i], P2, even ? P0 : P1,
+                                 B * H4, H4, W4, smem, pre, nsync);
+    pre = i + 1 < DOWN2 && nb1d::issue_block_weights<64, kSeg>(
                                wb + sw[i + 1], B * H4, H4, W4, smem);
     sync();
   }
@@ -106,7 +108,8 @@ __global__ void __launch_bounds__(THREADS, 2) encoder_fused_kernel(
   ldds::s2_pass<64, 64>(
       ldds::ds_op(P0, wb + sw[DOWN2], v7, v7 + 128, P1, B, H4, W4, 64, 128),
       1, smem);
-  pre = nb1d::issue_block_weights<128>(wb + sw[NB128], B * H8, H8, W8, smem);
+  pre = nb1d::issue_block_weights<128, kSeg>(wb + sw[NB128], B * H8, H8,
+                                             W8, smem);
   sync();
   // 8 x NB1D-128 on (B, H/8, W/8, 128): P1 -> P0 -> out -> P0 -> ... ->
   // out, so that the last block lands in `out`
@@ -115,11 +118,12 @@ __global__ void __launch_bounds__(THREADS, 2) encoder_fused_kernel(
     const int k = i - NB128;
     const bf16* x = k == 0 ? P1 : k % 2 ? P0 : out;
     bf16* dst = k % 2 ? out : P0;
-    nb1d::block_passes<128>(grid, x, wb + sw[i], vb + sv[i], sd[i], P2, dst,
-                            B * H8, H8, W8, smem, pre, nsync);
+    nb1d::block_passes<128, kSeg>(grid, x, wb + sw[i], vb + sv[i], sd[i],
+                                  P2, dst, B * H8, H8, W8, smem, pre,
+                                  nsync);
     if (i + 1 < STAGES) {
-      pre = nb1d::issue_block_weights<128>(wb + sw[i + 1], B * H8, H8, W8,
-                                           smem);
+      pre = nb1d::issue_block_weights<128, kSeg>(wb + sw[i + 1], B * H8,
+                                                 H8, W8, smem);
       sync();
     }
   }
@@ -131,9 +135,7 @@ __global__ void __launch_bounds__(THREADS, 2) encoder_fused_kernel(
 // does not take.
 int launch_shape(const StageTable<STAGES>& tab, int B, int H, int W,
                  int* smem, long long* units) {
-  if (H % 8 || W % 8 || B < 1 || W / 4 > nb1d::Cfg<64>::MT ||
-      W / 8 > nb1d::Cfg<128>::MT)
-    return (int)cudaErrorInvalidValue;
+  if (H % 8 || W % 8 || B < 1) return (int)cudaErrorInvalidValue;
   const int H4 = H / 4, W4 = W / 4, H8 = H / 8, W8 = W / 8;
   int s = (int)sizeof(float) * ldds::D1_SW;
   auto most = [](int a, int b) { return a > b ? a : b; };
@@ -148,17 +150,16 @@ int launch_shape(const StageTable<STAGES>& tab, int B, int H, int W,
   long long u = (pix1 + THREADS - 1) / THREADS;  // initial: a thread a pixel
   auto more = [&](long long v) { u = v > u ? v : u; };
   more((pix1 / 4 + ldds::BM - 1) / ldds::BM);  // down1's tiles
-  const int R64 = nb1d::Cfg<64>::MT / W4, R128 = nb1d::Cfg<128>::MT / W8;
-  more(((long long)B * H4 + R64 - 1) / R64);
+  more(nb1d::tile_count<64>(B * H4, W4));
   more(((long long)B * H8 * W8 + ldds::BM - 1) / ldds::BM);  // down2's
-  more(((long long)B * H8 + R128 - 1) / R128);
+  more(nb1d::tile_count<128>(B * H8, W8));
   *units = u;
   return 0;
 }
 
 }  // namespace
 
-// x: (B, H, W, 3) bf16, H and W multiples of 8, W <= 512; wbuf bf16, vbuf
+// x: (B, H, W, 3) bf16, H and W multiples of 8; wbuf bf16, vbuf
 // f32 (16-byte aligned segments); table: n = 3 * 16 host ints (w offsets,
 // v offsets, dilations); scratch: 3 planes of 4*B*H*W bf16; out: (B, H/8,
 // W/8, 128); barriers: 1 device int, the grid barriers the launch ran.
@@ -181,8 +182,11 @@ LD_API int ld_encoder_fused(const void* x, const void* wbuf, const void* vbuf,
   auto O = static_cast<bf16*>(out);
   auto N = static_cast<int*>(barriers);
   void* args[] = {&X, &Wb, &Vb, &tab, &P0, &P1, &P2, &O, &N, &B, &H, &W};
-  return launch_cooperative(encoder_fused_kernel, THREADS, smem, units, args,
-                            static_cast<cudaStream_t>(stream));
+  if (nb1d::seg_rows<128>(W / 8))
+    return launch_cooperative(encoder_fused_kernel<true>, THREADS, smem,
+                              units, args, static_cast<cudaStream_t>(stream));
+  return launch_cooperative(encoder_fused_kernel<false>, THREADS, smem, units,
+                            args, static_cast<cudaStream_t>(stream));
 }
 
 // The launch the card would make for ld_encoder_fused at this shape and
@@ -195,6 +199,9 @@ LD_API int ld_encoder_fused_info(void* info, const void* table, int n, int B,
   long long units = 0;
   const int rc = launch_shape(tab, B, H, W, &smem, &units);
   if (rc) return rc;
-  return cooperative_info(encoder_fused_kernel, THREADS, smem, units,
+  if (nb1d::seg_rows<128>(W / 8))
+    return cooperative_info(encoder_fused_kernel<true>, THREADS, smem, units,
+                            static_cast<int*>(info));
+  return cooperative_info(encoder_fused_kernel<false>, THREADS, smem, units,
                           static_cast<int*>(info));
 }

@@ -7,6 +7,6 @@ LD_API int ld_head_rowsums(const void* t, const void* w, const void* bias,
                            const void* xs, void* S, int B, int H, int W,
                            int cin, int C, int zero_rows, int act,
                            void* stream) {
-  return ldhead::launch_head_rowsums<bf16>(t, w, bias, xs, S, B, H, W, cin, C,
-                                     zero_rows, act, stream);
+  return ldhead::launch_head_rowsums<bf16, false>(
+      t, w, bias, xs, S, B, H, W, cin, C, zero_rows, act, stream);
 }

@@ -23,7 +23,8 @@
 //
 // Design: the block is two launches of the row tile of `nb1d.cuh` (pass A:
 // the two d = 1 convolutions, x -> mid; pass B: the two dilated ones and
-// the residual, mid -> out), one tile of R whole rows per block; t1 stays
+// the residual, mid -> out), one tile (R whole rows, or a segment of a
+// wide row) per block; t1 stays
 // in the tile's shared memory, t2 = mid makes one round trip through
 // device memory. The persistent kernels run the same passes with a
 // grid-wide barrier in place of the second launch.
@@ -34,32 +35,37 @@ namespace {
 
 using nb1d::THREADS;
 
-template <int C>
+template <int C, bool kSeg>
 __global__ void __launch_bounds__(THREADS, 2)
     nb1d_pass_kernel(const nb1d::Pass ps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  nb1d::pass_tiles<C>(ps, false, smem, blockIdx.x, gridDim.x);
+  nb1d::pass_tiles<C, kSeg>(ps, false, smem, blockIdx.x, gridDim.x);
+}
+
+template <int C, bool kSeg>
+int launch_pass_as(const nb1d::Pass& ps, cudaStream_t stream) {
+  const int smem = nb1d::smem_bytes<C>(ps.W, ps.d);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        nb1d_pass_kernel<C, kSeg>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  nb1d_pass_kernel<C, kSeg><<<nb1d::tile_count<C>(ps.rows, ps.W), THREADS,
+                              smem, stream>>>(ps);
+  return (int)cudaGetLastError();
 }
 
 template <int C>
 int launch_pass(const nb1d::Pass& ps, cudaStream_t stream) {
-  const int smem = nb1d::smem_bytes<C>(ps.W, ps.d);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        nb1d_pass_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int R = nb1d::Cfg<C>::MT / ps.W;
-  nb1d_pass_kernel<C><<<(ps.rows + R - 1) / R, THREADS, smem, stream>>>(ps);
-  return (int)cudaGetLastError();
+  return nb1d::seg_rows<C>(ps.W) ? launch_pass_as<C, true>(ps, stream)
+                                 : launch_pass_as<C, false>(ps, stream);
 }
 
 template <int C>
 int launch_block(const bf16* x, const bf16* w, const float* vec, bf16* mid,
                  bf16* out, int B, int H, int W, int d, cudaStream_t s) {
   // w: (4, 3, C, C) [conv][tap][ci][co]; vec: (6, C) = b1 m1 a1 b3 m2 a2
-  if (W > nb1d::Cfg<C>::MT) return (int)cudaErrorInvalidValue;
   const int rows = B * H;
   const int rc =
       launch_pass<C>(nb1d::pass_a<C>(x, w, vec, mid, rows, H, W), s);
@@ -70,8 +76,7 @@ int launch_block(const bf16* x, const bf16* w, const float* vec, bf16* mid,
 
 }  // namespace
 
-// x, out, mid: (B, H, W, C) bf16 contiguous; mid is scratch; W at most
-// 8192 / C (the row tile holds whole rows).
+// x, out, mid: (B, H, W, C) bf16 contiguous; mid is scratch.
 LD_API int ld_nb1d(const void* x, const void* w, const void* vec, void* mid,
                    void* out, int B, int H, int W, int C, int d,
                    void* stream) {

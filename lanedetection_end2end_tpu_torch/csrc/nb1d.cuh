@@ -13,14 +13,23 @@
 //
 // axis 0 (3x1): taps at rows h-d, h, h+d; axis 1 (1x3): columns w-d, w,
 // w+d; taps off the plane read zero (a tap entirely off it, d >= H or d >=
-// W, is skipped). A tile owns R = MT / W whole rows of the plane: R*W
-// pixels x all C channels (W <= MT). The 1x3 convolution reads only its
-// own image row, so a pass runs its 3x1 convolution into rows staged in
-// shared memory (bf16, the rounding K1 always had between the two), then
-// the 1x3 one from them, with no plane written and no barrier in between.
-// The staged rows carry a d-column zero halo on each side, so the 1x3
-// taps are offset views of them. Only the 3x1 convolution reads rows other
-// tiles write, hence one grid-wide barrier a pass.
+// W, is skipped). A tile is MT pixels x all C channels. Rows of W <= MT
+// pixels: a tile owns R = MT / W whole rows. Wider rows: a tile owns one
+// segment of one row, columns c0 .. c0 + MT - 1 (the last segment of a
+// row partial where MT does not divide W). The 1x3 convolution reads only
+// its own image row, so a pass runs its 3x1 convolution into rows staged
+// in shared memory (bf16, the rounding K1 always had between the two),
+// then the 1x3 one from them, with no plane written and no barrier in
+// between. The staged rows carry a halo of hd = halo(W, d) columns on each
+// side, so the 1x3 taps are offset views of them: zero for whole rows
+// (the columns off the plane); for a segment, the 3x1 convolution of the
+// columns c0 - hd .. c0 - 1 and c0 + MT .. c0 + MT + hd - 1, computed in a
+// first round of the pass's chunks (the halo round: 2 hd <= 32 pixels, on
+// the warps whose pixels cover them), zero where they fall off the plane.
+// A halo pixel runs the products of the same pixel in the neighbouring
+// tile in the same order, so every output is that of the whole-row form
+// bit for bit. Only the 3x1 convolution reads rows other tiles write,
+// hence one grid-wide barrier a pass.
 //
 // Products: bf16 mma.sync m16n8k16 with ldmatrix (tc_common.cuh), f32
 // accumulators in registers, 8 warps: C = 128 as 2 (pixels) x 4 (channels)
@@ -63,16 +72,35 @@ struct Cfg {
                 "8 warps cover the tile");
 };
 
+// Whether a pass on rows of W pixels needs the segments' code (kSeg).
+template <int C>
+__host__ __device__ inline bool seg_rows(int W) {
+  return W > Cfg<C>::MT;
+}
+
 // the halo of the staged rows: d columns, none where the 1x3 taps at +-d
 // miss the row entirely (d >= W, the taps skipped)
 __host__ __device__ inline int halo(int W, int d) { return d < W ? d : 0; }
 
+// The tiles of a pass over `rows` rows of W pixels: R = MT / W whole rows
+// each, or one segment of MT columns each where W > MT.
+template <int C>
+__host__ __device__ inline int tile_count(int rows, int W) {
+  constexpr int MT = Cfg<C>::MT;
+  if (W > MT) return rows * ((W + MT - 1) / MT);
+  const int R = MT / W;
+  return (rows + R - 1) / R;
+}
+
 // Dynamic shared memory of a pass on rows of W pixels at dilation d: the
-// ring, then R rows of W + 2 halo staged pixels.
+// ring, then the staged rows: R rows of W + 2 halo pixels, or one segment
+// of MT + 2 halo pixels.
 template <int C>
 __host__ __device__ inline int smem_bytes(int W, int d) {
   using K = Cfg<C>;
-  return K::RING_BYTES + (K::MT / W) * (W + 2 * halo(W, d)) * K::LDT * 2;
+  const int h2 = 2 * halo(W, d);
+  const int staged = W > K::MT ? K::MT + h2 : (K::MT / W) * (W + h2);
+  return K::RING_BYTES + staged * K::LDT * 2;
 }
 
 // One pass: conv0 (axis 0) of `in` with bias b0, relu, bf16 -> staged
@@ -108,28 +136,91 @@ __host__ __device__ inline Pass pass_b(const bf16* x, const bf16* mid,
           x, out, rows, H, W, d};
 }
 
-// A pass's shape: R rows a tile, the taps of each convolution (3, or 1
-// where the off-centre taps miss the plane), the staged rows' halo and
-// width, the chunks of conv0 (nA) and of the pass (n), the tiles, the
-// pixels of a tile (RW = R W) and of the plane.
+// A pass's shape, whole rows (kSeg = false): R rows a tile, the taps of
+// each convolution (3, or 1 where the off-centre taps miss the plane), the
+// staged rows' halo and width, the chunks of conv0 (nA) and of the pass
+// (n), the tiles, the pixels of a tile (RW = R W) and of the plane.
+template <bool kSeg>
 struct Geo {
   int R, n0, n1, hal, TW, nA, n, ntiles, RW, npix;
+  static constexpr int nseg = 1, nH = 0;  // one tile spans whole rows
 };
 
-template <int C>
-__device__ __forceinline__ Geo geo_of(const Pass& ps) {
-  Geo g;
-  g.R = Cfg<C>::MT / ps.W;
+// Segments (kSeg = true): R = 1 and segments of SW = MT columns, nseg to a
+// row; nH: the chunks of the halo round (one round of conv0's chunks where
+// the segment has a halo, else 0), which nA includes; RW = SW.
+template <>
+struct Geo<true> {
+  int R, n0, n1, hal, TW, nA, n, ntiles, RW, npix, nseg, SW, nH;
+};
+
+template <int C, bool kSeg>
+__device__ __forceinline__ Geo<kSeg> geo_of(const Pass& ps) {
+  constexpr int MT = Cfg<C>::MT;
+  Geo<kSeg> g;
+  if constexpr (kSeg) {
+    g.nseg = (ps.W + MT - 1) / MT;
+    g.R = 1;
+    g.SW = MT;
+  } else {
+    g.R = MT / ps.W;
+  }
   g.n0 = ps.d < ps.H ? 3 : 1;
   g.n1 = ps.d < ps.W ? 3 : 1;
   g.hal = halo(ps.W, ps.d);
-  g.TW = ps.W + 2 * g.hal;
-  g.nA = g.n0 * Cfg<C>::CPT;
+  if constexpr (kSeg) {
+    g.TW = MT + 2 * g.hal;
+    g.nH = g.hal > 0 ? g.n0 * Cfg<C>::CPT : 0;
+    g.nA = g.nH + g.n0 * Cfg<C>::CPT;
+  } else {
+    g.TW = ps.W + 2 * g.hal;
+    g.nA = g.n0 * Cfg<C>::CPT;
+  }
   g.n = g.nA + g.n1 * Cfg<C>::CPT;
-  g.ntiles = (ps.rows + g.R - 1) / g.R;
-  g.RW = g.R * ps.W;
+  g.ntiles = kSeg ? ps.rows * g.nseg : (ps.rows + g.R - 1) / g.R;
+  g.RW = kSeg ? MT : g.R * ps.W;
   g.npix = ps.rows * ps.W;
   return g;
+}
+
+// the pixels of a staged row's middle: W, or a segment's SW
+template <bool kSeg>
+__device__ __forceinline__ int staged_width(const Pass& ps,
+                                            const Geo<kSeg>& g) {
+  if constexpr (kSeg) return g.SW;
+  else return ps.W;
+}
+
+// The tile functions below take kSeg: false for passes of whole rows
+// (nseg = 1, no halo round), true for passes of segments (nseg > 1), so
+// that the whole rows' code carries nothing of the segments'. A kernel is
+// built with one of the two (`seg_rows`): every NB1D pass of an image has
+// rows wider than its tile, or none has.
+
+// In a pass of segments, the plane pixel of row m of tile u's products,
+// or -1 where there is none (past the row's end, off the plane). hr: the
+// halo round, whose rows m < 2 hal are the segment's halo columns, the
+// left ones first. (Whole rows: pixel u RW + m, where m < RW and it lies
+// on the plane.)
+template <int C, bool kSeg>
+__device__ __forceinline__ int seg_pixel(const Pass& ps, const Geo<kSeg>& g,
+                                         int u, int m, bool hr) {
+  const int c0 = (u % g.nseg) * Cfg<C>::MT;
+  const int col =
+      hr ? c0 - g.hal + (m < g.hal ? m : m + Cfg<C>::MT) : c0 + m;
+  const bool ok = (!hr || m < 2 * g.hal) && col >= 0 && col < ps.W;
+  return ok ? (u / g.nseg) * ps.W + col : -1;
+}
+
+// The staged pixel that row m of conv0's products fills (halo round: the
+// segment's halo columns, 0 .. hal - 1 and MT + hal .. MT + 2 hal - 1)
+template <int C, bool kSeg>
+__device__ __forceinline__ int staged_pixel(const Pass& ps,
+                                            const Geo<kSeg>& g, int m,
+                                            bool hr) {
+  if (kSeg && hr) return m < g.hal ? m : m + Cfg<C>::MT;
+  const int sw = staged_width(ps, g);
+  return (m / sw) * g.TW + m % sw + g.hal;
 }
 
 // the row or column offset of tap j of a convolution with `taps` taps
@@ -143,12 +234,13 @@ __device__ __forceinline__ bf16* stage(unsigned char* smem, int i) {
 }
 
 // Chunk i's weight rows (KC x C of one tap) into its ring stage.
-template <int C>
-__device__ __forceinline__ void load_b(const Pass& ps, const Geo& g,
+template <int C, bool kSeg>
+__device__ __forceinline__ void load_b(const Pass& ps, const Geo<kSeg>& g,
                                        int i, unsigned char* smem) {
   using K = Cfg<C>;
   const bool first = i < g.nA;
-  const int j = first ? i : i - g.nA;
+  const int j0 = kSeg && i < g.nH ? i : i - g.nH;  // conv0's chunk
+  const int j = first ? (kSeg ? j0 : i) : i - g.nA;
   const int t = (first ? g.n0 : g.n1) == 3 ? j / K::CPT : 1;
   const bf16* src =
       (first ? ps.w0 : ps.w1) + ((size_t)t * C + (j % K::CPT) * K::KC) * C;
@@ -160,20 +252,24 @@ __device__ __forceinline__ void load_b(const Pass& ps, const Geo& g,
   }
 }
 
-// Chunk i < nA's input rows for tile u: pixel u RW + m shifted by the
-// tap's rows, KC channels, zero off the plane and past the tile's R rows.
-template <int C>
-__device__ __forceinline__ void load_a(const Pass& ps, const Geo& g,
+// Chunk i < nA's input rows for tile u: the pixel of product row m (u RW
+// + m, or seg_pixel) shifted by the tap's rows, KC channels, zero off the
+// plane and where there is no pixel.
+template <int C, bool kSeg>
+__device__ __forceinline__ void load_a(const Pass& ps, const Geo<kSeg>& g,
                                        int i, int u, unsigned char* smem) {
   using K = Cfg<C>;
-  const int off = tap_offset(i / K::CPT, g.n0, ps.d);
-  const int c0 = (i % K::CPT) * K::KC;
+  const bool hr = kSeg && i < g.nH;
+  const int j = kSeg && !hr ? i - g.nH : i;
+  const int off = tap_offset(j / K::CPT, g.n0, ps.d);
+  const int c0 = (j % K::CPT) * K::KC;
   bf16* sA = stage<C>(smem, i);
   for (int e = threadIdx.x; e < K::MT * K::VA; e += THREADS) {
     const int m = e / K::VA, v = e % K::VA;
-    const int p = u * g.RW + m;
+    const int p = kSeg ? seg_pixel<C>(ps, g, u, m, hr) : u * g.RW + m;
     const int hh = (p / ps.W) % ps.H + off;
-    const bool ok = m < g.RW && p < g.npix && hh >= 0 && hh < ps.H;
+    const bool ok = (kSeg ? p >= 0 : m < g.RW && p < g.npix) && hh >= 0 &&
+                    hh < ps.H;
     const bf16* src =
         ok ? ps.in + (long long)(p + off * ps.W) * C + c0 + v * 8 : ps.in;
     ldtc::cp_async16(sA + m * K::LDA + v * 8, src, ok);
@@ -200,14 +296,15 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[2][Cfg<C>::WN][4],
   }
 }
 
-// One tile u (rows u R .. u R + R - 1) of pass `ps`. `pre`: the first
+// One tile u (rows u R .. u R + R - 1, or one segment of a row) of pass
+// `ps`. `pre`: the first
 // STAGES - 1 chunks' weight rows were issued (issue_weights) as one
 // earlier cp.async group. Starts by writing the ring and the staged rows
 // and ends after reading them: a caller that runs a second tile in the
 // same block puts a __syncthreads() between the two.
-template <int C>
-__device__ __forceinline__ void tile(const Pass& ps, const Geo& g, int u,
-                                     bool pre, unsigned char* smem) {
+template <int C, bool kSeg>
+__device__ __forceinline__ void tile(const Pass& ps, const Geo<kSeg>& g,
+                                     int u, bool pre, unsigned char* smem) {
   using K = Cfg<C>;
   using M = lds2::Mma<bf16>;
   bf16* T = reinterpret_cast<bf16*>(smem + K::RING_BYTES);
@@ -215,13 +312,21 @@ __device__ __forceinline__ void tile(const Pass& ps, const Geo& g, int u,
   const int wm = warp / K::NWN, wn = warp % K::NWN;
   const int m0 = wm * 16 * K::WM, n0 = wn * 8 * K::WN;
 
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
+  auto prologue = [&](int i) {
     if (i < g.n) {
-      if (i < g.nA) load_a<C>(ps, g, i, u, smem);
-      if (!pre) load_b<C>(ps, g, i, smem);
+      if (i < g.nA) load_a<C, kSeg>(ps, g, i, u, smem);
+      if (!pre) load_b<C, kSeg>(ps, g, i, smem);
     }
     ldtc::cp_async_commit();
+  };
+  if constexpr (kSeg) {
+    // (not unrolled: unrolled, the segments' index arithmetic spills in
+    // encoder_fused at 128 registers)
+#pragma unroll 1
+    for (int i = 0; i < STAGES - 1; ++i) prologue(i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) prologue(i);
   }
 
   float acc[2][K::WN][4];
@@ -241,32 +346,36 @@ __device__ __forceinline__ void tile(const Pass& ps, const Geo& g, int u,
     __syncthreads();
     const int nx = i + STAGES - 1;
     if (nx < g.n) {
-      if (nx < g.nA) load_a<C>(ps, g, nx, u, smem);
-      load_b<C>(ps, g, nx, smem);
+      if (nx < g.nA) load_a<C, kSeg>(ps, g, nx, u, smem);
+      load_b<C, kSeg>(ps, g, nx, smem);
     }
     ldtc::cp_async_commit();  // possibly empty: one group per iteration
     const bf16* sB = stage<C>(smem, i) + K::A_ELEMS;
     if (i < g.nA) {
-      const bf16* sA = stage<C>(smem, i);
+      // (in the halo round only the warps whose rows hold halo columns)
+      if (!kSeg || i >= g.nH || m0 < 2 * g.hal) {
+        const bf16* sA = stage<C>(smem, i);
 #pragma unroll
-      for (int k = 0; k < K::KC; k += 16) {
-        M::A a[2];
+        for (int k = 0; k < K::KC; k += 16) {
+          M::A a[2];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          M::load_a(a[mi], sA, K::LDA, m0 + mi * 16, k);
-        mma_chunk<C>(acc, a, sB, k, n0);
+          for (int mi = 0; mi < 2; ++mi)
+            M::load_a(a[mi], sA, K::LDA, m0 + mi * 16, k);
+          mma_chunk<C>(acc, a, sB, k, n0);
+        }
       }
     } else {
       const int j = i - g.nA;
       // this lane's ldmatrix rows of the staged rows, one per m16 tile:
-      // pixel m at (row m / W, column m % W + halo + the tap's offset); a
-      // pixel past the tile's R rows reads pixel 0, its output is never
+      // pixel m at (row m / SW, column m % SW + halo + the tap's offset);
+      // a pixel past the tile's R rows reads pixel 0, its output is never
       // stored
       const bf16* sT[2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         const int m = m0 + mi * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-        const int pix = m < g.RW ? (m / ps.W) * g.TW + m % ps.W : 0;
+        const int sw = staged_width(ps, g);
+        const int pix = m < g.RW ? (m / sw) * g.TW + m % sw : 0;
         sT[mi] = T + (pix + g.hal + tap_offset(j / K::CPT, g.n1, ps.d)) *
                          K::LDT +
                  8 * (lane >> 4) + (j % K::CPT) * K::KC;
@@ -279,22 +388,32 @@ __device__ __forceinline__ void tile(const Pass& ps, const Geo& g, int u,
         mma_chunk<C>(acc, a, sB, k, n0);
       }
     }
-    if (i == g.nA - 1) {
-      // conv0's epilogue: bf16(relu(acc + b0)) into the staged rows (read
-      // after the next iteration's barrier), then the accumulators start
-      // conv1
+    if ((kSeg && i == g.nH - 1) || i == g.nA - 1) {
+      // conv0's epilogue, after the halo round and after conv0:
+      // bf16(relu(acc + b0)) into the staged rows (read after the next
+      // iteration's barrier), zero for a pixel off the plane; then the
+      // accumulators start the next round
+      const bool hr = kSeg && i < g.nH;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = m0 + mi * 16 + gr + 8 * h;
-          bf16* tr = T + ((m / ps.W) * g.TW + m % ps.W + g.hal) * K::LDT;
+          const bool keep = m < (hr ? 2 * g.hal : g.RW);
+          // (whole rows: a pixel past the plane fills a staged pixel that
+          // no stored output reads)
+          const float on =
+              !kSeg || seg_pixel<C>(ps, g, u, m, hr) >= 0 ? 1.0f
+                                                                  : 0.0f;
+          bf16* tr = T + staged_pixel<C, kSeg>(ps, g, m, hr) * K::LDT;
 #pragma unroll
           for (int nj = 0; nj < K::WN; ++nj) {
             const int n = n0 + nj * 8 + 2 * tg;
-            if (m < g.RW)
-              store_bf2(tr + n, fmaxf(acc[mi][nj][2 * h] + ps.b0[n], 0.0f),
-                        fmaxf(acc[mi][nj][2 * h + 1] + ps.b0[n + 1], 0.0f));
+            if (keep)
+              store_bf2(tr + n,
+                        on * fmaxf(acc[mi][nj][2 * h] + ps.b0[n], 0.0f),
+                        on * fmaxf(acc[mi][nj][2 * h + 1] + ps.b0[n + 1],
+                                   0.0f));
             acc[mi][nj][2 * h] = acc[mi][nj][2 * h + 1] = 0.0f;
           }
         }
@@ -308,8 +427,9 @@ __device__ __forceinline__ void tile(const Pass& ps, const Geo& g, int u,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + mi * 16 + gr + 8 * h;
-      const int p = u * g.RW + m;
-      if (m >= g.RW || p >= g.npix) continue;
+      const int p = kSeg ? seg_pixel<C>(ps, g, u, m, false)
+                         : u * g.RW + m;
+      if (kSeg ? p < 0 : m >= g.RW || p >= g.npix) continue;
       bf16* o = ps.out + (size_t)p * C;
 #pragma unroll
       for (int nj = 0; nj < K::WN; ++nj) {
@@ -326,10 +446,10 @@ __device__ __forceinline__ void tile(const Pass& ps, const Geo& g, int u,
     }
 }
 
-// Zero the halo columns of the R staged rows (the epilogue writes only
-// their W middle columns).
+// Zero the halo columns of the R staged whole rows (the epilogue writes
+// only their W middle columns; a segment's tiles write their halo).
 template <int C>
-__device__ __forceinline__ void zero_halo(const Geo& g,
+__device__ __forceinline__ void zero_halo(const Geo<false>& g,
                                           unsigned char* smem) {
   using K = Cfg<C>;
   if (g.hal == 0) return;
@@ -344,25 +464,26 @@ __device__ __forceinline__ void zero_halo(const Geo& g,
 }
 
 // The tiles u0, u0 + ustep, ... of pass `ps`, a barrier after each; `pre`
-// as for `tile`, for the first of them.
-// The pass and its shape live in shared memory while its tiles run: read
-// again after each barrier, they hold no registers across the tile's loop
-// (a persistent kernel computes them at run time).
-template <int C>
+// as for `tile`, for the first of them; kSeg = seg_rows(W) (the caller's
+// choice of code). The pass and its shape live in shared memory while its
+// tiles run: read again after each barrier, they hold no registers across
+// the tile's loop (a persistent kernel computes them at run time).
+template <int C, bool kSeg>
 __device__ __forceinline__ void pass_tiles(const Pass& pass, bool pre,
                                            unsigned char* smem, int u0,
                                            int ustep) {
   __shared__ Pass ps;
-  __shared__ Geo g;
+  __shared__ Geo<kSeg> g;
   __syncthreads();  // the block is done with the previous pass's copy
   if (threadIdx.x == 0) {
     ps = pass;
-    g = geo_of<C>(pass);
+    g = geo_of<C, kSeg>(pass);
   }
   __syncthreads();
-  zero_halo<C>(g, smem);  // read only after the first tile's barriers
+  // (read only after the first tile's barriers)
+  if constexpr (!kSeg) zero_halo<C>(g, smem);
   for (int u = u0; u < g.ntiles; u += ustep) {
-    tile<C>(ps, g, u, pre, smem);
+    tile<C, kSeg>(ps, g, u, pre, smem);
     pre = false;
     __syncthreads();  // the next tile rewrites the ring and the rows
   }
@@ -372,21 +493,22 @@ __device__ __forceinline__ void pass_tiles(const Pass& pass, bool pre,
 // STAGES - 1 chunks of this block's first tile of pass `ps`, one cp.async
 // group, into the ring (after a barrier: the block is done with it).
 // Returns whether the block has a tile in the pass and so issued them.
-template <int C>
+// kSeg as for pass_tiles.
+template <int C, bool kSeg>
 __device__ __forceinline__ bool issue_weights(const Pass& ps,
                                               unsigned char* smem) {
-  const Geo g = geo_of<C>(ps);
+  const Geo<kSeg> g = geo_of<C, kSeg>(ps);
   if ((int)blockIdx.x >= g.ntiles) return false;
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i)
-    if (i < g.n) load_b<C>(ps, g, i, smem);
+    if (i < g.n) load_b<C, kSeg>(ps, g, i, smem);
   ldtc::cp_async_commit();
   return true;
 }
 
 // issue_weights for pass A of the block with weights w on (rows, W, C)
-template <int C>
+template <int C, bool kSeg>
 __device__ __forceinline__ bool issue_block_weights(const bf16* w, int rows,
                                                     int H, int W,
                                                     unsigned char* smem) {
@@ -397,7 +519,7 @@ __device__ __forceinline__ bool issue_block_weights(const bf16* w, int rows,
   ps.H = H;
   ps.W = W;
   ps.d = 1;
-  return issue_weights<C>(ps, smem);
+  return issue_weights<C, kSeg>(ps, smem);
 }
 
 // One whole block inside a persistent cooperative grid: pass A (x -> mid),
@@ -406,8 +528,8 @@ __device__ __forceinline__ bool issue_block_weights(const bf16* w, int rows,
 // A's first weights were issued before the caller's last barrier
 // (issue_block_weights). w: (4, 3, C, C) [conv][tap][ci][co]; v: (6, C) =
 // b1 m1 a1 b3 m2 a2; x is only read. Thread 0 adds its barrier to
-// `nsync`.
-template <int C>
+// `nsync`. kSeg as for pass_tiles.
+template <int C, bool kSeg>
 __device__ __forceinline__ void block_passes(
     cooperative_groups::grid_group& grid, const bf16* x, const bf16* w,
     const float* v, int d, bf16* mid, bf16* dst, int rows, int H, int W,
@@ -418,12 +540,12 @@ __device__ __forceinline__ void block_passes(
   __shared__ Pass b;
   __syncthreads();
   if (threadIdx.x == 0) b = pass_b<C>(x, mid, w, v, d, dst, rows, H, W);
-  pass_tiles<C>(pass_a<C>(x, w, v, mid, rows, H, W), pre, smem, blockIdx.x,
-                gridDim.x);
-  const bool pb = issue_weights<C>(b, smem);
+  pass_tiles<C, kSeg>(pass_a<C>(x, w, v, mid, rows, H, W), pre, smem,
+                      blockIdx.x, gridDim.x);
+  const bool pb = issue_weights<C, kSeg>(b, smem);
   grid.sync();
   if (threadIdx.x == 0) ++nsync;
-  pass_tiles<C>(b, pb, smem, blockIdx.x, gridDim.x);
+  pass_tiles<C, kSeg>(b, pb, smem, blockIdx.x, gridDim.x);
 }
 
 }  // namespace nb1d

@@ -42,7 +42,7 @@ struct Dilations {
   int d[MAX_BLOCKS];
 };
 
-template <int C>
+template <int C, bool kSeg>
 __global__ void __launch_bounds__(THREADS, 2) nb1d_chain_kernel(
     const bf16* x, const bf16* w, const float* vec, Dilations dil, int n,
     bf16* mid, bf16* a, bf16* out, int rows, int H, int W) {
@@ -62,11 +62,13 @@ __global__ void __launch_bounds__(THREADS, 2) nb1d_chain_kernel(
     // block b reads x, then `out` or `a`; the last block writes `out`
     const bool last_out = (n - 1 - b) % 2 == 0;
     const bf16* cur = b == 0 ? x : last_out ? a : out;
-    nb1d::block_passes<C>(grid, cur, w + b * wb, vec + (size_t)b * 6 * C,
-                          sd[b], mid, last_out ? out : a, rows, H, W, smem,
-                          pre, nsync);
+    nb1d::block_passes<C, kSeg>(grid, cur, w + b * wb,
+                                vec + (size_t)b * 6 * C, sd[b], mid,
+                                last_out ? out : a, rows, H, W, smem, pre,
+                                nsync);
     if (b + 1 < n) {
-      pre = nb1d::issue_block_weights<C>(w + (b + 1) * wb, rows, H, W, smem);
+      pre = nb1d::issue_block_weights<C, kSeg>(w + (b + 1) * wb, rows, H, W,
+                                               smem);
       grid.sync();
     }
   }
@@ -76,24 +78,25 @@ template <int C>
 int launch_chain(const bf16* x, const bf16* w, const float* vec,
                  Dilations dil, int n, bf16* mid, bf16* a, bf16* out,
                  int rows, int H, int W, cudaStream_t s) {
-  if (W > nb1d::Cfg<C>::MT) return (int)cudaErrorInvalidValue;
   int smem = nb1d::smem_bytes<C>(W, 1);
 #pragma unroll 1  // one copy of the block's code
   for (int b = 0; b < n; ++b) {
     const int need = nb1d::smem_bytes<C>(W, dil.d[b]);
     if (need > smem) smem = need;
   }
-  const int R = nb1d::Cfg<C>::MT / W;
   void* args[] = {&x, &w, &vec, &dil, &n, &mid, &a, &out, &rows, &H, &W};
-  return launch_cooperative(nb1d_chain_kernel<C>, THREADS, smem,
-                            (rows + R - 1) / R, args, s);
+  const long long units = nb1d::tile_count<C>(rows, W);
+  if (nb1d::seg_rows<C>(W))
+    return launch_cooperative(nb1d_chain_kernel<C, true>, THREADS, smem,
+                              units, args, s);
+  return launch_cooperative(nb1d_chain_kernel<C, false>, THREADS, smem,
+                            units, args, s);
 }
 
 }  // namespace
 
 // x, out, mid, a: (B, H, W, C) bf16 contiguous (mid, a scratch); w: (n, 4,
-// 3, C, C) bf16; vec: (n, 6, C) f32; dil: n host ints, n <= 16; W at most
-// 8192 / C.
+// 3, C, C) bf16; vec: (n, 6, C) f32; dil: n host ints, n <= 16.
 LD_API int ld_nb1d_chain(const void* x, const void* w, const void* vec,
                          const void* dil, int n, void* mid, void* a,
                          void* out, int B, int H, int W, int C,

@@ -144,6 +144,9 @@ upsampler.launches = 0
 # K4: 2x2/s2 ConvTranspose head + activation + row mask + WLS row sums
 # ----------------------------------------------------------------------
 
+HEAD_CIN = 16  # the head's input channels (csrc/head_rowsums.cuh, CIN)
+
+
 def pack_head(sd: Mapping[str, torch.Tensor], prefix: str, xs: torch.Tensor,
               zero_rows: int, activation: str) -> Dict:
     """w (2, 2, cin, C) bf16 from the torch weight (cin, C, 2, 2); bias (C,)
@@ -175,6 +178,9 @@ def head_rowsums(t: torch.Tensor, p: Dict) -> torch.Tensor:
     B, Hh, Wh, cin = t.shape
     C = p["w"].shape[-1]
     H, W = 2 * Hh, 2 * Wh
+    if cin != HEAD_CIN or not 1 <= C <= 8:
+        raise ValueError(f"head_rowsums kernel: {cin} input channels and {C}"
+                         f" lanes, the kernel takes {HEAD_CIN} and 1 to 8")
     tp = check_cuda(t, BF16, name="t")
     wp = check_cuda(p["w"], BF16, (2, 2, cin, C), "w")
     bp = check_cuda(p["bias"], F32, (C,), "bias")

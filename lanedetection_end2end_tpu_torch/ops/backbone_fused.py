@@ -19,11 +19,12 @@ so the outputs are bit for bit those of the block sequence
 (`models/fused_graph.py::encoder_blocks` / `decoder_blocks`): the stride-2
 passes on the tensor-core tiles of `csrc/conv_s2_mma.cuh` (the 3 -> 16
 downsampler on FFMA), an NB1D block as two passes of the row tile of
-`csrc/nb1d.cuh`. The planes stay in device memory (L2 at these sizes): one
-card's blocks cannot hold an image's planes the way a TPU core's VMEM
-does. Each launch writes the grid barriers it ran to a device int, kept
-on the wrapper as `barriers` after a call; `fused_info` reads what the
-card gives a launch (registers, spills, resident warps, grid).
+`csrc/nb1d.cuh` (whole rows, or segments of wider ones). The planes stay
+in device memory (L2 at these sizes): one card's blocks cannot hold an
+image's planes the way a TPU core's VMEM does. Each launch writes the
+grid barriers it ran to a device int, kept on the wrapper as `barriers`
+after a call; `fused_info` reads what the card gives a launch
+(registers, spills, resident warps, grid).
 
 The constants are laid out once per checkpoint (`flat_constants`, called by
 `pack_encoder` / `pack_decoder`, the counterpart of JAX's `_flatten_packed`):
@@ -140,22 +141,17 @@ def _flat(packed: Dict, n: int):
     return wp, vp, packed["table"], 3 * n
 
 
-# the widest images the fused kernels take: their NB1D row tiles hold whole
-# rows, NB1D-64 of W/4 and NB1D-128 of W/8 pixels (`ops/nb1d.py::
-# max_width`), NB1D-16 of W/2 in the decoder
-MAX_WIDTH = 512
 SCRATCH_PLANES = 3  # the block input, the pass A output, the block output
 
 
 def encoder_fused_kernel(x: torch.Tensor, packed: Dict) -> torch.Tensor:
     """The whole encoder in one cooperative launch: x (B, H, W, 3) bf16,
-    H and W multiples of 8, W <= MAX_WIDTH -> enc (B, H/8, W/8, 128) bf16.
-    Raises for anything else, and for a CPU tensor."""
+    H and W multiples of 8 -> enc (B, H/8, W/8, 128) bf16. Raises for
+    anything else, and for a CPU tensor."""
     B, H, W, cin = x.shape
-    if cin != 3 or H % 8 or W % 8 or W > MAX_WIDTH:
+    if cin != 3 or H % 8 or W % 8:
         raise ValueError(f"encoder_fused kernel: images {tuple(x.shape)}, "
-                         "expected (B, H, W, 3) with H, W multiples of 8, "
-                         f"W <= {MAX_WIDTH}")
+                         "expected (B, H, W, 3) with H, W multiples of 8")
     xp = check_cuda(x, BF16, name="images")
     wp, vp, table, n = _flat(packed, len(ENC_STAGES))
     scratch = torch.empty(SCRATCH_PLANES * 4 * B * H * W, dtype=BF16,
@@ -181,10 +177,10 @@ def decoder_fused_kernel(enc: torch.Tensor, packed: Dict) -> torch.Tensor:
     B, h, w, cin = enc.shape
     head = packed["head"]
     C = head["bias"].shape[0]
-    if cin != 128 or head["xs"].shape[0] != 8 * w or 8 * w > MAX_WIDTH:
+    if cin != 128 or head["xs"].shape[0] != 8 * w:
         raise ValueError(f"decoder_fused kernel: enc {tuple(enc.shape)}, "
                          f"expected (B, h, w, 128) with 8w = "
-                         f"{head['xs'].shape[0]} columns, 8w <= {MAX_WIDTH}")
+                         f"{head['xs'].shape[0]} columns")
     ep = check_cuda(enc, BF16, name="enc")
     wp, vp, table, n = _flat(packed, len(DEC_STAGES))
     scratch = torch.empty(SCRATCH_PLANES * 256 * B * h * w, dtype=BF16,

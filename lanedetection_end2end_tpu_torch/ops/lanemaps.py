@@ -41,8 +41,11 @@ by autograd as they stand, and `*_bwd_plain`, the kernels' order), in any
 float dtype. The TPU's lane maps, `plan`, `sel`, `red`, `pool` and `btile`
 matrices are lane-packing devices and are not ported.
 
-The moments, the bias and the weight gradients of the kernels are summed
-with f32 atomicAdd, so their last bits change from run to run; S is not.
+The moments, the bias and the weight gradients of K8 and K9 are summed
+with f32 atomicAdd, so their last bits change from run to run. K10 sums
+its weight and bias gradients in a fixed order (per tile of
+`HEAD_BWD_TILE` input pixels, then over the tiles), so they reproduce
+themselves bit for bit, as S does.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from torch.nn.grad import conv2d_weight
 
 from lanedetection_end2end_tpu_torch.ops._build import (
     check_cuda, kernel, launch, plane_symbol)
-from lanedetection_end2end_tpu_torch.ops.backbone import _nchw, _nhwc
+from lanedetection_end2end_tpu_torch.ops.backbone import HEAD_CIN, _nhwc
 from lanedetection_end2end_tpu_torch.ops.nb_block import (
     _SUM, _moments, _ptr, _rounder)
 
@@ -67,6 +70,9 @@ _MOM_CHANNELS = (4, 16, 64, 128)  # the channel reductions need 256 % C == 0
 # first downsampler); K9 at k = 2 takes up to 16 channels each side
 _DOWN_SHAPES = ((3, 16), (16, 64), (64, 128))
 _UP_SHAPES = ((128, 64), (64, 16))
+# input pixels a block of K10's backward owns, one column of partial sums
+# each (csrc/head_rowsums_op.cu, TILE)
+HEAD_BWD_TILE = 512
 
 
 def _fold_moments(dy, y, dmom):
@@ -193,33 +199,51 @@ def lane_maps_bwd_plain(x, y, dy, dmom, weight, k: int, conv=conv_s2,
     return dx, dweight, dyv.sum(_SUM)
 
 
+def _head_sums(x) -> torch.dtype:
+    """The head's sums: f32, float64 for a float64 plane (a reference)."""
+    return torch.float64 if x.dtype == torch.float64 else F32
+
+
+def _head_round(x):
+    """Round to x's dtype where the kernels write it, back in the sums'
+    dtype."""
+    acc = _head_sums(x)
+    return lambda t: t.to(x.dtype).to(acc)
+
+
 def _head_dec(x, weight, bias):
-    """f32 logits (B, C, H, W) of the 2x2/s2 head."""
-    return F.conv_transpose2d(_nchw(x), _rounder(x.dtype)(weight),
-                              bias.float(), stride=2)
+    """Logits (B, C, H, W) of the 2x2/s2 head, f32 (float64 for a float64
+    plane)."""
+    acc = _head_sums(x)
+    return F.conv_transpose2d(_nchw_as_is(x.to(acc)),
+                              _head_round(x)(weight), bias.to(acc), stride=2)
 
 
 def head_rowsums_fwd_plain(x, weight, bias, xs, zero_rows: int):
-    """Plain PyTorch version of `head_rowsums_op` -> S (B, H, 2C) f32."""
+    """Plain PyTorch version of `head_rowsums_op` -> S (B, H, 2C) f32
+    (float64 for a float64 plane)."""
     w2 = _head_dec(x, weight, bias).square().square()
-    keep = torch.ones(w2.shape[2], 1, device=x.device)
+    keep = torch.ones(w2.shape[2], 1, dtype=w2.dtype, device=x.device)
     keep[:zero_rows] = 0.0
     w2 = w2 * keep
-    S = torch.cat([w2.sum(dim=3), (w2 * xs).sum(dim=3)], dim=1)
+    S = torch.cat([w2.sum(dim=3), (w2 * xs.to(w2.dtype)).sum(dim=3)], dim=1)
     return S.transpose(1, 2).contiguous()
 
 
 def head_rowsums_bwd_plain(x, dS, weight, bias, xs, zero_rows: int):
     """Plain version of the backward kernels -> (dx, dweight, dbias): the
-    logits recomputed, ddec = 4 dec^3 (dS0 + xs dS1) in f32."""
+    logits recomputed, ddec = 4 dec^3 (dS0 + xs dS1) in f32 (float64 for a
+    float64 plane), dp = ddec rounded to x's dtype, then the input and
+    weight gradients of the transposed convolution from dp."""
     C = weight.shape[1]
+    rnd = _head_round(x)
     dec = _head_dec(x, weight, bias)
-    g = dS.float().transpose(1, 2).unsqueeze(-1)         # (B, 2C, H, 1)
-    ddec = 4.0 * dec * dec * dec * (g[:, :C] + xs * g[:, C:])
+    g = dS.to(dec.dtype).transpose(1, 2).unsqueeze(-1)   # (B, 2C, H, 1)
+    ddec = 4.0 * dec * dec * dec * (g[:, :C] + xs.to(dec.dtype) * g[:, C:])
     ddec[:, :, :zero_rows] = 0.0
-    dp = _rounder(x.dtype)(_nhwc(ddec))
-    dx, dweight = _convt_grads(x, dp, weight, 2)
-    return dx, dweight, ddec.sum((0, 2, 3))
+    dp = rnd(_nhwc(ddec))
+    dx = conv_s2(dp, rnd(weight), 2).to(x.dtype)
+    return dx, wgrad_s2(x.to(dec.dtype), dp, 2), ddec.sum((0, 2, 3))
 
 
 # ----------------------------------------------------------------------
@@ -384,6 +408,9 @@ def _check_head(x, weight, bias, xs, symbol):
     symbol = _check_plane(x, symbol)
     if C not in (1, 2, 4, 8):
         raise ValueError(f"head_rowsums_op: {C} lanes not in (1, 2, 4, 8)")
+    if cin != HEAD_CIN:
+        raise ValueError(f"head_rowsums_op: {cin} input channels, the "
+                         f"kernel takes {HEAD_CIN}")
     w, b = _check_weight(weight, bias, cin, C, 2)
     xs = xs.float().contiguous()
     check_cuda(xs, F32, (2 * Wh,), "xs")
@@ -395,10 +422,9 @@ def _head_rowsums_fwd_cuda(x, weight, bias, xs, zero_rows):
     C = weight.shape[1]
     w, b, xs, symbol = _check_head(x, weight, bias, xs,
                                    "ld_head_rowsums_op_fwd")
-    wt = _taps_first(w, 1, x.dtype)                       # (2, 2, cin, C)
     S = torch.empty(B, 2 * Hh, 2 * C, dtype=F32, device=x.device)
     launch(kernel("head_rowsums_op", symbol, "p" * 5 + "i" * 6 + "p"),
-           x.device, x.data_ptr(), wt.data_ptr(), b.data_ptr(),
+           x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
            xs.data_ptr(), S.data_ptr(), B, 2 * Hh, 2 * Wh, cin, C,
            int(zero_rows))
     head_rowsums_op.launches += 1
@@ -407,24 +433,27 @@ def _head_rowsums_fwd_cuda(x, weight, bias, xs, zero_rows):
 
 def head_rowsums_bwd_kernel(x, dS, weight, bias, xs, zero_rows: int):
     """Launch the backward kernels on CUDA tensors; arguments and result as
-    `head_rowsums_bwd_plain`."""
+    `head_rowsums_bwd_plain`. One pass over x writes dx and one column of
+    partial weight and bias gradients per tile of HEAD_BWD_TILE pixels; a
+    second launch sums the columns in a fixed order. The kernels read the
+    parameter as it lies and allocate no gradient plane."""
     B, Hh, Wh, cin = x.shape
     C = weight.shape[1]
     w, b, xs, symbol = _check_head(x, weight, bias, xs,
                                    "ld_head_rowsums_op_bwd")
     dS = dS.float().contiguous()
     check_cuda(dS, F32, (B, 2 * Hh, 2 * C), "dS")
-    wf = _taps_first(w, 1, x.dtype)                       # (2, 2, cin, C)
-    wt = _taps_first(w, 0, x.dtype)                       # (2, 2, C, cin)
-    dp = torch.empty(B, 2 * Hh, 2 * Wh, C, dtype=x.dtype, device=x.device)
+    tiles = -(-B * Hh * Wh // HEAD_BWD_TILE)
+    part = torch.empty((4 * cin + 1) * C * tiles, dtype=F32,
+                       device=x.device)
     dx = torch.empty_like(x)
-    acc = torch.zeros(w.numel() + C, dtype=F32, device=x.device)
-    dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
-    launch(kernel("head_rowsums_op", symbol, "p" * 10 + "i" * 6 + "p"),
-           x.device, x.data_ptr(), dS.data_ptr(), wf.data_ptr(),
-           wt.data_ptr(), b.data_ptr(), xs.data_ptr(), dp.data_ptr(),
-           dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), B, 2 * Hh,
-           2 * Wh, cin, C, int(zero_rows))
+    dweight = torch.empty_like(w)
+    dbias = torch.empty(C, dtype=F32, device=x.device)
+    launch(kernel("head_rowsums_op", symbol, "p" * 9 + "i" * 6 + "p"),
+           x.device, x.data_ptr(), dS.data_ptr(), w.data_ptr(),
+           b.data_ptr(), xs.data_ptr(), part.data_ptr(), dx.data_ptr(),
+           dweight.data_ptr(), dbias.data_ptr(), B, 2 * Hh, 2 * Wh, cin, C,
+           int(zero_rows))
     head_rowsums_op.bwd_launches += 1
     return dx, dweight, dbias
 

@@ -16,8 +16,9 @@ direct 3-tap convolutions. `nb1d` launches the CUDA kernel
 convolutions, pass B the two dilated ones and the residual; each pass runs
 its 3x1 convolution into rows kept in shared memory and its 1x3 one from
 them) for a CUDA tensor and uses `nb1d_plain` only for a CPU tensor. A
-tile holds whole image rows, so the kernels take planes up to
-`max_width(C)` = 8192 / C pixels wide.
+tile holds 8192 / C pixels: whole image rows, or, in rows wider than that,
+one segment of a row, whose staged row carries the 3x1 convolution of the
+halo columns beside it, so the kernels take planes of any width.
 
 `nb1d_chain` runs a chain of same-width blocks (`pack_chain`) as one
 cooperative launch (`csrc/nb1d_chain.cu`, counterpart of JAX `nb1d_chain`)
@@ -101,18 +102,9 @@ def nb1d_plain(x: torch.Tensor, p: Dict) -> torch.Tensor:
     return y.to(BF16).contiguous()
 
 
-def max_width(C: int) -> int:
-    """The widest plane the row tile of `csrc/nb1d.cuh` takes at C
-    channels: a tile holds whole rows of 8192 / C pixels at most."""
-    return 8192 // C
-
-
-def _check_plane(name: str, C: int, W: int) -> None:
+def _check_plane(name: str, C: int) -> None:
     if C not in (16, 64, 128):
         raise ValueError(f"{name} kernel: C={C} not in (16, 64, 128)")
-    if W > max_width(C):
-        raise ValueError(f"{name} kernel: rows of {W} pixels, the row tile "
-                         f"takes at most {max_width(C)} at C={C}")
 
 
 def nb1d(x: torch.Tensor, p: Dict) -> torch.Tensor:
@@ -122,7 +114,7 @@ def nb1d(x: torch.Tensor, p: Dict) -> torch.Tensor:
     if x.device.type == "cpu":
         return nb1d_plain(x, p)
     B, H, W, C = x.shape
-    _check_plane("nb1d", C, W)
+    _check_plane("nb1d", C)
     xp = check_cuda(x, BF16, name="x")
     wp = check_cuda(p["w"], BF16, (4, 3, C, C), "w")
     vp = check_cuda(p["vec"], torch.float32, (6, C), "vec")
@@ -169,7 +161,7 @@ def nb1d_chain(x: torch.Tensor, chain: Dict) -> torch.Tensor:
     B, H, W, C = x.shape
     dils = chain["dilations"]
     n = len(dils)
-    _check_plane("nb1d_chain", C, W)
+    _check_plane("nb1d_chain", C)
     if not 1 <= n <= MAX_CHAIN:
         raise ValueError(f"nb1d_chain kernel: {n} blocks not in "
                          f"1..{MAX_CHAIN}")

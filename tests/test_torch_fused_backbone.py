@@ -8,12 +8,14 @@ rebuild every stage's constants from them. The CUDA wrappers
 with the module's `kernel`, `launch` and `check_cuda` stubbed, as in
 tests/test_torch_f32_fused.py: each asks for its C entry with as many
 arguments as its signature spells (the device int the kernel counts its
-grid barriers into among them), and refuses what the kernel does not take
-before any launch (images wider than the NB1D row tiles included). On the CPU `encoder_fused` / `decoder_fused` take
-the plain versions, which equal the block sequences exactly and match the
-JAX package's `encoder_fused` / `decoder_fused` (Pallas in interpret mode)
-at the bars of tests/test_torch_engine.py: max|diff| / max|JAX| < 2e-2,
-the bar the JAX package holds its own bf16 chains to. The kernels
+grid barriers into among them), also for images wider than the NB1D row
+tiles (which split such rows into segments), and refuses what the kernel
+does not take before any launch. On the CPU `encoder_fused` /
+`decoder_fused` take the plain versions, which equal the block sequences
+exactly and match the JAX package's `encoder_fused` / `decoder_fused`
+(Pallas in interpret mode) at the bars of tests/test_torch_engine.py:
+max|diff| / max|JAX| < 2e-2, the bar the JAX package holds its own bf16
+chains to. The kernels
 themselves are held on the card by `chip_smoke.py`."""
 
 import jax
@@ -214,8 +216,6 @@ BAD = {
         "enc", lambda: _images(W=RESIZE).transpose(1, 2), ValueError),
     "encoder height not a multiple of 8": (
         "enc", lambda: _images(H=RESIZE - 4), ValueError),
-    "encoder wider than the row tiles": (
-        "enc", lambda: _images(B=1, H=8, W=2 * bf.MAX_WIDTH), ValueError),
     "encoder not 3 channels": (
         "enc", lambda: torch.zeros(BATCH, RESIZE, 2 * RESIZE, 4,
                                    dtype=BF16), ValueError),
@@ -239,14 +239,34 @@ def test_wrapper_refuses_before_any_launch(stubs, model, case):
     assert stubs.calls == [] and wrapper.launches == 0
 
 
-def test_decoder_wrapper_refuses_rows_wider_than_its_tiles(stubs, model):
-    """A head that maps 2 * MAX_WIDTH columns: the decoder's NB1D-16 rows
-    (W/2 pixels) would not fit a row tile."""
-    head = dict(model["dec"]["head"], xs=torch.zeros(2 * bf.MAX_WIDTH))
-    enc = torch.zeros(1, 1, 2 * bf.MAX_WIDTH // 8, 128, dtype=BF16)
-    with pytest.raises(ValueError):
-        bf.decoder_fused_kernel(enc, dict(model["dec"], head=head))
-    assert stubs.calls == [] and bf.decoder_fused_kernel.launches == 0
+# images of 1024 columns: NB1D-128 rows of 128 pixels on tiles of 64,
+# NB1D-64 of 256 on 128, NB1D-16 of 512 on 256; refused before the
+# column-split tile, launched now
+WIDE = 1024
+
+
+def _wide_decoder(model):
+    """The decoder's constants with a head mapping WIDE columns, and its
+    enc (1, 1, WIDE/8, 128)."""
+    head = dict(model["dec"]["head"], xs=torch.zeros(WIDE))
+    return (torch.zeros(1, 1, WIDE // 8, 128, dtype=BF16),
+            dict(model["dec"], head=head))
+
+
+@pytest.mark.parametrize("case", ["encoder wider than the row tiles",
+                                  "decoder wider than the row tiles"])
+def test_wrappers_take_images_wider_than_the_row_tiles(stubs, model, case):
+    if case.startswith("encoder"):
+        out = bf.encoder_fused_kernel(_images(B=1, H=8, W=WIDE),
+                                      model["enc"])
+        assert stubs.calls[0][2][-3:] == (1, 8, WIDE)      # B, H, W
+        assert out.shape == (1, 1, WIDE // 8, 128)
+    else:
+        enc, dec = _wide_decoder(model)
+        S = bf.decoder_fused_kernel(enc, dec)
+        assert stubs.calls[0][2][-6:-3] == (1, 1, WIDE // 8)  # B, h, w
+        assert S.shape == (1, 8, 2 * dec["head"]["bias"].shape[0])
+    assert len(stubs.calls) == 1
 
 
 @pytest.mark.parametrize("part", ["enc", "dec"])

@@ -2,13 +2,18 @@
 `csrc/upsampler.cuh`) in plain PyTorch on the CPU, and their wrappers with
 the launches stubbed.
 
-- The NB1D row tile: a tile owns R whole rows; each pass runs its 3x1
+- The NB1D row tile: a tile holds MT = 8192 / C pixels. Rows of W <= MT
+  pixels: a tile owns R = MT / W whole rows; each pass runs its 3x1
   convolution for the tile's rows (reading the plane's rows h - d, h, h +
   d), rounds to bf16 into the staged rows, then runs the 1x3 convolution
-  on the tile's staged rows alone (zero beyond them: the halo). That
-  order, `rowtile_plain`,
-  equals `ops/nb1d.py::nb1d_plain` bit for bit at d = 1, 2 and 16 >= H,
-  W, and holds to JAX's `_nb1d_body` (`nb1d_fused` in interpret mode) at
+  on the tile's staged rows alone (zero beyond them: the halo). Wider
+  rows: a tile owns a segment of MT columns of one row (the last one
+  partial where MT does not divide W), and its staged row also holds the
+  3x1 convolution of the d halo columns on each side of the segment
+  (computed, zero only off the plane). That order, `rowtile_plain`,
+  equals `ops/nb1d.py::nb1d_plain` bit for bit at d = 1, 2 and 16 (16 >=
+  H, W among them), at W = 2 MT and at W = MT + 16 (a partial segment),
+  and holds to JAX's `_nb1d_body` (`nb1d_fused` in interpret mode) at
   tests/test_torch_nb1d.py's bar, 1e-2 of max|JAX|.
 - The stride-2 tiles' weights: `pack_encoder` / `pack_decoder` lay them
   out once, taps first ((3, 3, cin, cout): the (9, CK, N) order the
@@ -24,8 +29,9 @@ the launches stubbed.
   bf16 rounding step, 2^-8 of max|plain| (the plain versions sum in f32).
 - The wrappers of K1, the chain, K2 and K3 on meta tensors with `kernel`,
   `launch` and `check_cuda` stubbed: each asks for its C entry with its
-  signature's argument count, and refuses before any launch the planes
-  the tiles do not take (rows wider than a tile, other channel counts)."""
+  signature's argument count, also on rows wider than a tile, and refuses
+  before any launch the planes the tiles do not take (other channel
+  counts, chains of other lengths)."""
 
 import jax
 import jax.numpy as jnp
@@ -65,53 +71,83 @@ def _rnd(y):
     return y.to(BF16).float()
 
 
-def _tile_pass(inp, w0, b0, w1, mul, add, d, R, res=None):
-    """One pass of the row tile over the plane, R rows a tile: conv0 (3x1)
-    of the tile's rows, which read the whole plane, +b0, relu, bf16 (the
-    staged rows); conv1 (1x3) of the tile's staged rows alone (every other
-    row zero, so nothing outside the tile reaches them), * mul + add (+
-    res), relu. Returns f32 (the caller rounds). Each convolution runs at
-    the plane's shape, as `nb1d_plain`'s do: the CPU's convolution sums in
-    an order that can change with the shape, not with the values."""
+# pixels a tile at C channels (csrc/nb1d.cuh, Cfg<C>::MT = 8192 / C)
+MT = {16: 256, 64: 128, 128: 64}
+
+
+def _tile_pass(inp, w0, b0, w1, mul, add, d, mt, res=None):
+    """One pass of the row tile over the plane, mt pixels a tile: conv0
+    (3x1) of the tile's pixels, which read the whole plane, +b0, relu, bf16
+    (the staged rows); conv1 (1x3) of the tile's staged rows alone (every
+    other pixel zero, so nothing outside the tile reaches them), * mul +
+    add (+ res), relu. A tile owns R = mt / W whole rows, or, where W > mt,
+    the columns c0 .. c0 + mt - 1 of one row, its staged row carrying conv0
+    of the halo columns c0 - hd .. c0 - 1 and c0 + mt .. c0 + mt + hd - 1
+    (hd = d where d < W) that lie on the plane. Returns f32 (the caller
+    rounds). Each convolution runs at the plane's shape, as
+    `nb1d_plain`'s do: the CPU's convolution sums in an order that can
+    change with the shape, not with the values."""
     B, H, W, C = inp.shape
     out = torch.empty(B, H, W, C)
     t = _rnd(torch.relu(_conv3(inp.float(), w0, 0, d) + b0))
+
+    def conv1(b, rows, c0, c1, keep):
+        staged = torch.zeros_like(t)
+        staged[b, rows, keep] = t[b, rows, keep]
+        y = _conv3(staged, w1, 1, d)[b, rows, c0:c1] * mul + add
+        if res is not None:
+            y = y + res[b, rows, c0:c1]
+        out[b, rows, c0:c1] = torch.relu(y)
+
     for b in range(B):
-        for h0 in range(0, H, R):
-            h1 = min(h0 + R, H)
-            staged = torch.zeros_like(t)
-            staged[b, h0:h1] = t[b, h0:h1]
-            y = _conv3(staged, w1, 1, d)[b, h0:h1] * mul + add
-            if res is not None:
-                y = y + res[b, h0:h1]
-            out[b, h0:h1] = torch.relu(y)
+        if W <= mt:
+            R = mt // W
+            for h0 in range(0, H, R):
+                rows = slice(h0, min(h0 + R, H))
+                conv1(b, rows, 0, W, slice(0, W))
+            continue
+        hd = d if d < W else 0
+        for h in range(H):
+            for c0 in range(0, W, mt):
+                c1 = min(c0 + mt, W)
+                conv1(b, slice(h, h + 1), c0, c1,
+                      slice(max(c0 - hd, 0), min(c0 + mt + hd, W)))
     return out
 
 
-def rowtile_plain(x, p, R):
+def rowtile_plain(x, p, mt):
     """The NB1D block in the row tile's order: pass A (the d = 1 pair) into
     the plane `mid`, pass B (the dilated pair and the residual)."""
     w, v, d = p["w"], p["vec"], p["dilation"]
-    mid = _rnd(_tile_pass(x, w[0], v[0], w[1], v[1], v[2], 1, R))
-    y = _tile_pass(mid, w[2], v[3], w[3], v[4], v[5], d, R, res=x.float())
+    mid = _rnd(_tile_pass(x, w[0], v[0], w[1], v[1], v[2], 1, mt))
+    y = _tile_pass(mid, w[2], v[3], w[3], v[4], v[5], d, mt, res=x.float())
     return y.to(BF16)
 
 
-# (C, d, H, W, R): R rows a tile, as the kernel takes them (8192 / C pixels
-# a tile: R = 8192 / (C W)); d = 16 >= H, W leaves only the centre taps
-ROW_CASES = [(16, 1, 16, 32, 8), (64, 2, 8, 16, 8), (128, 2, 8, 16, 4),
-             (128, 16, 8, 16, 4), (16, 16, 8, 16, 16)]
+# (C, d, H, W): whole rows, R = MT / W a tile (d = 16 >= H, W leaves only
+# the centre taps), then rows wider than a tile, W = 2 MT and W = MT + 16
+# (a partial last segment), at d = 1, 2 and 16
+ROW_CASES = [(16, 1, 16, 32), (64, 2, 8, 16), (128, 2, 8, 16),
+             (128, 16, 8, 16), (16, 16, 8, 16),
+             (128, 1, 4, 128), (128, 2, 4, 80), (128, 16, 4, 128),
+             (64, 2, 4, 256), (64, 16, 4, 144), (16, 1, 4, 272),
+             (16, 16, 2, 512)]
+
+
+def _row_id(c, d, h, w):
+    tile = f"R{MT[c] // w}" if w <= MT[c] else f"seg{MT[c]}"
+    return f"C{c}-d{d}-{h}x{w}-{tile}"
 
 
 @pytest.fixture(scope="module", params=ROW_CASES,
-                ids=[f"C{c}-d{d}-{h}x{w}-R{r}" for c, d, h, w, r in ROW_CASES])
+                ids=[_row_id(*case) for case in ROW_CASES])
 def row_case(request):
-    C, d, H, W, R = request.param
+    C, d, H, W = request.param
     x, params, stats = _block(C, d, H, W, seed=C + d + 7)
     p = pack_nb1d(nb1d_state(params, stats, "blk"), "blk", d)
     xt = torch.from_numpy(x).to(BF16)
     return {"x": x, "xt": xt, "p": p, "params": params, "stats": stats,
-            "d": d, "got": rowtile_plain(xt, p, R)}
+            "d": d, "got": rowtile_plain(xt, p, MT[C])}
 
 
 def test_row_tile_order_equals_nb1d_plain(row_case):
@@ -308,15 +344,43 @@ def test_stride2_wrappers_ask_for_their_entries(stubs):
     assert y.shape == (2, 8, 16, 64) and z.shape == (2, 16, 32, 64)
 
 
-REFUSED = {
+# rows wider than a tile (MT = 8192 / C pixels): segments of a row since
+# the column-split tile, so the wrappers launch, with the plane's own
+# shape, where they refused before
+WIDE = {
     "nb1d rows wider than a tile": (
-        lambda: k1.nb1d(_meta(1, 4, 2 * k1.max_width(128), 128),
-                        _nb_consts(128))),
+        lambda: k1.nb1d(_meta(1, 4, 2 * MT[128], 128), _nb_consts(128)),
+        ("nb1d", "ld_nb1d"), (1, 4, 2 * MT[128], 128)),
+    "chain rows wider than a tile": (
+        lambda: k1.nb1d_chain(_meta(1, 4, 2 * MT[16], 16),
+                              pack_chain([_nb_consts(16)])),
+        ("nb1d_chain", "ld_nb1d_chain"), (1, 4, 2 * MT[16], 16)),
+    "nb1d partial segment": (
+        lambda: k1.nb1d(_meta(1, 4, MT[64] + 16, 64), _nb_consts(64, 16)),
+        ("nb1d", "ld_nb1d"), (1, 4, MT[64] + 16, 64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_wrappers_take_rows_wider_than_a_tile(stubs, case):
+    call, entry, shape = WIDE[case]
+    out = call()
+    assert [(n, s) for n, s, _ in stubs.calls] == [entry]
+    args = stubs.calls[0][2]
+    # B, H, W, C right after the planes (K1: before d)
+    assert shape == (args[-5:-1] if entry[0] == "nb1d" else args[-4:])
+    assert out.shape == shape
+
+
+REFUSED = {
     "nb1d 32 channels": (lambda: k1.nb1d(_meta(1, 4, 16, 32),
                                          _nb_consts(32))),
-    "chain rows wider than a tile": (
-        lambda: k1.nb1d_chain(_meta(1, 4, 2 * k1.max_width(16), 16),
-                              pack_chain([_nb_consts(16)]))),
+    "chain 32 channels": (
+        lambda: k1.nb1d_chain(_meta(1, 4, 16, 32),
+                              pack_chain([_nb_consts(32)]))),
+    "chain of 17 blocks": (
+        lambda: k1.nb1d_chain(_meta(1, 4, 2 * MT[16], 16),
+                              pack_chain([_nb_consts(16)] * 17))),
     "downsampler 32 -> 64": (
         lambda: bb.downsampler(_meta(1, 8, 8, 32), _s2_consts(32, 64, True))),
     "upsampler 64 -> 32": (
