@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --defer-only
 
 `--profile` also traces two more calls of each engine (full, blocks, blocks
 with the rolled homography) and two more train steps of each of the four
@@ -12,8 +13,9 @@ checkout; exits non-zero on any failed check and prints no result without
 a card. In order:
 
 1. build the fifteen kernel libraries from
-   `lanedetection_end2end_tpu_torch/csrc/` (one nvcc per source, all at
-   once) and print the card's name and power limit;
+   `lanedetection_end2end_tpu_torch/csrc/`, and the seven of phase 4f in
+   the deferred-copy variant (one nvcc per source, all at once), and
+   print the card's name and power limit;
 2. hold each serving kernel against its plain PyTorch version on CUDA
    tensors at every shape the 256x512 serving path gives it (batch 8),
    plus one edge shape with dilation >= plane height, and time both with
@@ -128,9 +130,42 @@ a card. In order:
    timeout fails the run; where the tool is missing or refuses the card
    ("Device not supported"), the kernels line says so and no race check
    is claimed;
+4f. the deferred-copy check: one `encoder_fused`, one `decoder_fused`
+   and one `nb1d_chain` call at resize 64, and the float32 training
+   kernels whose tiles issue cp.async, forward and backward, at the
+   256x512 train step's shapes, batch 8 (`nb_half_a` / `nb_half_b` at
+   C = 16, 64, 128; `downsampler_op` 16 -> 64, 64 -> 128; `lane_maps_op`
+   128 -> 64, 64 -> 16), on the normal build and on `ops/_build.py`'s
+   "defer" build (-DLD_DEFER_CP_ASYNC, built beside the normal libraries
+   in step 1), where a cp.async copy lands only at its group's wait and
+   its destination holds NaN until then, so a read of a ring stage before
+   its wait shows every time: the outputs must be finite and equal the
+   normal build's bit for bit (the sums of f32 atomics at TOL_REDUCE).
+   `--defer-only` builds those seven libraries in both builds and runs
+   this phase alone;
+4g. the training entry point: `main_torch.main` on the train.sh flags
+   (float32, full width and depth) at 256x512, batch 8, on a 32-image
+   synthetic dataset (24 training images, 3 steps an epoch; 8 for
+   validation; 4 test images): 2 epochs, a resume to 3, `--test_only`,
+   `--evaluate`, each with the kernels' launch counts set to 0 just
+   before and read just after (per train step 17 + 17 of each half and
+   3 + 3 / 2 + 2 / 1 + 1 of K8-K10, per eval step their forwards only,
+   none from `test_model`'s `LaneNet.forward`); every epoch's losses
+   finite; the resumed run starting at epoch 3 with the checkpoint's
+   weights bit for bit; `--test_only` reproducing the best epoch's
+   recorded test accuracy; `--evaluate` on the card against the same
+   with `--no_cuda true` (the plain versions on the CPU): validation loss
+   and every fitted beta at TOL_F32, test accuracy within ACC_TOL; one
+   `test_model` through the serving engine (1 + 1 fused launches a batch)
+   against `LaneNet.forward` (accuracy within ACC_TOL, beta and logits at
+   ENGINE_BARS_TRAINED); the time of each run, ms and images/s a training
+   batch per epoch (the mean of its 3 batches) and `test_model`'s ms per
+   batch on both paths (warm: the median of TEST_MODEL_CALLS calls after
+   the counted one), each beside the card;
 5. print the card line as nvidia-smi gives it, the kernels line (with
-   the wide phase's and the race check's results beside the kernels),
-   and `{"ok": true, "device": {...}}` last.
+   the wide phase's, the race check's, the deferred-copy check's and the
+   Trainer's results beside the kernels), and `{"ok": true, "device":
+   {...}}` last.
 
 In the kernels line, `launches` counts the wrapper calls of the 3 engine
 calls (`encoder_fused`, `decoder_fused`; `nb1d_chain` and `wls_moments`:
@@ -296,8 +331,10 @@ held at 0.99999 and the norm ratio within 1e-4 of 1.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2057,6 +2094,432 @@ def race_check():
     return report, failures
 
 
+# ----------------------------------------------------------------------
+# Deferred-copy check: the cp.async contract made literal
+# ----------------------------------------------------------------------
+
+# the libraries the deferred-copy phase builds in `ops/_build.py`'s "defer"
+# variant (-DLD_DEFER_CP_ASYNC): every library whose kernels issue cp.async
+DEFER_SOURCES = ("encoder_fused", "decoder_fused", "nb1d_chain",
+                 "nb_half_fwd", "nb_half_bwd", "downsampler_op",
+                 "lane_maps_op")
+# outputs summed with f32 atomics, in an order that changes from run to
+# run: held at TOL_REDUCE of max|normal|; every other output bit for bit
+DEFER_SUMS = ("mom", "dmul", "dadd", "dkh", "dbh", "dkw", "dbw", "dweight",
+              "dbias")
+
+
+def defer_calls(dev):
+    """{label: call}: each call returns {output name: tensor}. The serving
+    kernels at resize 64 (batch 2, seeded random weights), and the float32
+    training kernels of the default train step, forward and backward, at
+    its 256x512 shapes, batch 8: `nb_half_a` on the 16-channel plane,
+    `nb_half_b` on the 64-channel plane (d = 1) and the 128-channel one
+    (d = 16), `downsampler_op` 16 -> 64 and 64 -> 128, `lane_maps_op`
+    128 -> 64 and 64 -> 16 (the shapes whose tiles issue cp.async; the
+    first downsampler and the head run on FFMA). Every input is made once,
+    here; a backward reads the stashes of the plain forward."""
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.models.infer_engine import (
+        FusedLaneNetEngine)
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+    from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
+    from lanedetection_end2end_tpu_torch.ops import nb_block as nb
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, encoder_fused_kernel)
+    from lanedetection_end2end_tpu_torch.ops.nb1d import nb1d_chain
+    cfg = train_sh_config(resize=64, reg_ls=1.0)
+    engine = FusedLaneNetEngine(cfg, device=dev)
+    packed = engine.prepare(random_state_dict(LaneNet(cfg, device="cpu"),
+                                              SEED))
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    x = torch.rand(2, 64, 128, 3, generator=g, device=dev).to(torch.bfloat16)
+
+    def serving():
+        enc = encoder_fused_kernel(x, packed["enc"])
+        return {"encoder_fused": enc,
+                "decoder_fused": decoder_fused_kernel(enc, packed["dec"]),
+                "nb1d_chain": nb1d_chain(enc, packed["enc_nb128"])}
+
+    calls = {"serving resize 64": serving}
+    B, H, W = BATCH, RESIZE, 2 * RESIZE
+    for half, (h, w, C), d in (("a", (H // 2, W // 2, 16), 1),
+                               ("b", (H // 4, W // 4, 64), 1),
+                               ("b", (H // 8, W // 8, 128), 16)):
+        xh = rn(B, h, w, C)
+        kh, kw = rn(3, C, C) / (3 * C) ** 0.5, rn(3, C, C) / (3 * C) ** 0.5
+        bh, bw = 0.1 * rn(C), 0.1 * rn(C)
+        mul = add = None
+        if half == "b":
+            mul, add = 0.5 + torch.rand(C, generator=g, device=dev), rn(C)
+        py, pmid, _ = nb.half_fwd_plain(xh, mul, add, kh, bh, kw, bw, d)
+        bwd_args = (xh, mul, add, pmid, py, rn(B, h, w, C), 1e-3 * rn(2, C),
+                    kh, kw, d)
+
+        def half_call(half=half, xh=xh, mul=mul, add=add, kh=kh, bh=bh,
+                      kw=kw, bw=bw, d=d, bwd_args=bwd_args):
+            y, mom = (nb.nb_half_a(xh, kh, bh, kw, bw) if half == "a" else
+                      nb.nb_half_b(xh, mul, add, kh, bh, kw, bw, d))
+            names = ("dx", "dmul", "dadd", "dkh", "dbh", "dkw", "dbw")
+            out = {"y": y, "mom": mom}
+            out.update((n, t) for n, t in zip(
+                names, nb.half_bwd_kernel(*bwd_args)) if t is not None)
+            return out
+        calls[f"nb_half_{half} {(B, h, w, C)} d={d}"] = half_call
+
+    for (h, w, cin), cout in (((H // 2, W // 2, 16), 64),
+                              ((H // 4, W // 4, 64), 128)):
+        cc = cout - cin
+        xd = plant_pool_ties(torch.relu(rn(B, h, w, cin)))
+        wt, bias = rn(cc, cin, 3, 3) / (9 * cin) ** 0.5, 0.1 * rn(cc)
+        args = (xd, lm.downsampler_fwd_plain(xd, wt, bias)[0],
+                rn(B, h // 2, w // 2, cout), 1e-3 * rn(2, cout), wt)
+
+        def down_call(xd=xd, wt=wt, bias=bias, args=args):
+            y, mom = lm.downsampler_op(xd, wt, bias)
+            dx, dw, db = lm.downsampler_bwd_kernel(*args)
+            return {"y": y, "mom": mom, "dx": dx, "dweight": dw, "dbias": db}
+        calls[f"downsampler_op {(B, h, w, cin)}->{cout}"] = down_call
+
+    for (h, w, cin), cout in (((H // 8, W // 8, 128), 64),
+                              ((H // 4, W // 4, 64), 16)):
+        xu = rn(B, h, w, cin)
+        wt, bias = rn(cin, cout, 3, 3) / (9 * cin / 4) ** 0.5, 0.1 * rn(cout)
+        args = (xu, lm.lane_maps_fwd_plain(xu, wt, bias, 3, torch.float32,
+                                           True)[0],
+                rn(B, 2 * h, 2 * w, cout), 1e-3 * rn(2, cout), wt, 3)
+
+        def up_call(xu=xu, wt=wt, bias=bias, args=args):
+            y, mom = lm.lane_maps_op(xu, wt, bias, 3, torch.float32, True)
+            dx, dw, db = lm.lane_maps_bwd_kernel(*args)
+            return {"y": y, "mom": mom, "dx": dx, "dweight": dw, "dbias": db}
+        calls[f"lane_maps_op {(B, h, w, cin)}->{cout}"] = up_call
+    return calls
+
+
+def defer_check(dev):
+    """The deferred-copy phase: every call of `defer_calls` on the normal
+    build, then the same calls on the "defer" build, in which every
+    cp.async copy lands only at its group's wait and its destination holds
+    NaN until then (`csrc/tc_common.cuh`). A read of a ring stage before
+    its wait so reads NaN every time. Every output must be finite and equal
+    the normal build's bit for bit; the outputs summed with f32 atomics
+    (DEFER_SUMS), whose order changes from run to run, at TOL_REDUCE of
+    max|normal|. Returns ({call: verdict}, failures)."""
+    from lanedetection_end2end_tpu_torch.ops import _build
+    calls = defer_calls(dev)
+
+    def run():
+        with torch.no_grad():
+            out = {label: call() for label, call in calls.items()}
+        torch.cuda.synchronize()
+        return out
+
+    normal = run()
+    t0 = time.perf_counter()
+    with _build.variant("defer"):
+        deferred = run()
+    secs = time.perf_counter() - t0
+    report, failures, n = {}, [], 0
+    for label, outs in normal.items():
+        bad = []
+        for name, want in outs.items():
+            got = deferred[label][name]
+            n += 1
+            finite = bool(torch.isfinite(got.float()).all().item())
+            if name in DEFER_SUMS:
+                rel = rel_err(got, want)[1]
+                ok = finite and rel <= TOL_REDUCE
+                said = f"{rel:.2e} of max|normal| (tol {TOL_REDUCE:g})"
+            else:
+                ok = finite and torch.equal(got, want)
+                said = ("bit for bit" if torch.equal(got, want) else
+                        f"differs, max|diff| "
+                        f"{(got.float() - want.float()).abs().max().item():.3e}")
+            print(f"deferred copies {label} {name}{tuple(got.shape)}: "
+                  f"finite {finite}, {said} against the normal build "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{name}: {said}, finite {finite}")
+        report[label] = "ok" if not bad else "FAIL: " + "; ".join(bad)
+        failures += [f"{label} {b}" for b in bad]
+    print(f"deferred copies: {n} outputs of {len(calls)} calls in "
+          f"{secs:.1f} s")
+    return report, failures
+
+
+# ----------------------------------------------------------------------
+# Phase 4g: the training entry point, main_torch.py, on the card
+# ----------------------------------------------------------------------
+
+# `main_torch.main` on the train.sh flags at 256x512, batch 8, float32 (the
+# config's dtype), full ERFNet width and depth, on a 32-image synthetic
+# dataset the port writes: 24 training images (3 steps an epoch), 8 for
+# validation (1 eval step), 4 for the test set (1 padded batch of 8)
+TRAINER_ARGV = (
+    "--loss_policy backproject --nclasses 4 --order 3 --clas 1 "
+    "--pretrained false --mask_percentage 0.20 --flip_on 1 "
+    "--synthetic 32 --split_percentage 0.25 --resize 256 --batch_size 8 "
+    "--save_freq 3 --print_freq 1").split()
+TRAIN_BATCHES, VAL_BATCHES = 3, 1
+TEST_MODEL_CALLS = 10  # warm test_model calls timed after the counted one
+ACC_TOL = 0.02  # test accuracy of the card against the CPU
+# The bf16 engine against the f32 LaneNet on the Trainer's weights (kaiming
+# init, a few steps), max|diff| / max|LaneNet|: beta at the engine's own
+# 3e-2; line and horizon logits at 1e-1. The JAX package's 1e-2 logit bar
+# holds on its init weights only: on kaiming weights at resize 32 its own
+# bf16 engine reads 7.0e-2 (line) and 8.9e-3 (horizon) of max|LaneNet|,
+# the port's 6.6e-2 and 1.1e-2 (tests/test_torch_eval.py).
+ENGINE_BARS_TRAINED = {"beta": 3e-2, "line": 1e-1, "horizon": 1e-1}
+
+
+def _main_torch(argv):
+    """`main_torch.main(argv)` with the Logger tee it installs removed
+    again; -> (its result, seconds)."""
+    import main_torch
+    stdout = sys.stdout
+    t0 = time.perf_counter()
+    try:
+        out = main_torch.main(argv)
+    finally:
+        sys.stdout = stdout
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _expected(train_steps: int, eval_steps: int):
+    """Launches of `train_steps` default train steps and `eval_steps` eval
+    steps."""
+    return {n: (train_steps * PER_STEP["fused"][n][0]
+                + eval_steps * PER_EVAL["fused"][n][0],
+                train_steps * PER_STEP["fused"][n][1])
+            for n in TRAIN_OPS}
+
+
+def trainer_phase(dev, card):
+    """Phase 4g, the Trainer on the card through `main_torch.main`: 2
+    epochs, a resume to 3, `--test_only`, `--evaluate` (each with the
+    kernels' launch counts set to 0 just before and read just after),
+    then the same `--evaluate` with `--no_cuda true` on the CPU's plain
+    versions, and `test_model` through the serving engine. Holds: the
+    launches (per train step K6 / K7 17 + 17 forward and backward, K8-K10
+    3 + 3 / 2 + 2 / 1 + 1; per eval step forwards only; none in
+    `test_model`'s `LaneNet.forward`), every epoch's losses finite, the
+    resumed run starting at epoch 3 with the checkpoint's weights bit for
+    bit, `--test_only` reproducing the best epoch's recorded accuracy,
+    the card's validation loss and fitted beta against the CPU's at
+    TOL_F32 (of the loss, and of max|beta|) and its test accuracy within
+    ACC_TOL, and one `test_model(use_engine=True)` against
+    `use_engine=False`: accuracy within ACC_TOL, the engine's beta and
+    logits on the test images at ENGINE_BARS_TRAINED.
+    Returns (summary, failures)."""
+    import shutil
+    from pathlib import Path
+
+    import main_torch
+    from lanedetection_end2end_tpu_torch.data.dataset import LaneTestSet
+    from lanedetection_end2end_tpu_torch.data.labels import read_json_lines
+    from lanedetection_end2end_tpu_torch.data.loader import get_testloader
+    from lanedetection_end2end_tpu_torch.eval import test_driver
+    from lanedetection_end2end_tpu_torch.models.infer_engine import (
+        FusedLaneNetEngine)
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, encoder_fused_kernel)
+    from lanedetection_end2end_tpu_torch.train import driver
+    from lanedetection_end2end_tpu_torch.train.checkpoint import (
+        _ckpt_path, best_checkpoint_path)
+
+    root = Path(__file__).resolve().parent / "_smoke" / "trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = TRAINER_ARGV + ["--save_path", str(root)]
+    cfg = main_torch.parse_args(argv)[0]
+    run = root / cfg.save_id
+    wrappers = train_wrappers()
+    serving = {"encoder_fused": encoder_fused_kernel,
+               "decoder_fused": decoder_fused_kernel}
+    failures, summary = [], {}
+    # the dataset main_torch would write, written first so that the runs
+    # below time training only
+    from lanedetection_end2end_tpu_torch.data.synthetic import (
+        make_synthetic_root)
+    t0 = time.perf_counter()
+    make_synthetic_root(str(root / "synthetic_data"), num_train=32,
+                        num_test=4, seed=cfg.seed)
+    print(f"trainer: synthetic dataset of 32 + 4 images written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def counted(label, extra, train_steps, eval_steps):
+        reset_counts(wrappers)
+        for w in serving.values():
+            w.launches = 0
+        out, secs = _main_torch(argv + extra)
+        got, want = read_counts(wrappers), _expected(train_steps, eval_steps)
+        print(f"trainer {label}: {secs:.1f} s, launches {got}")
+        if got != want:
+            failures.append(f"{label}: launches {got}, expected {want}")
+        if any(w.launches for w in serving.values()):
+            failures.append(f"{label}: the serving kernels ran")
+        return out, secs
+
+    # 2 epochs, then a resume to 3 -----------------------------------
+    resumed = {}
+    resume = driver.Trainer.maybe_resume
+
+    def watched(self):
+        ok = resume(self)
+        if ok:
+            ckpt = torch.load(_ckpt_path(self.save_path,
+                                         self.start_epoch - 1),
+                              map_location="cpu", weights_only=False)
+            sd = ckpt["state_dict"]["model"]
+            resumed.update(start=self.start_epoch, equal=all(
+                torch.equal(v.cpu(), sd[k])
+                for k, v in self.lanenet.state_dict().items()))
+        return ok
+
+    driver.Trainer.maybe_resume = watched
+    try:
+        _, fit_s = counted("fit, 2 epochs", ["--nepochs", "2"],
+                           2 * TRAIN_BATCHES, 2 * VAL_BATCHES)
+        _, resume_s = counted("resume to 3 epochs", ["--nepochs", "3"],
+                              TRAIN_BATCHES, VAL_BATCHES)
+    finally:
+        driver.Trainer.maybe_resume = resume
+    if resumed != {"start": 2, "equal": True}:
+        failures.append(f"resume: {resumed}, expected the run to start at "
+                        "epoch 3 with the checkpoint's weights bit for bit")
+    rows = read_json_lines(str(run / "scalars.jsonl"))
+    if [r["epoch"] for r in rows] != [1, 2, 3]:
+        failures.append(f"scalars.jsonl epochs {[r['epoch'] for r in rows]}")
+    for r in rows:
+        losses = {k: r[k] for k in ("train_loss", "val_loss")}
+        print(f"trainer epoch {r['epoch']}: {losses}, test_acc "
+              f"{r['test_acc']:.6f}, {1e3 * r['train_batch_time']:.1f} ms "
+              f"a training batch ({8 / r['train_batch_time']:.1f} images/s;"
+              f" the mean of the epoch's {TRAIN_BATCHES} batches, data wait "
+              f"included{', the first calls too' if r['epoch'] == 1 else ''}"
+              f") on {card}")
+        if not all(map(math.isfinite, losses.values())):
+            failures.append(f"epoch {r['epoch']}: losses {losses}")
+    if not (run / "example" / "train" / "idx-0_batch-3.png").exists():
+        failures.append("no weight-map panel at training batch 3")
+
+    # --test_only and --evaluate on the best checkpoint ----------------
+    best = best_checkpoint_path(str(run))
+    best_epoch = int(best.rsplit("_", 1)[1].split(".")[0])
+    recorded = rows[best_epoch]["test_acc"]
+    out, test_s = counted("--test_only", ["--nepochs", "3", "--test_only"],
+                          0, 0)
+    print(f"trainer --test_only: accuracy {out['acc']:.8f}, recorded at "
+          f"epoch {best_epoch + 1}: {recorded:.8f}")
+    if out["acc"] != recorded:
+        failures.append(f"--test_only accuracy {out['acc']} differs from "
+                        f"epoch {best_epoch + 1}'s {recorded}")
+    card_eval, eval_s = counted("--evaluate", ["--nepochs", "3",
+                                               "--evaluate"], 0, VAL_BATCHES)
+    card_beta = [r["params"] for r in read_json_lines(
+        str(run / "validation_set_dst.json"))]
+    cpu_eval, cpu_s = _main_torch(argv + ["--nepochs", "3", "--evaluate",
+                                          "--no_cuda", "true"])
+    cpu_beta = [r["params"] for r in read_json_lines(
+        str(run / "validation_set_dst.json"))]
+    loss_rel = abs(card_eval["loss"] - cpu_eval["loss"]) / abs(
+        cpu_eval["loss"])
+    _, beta_rel = rel_err(torch.tensor(card_beta), torch.tensor(cpu_beta))
+    acc_diff = abs(card_eval["test_acc"] - cpu_eval["test_acc"])
+    ok = (loss_rel <= TOL_F32 and beta_rel <= TOL_F32
+          and acc_diff <= ACC_TOL)
+    print(f"trainer --evaluate, card vs CPU ({cpu_s:.1f} s): loss "
+          f"{card_eval['loss']:.6f} / {cpu_eval['loss']:.6f} ({loss_rel:.2e}"
+          f" relative, tol {TOL_F32:g}), beta {beta_rel:.2e} of max|CPU| "
+          f"(tol {TOL_F32:g}), test accuracy {card_eval['test_acc']:.6f} / "
+          f"{cpu_eval['test_acc']:.6f} (tol {ACC_TOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"--evaluate card vs CPU: loss {loss_rel:.2e}, beta "
+                        f"{beta_rel:.2e}, accuracy {acc_diff:.3f}")
+
+    # test_model through the engine, against LaneNet.forward ------------
+    cfg = cfg.replace(test_dir=str(root / "synthetic_data" / "test_set"))
+    model = LaneNet(cfg, device=dev)
+    ckpt = torch.load(best, map_location=dev, weights_only=False)
+    model.load_state_dict(ckpt["state_dict"]["model"])
+    test_set = LaneTestSet(str(Path(cfg.test_dir) / "test_label.json"),
+                           cfg.test_dir, cfg.resize)
+    loader = get_testloader(test_set, cfg.batch_size, nworkers=4)
+    accs, ms = {}, {}
+    for engine in (False, True):
+        for w in serving.values():
+            w.launches = 0
+        reset_counts(wrappers)
+        accs[engine] = test_driver.test_model(
+            loader, model, cfg, save_path=str(root / f"engine_{engine}"),
+            verbose=False, use_engine=engine)
+        got = {n: w.launches for n, w in serving.items()}
+        want = dict.fromkeys(serving, len(loader) if engine else 0)
+        if got != want or any(v != (0, 0) for v in
+                              read_counts(wrappers).values()):
+            failures.append(f"test_model(use_engine={engine}): serving "
+                            f"launches {got}, training "
+                            f"{read_counts(wrappers)}")
+        # timed warm: the first call above loaded the kernels and planned
+        # cuDNN; the median of TEST_MODEL_CALLS more calls of one batch
+        times = []
+        for _ in range(TEST_MODEL_CALLS):
+            stats = {}
+            test_driver.test_model(
+                loader, model, cfg, save_path=str(root / f"engine_{engine}"),
+                verbose=False, use_engine=engine, stats=stats)
+            times.append(stats["ms_per_batch"])
+        ms[engine] = statistics.median(times)
+    images = torch.from_numpy(next(iter(loader))["image"]).to(dev)
+    engine = FusedLaneNetEngine(cfg, device=dev)
+    packed = engine.prepare(model.state_dict())
+    with torch.no_grad():
+        got, ref = engine(packed, images), model(images)
+    errs = {}
+    for (key, bar), a, b in zip(ENGINE_BARS_TRAINED.items(), got,
+                                (ref.beta, ref.line_logits,
+                                 ref.horizon_logits)):
+        err, errs[key] = rel_err(a, b)
+        ok = bool(torch.isfinite(a).all().item()) and errs[key] <= bar
+        print(f"test_model engine vs LaneNet.forward, {key}: max|diff| "
+              f"{err:.3e}, {errs[key]:.2e} of max|LaneNet| "
+              f"{b.abs().max().item():.3e} (tol {bar:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"test_model engine {key}: {errs[key]:.2e} of "
+                            f"max|LaneNet|")
+    print(f"test_model: accuracy {accs[False]:.6f} on LaneNet.forward, "
+          f"{accs[True]:.6f} through the engine (tol {ACC_TOL}); warm, "
+          f"median of {TEST_MODEL_CALLS} calls: {ms[False]:.3f} / "
+          f"{ms[True]:.3f} ms per batch of {cfg.batch_size} "
+          f"({len(test_set)} real images) on {card}")
+    if abs(accs[True] - accs[False]) > ACC_TOL:
+        failures.append(f"test_model engine accuracy {accs[True]} vs "
+                        f"{accs[False]}")
+    epochs = len(rows)
+    summary = {
+        "card": card, "epochs": epochs,
+        "fit_2_epochs_s": fit_s, "resume_1_epoch_s": resume_s,
+        "test_only_s": test_s, "evaluate_s": eval_s,
+        "train_batch_ms": [1e3 * r["train_batch_time"] for r in rows],
+        "train_images_per_s": [8 / r["train_batch_time"] for r in rows],
+        "test_acc": [r["test_acc"] for r in rows],
+        "eval_loss_rel_cpu": loss_rel, "eval_beta_rel_cpu": beta_rel,
+        "test_model_ms_per_batch": ms[False],
+        "test_model_engine_ms_per_batch": ms[True]}
+    print(f"trainer: {fit_s / 2:.1f} s an epoch over the first 2 (wall, "
+          f"with data, validation, test scoring and checkpoints), "
+          f"{resume_s:.1f} s for the resumed epoch (with the Trainer's "
+          f"start) on {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    return summary, failures
+
+
 def synthetic_batch(seed: int) -> dict:
     """A seeded batch of 8 in the dataset's compact form (host tensors)."""
     g = torch.Generator().manual_seed(seed)
@@ -2514,6 +2977,14 @@ def main() -> int:
         return 2
     if "--race-child" in sys.argv[1:]:
         return race_child()
+    if "--defer-only" in sys.argv[1:]:
+        from lanedetection_end2end_tpu_torch.ops import _build
+        _build.build(DEFER_SOURCES)
+        _build.build(DEFER_SOURCES, "defer")
+        _, failures = defer_check(torch.device("cuda", 0))
+        if failures:
+            fail("deferred copies: " + "; ".join(failures))
+        return 0
     from lanedetection_end2end_tpu_torch.config import train_sh_config
     from lanedetection_end2end_tpu_torch.models.infer_engine import (
         FusedLaneNetEngine)
@@ -2537,9 +3008,12 @@ def main() -> int:
     card = gpu_line()
     profile = "--profile" in sys.argv[1:]
 
-    # 1. build ----------------------------------------------------------
+    # 1. build (the deferred-copy variant of phase 4f beside it) ---------
     t0 = time.perf_counter()
-    logs = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        deferred_build = pool.submit(_build.build, DEFER_SOURCES, "defer")
+        logs = _build.build()
+        deferred_build.result()
     secs = time.perf_counter() - t0
     print(f"build: {len(logs)} libraries in {secs:.1f} s on {card}")
     for name, log in logs.items():
@@ -2774,6 +3248,16 @@ def main() -> int:
     if failures:
         fail("race check: " + "; ".join(failures))
 
+    # 4f. the deferred-copy build against the normal one -----------------
+    defer_report, failures = defer_check(dev)
+    if failures:
+        fail("deferred copies: " + "; ".join(failures))
+
+    # 4g. the training entry point, main_torch.py ------------------------
+    trainer_summary, failures = trainer_phase(dev, card)
+    if failures:
+        fail("trainer: " + "; ".join(failures))
+
     # 5. kernels line and result ----------------------------------------
     kernels = []
     path_launches = dict(block_launches)
@@ -2838,7 +3322,9 @@ def main() -> int:
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels, "wide": wide_summary,
-                      "race_check": race_report}))
+                      "race_check": race_report,
+                      "deferred_copies": defer_report,
+                      "trainer": trainer_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,44 +1,106 @@
-"""Configuration of the PyTorch port: the fields the serving path and the
-e2e train step read.
+"""Configuration of the PyTorch port: every flag of the reference CLI.
 
-Counterpart of `lanedetection_end2end_tpu/config.py`. The port keeps its own
-copy (it never imports the JAX package), restricted to the flags that the e2e
-forward, the e2e train step and the named presets read or set. Defaults
-equal the JAX ones. There is no CLI parser yet.
+Counterpart of `lanedetection_end2end_tpu/config.py`, kept as the port's
+own copy (it never imports the JAX package): the same `LaneConfig` fields
+with the same defaults, the presets (`bp_defaults`, `bev_defaults`,
+`train_sh_config`), the argparse surface (`build_parser` /
+`config_from_args`, with the reference's str2bool convention), the staged
+schedule (`phase_for_epoch`) and the run naming (`save_id`). The port has
+no environment knobs, so `save_id` appends none.
+
+Fields that select what the port does not run yet (the 'bev' profile, the
+skip and seg phases, the learned homography, more than one device) are
+accepted here and refused with NotImplementedError where a Trainer would
+act on them (`train/driver.py`). `no_cuda` is how a caller asks for the
+CPU (`torch_device`). The Pallas switches `use_pallas_wls` and
+`packed_train` are kept for the CLI: None and True select what the port
+runs (its kernels), False (the JAX package's XLA paths) is refused.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import argparse
+import dataclasses
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+from lanedetection_end2end_tpu_torch.device import resolve_device
+
+
+def str2bool(argument: str) -> bool:
+    """Boolean CLI convention of the reference."""
+    if argument.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if argument.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError(
+        "Wrong argument in argparse, should be a boolean")
 
 
 @dataclass(frozen=True)
 class LaneConfig:
-    # "bev": normalized BEV coordinates; "bp": pixel coordinates
+    # ---- profile: "bev" normalized BEV coordinates, "bp" pixels ----
     profile: str = "bp"
+
+    # ---- segmentation model settings ----
+    dataset: str = "lane_detection"
     batch_size: int = 8
+    val_batch_size: Optional[int] = None
     nepochs: int = 500
     learning_rate: float = 1e-4
+    no_cuda: bool = False  # True: run on the CPU (torch_device)
+    nworkers: int = 8
+    no_dropout: bool = False
     nclasses: int = 2  # choices [2, 4]
+    crop_size: int = 80
     resize: int = 256  # image resized to (resize, 2*resize)
+    mod: str = "erfnet"
+    layers: int = 18
+    pool: bool = True
+    draw_testset: bool = False
     pretrained: bool = False
-    num_train: int = 3626
+    pretrain_epochs: int = 20
+    skip_epochs: int = 10
+    channels_in: int = 3
+    norm: str = "batch"
     flip_on: bool = False
-    save_freq: int = 100
+    num_train: int = 3626
+    split_percentage: float = 0.2
+    test_mode: bool = False
+    start_epoch: int = 0
+    evaluate: bool = False
+    resume: str = ""
 
-    # optimizer
+    # ---- optimizer settings ----
     optimizer: str = "adam"  # adam | sgd | rmsprop
+    weight_init: str = "kaiming"  # normal | xavier | kaiming | orthogonal
     weight_decay: float = 0.0
+    lr_decay: bool = False
+    niter: int = 50
+    niter_decay: int = 400
+    lr_policy: Optional[str] = None  # lambda | step | plateau | none
+    lr_decay_iters: int = 30
     clip_grad_norm: float = 0.0
 
-    # fitting layer
+    # ---- fitting layer settings ----
     order: int = 2
     activation_layer: str = "square"
     reg_ls: float = 0.0
+    no_ortho: bool = False
     mask_percentage: float = 0.3
     use_cholesky: bool = False  # inert: the solve is always spd_solve
+    activation_net: str = "relu"
 
-    # loss / mode
+    # ---- paths ----
+    image_dir: str = ""
+    gt_dir: str = ""
+    test_dir: str = ""
+    save_path: str = "Saved/"
+    json_file: str = "Labels/Curve_parameters.json"
+
+    # ---- loss settings ----
     weight_seg: float = 30.0
     weight_class: float = 1.0
     weight_fit: float = 1.0
@@ -46,10 +108,26 @@ class LaneConfig:
     weight_funct: str = "none"  # none | linear | quadratic
     end_to_end: bool = True
     no_mapping: bool = False
+    gamma: float = 0.0
     clas: bool = False
 
+    # ---- parity-only flags of the reference ----
+    cudnn: bool = True
+    no_tb: bool = True
+    print_freq: int = 500
+    save_freq: int = 100
+    skip_list: List[int] = field(default_factory=lambda: [954, 2789])
+
+    # ---- additions of the JAX package ----
     compute_dtype: str = "float32"  # float32 | bfloat16: backbone compute
+    num_devices: int = 0  # 0 = every local device; the port runs one
+    num_slices: int = 1
+    prefetch: int = 2  # batches copied to the card ahead of the step
     seed: int = 0
+    use_pallas_wls: Optional[bool] = None  # False refused by the Trainer
+    packed_train: Optional[bool] = None    # False refused by the Trainer
+    learn_homography: bool = False
+    val_laneeval: bool = False  # LaneEval-score the validation split (bp)
 
     def __post_init__(self):
         if self.profile not in ("bev", "bp"):
@@ -64,6 +142,14 @@ class LaneConfig:
             raise ValueError("polynomial order must be in 0..3")
         if self.profile == "bev" and self.order == 3:
             raise ValueError("order 3 is only supported by the 'bp' profile")
+        if self.learn_homography and (self.profile != "bp"
+                                      or self.no_mapping):
+            raise ValueError("learn_homography requires the 'bp' profile "
+                             "with a real (non-identity) homography")
+
+    @property
+    def effective_val_batch_size(self) -> int:
+        return self.val_batch_size if self.val_batch_size else self.batch_size
 
     @property
     def image_height(self) -> int:
@@ -84,6 +170,53 @@ class LaneConfig:
         """Channels of the decoder head the e2e phase reads."""
         return self.nclasses if self.pretrained else self.seg_out_channels
 
+    @property
+    def save_id(self) -> str:
+        """The run directory's name, per profile, as the reference names
+        it."""
+        if self.profile == "bev":
+            return (
+                "Mod_{}_opt_{}_loss_{}_lr_{}_batch_{}_end2end_{}_lanes_{}"
+                "_resize_{}_pretrain{}_clas{}".format(
+                    self.mod, self.optimizer, self.loss_policy,
+                    self.learning_rate, self.batch_size, self.end_to_end,
+                    self.nclasses, self.resize, self.pretrained, self.clas))
+        return (
+            "Mod_{}_opt_{}_loss_{}_lr_{}_batch_{}_end2end_{}_chol_{}"
+            "_lanes_{}_pretrain{}_clas{}_mask{}_flip_on{}_activation_{}"
+            .format(
+                self.mod, self.optimizer, self.loss_policy,
+                self.learning_rate, self.batch_size, self.end_to_end,
+                self.use_cholesky, self.nclasses, self.pretrained,
+                self.clas, self.mask_percentage, self.flip_on,
+                self.activation_layer))
+
+    def replace(self, **kw) -> "LaneConfig":
+        return dataclasses.replace(self, **kw)
+
+    def phase_for_epoch(self, epoch: int) -> str:
+        """'skip' | 'seg' | 'e2e' for an epoch of the staged schedule."""
+        if self.pretrained:
+            if epoch < self.pretrain_epochs:
+                if self.profile == "bp" and epoch < self.skip_epochs:
+                    return "skip"
+                return "seg"
+            return "e2e"
+        return "e2e" if self.end_to_end else "seg"
+
+    def torch_device(self) -> torch.device:
+        """The CPU where `no_cuda`, else the current card (RuntimeError
+        without one)."""
+        return resolve_device("cpu" if self.no_cuda else None)
+
+
+def bev_defaults(**kw) -> LaneConfig:
+    """Defaults of the Birds_Eye_View_Loss tree CLI."""
+    base = dict(profile="bev", nepochs=350, num_train=2535, save_freq=500,
+                test_dir="")
+    base.update(kw)
+    return LaneConfig(**base)
+
 
 def bp_defaults(**kw) -> LaneConfig:
     """Defaults of the Backprojection_Loss tree CLI."""
@@ -101,3 +234,60 @@ def train_sh_config(**kw) -> LaneConfig:
                 flip_on=True, num_train=3626, end_to_end=True)
     base.update(kw)
     return LaneConfig(**base)
+
+
+# ----------------------------------------------------------------------
+# CLI
+# ----------------------------------------------------------------------
+
+# flags that take the str2bool convention; `--no_cuda` also stands alone
+_BOOL_STR_FLAGS = {
+    "pool", "draw_testset", "pretrained", "flip_on", "use_cholesky",
+    "end_to_end", "no_mapping", "clas", "cudnn", "no_tb", "use_pallas_wls",
+    "packed_train", "learn_homography", "val_laneeval", "no_cuda",
+}
+_STORE_TRUE_FLAGS = {
+    "no_dropout", "test_mode", "evaluate", "lr_decay", "no_ortho",
+}
+
+
+def build_parser(profile: str = "bp") -> argparse.ArgumentParser:
+    """argparse parser mirroring the reference `define_args`."""
+    defaults = bev_defaults() if profile == "bev" else bp_defaults()
+    parser = argparse.ArgumentParser(description="Lane_detection_all_objectives")
+    parser.add_argument("--profile", type=str, default=profile,
+                        choices=["bev", "bp"])
+    for f in dataclasses.fields(LaneConfig):
+        if f.name in ("profile", "skip_list"):
+            continue
+        flag = "--" + f.name
+        default = getattr(defaults, f.name)
+        if f.name in _BOOL_STR_FLAGS:
+            parser.add_argument(flag, type=str2bool, nargs="?", const=True,
+                                default=default)
+        elif f.name in _STORE_TRUE_FLAGS:
+            parser.add_argument(flag, action="store_true", default=default)
+        elif f.name == "val_batch_size":
+            parser.add_argument(flag, type=int, default=None)
+        elif f.name == "lr_policy":
+            parser.add_argument(flag, type=str, default=default)
+        else:
+            parser.add_argument(flag, type=type(default) if default is not None
+                                else str, default=default)
+    parser.add_argument("--list", dest="skip_list", type=int, nargs="+",
+                        default=[954, 2789],
+                        help="Images you want to skip")
+    return parser
+
+
+def config_from_args(argv=None, profile: str = "bp") -> LaneConfig:
+    parser = build_parser(profile)
+    kw = vars(parser.parse_args(argv))
+    prof = kw.pop("profile")
+    base = bev_defaults() if prof == "bev" else bp_defaults()
+    merged = dataclasses.asdict(base)
+    merged.update({k: v for k, v in kw.items()
+                   if v is not None or k == "lr_policy"})
+    merged["val_batch_size"] = kw.get("val_batch_size")
+    merged["profile"] = prof
+    return LaneConfig(**merged)

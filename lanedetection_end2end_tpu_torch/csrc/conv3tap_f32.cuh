@@ -95,22 +95,13 @@ using ldconv::EPI_MASK_SUM;
 using ldconv::EPI_PLAIN;
 using ldconv::EPI_PRO_BWD;
 using ldtc::cp_async16;
+using ldtc::cp_async4;
 using ldtc::cp_async_commit;
 using ldtc::cp_async_wait;
 using ldtc::mma_tf32;
 using ldtc::split_tf32;
 
 // ---- PTX -----------------------------------------------------------------
-
-// 4 bytes from global to shared memory (the B operands, scattered into
-// wgmma's core-matrix layout), or 4 zero bytes where !valid
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
 
 // Shared-memory writes of the generic proxy (the split B operands) become
 // visible to wgmma, which reads through the async proxy.

@@ -1,6 +1,7 @@
 // Tensor-core and copy primitives shared by the float32 3-tap tiles
-// (conv3tap_f32.cuh: K6, K7, K11) and the stride-2 tiles (conv_s2_mma.cuh:
-// K8, K9): asynchronous 16-byte copies into shared memory, the 3xTF32
+// (conv3tap_f32.cuh: K6, K7, K11), the stride-2 tiles (conv_s2_mma.cuh:
+// K8, K9) and the NB1D row tile (nb1d.cuh): asynchronous 16- and 4-byte
+// copies into shared memory (deferred in a debug build, see below), the 3xTF32
 // split of an f32 operand, and the warp-level mma.sync products with the
 // ldmatrix loads of their bf16 fragments.
 //
@@ -18,6 +19,8 @@
 
 namespace ldtc {
 
+#ifndef LD_DEFER_CP_ASYNC
+
 // 16 bytes from global to shared memory, or 16 zero bytes where !valid
 // (src-size 0: nothing is read; src must still be a mapped address)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -25,6 +28,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory, or 4 zero bytes where !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -37,6 +49,121 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+#else  // LD_DEFER_CP_ASYNC
+
+// The deferred-copy debug build (-DLD_DEFER_CP_ASYNC, ops/_build.py's
+// "defer" variant). It makes the contract of cp.async literal: a copy's
+// data is in shared memory only after its group's wait. An issue writes
+// poison (all bits set: NaN as f32 and as bf16) into the destination at
+// once and queues the copy in this thread's queue; a commit closes a
+// group; wait<N> performs, in issue order, the copies of every committed
+// group but the N newest. A read of a stage before its wait so reads NaN
+// every time, where the hardware's copy has usually landed. The queue
+// lives in global memory, one per thread of the launch (a fresh launch,
+// told by %gridid, starts it empty); a full queue or a thread past
+// DEFER_THREADS traps, no copy is ever dropped. Sources are read through
+// L2 (ld.global.cg), as cp.async.cg reads them.
+namespace defer {
+
+constexpr int DEPTH = 64;  // copies in flight a thread
+// threads a launch: the train step's largest grids at 256x512, batch 8
+// (K8's dx and K9's forward, 4 parity phases on the 64x128 plane)
+constexpr long long DEFER_THREADS = 1 << 19;
+
+struct Copy {
+  unsigned long long src;
+  unsigned dst;   // shared-memory address
+  unsigned meta;  // group << 8 | zero-fill << 7 | bytes
+};
+struct Queue {
+  unsigned long long grid;  // %gridid of the launch that owns the queue
+  int head, tail;           // copies issued / performed so far
+  int groups;               // groups committed so far
+  int pad;
+  Copy c[DEPTH];
+};
+__device__ Queue queues[DEFER_THREADS];
+
+__device__ __forceinline__ Queue& mine() {
+  const unsigned long long block =
+      blockIdx.x + (unsigned long long)gridDim.x *
+                       (blockIdx.y + (unsigned long long)gridDim.y *
+                                         blockIdx.z);
+  const unsigned long long t =
+      block * (blockDim.x * blockDim.y * blockDim.z) + threadIdx.x +
+      blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
+  if (t >= (unsigned long long)DEFER_THREADS) __trap();
+  Queue& q = queues[t];
+  unsigned long long grid;
+  asm volatile("mov.u64 %0, %%gridid;\n" : "=l"(grid));
+  if (q.grid != grid) {
+    q.grid = grid;
+    q.head = q.tail = q.groups = 0;
+  }
+  return q;
+}
+
+__device__ __forceinline__ void store16(unsigned s, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(s),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void store4(unsigned s, unsigned v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(s), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void issue(void* dst, const void* src, int bytes,
+                                      bool valid) {
+  Queue& q = mine();
+  if (q.tail - q.head >= DEPTH || q.groups >= (1 << 24)) __trap();
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  Copy& c = q.c[q.tail % DEPTH];
+  c.src = (unsigned long long)src;
+  c.dst = s;
+  c.meta = (unsigned)q.groups << 8 | (valid ? 0u : 128u) | (unsigned)bytes;
+  ++q.tail;
+  if (bytes == 16)
+    store16(s, make_uint4(~0u, ~0u, ~0u, ~0u));
+  else
+    store4(s, ~0u);
+}
+
+__device__ __forceinline__ void perform(const Copy& c) {
+  const bool zero = c.meta & 128u;
+  if ((c.meta & 127u) == 16)
+    store16(c.dst, zero ? make_uint4(0u, 0u, 0u, 0u)
+                        : __ldcg(reinterpret_cast<const uint4*>(c.src)));
+  else
+    store4(c.dst, zero ? 0u : __ldcg(reinterpret_cast<const unsigned*>(c.src)));
+}
+
+}  // namespace defer
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  defer::issue(dst, src, 16, valid);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  defer::issue(dst, src, 4, valid);
+}
+
+__device__ __forceinline__ void cp_async_commit() { ++defer::mine().groups; }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  defer::Queue& q = defer::mine();
+  while (q.head < q.tail) {
+    const defer::Copy c = q.c[q.head % defer::DEPTH];
+    if ((int)(c.meta >> 8) >= q.groups - N) break;
+    defer::perform(c);
+    ++q.head;
+  }
+}
+
+#endif  // LD_DEFER_CP_ASYNC
 
 // a = hi + lo, both TF32 (round to nearest, ties away). The low 13 bits of
 // a cvt's result are unspecified, so hi is masked before the subtraction,

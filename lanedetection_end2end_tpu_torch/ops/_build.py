@@ -7,10 +7,18 @@ by a hash of their sources and flags, so an edited source rebuilds and an
 unchanged one is reused. `build()` starts one nvcc per missing library, all
 at once. Nothing is built or loaded at import time: the wrappers call
 `kernel()` on their first launch.
+
+A debug variant is built only on request, into its own subdirectory of
+`_build/` with its own flags (VARIANTS): "defer" compiles the cp.async
+helpers of `csrc/tc_common.cuh` with -DLD_DEFER_CP_ASYNC, so a copy's data
+lands only at its group's wait and a stage read before it reads NaN.
+`with variant("defer"):` makes the wrappers' `kernel()` lookups load that
+build; outside it they load the normal one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -31,6 +39,9 @@ SOURCES = ("nb1d", "downsampler", "upsampler", "head_rowsums",
            "packed_conv", "encoder_fused", "decoder_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# debug variants: name -> the flags added to NVCC_FLAGS
+VARIANTS = {"defer": ("-DLD_DEFER_CP_ASYNC",)}
+_variant = None  # the variant `kernel()` loads; None: the normal build
 
 
 def _nvcc() -> str:
@@ -42,27 +53,40 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(variant=None) -> tuple:
+    return NVCC_FLAGS + (VARIANTS[variant] if variant else ())
+
+
+def _target(name: str, variant=None) -> Path:
+    h = hashlib.sha256(" ".join(_flags(variant)).encode())
     for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    where = BUILD_DIR / variant if variant else BUILD_DIR
+    return where / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
-    """Compile every missing library, one nvcc process per source, all
-    started together. Returns {name: compiler log} for the ones built;
-    raises with the logs if any compile fails."""
-    BUILD_DIR.mkdir(exist_ok=True)
-    nvcc = _nvcc()
+def nvcc_command(name: str, out: Path, variant=None) -> list:
+    """The nvcc command line that builds library `name` of `variant`."""
+    return [_nvcc(), *_flags(variant), "-o", str(out),
+            str(CSRC / f"{name}.cu")]
+
+
+def build(names: Sequence[str] = SOURCES, variant=None) -> Dict[str, str]:
+    """Compile every missing library of `variant` (None: the normal
+    build), one nvcc process per source, all started together. Returns
+    {name: compiler log} for the ones built; raises with the logs if any
+    compile fails."""
+    if variant is not None and variant not in VARIANTS:
+        raise KeyError(f"unknown build variant {variant!r}")
     jobs = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, variant)
         if out.exists():
             continue
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        jobs[name] = (subprocess.Popen(nvcc_command(name, tmp, variant),
+                                       stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
     logs, failed = {}, []
@@ -79,21 +103,40 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
-    path = _target(name)
+def _library(name: str, variant=None) -> ctypes.CDLL:
+    path = _target(name, variant)
     if not path.exists():
-        build([name])
+        build([name], variant)
     return ctypes.CDLL(str(path))
+
+
+@contextlib.contextmanager
+def variant(name):
+    """Within the block, `kernel()` loads the libraries of build variant
+    `name` (a key of VARIANTS; None: the normal build)."""
+    global _variant
+    if name is not None and name not in VARIANTS:
+        raise KeyError(f"unknown build variant {name!r}")
+    before, _variant = _variant, name
+    try:
+        yield
+    finally:
+        _variant = before
 
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 
 
-@functools.lru_cache(maxsize=None)
 def kernel(name: str, symbol: str, signature: str):
-    """The C entry `symbol` of library `name`; `signature` spells the
-    arguments, 'p' for a pointer or the stream, 'i' for an int."""
-    fn = getattr(_library(name), symbol)
+    """The C entry `symbol` of library `name` in the current build variant;
+    `signature` spells the arguments, 'p' for a pointer or the stream, 'i'
+    for an int."""
+    return _entry(name, symbol, signature, _variant)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, symbol: str, signature: str, variant):
+    fn = getattr(_library(name, variant), symbol)
     fn.argtypes = [_VP if ch == "p" else _INT for ch in signature]
     fn.restype = _INT
     return fn

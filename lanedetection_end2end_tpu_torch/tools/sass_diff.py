@@ -13,10 +13,15 @@ same role, with the count of instructions that differ. It needs the CUDA
 toolkit (nvcc, cuobjdump, c++filt), not a card, and runs no kernel.
 
     python -m lanedetection_end2end_tpu_torch.tools.sass_diff OLD NEW [OUT]
+        [--all]
 
 OLD and NEW: roots of two checkouts of the repo; OUT (default: a temporary
 directory) keeps the cubins and, for each kernel that differs, both
-instruction lists.
+instruction lists. `--all` builds every library of `ops/_build.py`
+(SOURCES there) and compares every kernel of NEW, segments' builds
+included, with the kernel of the same name in OLD: the check that a
+change confined to a debug build (`-DLD_DEFER_CP_ASYNC`) leaves the
+normal build's machine code as it was.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import sys
 import tempfile
 
 from lanedetection_end2end_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
+from lanedetection_end2end_tpu_torch.ops._build import SOURCES as ALL
 
 SOURCES = ("encoder_fused", "decoder_fused", "nb1d_chain", "nb1d")
 
@@ -38,14 +44,14 @@ def _demangle(names):
     return out.splitlines()
 
 
-def build(root: str, out: str, tag: str):
+def build(root: str, out: str, tag: str, sources=SOURCES):
     """{kernel: [instruction, ...]} of the checkout at `root`, printing
     ptxas's lines for each kernel."""
     nvcc = _nvcc()
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
                                                 "-fPIC")]
     procs = {}
-    for name in SOURCES:
+    for name in sources:
         cubin = os.path.join(out, f"{tag}_{name}.cubin")
         src = os.path.join(root, "lanedetection_end2end_tpu_torch", "csrc",
                            f"{name}.cu")
@@ -94,24 +100,28 @@ def role(name: str) -> str:
 
 
 def main(argv=None) -> int:
-    args = sys.argv[1:] if argv is None else argv
+    args = list(sys.argv[1:] if argv is None else argv)
+    every = "--all" in args
+    args = [a for a in args if a != "--all"]
     if len(args) not in (2, 3):
         print(__doc__)
         return 2
     out = args[2] if len(args) == 3 else tempfile.mkdtemp()
     os.makedirs(out, exist_ok=True)
-    old, new = build(args[0], out, "old"), build(args[1], out, "new")
+    sources = ALL if every else SOURCES
+    old = build(args[0], out, "old", sources)
+    new = build(args[1], out, "new", sources)
     for name in sorted(new):
-        if "true>" in name:
+        if "true>" in name and not every:
             continue
-        ref = old.get(role(name))
+        ref = old.get(name if every else role(name))
         if ref is None:
             print(f"SASS {name}: no kernel of its role in OLD")
             continue
         got = new[name]
         differ = (sum(a != b for a, b in zip(ref, got))
                   + abs(len(ref) - len(got)))
-        print(f"SASS {name} vs {role(name)}: "
+        print(f"SASS {name} vs {name if every else role(name)}: "
               f"{'identical' if ref == got else 'differs'} ({len(ref)} / "
               f"{len(got)} instructions, {differ} differ)")
         if ref != got:

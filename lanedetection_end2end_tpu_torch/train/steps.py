@@ -126,16 +126,19 @@ def _to_device(batch, device):
 def make_train_step(lanenet, cfg: LaneConfig,
                     optimizer: torch.optim.Optimizer, phase: str = "e2e",
                     device=None, fused_blocks: bool = True,
-                    fused_maps: Optional[bool] = None) -> Callable:
+                    fused_maps: Optional[bool] = None,
+                    state: Optional[TrainState] = None) -> Callable:
     """Returns step(batch, generator) -> metrics: one forward, backward and
     optimizer update of `lanenet` in place. Runs on the card unless
     `device="cpu"`; `lanenet` must live on that device. `step.state`
-    is the `TrainState` (model, optimizer, steps taken). `fused_blocks`
-    and `fused_maps` as in `make_loss_fn`."""
+    is the `TrainState` (model, optimizer, steps taken): `state` where
+    given, else a new one. `fused_blocks` and `fused_maps` as in
+    `make_loss_fn`."""
     device = resolve_device(device)
     loss_fn = make_loss_fn(lanenet, cfg, phase, train=True,
                            fused_blocks=fused_blocks, fused_maps=fused_maps)
-    state = TrainState(lanenet, optimizer)
+    if state is None:
+        state = TrainState(lanenet, optimizer)
 
     def step(batch, generator: Optional[torch.Generator] = None):
         optimizer.zero_grad(set_to_none=True)

@@ -35,7 +35,36 @@ def test_port_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 29  # every module was imported
+    assert int(res.stdout.split()[-1]) >= 45  # every module was imported
+
+
+_MAIN_WITHOUT_JAX = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "lanedetection_end2end_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import main_torch
+from lanedetection_end2end_tpu_torch.data import (
+    dataset, labels, loader, native, synthetic)
+from lanedetection_end2end_tpu_torch.eval import (
+    lane_eval, projections, test_driver)
+from lanedetection_end2end_tpu_torch.models import init
+from lanedetection_end2end_tpu_torch.train import (
+    checkpoint, driver, visualize)
+from lanedetection_end2end_tpu_torch.utils import observability
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_main_torch_and_the_trainer_modules_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _MAIN_WITHOUT_JAX],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
 
 
 _FORBIDDEN = re.compile(
@@ -45,7 +74,7 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "main_torch.py"]))
 def test_source_imports_nothing_of_jax(path):
     assert not _FORBIDDEN.findall((ROOT / path).read_text()), path
 
@@ -72,6 +101,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_eval_step(net, cfg)
     assert make_train_step(net, cfg, opt, device="cpu").state.step == 0
+    from lanedetection_end2end_tpu_torch.train.driver import Trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, log_to_file=False, verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cfg.torch_device()
+    assert cfg.replace(no_cuda=True).torch_device().type == "cpu"
 
 
 def test_fitter_and_loss_default_to_the_card(monkeypatch):
