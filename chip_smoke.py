@@ -53,6 +53,14 @@ a card. In order:
    degree camera roll) and at the JAX package's three test shapes, against
    its plain version, bit for bit against a second launch, and its
    gradient through autograd against autograd of the plain version;
+2e. the kernels that take the lane count, at two lanes (the BEV egolane
+   config `bev_defaults(resize=256)`: normalized column coordinate and
+   its mask rows), in bf16 and float32: K9's 2x2 head at cout 2 (f32
+   out, no moments) and `head_rowsums_op` (K10, bit for bit a second
+   launch), forward and backward, against their plain versions; then
+   `decoder_fused` at C = 2 on a BEV model's seeded weights, bit for bit
+   its block sequence (K4 at C = 2) and against its plain version at
+   TOL_S beside the control; each timed beside its plain version;
 3. serve 3 batches of 8 random 256x512 images through
    `FusedLaneNetEngine` (train_sh config, seeded random weights with
    non-trivial BatchNorm statistics), check the kernel launch counts of
@@ -113,6 +121,12 @@ a card. In order:
    finite loss and gradients, parameters moved; then, counted anew, one
    step with `fused_maps=False` (17 / 17 / 17 / 17 and 5 of
    channel_sums), which keeps that path driven;
+3e. the BEV profile's engine (phase 3's batches, `bev_defaults`, 2
+   lanes, order 2, seeded weights): 1 `encoder_fused` + 1
+   `decoder_fused` a call and nothing else, beta held to the f32 LaneNet
+   at the JAX bar; the same 3 batches through the 4-lane config with
+   the heads, its (B, 3, 4) line logits and the horizon logits at 1e-2
+   (see below); ms per call (median of 3) beside the BP engine's;
 4d. the unfused path (`fused_blocks=False`, JAX `PACKED_FUSED_BLOCKS=0`),
    first in bf16, then in float32: one step with dropout off on the
    kernels against one on the plain versions (bf16 as in 4a; float32 see
@@ -162,9 +176,23 @@ a card. In order:
    batch per epoch (the mean of its 3 batches) and `test_model`'s ms per
    batch on both paths (warm: the median of TEST_MODEL_CALLS calls after
    the counted one), each beside the card;
+4h. the BEV e2e step (`bev_defaults(resize=256, nclasses=2)`, float32,
+   adam, phase 4's seeds): a kernel step against a plain step at phase
+   4's float32 bars, the cosine as drawn against the same run's noise
+   floor (see below), an eval step (K9's head at cout 2, forwards only),
+   3 counted steps (17 + 17 of each half, 3 + 3 / 2 + 2 / 1 + 1 of K8-K10,
+   K10 at C = 2), finite loss and exact area;
+4i. `main_torch.main` through the staged schedule (train.sh flags with
+   `--pretrained true --pretrain_epochs 2 --skip_epochs 1`, one epoch a
+   call: 0 launches in the skip and seg epochs, 4g's in the e2e one, each
+   resume bit for bit) and with `--profile bev` (4 lanes, heads; 2
+   epochs, then `--evaluate` on the card against the CPU, beta also
+   against a float64 witness beside a bf16 control), every launch
+   counted (`staged_phase`);
 5. print the card line as nvidia-smi gives it, the kernels line (with
-   the wide phase's, the race check's, the deferred-copy check's and the
-   Trainer's results beside the kernels), and `{"ok": true, "device":
+   the wide phase's, the race check's, the deferred-copy check's, the
+   Trainer's and the BEV phases' results beside the kernels; the C = 2
+   holdings as each kernel's `two_lanes`), and `{"ok": true, "device":
    {...}}` last.
 
 In the kernels line, `launches` counts the wrapper calls of the 3 engine
@@ -188,7 +216,11 @@ stack. Every
 training kernel (K6-K11, `channel_sums`) carries its float32 numbers in a
 `float32` object beside the bf16 ones, with the launches of the 3 float32
 default steps (K6-K10) or of the 3 float32 unfused steps (K11,
-`channel_sums`). The training
+`channel_sums`). `lane_maps_op`, `head_rowsums_op` and `decoder_fused`
+carry phase 2e's numbers at two lanes in a `two_lanes` object (per
+dtype, K9 the head's shape only), with the launches of the BEV paths:
+the 3 engine calls of phase 3e, the 3 counted steps of phase 4h. The
+training
 kernels carry the same numbers for their backward as `bwd_ms`,
 `plain_bwd_ms`, `bwd_bound_ms`. `bound_ms` is the larger of the bytes
 moved (each input read once, each output written once: 3 planes for a
@@ -327,6 +359,25 @@ weights the loss is held within 2e-3 relative, the whole-gradient cosine
 at 0.995 and the norm ratio within 1e-2 of 1; with the residual branches
 damped as above, where the same rounding can no longer grow, the cosine is
 held at 0.99999 and the norm ratio within 1e-4 of 1.
+
+The engine's heads run in bf16 on the bf16 encoder features, as in the
+JAX package's engine. On phase 3e's 4-lane weights their horizon logits
+miss the JAX bar (rtol = atol = 1e-2) against the f32 LaneNet on one of
+the 3 batches (max|diff| 1.324e-2), and so does the same engine on the
+fused kernels' plain versions (1.313e-2; measured on an H100). So the
+rounding is the design's, not the kernels': on a batch where the plain
+versions miss the bar too, phase 3e holds the kernels' logits against
+the plain versions' at the same bar (they differ there by one bf16 step
+of the output, 7.8e-3).
+
+The BEV float32 step (phase 4h: 2 lanes, area loss on normalized
+coordinates) amplifies it more: measured on an H100, on its first seeds
+the kernel step against the plain step read 0.99455 beside its own rerun
+at 0.99663, so 0.995 sits at its noise floor. So the cosine as drawn is
+held against that floor as the same run measures it: no more than
+BEV_NOISE_MARGIN = 5e-3 below the kernel step against its own rerun (it
+read 0.9e-3 to 2.1e-3 below it in five runs). The damped bar, 0.99999
+(read 0.9999944-0.9999959), is the sharp one.
 """
 
 from __future__ import annotations
@@ -361,6 +412,9 @@ DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 # ones (see the docstring)
 F32_LOSS, F32_AS_DRAWN, F32_DAMPED = 2e-3, (0.995, 1e-2), (0.99999, 1e-4)
 BN2_DAMP = 0.1  # scale of bn2.weight for the whole-gradient comparison
+# phase 4h (BEV): the least whole-gradient cosine as drawn is the kernel
+# step against its own rerun in the same run, less this margin
+BEV_NOISE_MARGIN = 5e-3
 # kernels against plain versions through autograd: least gradient cosine
 # over one block, largest share of dx that relu flips may move, and least
 # cosine for the heads' last layers over a whole step on the seeded weights
@@ -556,6 +610,24 @@ def plain_versions():
     finally:
         for name, fn in kernels.items():
             setattr(packed_graph, name, fn)
+
+
+@contextlib.contextmanager
+def plain_engine():
+    """The serving engine's full path on the fused kernels' plain versions
+    (`encoder_plain` / `decoder_plain`: the block sequence in PyTorch,
+    bf16 as the kernels), for a comparison on the card."""
+    from lanedetection_end2end_tpu_torch.models import infer_engine as ie
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_plain, encoder_plain)
+    kernels = ie.encoder_fused, ie.decoder_fused
+    ie.encoder_fused = lambda images, p: encoder_plain(
+        images.to(torch.bfloat16).contiguous(), p)
+    ie.decoder_fused = decoder_plain
+    try:
+        yield
+    finally:
+        ie.encoder_fused, ie.decoder_fused = kernels
 
 
 @contextlib.contextmanager
@@ -1112,6 +1184,162 @@ def check_lanemap_kernels(dev, g, dt):
 
 
 # ----------------------------------------------------------------------
+# Phase 2e: the head kernels at two lanes (the BEV egolane config)
+# ----------------------------------------------------------------------
+
+TWO_LANE_KERNELS = ("lane_maps_op", "head_rowsums_op", "decoder_fused")
+
+
+def check_two_lanes(dev, g):
+    """Phase 2e. The kernels that take the lane count, at C = 2 and the
+    256x512 batch-8 shapes of `bev_defaults(resize=256)` (normalized
+    column coordinate, its mask rows): in bf16 and float32, K9's 2x2 head
+    at cout 2 (f32 out, no moments, as the eval step runs it) forward and
+    backward, and `head_rowsums_op` (K10) forward and backward, bit for bit
+    a second launch; then `decoder_fused` on a BEV model's seeded weights,
+    bit for bit its block sequence (`decoder_blocks`, K4 at C = 2) and
+    against its plain version at TOL_S beside the control. Each timed
+    beside its plain version. Returns ({kernel: {dtype: summary}},
+    failures)."""
+    from lanedetection_end2end_tpu_torch.config import bev_defaults
+    from lanedetection_end2end_tpu_torch.models.fused_graph import (
+        decoder_blocks, encoder_blocks)
+    from lanedetection_end2end_tpu_torch.models.infer_engine import (
+        FusedLaneNetEngine)
+    from lanedetection_end2end_tpu_torch.models.lanenet import (
+        LaneNet, make_fitter, zero_rows)
+    from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, decoder_plain)
+
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    cfg = bev_defaults(resize=RESIZE)
+    C = cfg.out_channels
+    xs = make_fitter(cfg, dev).sep_xs
+    zero = zero_rows(cfg)
+    B, H, W = BATCH, RESIZE, 2 * RESIZE
+    out = {n: {} for n in TWO_LANE_KERNELS}
+    failures = []
+    for dt, dname in DTYPE_NAMES.items():
+        es = torch.finfo(dt).bits // 8
+        pt = plane_tols(dt)
+        x = rn(B, H // 2, W // 2, 16).to(dt)
+        wt, bias = rn(16, C, 2, 2) / 4.0, 0.1 * rn(C)
+
+        # K9's head at cout 2: f32 logits, no moments
+        s = dict.fromkeys(TRAIN_KEYS, 0.0)
+        dy = rn(B, H, W, C)
+        op = lambda: lm.lane_maps_op(x, wt, bias, 2, torch.float32, False)
+        plain = lambda: lm.lane_maps_fwd_plain(x, wt, bias, 2, torch.float32,
+                                               False)
+        with torch.no_grad():
+            y, mom = op()
+            torch.cuda.synchronize()
+            py, _ = plain()
+            args = (x, None, dy, None, wt, 2)
+            grads = lm.lane_maps_bwd_kernel(*args)
+            torch.cuda.synchronize()
+            pgrads = lm.lane_maps_bwd_plain(*args)
+        label = (f"lane_maps_op {dname} {tuple(x.shape)}->{C} k=2 float32 "
+                 "out no moments, two lanes")
+        verdict = hold(label, [
+            ("y", y, py, *pt), ("dx", grads[0], pgrads[0], *pt),
+            ("dweight", grads[1], pgrads[1], *pt),
+            ("dbias", grads[2], pgrads[2])], s, failures)
+        if mom is not None:
+            failures.append(f"{label}: moments returned")
+        planes = (es * x.numel() + 4 * y.numel(),
+                  2 * es * x.numel() + 4 * y.numel())
+        rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
+        time_and_record(
+            label, s, 1, verdict, op, plain,
+            lambda: lm.lane_maps_bwd_kernel(*args),
+            lambda: lm.lane_maps_bwd_plain(*args),
+            lambda bwd: s2_work((B, H // 2, W // 2), 16, C, 2, planes, bwd,
+                                es), rate)
+        out["lane_maps_op"][dname] = s
+
+        # K10 at C = 2
+        s = dict.fromkeys(TRAIN_KEYS, 0.0)
+        dS = rn(B, H, 2 * C)
+        with torch.no_grad():
+            S = lm.head_rowsums_op(x, wt, bias, xs, zero)
+            torch.cuda.synchronize()
+            pS = lm.head_rowsums_fwd_plain(x, wt, bias, xs, zero)
+            args = (x, dS, wt, bias, xs, zero)
+            hgrads = lm.head_rowsums_bwd_kernel(*args)
+            torch.cuda.synchronize()
+            phgrads = lm.head_rowsums_bwd_plain(*args)
+            again = lm.head_rowsums_op(x, wt, bias, xs, zero)
+            hgrads2 = lm.head_rowsums_bwd_kernel(*args)
+        label = f"head_rowsums_op {dname} {tuple(x.shape)}, two lanes"
+        sums_tol = (TOL_F32,) if dt == torch.float32 else ()
+        verdict = hold(label, [
+            ("S", S, pS, TOL_F32), ("dx", hgrads[0], phgrads[0], *pt),
+            ("dweight", hgrads[1], phgrads[1], *sums_tol),
+            ("dbias", hgrads[2], phgrads[2], *sums_tol)], s, failures)
+        same = torch.equal(S, again) and all(
+            torch.equal(a, b) for a, b in zip(hgrads, hgrads2))
+        if not same or S[:, :zero].abs().max().item() != 0.0:
+            failures.append(f"{label}: a second launch differs or the "
+                            "masked rows are not zero")
+        logits = B * (H - zero) * W * C
+
+        def head_op_work(bwd):
+            flop = logits * ((2 * 16 + 5) if not bwd else (3 * 2 * 16 + 8))
+            nbytes = es * x.numel() + 4 * S.numel() + 4 * wt.numel()
+            return flop, nbytes + bwd * es * x.numel()
+        time_and_record(
+            label + f" (a second launch bit for bit: {same})", s, 1,
+            verdict, lambda: lm.head_rowsums_op(x, wt, bias, xs, zero),
+            lambda: lm.head_rowsums_fwd_plain(x, wt, bias, xs, zero),
+            lambda: lm.head_rowsums_bwd_kernel(*args),
+            lambda: lm.head_rowsums_bwd_plain(*args), head_op_work,
+            rate)
+        out["head_rowsums_op"][dname] = s
+
+    # decoder_fused at C = 2 on a BEV model's seeded weights
+    model = LaneNet(cfg, device=dev)
+    model.load_state_dict(random_state_dict(model, SEED + 7))
+    packed = FusedLaneNetEngine(cfg, device=dev).prepare(model.state_dict())
+    dec = packed["dec"]
+    head = dec["head"]
+    up = 1 + 2 ** -8
+    dec_c = dict(dec, head=dict(head, w=head["w"].float() * up,
+                                bias=head["bias"] * up))
+    images = torch.rand(B, H, W, 3, generator=g, device=dev)
+    enc = encoder_blocks(images, packed["enc"])
+    with torch.no_grad():
+        S_k = decoder_fused_kernel(enc, dec)
+        torch.cuda.synchronize()
+        S_b = decoder_blocks(enc, dec)
+        S_p = decoder_plain(enc, dec)
+        control = rel_err(decoder_plain(enc, dec_c), S_p)[1]
+    err, rel = rel_err(S_k, S_p)
+    same = torch.equal(S_k, S_b)
+    ok = (same and tuple(S_k.shape) == (B, H, 2 * C)
+          and torch.isfinite(S_k).all().item() and rel <= TOL_S
+          and control > TOL_S)
+    k_ms, b_ms, p_ms = (median_ms(f) for f in (
+        lambda: decoder_fused_kernel(enc, dec),
+        lambda: decoder_blocks(enc, dec), lambda: decoder_plain(enc, dec)))
+    bnd, by = bound_ms(*decoder_work(dec, B, H, W))
+    print(f"check decoder_fused {B}x{H}x{W}, two lanes: bit for bit equal "
+          f"to the block sequence: {same}; max|diff| vs plain {err:.3e} "
+          f"({rel:.2e} of max|plain|, tol {TOL_S:g}); control, logits x "
+          f"(1 + 2^-8): {control:.2e} of max|plain|, "
+          f"{'' if control > TOL_S else 'NOT '}above the tol: "
+          f"{'ok' if ok else 'FAIL'}; fused {k_ms:.4f} ms, block sequence "
+          f"{b_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
+    if not ok:
+        failures.append("decoder_fused at two lanes")
+    out["decoder_fused"]["bfloat16"] = {
+        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd,
+        "ops_ms": bnd * (by == "operations"), "blocks_ms": b_ms}
+    return out, failures
+
+
+# ----------------------------------------------------------------------
 # Phase 2d: K11 and channel_sums in bf16 and float32
 # ----------------------------------------------------------------------
 
@@ -1486,38 +1714,121 @@ def serve(engine, packed, images, wrappers):
     return outs, batch_ms, {n: w.launches for n, w in wrappers.items()}
 
 
-def hold_serving(outs, images, model, cfg, label):
+def logit_excess(a, b):
+    """The largest excess of |a - b| over the JAX bar, rtol = atol = 1e-2
+    of b (> 0: a misses it)."""
+    return ((a - b).abs() - (1e-2 + 1e-2 * b.abs())).max().item()
+
+
+def hold_serving(outs, images, model, cfg, label, plain=None):
     """Hold an engine's outputs against the plain float32 LaneNet `model`
-    at the JAX package's bars; returns the worst errors."""
+    at the JAX package's bars; returns the worst errors. Without `clas`
+    the engine must return no logits; the BEV line logits are (B, 3,
+    4). `plain`: the same engine's outputs on the fused kernels' plain
+    versions (phase 3e); on a batch where they miss the logit bar against
+    the f32 LaneNet too, the kernels' logits are held against theirs at
+    that bar instead."""
     worst = {"beta": 0.0, "line": 0.0, "horizon": 0.0}
+    if plain is not None:
+        worst.update(line_plain=0.0, horizon_plain=0.0, held_to_plain=[])
     C = cfg.out_channels
-    for (beta, line, hor), x in zip(outs, images):
+    line_shape = (3, 4) if cfg.profile == "bev" else (4,)
+    for i, ((beta, line, hor), x) in enumerate(zip(outs, images)):
         ref = model(x)
         n, h = x.shape[:2]
+        heads = (("line", line, ref.line_logits, (n, *line_shape)),
+                 ("horizon", hor, ref.horizon_logits, (n, h)))
         if (tuple(beta.shape) != (n, C, cfg.order + 1)
-                or tuple(line.shape) != (n, 4)
-                or tuple(hor.shape) != (n, h)):
-            fail(f"{label}: output shapes {beta.shape} {line.shape} "
-                 f"{hor.shape}")
+                or any((a is None) != (not cfg.clas) for _, a, _, _ in heads)
+                or (cfg.clas and any(tuple(a.shape) != shape
+                                     for _, a, _, shape in heads))):
+            fail(f"{label}: output shapes {beta.shape} "
+                 f"{getattr(line, 'shape', None)} {getattr(hor, 'shape', None)}")
         for t in (beta, line, hor):
-            if not torch.isfinite(t).all():
+            if t is not None and not torch.isfinite(t).all():
                 fail(f"{label}: non-finite engine output")
         rel = ((beta - ref.beta).abs().max()
                / ref.beta.abs().max()).item()
         worst["beta"] = max(worst["beta"], rel)
-        for key, a, b in (("line", line, ref.line_logits),
-                          ("horizon", hor, ref.horizon_logits)):
-            excess = ((a - b).abs() - (1e-2 + 1e-2 * b.abs())).max().item()
+        for key, a, b, _ in heads if cfg.clas else ():
+            excess = logit_excess(a, b)
             worst[key] = max(worst[key], (a - b).abs().max().item())
+            if plain is not None:
+                p = plain[i][1 if key == "line" else 2]
+                worst[f"{key}_plain"] = max(worst[f"{key}_plain"],
+                                            (p - b).abs().max().item())
+                if excess > 0 and logit_excess(p, b) > 0:
+                    print(f"{label}: batch {i} {key} logits miss the bar "
+                          f"against the f32 LaneNet on the plain versions "
+                          f"too ({(p - b).abs().max().item():.3e}; the "
+                          f"kernels {(a - b).abs().max().item():.3e}): the "
+                          "kernels held against the plain versions, max|diff|"
+                          f" {(a - p).abs().max().item():.3e}")
+                    worst["held_to_plain"].append(f"{i} {key}")
+                    excess = logit_excess(a, p)
             if excess > 0:
                 fail(f"{label}: {key} logits off the f32 LaneNet by "
                      f"{(a - b).abs().max().item():.3e}")
         if rel >= 3e-2:
             fail(f"{label}: beta relative error {rel:.3e} >= 3e-2")
-    print(f"{label} vs f32 LaneNet: beta max rel {worst['beta']:.3e}, line "
-          f"max|diff| {worst['line']:.3e}, horizon max|diff| "
-          f"{worst['horizon']:.3e}")
+    print(f"{label} vs f32 LaneNet: beta max rel {worst['beta']:.3e}"
+          + (f", line max|diff| {worst['line']:.3e}, horizon max|diff| "
+             f"{worst['horizon']:.3e}" if cfg.clas else ", no heads")
+          + (f" (on the plain versions: line {worst['line_plain']:.3e}, "
+             f"horizon {worst['horizon_plain']:.3e})"
+             if plain is not None and cfg.clas else ""))
     return worst
+
+
+def serve_bev(dev, images, wrappers, bp_ms):
+    """Phase 3e. The BEV egolane config `bev_defaults(resize=256)` (2
+    lanes, order 2, area loss, normalized homography; seeded random
+    weights with non-trivial BatchNorm statistics) through
+    `FusedLaneNetEngine` on the 3 batches of 8, the launch counts set to 0
+    just before and read just after (1 `encoder_fused` + 1 `decoder_fused`
+    a call, 0 of the rest), beta held to the float32 LaneNet at the JAX
+    bar; then the same 3 batches through `bev_defaults(nclasses=4,
+    clas=True)`, its (B, 3, 4) line logits and horizon logits held at
+    1e-2 (on a batch where the engine on the fused kernels' plain
+    versions misses that bar against the f32 LaneNet too, the kernels'
+    logits are held against the plain versions' at that bar); each timed
+    as the median of its 3 calls. Any failure exits. Returns the
+    summary."""
+    from lanedetection_end2end_tpu_torch.config import bev_defaults
+    from lanedetection_end2end_tpu_torch.models.infer_engine import (
+        FusedLaneNetEngine)
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+
+    summary = {}
+    for label, cfg, batches in (
+            ("BEV engine, 2 lanes", bev_defaults(resize=RESIZE), images),
+            ("BEV engine, 4 lanes and heads",
+             bev_defaults(resize=RESIZE, nclasses=4, clas=True),
+             images)):
+        model = LaneNet(cfg, device=dev)
+        model.load_state_dict(random_state_dict(model, SEED + 8))
+        engine = FusedLaneNetEngine(cfg, device=dev)
+        packed = engine.prepare(model.state_dict())
+        engine(packed, batches[0])  # warm-up (cuDNN plans of the heads)
+        torch.cuda.synchronize()
+        outs, batch_ms, launches = serve(engine, packed, batches, wrappers)
+        want = dict.fromkeys(wrappers, 0)
+        want.update(encoder_fused=len(batches), decoder_fused=len(batches))
+        print(f"{label}: launches over {len(batches)} calls: {launches}")
+        if launches != want:
+            fail(f"{label}: launches {launches}, expected {want}")
+        with plain_engine():
+            plain = [engine(packed, x) for x in batches]
+        worst = hold_serving(outs, batches, model, cfg, label, plain)
+        ms = statistics.median(batch_ms)
+        print(f"{label}: {ms:.3f} ms per batch of {BATCH} (median of "
+              f"{len(batch_ms)}: {', '.join(f'{t:.3f}' for t in batch_ms)}),"
+              f" {1e3 * BATCH / ms:.1f} images/s; the BP engine in this call "
+              f"{bp_ms:.3f} ms")
+        summary[label] = {"ms_per_batch": ms, "batch_ms": batch_ms,
+                          "bp_engine_ms": bp_ms, "launches": launches,
+                          **worst}
+    return summary
 
 
 # ----------------------------------------------------------------------
@@ -2328,9 +2639,8 @@ def trainer_phase(dev, card):
     from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
     from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
         decoder_fused_kernel, encoder_fused_kernel)
-    from lanedetection_end2end_tpu_torch.train import driver
     from lanedetection_end2end_tpu_torch.train.checkpoint import (
-        _ckpt_path, best_checkpoint_path)
+        best_checkpoint_path)
 
     root = Path(__file__).resolve().parent / "_smoke" / "trainer"
     shutil.rmtree(root, ignore_errors=True)
@@ -2365,29 +2675,11 @@ def trainer_phase(dev, card):
         return out, secs
 
     # 2 epochs, then a resume to 3 -----------------------------------
-    resumed = {}
-    resume = driver.Trainer.maybe_resume
-
-    def watched(self):
-        ok = resume(self)
-        if ok:
-            ckpt = torch.load(_ckpt_path(self.save_path,
-                                         self.start_epoch - 1),
-                              map_location="cpu", weights_only=False)
-            sd = ckpt["state_dict"]["model"]
-            resumed.update(start=self.start_epoch, equal=all(
-                torch.equal(v.cpu(), sd[k])
-                for k, v in self.lanenet.state_dict().items()))
-        return ok
-
-    driver.Trainer.maybe_resume = watched
-    try:
+    with watch_resume() as resumed:
         _, fit_s = counted("fit, 2 epochs", ["--nepochs", "2"],
                            2 * TRAIN_BATCHES, 2 * VAL_BATCHES)
         _, resume_s = counted("resume to 3 epochs", ["--nepochs", "3"],
                               TRAIN_BATCHES, VAL_BATCHES)
-    finally:
-        driver.Trainer.maybe_resume = resume
     if resumed != {"start": 2, "equal": True}:
         failures.append(f"resume: {resumed}, expected the run to start at "
                         "epoch 3 with the checkpoint's weights bit for bit")
@@ -2520,6 +2812,304 @@ def trainer_phase(dev, card):
     return summary, failures
 
 
+# ----------------------------------------------------------------------
+# Phase 4i: the staged schedule and the BEV command line
+# ----------------------------------------------------------------------
+
+# the train.sh flags through the staged schedule: epoch 1 skip, epoch 2
+# seg (the pretraining head), epoch 3 e2e (the main head)
+STAGED_ARGV = TRAINER_ARGV + ["--pretrained", "true", "--pretrain_epochs",
+                              "2", "--skip_epochs", "1"]
+STAGED_PHASES = ("skip", "seg", "e2e")
+# the BEV profile with its four lanes and heads, so that validation writes
+# every image's beta, its TuSimple lines (write_lsq_results) and acc_seg
+# The BEV beta of the card against the CPU's, per coefficient, at
+# BETA_COLUMN_TOL of its column's largest value. TOL_F32 of max|beta|, the
+# BP bar of 4g, is out of reach of two float32 backbones here: the BEV
+# fit is sensitive to its logits, and its columns are of one scale, where
+# the BP beta's largest column (pixels) hides the error of its small ones.
+# A float64 witness (bev_beta_witness) says how far each side lies from
+# exact arithmetic; the card is held against it at the same bar, and a
+# control, the witness's logits rounded to BETA_CONTROL first, must read
+# above the bar in the same run. Measured on an H100: card against CPU
+# 1.6e-4-3.4e-4 of a column over seven runs; against float64 the card
+# 2.1e-4-3.3e-4, the CPU 3.7e-5-4.7e-5 (3xTF32 keeps less of each product
+# than an f32 FMA), the logits rounded to TF32 2.8e-4-5.2e-4 and to bf16
+# 2.6e-3-3.7e-3 (two runs): the bar sits 3x above the largest reading and
+# 2.6x below the smallest bf16 control. Scaling the logits (phase 3c's
+# control) moves no beta:
+# the fit is invariant to a uniform scale of its weights. The loss and
+# the exact area stay at TOL_F32.
+BETA_COLUMN_TOL = 1e-3
+BETA_CONTROL = "bf16"
+BEV_ARGV = ("--profile bev --nclasses 4 --clas 1 --synthetic 32 "
+            "--split_percentage 0.25 --resize 256 --batch_size 8 "
+            "--save_freq 3 --print_freq 1").split()
+
+
+@contextlib.contextmanager
+def watch_resume():
+    """Record, in the dict it yields, where a resumed Trainer starts and
+    whether its weights equal the checkpoint's bit for bit."""
+    from lanedetection_end2end_tpu_torch.train import driver
+    from lanedetection_end2end_tpu_torch.train.checkpoint import _ckpt_path
+    resumed = {}
+    resume = driver.Trainer.maybe_resume
+
+    def watched(self):
+        ok = resume(self)
+        if ok:
+            ckpt = torch.load(_ckpt_path(self.save_path,
+                                         self.start_epoch - 1),
+                              map_location="cpu", weights_only=False)
+            sd = ckpt["state_dict"]["model"]
+            resumed.update(start=self.start_epoch, equal=all(
+                torch.equal(v.cpu(), sd[k])
+                for k, v in self.lanenet.state_dict().items()))
+        return ok
+
+    driver.Trainer.maybe_resume = watched
+    try:
+        yield resumed
+    finally:
+        driver.Trainer.maybe_resume = resume
+
+
+@contextlib.contextmanager
+def record_eval_inputs():
+    """Record, in the dict it yields, the Trainer's model ("model") and the
+    images of every eval step it runs ("images"), as the step prepares
+    them."""
+    from lanedetection_end2end_tpu_torch.train import driver
+    from lanedetection_end2end_tpu_torch.train.steps import prepare_batch
+    seen = {"images": []}
+    make = driver.Trainer.eval_step_for
+
+    def watched(self, phase):
+        step = make(self, phase)
+        seen["model"] = self.lanenet
+
+        def recorded(batch):
+            seen["images"].append(prepare_batch(batch)["image"].cpu())
+            return step(batch)
+        return recorded
+
+    driver.Trainer.eval_step_for = watched
+    try:
+        yield seen
+    finally:
+        driver.Trainer.eval_step_for = make
+
+
+def bev_beta_witness(model, images):
+    """The BEV beta of `model` on `images` (B, H, W, 3) float32 with every
+    operation in float64 on the CPU: `LaneNet.forward`'s e2e graph in eval
+    mode, then the separable fit on the fitter's float32 constants taken
+    as exact. -> {"float64": beta, "tf32": beta, "bf16": beta}: beta of the
+    float64 logits and, as controls, of those logits rounded to TF32 or to
+    bf16 first."""
+    import copy
+    from lanedetection_end2end_tpu_torch.ops.tf32x3 import round_tf32
+    net = copy.deepcopy(model).cpu().double().eval()
+    with torch.no_grad():
+        _, dec = net.net(images.cpu().double().permute(0, 3, 1, 2), None,
+                         use_main_head=True)
+    dec = dec.permute(0, 2, 3, 1)                           # (B, H, W, C)
+    f = net.fitter
+    mask, xs = net._mask.cpu().double(), f.sep_xs.cpu().double()
+    coeff = f.sep_coeff.cpu().double()
+
+    def fit(logits):
+        B, H, W, C = logits.shape
+        w2 = (net._act(logits) * mask) ** 2
+        S0 = w2.sum(dim=2).transpose(1, 2)
+        S1 = (w2 * xs[None, None, :, None]).sum(dim=2).transpose(1, 2)
+        S = torch.cat([S0.reshape(B * C, -1), S1.reshape(B * C, -1)], -1)
+        return f._finish((S.unsqueeze(-1) * coeff).sum(dim=1).cpu(), B, C
+                         ).cpu()
+
+    return {"float64": fit(dec), "tf32": fit(round_tf32(dec.float()).double()),
+            "bf16": fit(dec.to(torch.bfloat16).double())}
+
+
+def staged_phase(dev, card):
+    """Phase 4i, both through `main_torch.main` at 256x512, batch 8,
+    float32 on one 32-image synthetic set, with the kernels' launch counts
+    set to 0 just before each call and read just after:
+
+    - the train.sh flags with `--pretrained true --pretrain_epochs 2
+      --skip_epochs 1`, one epoch a call (a resume each time): epoch 1
+      skip and epoch 2 seg launch no kernel (their steps run on the plain
+      graph; the skip epoch validates nothing, the seg epoch validates
+      with the seg step), epoch 3 e2e launches 4g's counts; the seg
+      epoch's checkpoint holds the pretraining head, and the e2e epoch
+      starts from it bit for bit; every loss finite;
+    - `--profile bev` with 4 lanes and the heads, 2 epochs (4g's counts
+      an epoch), then `--evaluate` on the card against the same with
+      `--no_cuda true`: validation loss and exact area at TOL_F32, every
+      fitted beta at BETA_COLUMN_TOL of its coefficient's column, and the
+      card's at that bar of a float64 witness on the CPU (the best
+      checkpoint on the CPU run's validation images), whose logits
+      rounded to BETA_CONTROL must read above it.
+
+    Returns (summary, failures)."""
+    import shutil
+    from pathlib import Path
+
+    import main_torch
+    from lanedetection_end2end_tpu_torch.data.labels import read_json_lines
+    from lanedetection_end2end_tpu_torch.data.synthetic import (
+        make_synthetic_root)
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, encoder_fused_kernel)
+    from lanedetection_end2end_tpu_torch.train.checkpoint import _ckpt_path
+
+    root = Path(__file__).resolve().parent / "_smoke" / "staged"
+    shutil.rmtree(root, ignore_errors=True)
+    make_synthetic_root(str(root / "synthetic_data"), num_train=32,
+                        num_test=4, seed=0)
+    wrappers = train_wrappers()
+    serving = (encoder_fused_kernel, decoder_fused_kernel)
+    failures, summary = [], {}
+
+    def counted(label, argv, want):
+        reset_counts(wrappers)
+        for w in serving:
+            w.launches = 0
+        out, secs = _main_torch(argv + ["--save_path", str(root)])
+        got = read_counts(wrappers)
+        print(f"staged {label}: {secs:.1f} s, launches "
+              + str({n: v for n, v in got.items() if v != (0, 0)}))
+        if got != want or any(w.launches for w in serving):
+            failures.append(f"{label}: launches {got}, expected {want}")
+        return out, secs
+
+    # the staged schedule, one epoch a call -----------------------------
+    cfg = main_torch.parse_args(STAGED_ARGV)[0]
+    run = root / cfg.save_id
+    secs = {}
+    for epoch, phase in enumerate(STAGED_PHASES):
+        if cfg.phase_for_epoch(epoch) != phase:
+            failures.append(f"epoch {epoch + 1} is "
+                            f"{cfg.phase_for_epoch(epoch)}, not {phase}")
+        want = (_expected(TRAIN_BATCHES, VAL_BATCHES) if phase == "e2e"
+                else _expected(0, 0))
+        with watch_resume() as resumed:
+            _, secs[phase] = counted(
+                f"epoch {epoch + 1} ({phase})",
+                STAGED_ARGV + ["--nepochs", str(epoch + 1)], want)
+        if epoch and resumed != {"start": epoch, "equal": True}:
+            failures.append(f"{phase} epoch resumed {resumed}, expected a "
+                            f"start at epoch {epoch + 1} with the "
+                            "checkpoint's weights bit for bit")
+        if phase == "seg":
+            sd = torch.load(_ckpt_path(str(run), epoch), map_location="cpu",
+                            weights_only=False)["state_dict"]["model"]
+            if "net.decoder.output_conv2.weight" not in sd:
+                failures.append("the seg epoch's checkpoint has no "
+                                "output_conv2")
+    rows = read_json_lines(str(run / "scalars.jsonl"))
+    if [r["epoch"] for r in rows] != [1, 2, 3]:
+        failures.append(f"staged epochs {[r['epoch'] for r in rows]}")
+    batch_ms = {}
+    for r, phase in zip(rows, STAGED_PHASES):
+        losses = {k: v for k, v in r.items() if "loss" in k or "rmse" in k}
+        validated = "val_loss" in r
+        batch_ms[phase] = 1e3 * r["train_batch_time"]
+        print(f"staged epoch {r['epoch']} ({phase}): {losses}, validated "
+              f"{validated}, {batch_ms[phase]:.1f} ms a training batch "
+              f"(the mean of {TRAIN_BATCHES}, data wait included) on {card}")
+        if (not all(map(math.isfinite, losses.values()))
+                or validated != (phase != "skip")):
+            failures.append(f"staged epoch {r['epoch']}: {losses}, "
+                            f"validated {validated}")
+    if not (run / "example" / "pretrain" / "idx-0_batch-3.png").exists():
+        failures.append("no skip-phase panel at training batch 3")
+    summary["staged"] = {"train_batch_ms": batch_ms, "seconds": secs,
+                         "card": card}
+
+    # the BEV command line ---------------------------------------------
+    cfg = main_torch.parse_args(BEV_ARGV)[0]
+    run = root / cfg.save_id
+    _, fit_s = counted("BEV fit, 2 epochs", BEV_ARGV + ["--nepochs", "2"],
+                       _expected(2 * TRAIN_BATCHES, 2 * VAL_BATCHES))
+    rows = read_json_lines(str(run / "scalars.jsonl"))
+    for r in rows:
+        vals = {k: r[k] for k in ("train_loss", "val_loss", "val_exact_area",
+                                  "val_acc_seg")}
+        print(f"BEV epoch {r['epoch']}: {vals}, "
+              f"{1e3 * r['train_batch_time']:.1f} ms a training batch on "
+              f"{card}")
+        if not all(map(math.isfinite, vals.values())):
+            failures.append(f"BEV epoch {r['epoch']}: {vals}")
+    if not (run / "ls_result.json").exists():
+        failures.append("BEV validation wrote no ls_result.json")
+    argv = BEV_ARGV + ["--nepochs", "2", "--evaluate"]
+    card_eval, eval_s = counted("BEV --evaluate", argv,
+                                _expected(0, VAL_BATCHES))
+    card_beta = [r["params"] for r in read_json_lines(
+        str(run / "validation_set_dst.json"))]
+    with record_eval_inputs() as seen:
+        cpu_eval, cpu_s = _main_torch(argv + ["--no_cuda", "true",
+                                              "--save_path", str(root)])
+    cpu_beta = [r["params"] for r in read_json_lines(
+        str(run / "validation_set_dst.json"))]
+    rels = {k: abs(card_eval[k] - cpu_eval[k]) / abs(cpu_eval[k])
+            for k in ("loss", "exact_area")}
+    cb, pb = torch.tensor(card_beta), torch.tensor(cpu_beta)
+
+    def columns(got, want):
+        return [rel_err(got[..., i], want[..., i])[1]
+                for i in range(want.shape[-1])]
+
+    def shown(cols):
+        return ", ".join(f"{n} {c:.2e}" for n, c in zip("abc", cols))
+
+    beta_cols = columns(cb, pb)
+    beta_max = rel_err(cb, pb)[1]
+    print("BEV --evaluate beta, card vs CPU: max|diff| of each coefficient's"
+          f" column max|CPU| {shown(beta_cols)} (tol {BETA_COLUMN_TOL:g}); "
+          f"of max|beta| {beta_max:.2e}; per lane " + ", ".join(
+              f"{k} {rel_err(cb[:, k], pb[:, k])[1]:.2e}"
+              for k in range(cb.shape[1])))
+    t0 = time.perf_counter()
+    witness = {k: v[:len(cpu_beta), :cb.shape[1]] for k, v in
+               bev_beta_witness(seen["model"],
+                                torch.cat(seen["images"])).items()}
+    exact = witness["float64"]
+    against = {"card": columns(cb, exact), "cpu": columns(pb, exact),
+               **{f"{k} logits": columns(v, exact)
+                  for k, v in witness.items() if k != "float64"}}
+    print(f"BEV --evaluate beta against the float64 witness "
+          f"({time.perf_counter() - t0:.1f} s on the CPU), of each column's "
+          "max|float64|: " + "; ".join(f"{k} {shown(v)}"
+                                      for k, v in against.items())
+          + f" (the {BETA_CONTROL} control must read above "
+          f"{BETA_COLUMN_TOL:g})")
+    ok = (max(rels.values()) <= TOL_F32
+          and max(beta_cols) <= BETA_COLUMN_TOL
+          and max(against["card"]) <= BETA_COLUMN_TOL
+          and max(against[f"{BETA_CONTROL} logits"]) > BETA_COLUMN_TOL
+          and len(card_beta) == len(cpu_beta) > 0)
+    rels.update(beta_columns=beta_cols, beta_of_max=beta_max,
+                float64_witness=against)
+    print(f"BEV --evaluate, card vs CPU ({cpu_s:.1f} s): loss "
+          f"{card_eval['loss']:.8g} / {cpu_eval['loss']:.8g}, exact_area "
+          f"{card_eval['exact_area']:.8g} / {cpu_eval['exact_area']:.8g}, "
+          f"acc_seg {card_eval['acc_seg']:.6f} / {cpu_eval['acc_seg']:.6f}; "
+          f"relative loss {rels['loss']:.2e}, exact_area "
+          f"{rels['exact_area']:.2e} (tol {TOL_F32:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"BEV --evaluate card vs CPU: {rels}")
+    summary["bev_cli"] = {
+        "fit_2_epochs_s": fit_s, "evaluate_s": eval_s,
+        "train_batch_ms": [1e3 * r["train_batch_time"] for r in rows],
+        "eval_rel_cpu": rels, "card": card}
+    shutil.rmtree(root, ignore_errors=True)
+    return summary, failures
+
+
 def synthetic_batch(seed: int) -> dict:
     """A seeded batch of 8 in the dataset's compact form (host tensors)."""
     g = torch.Generator().manual_seed(seed)
@@ -2611,20 +3201,49 @@ def cosine(a, b):
     return (torch.dot(a, b) / (a.norm() * b.norm())).item()
 
 
-class Trainer:
-    """The train_sh config at 256x512 in one compute dtype on one training
-    path of the card (`fused_blocks`), seeded weights `sd0`, and the steps
-    of phases 4 and 4d on it."""
+def f_calls_expected(path: str, clas: bool) -> dict:
+    """Calls of torch.nn.functional per train step on `path`; without the
+    heads, none of theirs."""
+    heads = {"conv2d": 8, "max_pool2d": 1, "conv_transpose2d": 0}
+    return {n: c - (0 if clas else heads[n])
+            for n, c in F_CALLS[path].items()}
 
-    def __init__(self, dev, sd0, dtype: str, fused_blocks: bool):
+
+def synthetic_bev_batch(seed: int) -> dict:
+    """A seeded BEV batch of 8: the compact images and horizon of
+    `synthetic_batch`, curve parameters (B, 4, 3) of lanes near the image
+    centre in normalized coordinates, and line types (B, 4)."""
+    g = torch.Generator().manual_seed(seed + 1)
+    batch = synthetic_batch(seed)
+    del batch["lanes"], batch["valid_points"]
+    centre = torch.tensor([0.45, 0.55, 0.35, 0.65])
+    params = torch.stack([0.05 * torch.randn(BATCH, 4, generator=g),
+                          0.1 * torch.randn(BATCH, 4, generator=g),
+                          centre + 0.02 * torch.randn(BATCH, 4, generator=g)],
+                         dim=-1)
+    batch.update(params=params,
+                 line=torch.randint(0, 3, (BATCH, 4), generator=g))
+    return batch
+
+
+class Trainer:
+    """A config at 256x512 in one compute dtype on one training path of
+    the card (`fused_blocks`), seeded weights `sd0`, and the steps of
+    phases 4, 4d and 4h on it: by default the train_sh config on a seeded
+    BP batch."""
+
+    def __init__(self, dev, sd0, dtype: str, fused_blocks: bool, cfg=None,
+                 batch=None):
         from lanedetection_end2end_tpu_torch.config import train_sh_config
         from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
-        self.cfg = train_sh_config(resize=RESIZE, reg_ls=1.0,
-                                   compute_dtype=dtype)
+        self.cfg = cfg if cfg is not None else train_sh_config(
+            resize=RESIZE, reg_ls=1.0, compute_dtype=dtype)
         self.model = LaneNet(self.cfg, device=dev)
         self.sd0, self.dev, self.fused_blocks = sd0, dev, fused_blocks
-        self.batch = synthetic_batch(SEED + 3)
-        self.label = f"{dtype}, fused_blocks={fused_blocks}"
+        self.batch = synthetic_batch(SEED + 3) if batch is None else batch
+        self.label = (f"{dtype}, fused_blocks={fused_blocks}"
+                      + (", BEV" if self.cfg.profile == "bev" else ""))
+        self.metrics = {}
 
     def fresh_step(self, sd=None, fused_maps=None):
         from lanedetection_end2end_tpu_torch.train.optim import define_optim
@@ -2645,6 +3264,7 @@ class Trainer:
         metrics = step(self.batch if batch is None else batch, generator)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
+        self.metrics = {k: v.item() for k, v in metrics.items()}
         grads = {k: p.grad.float().flatten().clone()
                  for k, p in self.model.named_parameters()
                  if p.grad is not None}
@@ -2711,13 +3331,16 @@ class Trainer:
         return {k: v * BN2_DAMP if k.endswith("bn2.weight") else v
                 for k, v in self.sd0.items()}
 
-    def hold_f32(self):
+    def hold_f32(self, noise_margin=None):
         """Phase 4d in float32: the step on the kernels against the step on
         their plain versions, on the seeded weights as drawn (beside the
         kernel step's own rerun) and with the residual branches damped
-        (see the docstring for the bars)."""
+        (see the docstring for the bars). With `noise_margin`, the least
+        cosine as drawn is the rerun's cosine less that margin, not
+        F32_AS_DRAWN's (phase 4h). Returns {weights: cosine}."""
         loss_k, g_k, loss_p, g_p = self.kernels_vs_plain()
         _, g_r, _ = self.one_step(self.fresh_step(), None)
+        read = {}
         for weights, (cos_min, ratio_tol) in (("seeded", F32_AS_DRAWN),
                                               ("damped", F32_DAMPED)):
             if weights == "damped":
@@ -2726,14 +3349,20 @@ class Trainer:
             gk, gp = whole(g_k), whole(g_p)
             rel = abs(loss_k - loss_p) / abs(loss_p)
             cos, ratio = cosine(gk, gp), (gk.norm() / gp.norm()).item()
-            rerun = (f"; the kernel step against its own rerun, whose f32 "
-                     f"atomics add in another order: "
-                     f"{cosine(gk, whole(g_r)):.8f}"
-                     if weights == "seeded" else "")
+            rerun = ""
+            if weights == "seeded":
+                floor = cosine(gk, whole(g_r))
+                read["rerun"] = floor
+                rerun = (f"; the kernel step against its own rerun, whose "
+                         f"f32 atomics add in another order: {floor:.8f}")
+                if noise_margin is not None:
+                    cos_min = floor - noise_margin
+                    rerun += f", less {noise_margin:g}"
+            read[weights] = cos
             print(f"train step ({self.label}), kernels vs plain versions, "
                   f"{weights} weights: loss {loss_k:.8g} vs {loss_p:.8g} "
                   f"(rel {rel:.3e}, tol {F32_LOSS:g}), whole gradient cosine "
-                  f"{cos:.8f} (least {cos_min}{rerun}), norm ratio "
+                  f"{cos:.8f} (least {cos_min:.8g}{rerun}), norm ratio "
                   f"{ratio:.6f} (within {ratio_tol:g} of 1) over "
                   f"{gk.numel()} values")
             if not (rel <= F32_LOSS and cos >= cos_min
@@ -2742,6 +3371,7 @@ class Trainer:
                 fail(f"the {self.label} train step on the kernels disagrees "
                      f"with the step on their plain versions ({weights} "
                      "weights)")
+        return read
 
     def eval_step(self, path):
         """One eval step on the kernels with its launches counted."""
@@ -2757,9 +3387,13 @@ class Trainer:
             fail(f"eval step ({self.label}) launches {read_counts(wrappers)},"
                  f" expected {PER_EVAL[path]}")
         shapes = {k: tuple(v.shape) for k, v in outputs.items()}
-        if (shapes != {"beta": (BATCH, 4, self.cfg.order + 1),
-                       "x_cal": (BATCH, 4, 56), "line_pred": (BATCH, 4),
-                       "horizon_pred": (BATCH, RESIZE)}
+        cfg, C = self.cfg, self.cfg.out_channels
+        want = {"beta": (BATCH, C, cfg.order + 1)}
+        if cfg.profile == "bp":
+            want["x_cal"] = (BATCH, C, 56)
+        if cfg.clas:
+            want.update(line_pred=(BATCH, 4), horizon_pred=(BATCH, RESIZE))
+        if (shapes != want
                 or not all(torch.isfinite(v.float()).all().item()
                            for v in (*outputs.values(), *metrics.values()))):
             fail(f"eval step ({self.label}) outputs {shapes}")
@@ -2776,7 +3410,8 @@ class Trainer:
         step = self.fresh_step(fused_maps=fused_maps)
         reset_counts(wrappers)
         losses, step_ms = [], []
-        with count_calls(F, tuple(F_CALLS[path])) as f_calls:
+        f_want = f_calls_expected(path, self.cfg.clas)
+        with count_calls(F, tuple(f_want)) as f_calls:
             for _ in range(n_steps):
                 loss, grads, ms = self.one_step(step, gen)
                 step_ms.append(ms)
@@ -2794,9 +3429,9 @@ class Trainer:
                     for n, (f, b) in PER_STEP[path].items()}
         if counts != expected:
             fail(f"launches {counts}, expected {expected}")
-        if f_calls != {n: n_steps * c for n, c in F_CALLS[path].items()}:
+        if f_calls != {n: n_steps * c for n, c in f_want.items()}:
             fail(f"calls of torch.nn.functional {f_calls}, expected "
-                 f"{F_CALLS[path]} per step")
+                 f"{f_want} per step")
         if step.state.step != n_steps:
             fail(f"state counts {step.state.step} steps")
         return step, counts, losses, step_ms
@@ -2863,6 +3498,44 @@ def train_phase(dev, sd0, dtype, profile=False):
     if profile:
         profile_again(step0, tr, gen, f"{dtype} fused_maps=False")
     return counts
+
+
+def bev_train_phase(dev, profile=False):
+    """Phase 4h: `bev_defaults(resize=256, nclasses=2)` in float32 (the
+    config's dtype) on the default path, adam, seeded weights and a
+    seeded BEV batch of 8: one step with dropout off on the kernels
+    against the same step on their plain versions (phase 4's float32
+    bars, except that the cosine as drawn is held against the kernel
+    step's own rerun less BEV_NOISE_MARGIN), one eval step (K9's head at
+    cout 2, forwards only), then 3 counted steps with dropout on (17 + 17
+    of each half, 3 + 3 / 2 + 2 / 1 + 1 of K8-K10, K10 at C = 2), finite
+    loss and exact area. The seeds are phase 4's: the encoder's weights
+    and the images are phase 4's too (the draws of the decoder follow the
+    2-lane predict head's). Returns (summary, launches of the 3 steps)."""
+    from lanedetection_end2end_tpu_torch.config import bev_defaults
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+    cfg = bev_defaults(resize=RESIZE, nclasses=2)
+    sd0 = random_state_dict(LaneNet(cfg, device=dev), SEED)
+    tr = Trainer(dev, sd0, cfg.compute_dtype, fused_blocks=True, cfg=cfg,
+                 batch=synthetic_bev_batch(SEED + 3))
+    cosines = tr.hold_f32(noise_margin=BEV_NOISE_MARGIN)
+    tr.eval_step("fused")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    step, counts, losses, step_ms = tr.counted_steps(TRAIN_STEPS, "fused",
+                                                     gen)
+    area = tr.metrics["exact_area"]
+    moved = sum(int((p.detach() != sd0[k].to(dev)).any().item())
+                for k, p in tr.model.named_parameters())
+    n_params = sum(1 for _ in tr.model.parameters())
+    if not math.isfinite(area) or moved < n_params - 2:
+        fail(f"BEV train steps: exact_area {area}, {moved} of {n_params} "
+             "parameter tensors moved")
+    ms = tr.report(step_ms, losses, f"; exact_area {area:.6g}, {moved} of "
+                   f"{n_params} parameter tensors moved")
+    if profile:
+        profile_steps(lambda: step(tr.batch, gen), ms, "BEV float32")
+    return {"ms_per_step": ms, "step_ms": step_ms, "losses": losses,
+            "exact_area": area, "cosine": cosines}, counts
 
 
 def unfused_phase(dev, sd0, profile=False):
@@ -2969,6 +3642,48 @@ def profile_steps(run_step, step_ms: float, label: str,
         print(f"profile {label}:   "
               f"{e.self_device_time_total / 1e3 / steps:8.3f} ms "
               f"x{e.count / steps:6.0f}  {e.key[:100]}")
+
+
+def numbers(s):
+    """A summary's numbers in the kernels line."""
+    out = {"max_abs_err": s["max_abs_err"], "ms": s["ms"],
+           "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+           "bound_by": ("operations" if 2 * s.get("ops_ms", 0.0)
+                        > s["bound_ms"] else "bytes"),
+           "library_ms": s.get("library_ms")}
+    if "ffma_bound_ms" in s:
+        out["ffma_bound_ms"] = s["ffma_bound_ms"]
+    return out
+
+
+def bwd_numbers(s):
+    """A training kernel's backward numbers in the kernels line."""
+    out = {"bwd_ms": s["bwd_ms"], "plain_bwd_ms": s["plain_bwd_ms"],
+           "bwd_bound_ms": s["bwd_bound_ms"],
+           "max_rel_err_reduce": s["max_rel_err_reduce"]}
+    for key in ("bwd_library_ms", "bwd_ffma_bound_ms"):
+        if key in s:
+            out[key] = s[key]
+    return out
+
+
+def two_lane_entry(name, by_dtype, bev, bev_launches):
+    """The kernels line's `two_lanes` object of kernel `name`: phase 2e's
+    numbers per dtype, and the launches of the BEV paths (3 engine calls
+    of phase 3e; the 3 counted steps of phase 4h, forward and backward)."""
+    out = {}
+    for dname, s in by_dtype.items():
+        out[dname] = numbers(s)
+        if "bwd_ms" in s:
+            out[dname].update(bwd_numbers(s))
+        if "blocks_ms" in s:
+            out[dname]["block_sequence_ms"] = s["blocks_ms"]
+    if name == "decoder_fused":
+        out["launches"] = bev["serving"]["BEV engine, 2 lanes"][
+            "launches"]["decoder_fused"]
+    else:
+        out["launches"], out["bwd_launches"] = bev_launches[name]
+    return out
 
 
 def main() -> int:
@@ -3128,6 +3843,10 @@ def main() -> int:
     if failures:
         fail("K11 or channel_sums disagrees with its plain version: "
              + "; ".join(failures))
+    # 2e. the head kernels at two lanes ----------------------------------
+    two_lanes, failures = check_two_lanes(dev, g)
+    if failures:
+        fail("two lanes: " + "; ".join(failures))
 
     per_image = {n: s["flop"] / BATCH / 1e9 for n, s in summary.items()}
     print("backbone work per 256x512 image: "
@@ -3175,6 +3894,11 @@ def main() -> int:
           f"{1e3 * BATCH / ms:.1f} images/s")
     if profile:
         profile_steps(lambda: engine(packed, images[0]), ms, "engine call")
+    # 3e. the BEV profile's engine ---------------------------------------
+    bev = {"serving": serve_bev(dev, images, {n: wrappers[n] for n in
+                                              ("encoder_fused",
+                                               "decoder_fused",
+                                               *SERVING, *BLOCKS)}, ms)}
 
     # 3b. the blocks path: the config's homography (through the private
     # hook, JAX's mode="blocks"), then the rolled one (the public call
@@ -3243,6 +3967,9 @@ def main() -> int:
         for n in k11_summary:
             counts[n] = unfused_launches[dtype][n]
 
+    # 4h. the BEV profile's e2e step at two lanes -------------------------
+    bev["train"], bev_launches = bev_train_phase(dev, profile=profile)
+
     # 4e. the race check of the row tile under compute-sanitizer --------
     race_report, failures = race_check()
     if failures:
@@ -3257,6 +3984,11 @@ def main() -> int:
     trainer_summary, failures = trainer_phase(dev, card)
     if failures:
         fail("trainer: " + "; ".join(failures))
+    # 4i. the staged schedule and the BEV command line -------------------
+    staged, failures = staged_phase(dev, card)
+    if failures:
+        fail("staged schedule or BEV command line: " + "; ".join(failures))
+    bev.update(staged)
 
     # 5. kernels line and result ----------------------------------------
     kernels = []
@@ -3265,25 +3997,6 @@ def main() -> int:
     path_launches.update(blocks_launches, row12=row12_launches)
     path_launches.update({n: v[0]
                           for n, v in train_launches["bfloat16"].items()})
-
-    def numbers(s):
-        out = {"max_abs_err": s["max_abs_err"], "ms": s["ms"],
-               "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-               "bound_by": ("operations" if 2 * s.get("ops_ms", 0.0)
-                            > s["bound_ms"] else "bytes"),
-               "library_ms": s.get("library_ms")}
-        if "ffma_bound_ms" in s:
-            out["ffma_bound_ms"] = s["ffma_bound_ms"]
-        return out
-
-    def bwd_numbers(s):
-        out = {"bwd_ms": s["bwd_ms"], "plain_bwd_ms": s["plain_bwd_ms"],
-               "bwd_bound_ms": s["bwd_bound_ms"],
-               "max_rel_err_reduce": s["max_rel_err_reduce"]}
-        for key in ("bwd_library_ms", "bwd_ffma_bound_ms"):
-            if key in s:
-                out[key] = s[key]
-        return out
 
     # the training kernels: the bf16 numbers in the entry, the float32 ones
     # (and launches of the float32 steps) beside them
@@ -3319,12 +4032,15 @@ def main() -> int:
             if key in s:
                 entry[key] = s[key]
         entry.update({k: s[k] for k in LIBRARY_NOTES if k in s})
+        if n in two_lanes:
+            entry["two_lanes"] = two_lane_entry(n, two_lanes[n], bev,
+                                                bev_launches)
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels, "wide": wide_summary,
                       "race_check": race_report,
                       "deferred_copies": defer_report,
-                      "trainer": trainer_summary}))
+                      "trainer": trainer_summary, "bev": bev}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

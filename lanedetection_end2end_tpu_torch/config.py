@@ -8,10 +8,10 @@ with the same defaults, the presets (`bp_defaults`, `bev_defaults`,
 schedule (`phase_for_epoch`) and the run naming (`save_id`). The port has
 no environment knobs, so `save_id` appends none.
 
-Fields that select what the port does not run yet (the 'bev' profile, the
-skip and seg phases, the learned homography, more than one device) are
-accepted here and refused with NotImplementedError where a Trainer would
-act on them (`train/driver.py`). `no_cuda` is how a caller asks for the
+Fields that select what the port does not run yet (the learned
+homography, more than one device) are accepted here and refused with
+NotImplementedError where a Trainer would act on them
+(`train/driver.py`). `no_cuda` is how a caller asks for the
 CPU (`torch_device`). The Pallas switches `use_pallas_wls` and
 `packed_train` are kept for the CLI: None and True select what the port
 runs (its kernels), False (the JAX package's XLA paths) is refused.

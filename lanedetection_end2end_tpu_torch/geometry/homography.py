@@ -42,6 +42,22 @@ def bev_matrices_normalized() -> tuple[np.ndarray, np.ndarray]:
             get_perspective_transform(dst, src))
 
 
+def eval_matrices_normalized() -> tuple[np.ndarray, np.ndarray]:
+    """(M, M_inv) of the normalized trapezoid `write_lsq_results` evaluates
+    with: `bev_matrices_normalized` under the name of the evaluation
+    path."""
+    return bev_matrices_normalized()
+
+
+def homogeneous_transform(M: np.ndarray, x, y):
+    """Apply a 3x3 homography to point arrays (numpy or torch), with the
+    perspective divide: -> (x', y')."""
+    denom = M[2, 0] * x + M[2, 1] * y + M[2, 2]
+    x_out = (M[0, 0] * x + M[0, 1] * y + M[0, 2]) / denom
+    y_out = (M[1, 0] * x + M[1, 1] * y + M[1, 2]) / denom
+    return x_out, y_out
+
+
 def bev_matrices_pixel(resize: int = 256, no_mapping: bool = False
                        ) -> tuple[np.ndarray, np.ndarray]:
     """(M, M_inv) in pixel coordinates of the (resize, 2*resize) image:

@@ -20,6 +20,10 @@ is given a `torch.Generator`.
 - Encoder: 3->16 -> 64 (5x NB1D) -> 128 (2x NB1D dilations 2/4/8/16), and
   the 1x1 predict head the e2e phase never reads
 - Decoder: Up(128->64), 2x NB1D, Up(64->16), 2x NB1D, ConvT 2x2/s2 head
+  (`output_conv`); with `pretrained`, also the pretraining head
+  `output_conv2` of num_classes + 1 channels (the background), and
+  `use_main_head` picks which one the forward returns (the seg phase of
+  the staged schedule reads the aux head, the e2e phase the main one)
 """
 
 from __future__ import annotations
@@ -134,7 +138,7 @@ class UpsamplerBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, pretrained: bool = False):
         super().__init__()
         self.layers = nn.ModuleList([
             UpsamplerBlock(128, 64), NonBottleneck1D(64, 1),
@@ -143,22 +147,32 @@ class Decoder(nn.Module):
         self.output_conv = nn.ConvTranspose2d(16, num_classes, 2, stride=2,
                                               padding=0, output_padding=0,
                                               bias=True)
+        if pretrained:
+            self.output_conv2 = nn.ConvTranspose2d(
+                16, num_classes + 1, 2, stride=2, padding=0,
+                output_padding=0, bias=True)
 
-    def forward(self, x):
+    def forward(self, x, use_main_head: bool = True):
+        """The blocks, then `output_conv`, or the pretraining head
+        `output_conv2` where there is one and `use_main_head` is False."""
         for layer in self.layers:
             x = layer(x)
-        return self.output_conv(x)
+        if use_main_head or not hasattr(self, "output_conv2"):
+            return self.output_conv(x)
+        return self.output_conv2(x)
 
 
 class ERFNet(nn.Module):
     """Encoder + decoder; forward returns (encoder_features, seg_logits),
-    both NCHW."""
+    both NCHW, the logits from the main head or, with `pretrained` and
+    `use_main_head=False`, from the pretraining head."""
 
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, pretrained: bool = False):
         super().__init__()
         self.encoder = Encoder(num_classes)
-        self.decoder = Decoder(num_classes)
+        self.decoder = Decoder(num_classes, pretrained)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                use_main_head: bool = True):
         enc = self.encoder(x, generator)
-        return enc, self.decoder(enc)
+        return enc, self.decoder(enc, use_main_head)

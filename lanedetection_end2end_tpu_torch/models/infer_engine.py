@@ -27,8 +27,10 @@ Usage:
     engine.fitter = WLSFitter(M_general, ...) # later calls: blocks path
 
 `state_dict` carries the reference torch names (`LaneNet(cfg).state_dict()`
-or `models/port.py::state_dict_from_variables`). On a CPU device every
-kernel wrapper takes its plain version.
+or `models/port.py::state_dict_from_variables`). Both profiles serve: the
+'bev' fitter (normalized homography) is separable too, so it takes the
+full path, with the BEV line head's (B, 3, 4) logits. On a CPU device
+every kernel wrapper takes its plain version.
 """
 
 from __future__ import annotations
@@ -120,7 +122,8 @@ class FusedLaneNetEngine:
                           dec=pack_decoder(sd, self.cfg, self.fitter))
         if self.cfg.clas:
             for key, kind in _HEADS:
-                head = _load(Classification(kind, self.cfg.resize), sd, key)
+                head = _load(Classification(kind, self.cfg.resize,
+                                            self.cfg.profile), sd, key)
                 packed[kind] = head.to(self.device, BF16).eval()
         return packed
 
@@ -133,9 +136,11 @@ class FusedLaneNetEngine:
         return module.to(memory_format=torch.channels_last)
 
     def __call__(self, packed: Dict, images: torch.Tensor) -> tuple:
-        """images (B, H, W, 3) -> (beta (B, C, order+1) f32,
-        line logits (B, 4) f32 | None, horizon logits (B, resize) f32 |
-        None): the full path for a separable fitter, else blocks."""
+        """images (B, H, W, 3) -> (beta (B, C, order+1) f32, line logits
+        f32 ((B, 4) 'bp', (B, 3, 4) 'bev') | None, horizon logits
+        (B, resize) f32 | None): the full path for a separable fitter,
+        else blocks. C is the config's `out_channels`, any count the head
+        kernels take (1 to 8)."""
         return self._run(packed, images, blocks=not self.fitter.separable)
 
     @torch.no_grad()

@@ -1,15 +1,29 @@
 """LaneNet: backbone -> activation -> top-row mask -> WLS fit, plus the line
-and horizon heads; the e2e forward, eval and train.
+and horizon heads, for both profiles and the three phases.
 
 Counterpart of `lanedetection_end2end_tpu/models/lanenet.py` (`LaneNet.apply`
-and `LaneNet.apply_packed` with phase="e2e"). `forward` is the plain float32
-PyTorch reference that the serving engine and the packed training path are
-checked against; `apply_packed` reads the same parameters and runs the
-training backbone of `ops/packed_graph.py` (NB1D blocks on the fused
+and `LaneNet.apply_packed`). `forward` is the plain float32 PyTorch graph:
+the reference that the serving engine and the packed training path are
+checked against, and the graph the skip and seg phases train on, as the
+JAX package trains them on its flax graph. The phases:
+
+- 'e2e': activation of the logits -> row mask -> WLS fit, and the heads;
+- 'seg': the detached argmax of the logits split into per-lane maps
+  carrying the class index as weight (k * [argmax == k], k = 1..nclasses)
+  -> row mask -> WLS fit (a metric only); the heads still run, and in
+  train mode update their BatchNorm statistics, but are not returned;
+- 'skip': the logits alone, no fit (the heads as in 'seg').
+
+With `pretrained`, the decoder carries the pretraining head `output_conv2`
+(nclasses + 1 channels) beside the main one: 'e2e' reads the main head,
+'skip' and 'seg' the pretraining head. `apply_packed` is the e2e phase on
+the training backbone of `ops/packed_graph.py` (NB1D blocks on the fused
 half-block kernels, stride-2 blocks and the e2e tail on the lane-map
-kernels) in the compute dtype. The module's `state_dict` carries
-the reference torch names (`net.*`, `line_classification.*`,
-`horizon_estimation.*`). Only the BP profile is ported.
+kernels) in the compute dtype, for either profile: the fitter of both is
+separable ('bp': pixel coordinates; 'bev': the normalized homography). The
+module's `state_dict` carries the reference torch names (`net.*`,
+`line_classification.*`, `horizon_estimation.*`). The learned homography
+and the dormant `do_segmentation` decoder are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +37,8 @@ import torch.nn as nn
 
 from lanedetection_end2end_tpu_torch.config import LaneConfig
 from lanedetection_end2end_tpu_torch.device import resolve_device
-from lanedetection_end2end_tpu_torch.geometry import bev_matrices_pixel
+from lanedetection_end2end_tpu_torch.geometry import (
+    bev_matrices_normalized, bev_matrices_pixel)
 from lanedetection_end2end_tpu_torch.models.erfnet import ERFNet
 from lanedetection_end2end_tpu_torch.models.heads import Classification
 from lanedetection_end2end_tpu_torch.ops.activations import activation_fn
@@ -32,22 +47,29 @@ from lanedetection_end2end_tpu_torch.ops.packed_graph import (
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
 
 
+PHASES = ("skip", "seg", "e2e")
+
+
 @dataclasses.dataclass
 class LaneNetOutput:
-    beta: torch.Tensor                       # (B, C, order+1)
+    beta: Optional[torch.Tensor]             # (B, C, order+1) | None (skip)
     weightmaps: Optional[torch.Tensor]       # (B, C, H, W), masked | None
     seg_logits: Optional[torch.Tensor]       # (B, H, W, C) | None
-    line_logits: Optional[torch.Tensor]      # (B, 4) | None
+    line_logits: Optional[torch.Tensor]      # (B, 4) bp | (B, 3, 4) bev | None
     horizon_logits: Optional[torch.Tensor]   # (B, resize) | None
     encoder_features: torch.Tensor           # (B, H/8, W/8, 128)
 
 
 def make_fitter(cfg: LaneConfig, device) -> WLSFitter:
-    if cfg.profile != "bp":
-        raise NotImplementedError("the port covers the 'bp' profile only")
-    M, _ = bev_matrices_pixel(cfg.resize, cfg.no_mapping)
+    """The profile's fitter: 'bev' on the normalized homography in
+    normalized coordinates, 'bp' on the pixel one in pixels."""
+    if cfg.profile == "bev":
+        M, _ = bev_matrices_normalized()
+    else:
+        M, _ = bev_matrices_pixel(cfg.resize, cfg.no_mapping)
     return WLSFitter(M, cfg.image_height, cfg.image_width, cfg.order,
-                     normalized=False, reg_ls=cfg.reg_ls, device=device)
+                     normalized=cfg.profile == "bev", reg_ls=cfg.reg_ls,
+                     device=device)
 
 
 def zero_rows(cfg: LaneConfig) -> int:
@@ -72,34 +94,53 @@ class LaneNet(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.fitter = make_fitter(cfg, device)
-        self.net = ERFNet(cfg.out_channels)
+        self.net = ERFNet(cfg.out_channels, cfg.pretrained)
         if cfg.clas:
-            self.line_classification = Classification("line", cfg.resize)
-            self.horizon_estimation = Classification("horizon", cfg.resize)
+            self.line_classification = Classification("line", cfg.resize,
+                                                      cfg.profile)
+            self.horizon_estimation = Classification("horizon", cfg.resize,
+                                                     cfg.profile)
         self._mask = row_mask(cfg, device)
         self._act = activation_fn(cfg.activation_layer)
         self.to(device).eval()
 
-    def forward(self, images: torch.Tensor, train: bool = False,
+    def forward(self, images: torch.Tensor, phase: str = "e2e",
+                train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> LaneNetOutput:
-        """images (B, H, W, 3) float -> e2e outputs, float32. `train` sets
-        the modules' mode: batch statistics (running ones updated),
-        gradients recorded, and Dropout2d drawn from `generator` when one
-        is given; eval records no gradient."""
+        """images (B, H, W, 3) float -> the outputs of `phase`, float32.
+        `train` sets the modules' mode: batch statistics (running ones
+        updated), gradients recorded, and Dropout2d drawn from `generator`
+        when one is given; eval records no gradient."""
+        if phase not in PHASES:
+            raise ValueError(f"unknown phase {phase!r}")
+        cfg = self.cfg
+        use_main = phase == "e2e" or not cfg.pretrained
         self.train(train)
         with torch.set_grad_enabled(train):
             x = images.permute(0, 3, 1, 2).float()
-            enc, dec = self.net(x, generator)
+            enc, dec = self.net(x, generator, use_main_head=use_main)
             dec = dec.permute(0, 2, 3, 1)                   # (B, H, W, C)
-            masked = self._act(dec) * self._mask
-            beta = self.fitter(masked)
             line = horizon = None
-            if self.cfg.clas:
+            if cfg.clas:
                 line = self.line_classification(enc)
                 horizon = self.horizon_estimation(enc)
+            enc = enc.permute(0, 2, 3, 1)
+            if phase == "skip":
+                return LaneNetOutput(None, None, dec, None, None, enc)
+            if phase == "e2e":
+                activated = self._act(dec)
+            else:
+                # the heads feed losses in the e2e phase only
+                am = dec.detach().argmax(dim=-1)            # (B, H, W)
+                activated = torch.stack(
+                    [(am == k).float() * k
+                     for k in range(1, cfg.nclasses + 1)], dim=-1)
+                line = horizon = None
+            masked = activated * self._mask
+            beta = self.fitter(masked)
         return LaneNetOutput(beta, masked.permute(0, 3, 1, 2), dec, line,
-                             horizon, enc.permute(0, 2, 3, 1))
+                             horizon, enc)
 
     def apply_packed(self, images: torch.Tensor, train: bool = False,
                      generator: Optional[torch.Generator] = None,

@@ -18,6 +18,12 @@ by leaf in the flax tree's layout. Layout conversions, forward:
 - Dense kernel (I, O) -> Linear weight (O, I)
 - Dense after a flatten: flax flattens NHWC, torch NCHW, so the input
   dimension is permuted (H, W, C) -> (C, H, W)
+
+Both directions carry every leaf `LaneNetModule` makes: the encoder's
+predict head, the decoder's pretraining head `output_conv2` (with
+`pretrained`), and the line head of either variant (`fc_line1` of the
+'bp' profile, `fc_line1..4` of 'bev'). A leaf with no place on the other
+side raises; nothing is dropped.
 """
 
 from __future__ import annotations
@@ -109,13 +115,14 @@ def _erfnet_state(p: Mapping, s: Mapping) -> StateDict:
     for i, n in enumerate(_DEC_NAMES):
         fn = upsampler_state if n.startswith("up") else nb1d_state
         sd.update(fn(dp[n], ds[n], f"net.decoder.layers.{i}"))
-    sd.update(conv_transpose_state(dp["output_conv"],
-                                   "net.decoder.output_conv"))
+    for head in ("output_conv", "output_conv2"):
+        if head in dp:
+            sd.update(conv_transpose_state(dp[head], f"net.decoder.{head}"))
     return sd
 
 
 def _classification_state(p: Mapping, s: Mapping, name: str,
-                          resize: int) -> StateDict:
+                          resize: int, variant: str) -> StateDict:
     sd: StateDict = {}
     for i in range(1, 5):
         sd.update(conv_state(p[f"conv{i}"], f"{name}.conv{i}"))
@@ -125,16 +132,23 @@ def _classification_state(p: Mapping, s: Mapping, name: str,
     if "fc1" in p:  # line head
         sd.update(dense_after_flatten_state(p["fc1"], f"{name}.fully_connected1",
                                             64, rows // 2, cols // 2))
-        sd.update(dense_state(p["fc_line1"], f"{name}.fully_connected_line1"))
+        for k in range(1, 5 if variant == "bev" else 2):
+            sd.update(dense_state(p[f"fc_line{k}"],
+                                  f"{name}.fully_connected_line{k}"))
     else:  # horizon head: (rows, 64) after the full-width average
         sd.update(dense_after_flatten_state(
             p["fc_horizon"], f"{name}.fully_connected_horizon", 64, rows, 1))
     return sd
 
 
-def state_dict_from_variables(variables: Mapping) -> StateDict:
-    """JAX `{params, batch_stats}` of `LaneNetModule` (BP profile, e2e
-    phase, no pretraining head) -> the port's `LaneNet` state_dict."""
+def state_dict_from_variables(variables: Mapping,
+                              profile: str = "bp") -> StateDict:
+    """JAX `{params, batch_stats}` of `LaneNetModule` -> the port's
+    `LaneNet` state_dict. `profile` picks the line head's variant, as the
+    JAX package's `port_torch_state_dict` takes it; a leaf of `variables`
+    that has no place in the state_dict raises ValueError."""
+    if profile not in ("bp", "bev"):
+        raise ValueError(f"unknown profile {profile!r}")
     params, stats = variables["params"], variables["batch_stats"]
     sd = _erfnet_state(params["erfnet"], stats["erfnet"])
     if "line_classification" in params:
@@ -143,8 +157,39 @@ def state_dict_from_variables(variables: Mapping) -> StateDict:
             params["horizon_estimation"]["fc_horizon"]["kernel"])[1])
         for key in ("line_classification", "horizon_estimation"):
             sd.update(_classification_state(params[key], stats[key], key,
-                                            resize))
+                                            resize, profile))
+    left = _leaves(variables) - _carried(sd)
+    if left:
+        raise ValueError("leaves with no place in the port's state_dict: "
+                         + ", ".join(sorted(left)))
     return sd
+
+
+def _leaves(tree: Mapping, prefix: str = "") -> set:
+    """'collection/.../leaf' paths of a nested dict."""
+    out = set()
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out |= _leaves(v, f"{prefix}{k}/")
+        else:
+            out.add(prefix + k)
+    return out
+
+
+def _carried(sd: Mapping) -> set:
+    """The flax leaf paths the entries of `sd` stand for."""
+    out = set()
+    for key in sd:
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        path, kind = _flax_path(module)
+        if kind == "bn":
+            coll, name = _BN_LEAVES[leaf]
+        else:
+            coll, name = "params", "kernel" if leaf == "weight" else leaf
+        out.add("/".join([coll] + path + [name]))
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -154,38 +199,55 @@ def state_dict_from_variables(variables: Mapping) -> StateDict:
 _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_mean": ("batch_stats", "mean"),
               "running_var": ("batch_stats", "var")}
-_DENSE_NAMES = {"fully_connected1": "fc1", "fully_connected_line1": "fc_line1",
-                "fully_connected_horizon": "fc_horizon"}
+_DENSE_NAMES = {"fully_connected1": "fc1",
+                "fully_connected_horizon": "fc_horizon",
+                **{f"fully_connected_line{k}": f"fc_line{k}"
+                   for k in range(1, 5)}}
+_HEAD_CONVS = {f"conv{i}" for i in range(1, 5)}
+_HEADS = ("line_classification", "horizon_estimation")
+_BLOCK_LEAVES = {"conv", "bn", "conv3x1_1", "conv1x3_1", "conv3x1_2",
+                 "conv1x3_2", "bn1", "bn2"}
 
 
 def _flax_path(name: str):
     """Reference torch module name -> (flax path, kind) with kind in
-    conv | convT | bn | dense."""
+    conv | convT | bn | dense; KeyError for a module the flax tree has no
+    place for."""
     parts = name.split(".")
-    if parts[0] == "net":
+    if parts[0] == "net" and len(parts) >= 3 and parts[1] in (
+            "encoder", "decoder"):
         side, rest = parts[1], parts[2:]
-        if rest[0] == "layers":
-            block = (_ENC_NAMES if side == "encoder"
-                     else _DEC_NAMES)[int(rest[1])]
-            path, leaf = ["erfnet", side, block], rest[2]
-        else:
+        names = _ENC_NAMES if side == "encoder" else _DEC_NAMES
+        if (rest[0] == "layers" and len(rest) == 3 and rest[1].isdigit()
+                and int(rest[1]) < len(names)
+                and rest[2] in _BLOCK_LEAVES):
+            path, leaf = ["erfnet", side, names[int(rest[1])]], rest[2]
+        elif (side == "encoder" and len(rest) == 2
+              and rest[0] == "initial_block" and rest[1] in ("conv", "bn")):
+            path, leaf = ["erfnet", side, rest[0]], rest[1]
+        elif len(rest) == 1 and rest[0] in (
+                ("output_conv",) if side == "encoder"
+                else ("output_conv", "output_conv2")):
             path, leaf = ["erfnet", side], rest[0]
-            if len(rest) > 1:           # initial_block.conv / .bn
-                path, leaf = path + [rest[0]], rest[1]
+        else:
+            raise KeyError(f"{name}: no place in the flax tree")
         if leaf.startswith("bn"):
             kind = "bn"
-        elif side == "decoder" and (leaf == "output_conv" or (
+        elif side == "decoder" and (leaf.startswith("output_conv") or (
                 leaf == "conv" and path[-1].startswith("up"))):
             kind = "convT"
         else:
             kind = "conv"
         return path + [leaf], kind
-    head, leaf = parts
-    if leaf.endswith("_bn"):
-        return [head, leaf], "bn"
-    if leaf in _DENSE_NAMES:
-        return [head, _DENSE_NAMES[leaf]], "dense"
-    return [head, leaf], "conv"
+    if len(parts) == 2 and parts[0] in _HEADS:
+        head, leaf = parts
+        if leaf.endswith("_bn") and leaf[:-3] in _HEAD_CONVS:
+            return [head, leaf], "bn"
+        if leaf in _DENSE_NAMES:
+            return [head, _DENSE_NAMES[leaf]], "dense"
+        if leaf in _HEAD_CONVS:
+            return [head, leaf], "conv"
+    raise KeyError(f"{name}: no place in the flax tree")
 
 
 def variables_from_state_dict(named: Mapping[str, torch.Tensor],
@@ -193,7 +255,8 @@ def variables_from_state_dict(named: Mapping[str, torch.Tensor],
     """Inverse of `state_dict_from_variables` for any dict keyed by the
     port's parameter and buffer names: returns `{"params": tree,
     "batch_stats": tree}` of numpy arrays in the flax layouts (a subtree is
-    empty where `named` has no such entries, as for gradients)."""
+    empty where `named` has no such entries, as for gradients). A name
+    with no place in the flax tree raises KeyError."""
     out: Dict = {"params": {}, "batch_stats": {}}
     rows, cols = resize // 8, 2 * resize // 8
 
@@ -219,7 +282,7 @@ def variables_from_state_dict(named: Mapping[str, torch.Tensor],
         elif kind == "convT":
             put("params", path, "kernel",
                 a.transpose(2, 3, 0, 1)[::-1, ::-1])
-        elif path[-1] == "fc_line1":
+        elif path[-1].startswith("fc_line"):
             put("params", path, "kernel", a.T)
         else:  # a Linear after a flatten: (O, c*h*w) -> (h*w*c, O)
             h, w = (rows // 2, cols // 2) if path[-1] == "fc1" else (rows, 1)

@@ -64,7 +64,9 @@ from lanedetection_end2end_tpu_torch.ops.nb_block import (
 
 BF16 = torch.bfloat16
 F32 = torch.float32
-_MOM_CHANNELS = (4, 16, 64, 128)  # the channel reductions need 256 % C == 0
+# the channels whose moments the kernels reduce (256 % C == 0); checked
+# only where moments are asked for, so the 2x2 head takes any C <= 16
+_MOM_CHANNELS = (4, 16, 64, 128)
 # the (cin, cout) the kernels take at k = 3: K8 the config's three
 # downsamplers, K9 its two upsamplers (on the tensor cores but for the
 # first downsampler); K9 at k = 2 takes up to 16 channels each side
@@ -355,7 +357,8 @@ def _lane_maps_fwd_cuda(x, weight, bias, k, out_dtype, want_mom):
     pad = _convt_pad(k).get("padding", 0)
     symbol = _check_plane(x, "ld_lane_maps_op_fwd")
     _check_out_dtype(x.dtype, out_dtype)
-    _check_mom_channels(cout, "lane_maps_op")
+    if want_mom:
+        _check_mom_channels(cout, "lane_maps_op")
     _check_shape("lane_maps_op", cin, cout, k)
     w, b = _check_weight(weight, bias, cin, cout, k)
     wt = _taps_first(w, 1, x.dtype)                       # (k, k, cin, cout)
@@ -376,7 +379,8 @@ def lane_maps_bwd_kernel(x, y, dy, dmom, weight, k: int):
     cout = weight.shape[1]
     pad = _convt_pad(k).get("padding", 0)
     symbol = _check_plane(x, "ld_lane_maps_op_bwd")
-    _check_mom_channels(cout, "lane_maps_op")
+    if dmom is not None:
+        _check_mom_channels(cout, "lane_maps_op")
     _check_shape("lane_maps_op", cin, cout, k)
     dy = dy.contiguous()
     _check_out_dtype(x.dtype, dy.dtype)

@@ -1,32 +1,37 @@
 """Training driver: the epoch loop as one reusable Trainer.
 
-Counterpart of `lanedetection_end2end_tpu/train/driver.py::Trainer` for
-the 'bp' profile in phase 'e2e' on one device (the path of
-`train_sh_config`: no pretraining, so every epoch is e2e):
+Counterpart of `lanedetection_end2end_tpu/train/driver.py::Trainer` on one
+device, for both profiles and the staged schedule:
 
-- the train step from `make_train_step` in `cfg.compute_dtype` on the
-  default kernel path (`fused_blocks=True`, `fused_maps=True`: K6-K10 on a
-  card), held as an opaque callable per phase (`train_step_for`), and the
-  eval step from `make_eval_step` (forwards only);
-- per-epoch validation with metric meters, the fitted-curve records of
-  every validation image (`validation_set_dst.json`) and, with
-  `val_laneeval`, LaneEval on the validation split;
-- the epoch score: the TuSimple test accuracy (maximized) when `clas` and a
-  test set are given, else the validation loss (minimized); it drives the
-  best model and the plateau schedule;
+- the phase of each epoch from `cfg.phase_for_epoch` (with `pretrained`:
+  'skip' epochs in the BP profile, then 'seg' up to `pretrain_epochs`,
+  then 'e2e'; with `end_to_end` off every epoch is 'seg'); a train step
+  and an eval step per phase, made once and held as opaque callables
+  (`train_step_for`, `eval_step_for`): e2e on the training backbone in
+  `cfg.compute_dtype` on the default kernel path (`fused_blocks=True`,
+  `fused_maps=True`: K6-K10 on a card), skip and seg on the plain graph;
+- per-epoch validation with metric meters (none in a skip epoch; the
+  seg step validates), the fitted-curve records of every validation
+  image (`validation_set_dst.json`) and, in the BEV profile with `clas`
+  and 4 lanes, their TuSimple lines (`write_lsq_results`) scored by
+  LaneEval (`acc_seg`); in the BP profile with `val_laneeval`, LaneEval
+  on the validation split;
+- the epoch score: BEV the validation `exact_area` (minimized); BP the
+  TuSimple test accuracy (maximized) when `clas` and a test set are
+  given, else the validation loss (minimized); it drives the best model
+  and the plateau schedule;
 - lambda and step schedules at an epoch's start, plateau at its end;
 - rolling and best checkpoints with the `first_run.txt` marker, resume;
 - `scalars.jsonl` (one line an epoch), the Logger tee, the weight-map
-  panels every `save_freq` training batches and every 25 validation
-  batches.
+  panels (a skip epoch's: input, gt and argmax) every `save_freq`
+  training batches and every 25 validation batches.
 
 When no validation batch runs, the validation loss repeats the epoch's
 train loss, as the JAX Trainer does, and that value then picks the best
 model and drives the plateau schedule; the Trainer prints a notice that
-the validation set was empty. The 'bev' profile, the skip and seg phases,
-the learned homography, more than one device, and `packed_train` or
-`use_pallas_wls` set to False (the JAX package's XLA paths) raise
-NotImplementedError.
+the validation set was empty. The learned homography, more than one
+device, and `packed_train` or `use_pallas_wls` set to False (the JAX
+package's XLA paths) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from lanedetection_end2end_tpu_torch.data.loader import DevicePrefetcher
 from lanedetection_end2end_tpu_torch.device import resolve_device
 from lanedetection_end2end_tpu_torch.eval.lane_eval import LaneEval
 from lanedetection_end2end_tpu_torch.eval.projections import Projections
+from lanedetection_end2end_tpu_torch.eval.results import write_lsq_results
 from lanedetection_end2end_tpu_torch.eval.test_driver import (
     make_infer_fn, test_model)
 from lanedetection_end2end_tpu_torch.models.init import init_weights
@@ -57,7 +63,8 @@ from lanedetection_end2end_tpu_torch.train.optim import (
 from lanedetection_end2end_tpu_torch.train.state import TrainState
 from lanedetection_end2end_tpu_torch.train.steps import (
     make_eval_step, make_train_step, prepare_batch)
-from lanedetection_end2end_tpu_torch.train.visualize import save_weightmap
+from lanedetection_end2end_tpu_torch.train.visualize import (
+    save_pretrain_panel, save_weightmap)
 from lanedetection_end2end_tpu_torch.utils import (
     AverageMeter, Logger, mkdir_if_missing)
 
@@ -69,13 +76,6 @@ EMPTY_VALIDATION = ("notice: the validation set is empty; val_loss repeats "
 def check_supported(cfg: LaneConfig) -> None:
     """NotImplementedError for what the port does not train yet, naming
     the ROADMAP item that holds it."""
-    if cfg.profile != "bp":
-        raise NotImplementedError(
-            "the 'bev' profile is not ported yet (ROADMAP Queue 1 item 7)")
-    if cfg.pretrained or not cfg.end_to_end:
-        raise NotImplementedError(
-            "the skip and seg phases (pretrained, or end_to_end off) are "
-            "not ported yet (ROADMAP Queue 1 item 7)")
     if cfg.learn_homography:
         raise NotImplementedError(
             "the learned homography is not ported yet (ROADMAP Queue 1 "
@@ -137,9 +137,9 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
 
-        # best-model policy: maximum test accuracy with clas, else minimum
-        # validation loss
-        self.minimize = not cfg.clas
+        # best-model policy: BEV the minimum exact area; BP the maximum
+        # test accuracy with clas, else the minimum validation loss
+        self.minimize = cfg.profile == "bev" or not cfg.clas
         self.best_score = np.inf if self.minimize else -np.inf
         self.best_epoch = 0
         self.start_epoch = cfg.start_epoch
@@ -155,9 +155,6 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_step_for(self, phase: str) -> Callable:
         """step(batch, generator) -> metrics for `phase` (made once)."""
-        if phase != "e2e":
-            raise NotImplementedError(
-                f"phase {phase!r} is not ported yet (ROADMAP Queue 1 item 7)")
         if phase not in self._train_steps:
             self._train_steps[phase] = make_train_step(
                 self.lanenet, self.cfg, self.optimizer, phase,
@@ -166,9 +163,6 @@ class Trainer:
 
     def eval_step_for(self, phase: str) -> Callable:
         """step(batch) -> (metrics, outputs) for `phase` (made once)."""
-        if phase != "e2e":
-            raise NotImplementedError(
-                f"phase {phase!r} is not ported yet (ROADMAP Queue 1 item 7)")
         if phase not in self._eval_steps:
             self._eval_steps[phase] = make_eval_step(
                 self.lanenet, self.cfg, phase, device=self.device)
@@ -235,13 +229,18 @@ class Trainer:
                  valid_set_labels: Optional[list] = None
                  ) -> Dict[str, float]:
         """The validation pass: metric averages; with `clas` and the
-        validation labels, the fitted-curve records of every image; with
-        `val_laneeval`, LaneEval on the validation split (`acc`)."""
+        validation labels, the fitted-curve records of every image, and in
+        the BEV profile with 4 lanes their LaneEval score (`acc_seg`); in
+        the BP profile with `val_laneeval`, LaneEval on the validation
+        split (`acc`). A skip epoch validates with the seg step."""
         cfg = self.cfg
         phase = cfg.phase_for_epoch(epoch)
+        if phase == "skip":
+            phase = "seg"
         step = self.eval_step_for(phase)
-        bp_laneeval = (cfg.val_laneeval and cfg.clas and cfg.end_to_end
-                       and phase == "e2e" and valid_set_labels is not None)
+        bp_laneeval = (cfg.val_laneeval and cfg.profile == "bp" and cfg.clas
+                       and cfg.end_to_end and phase == "e2e"
+                       and valid_set_labels is not None)
         if bp_laneeval and self._val_infer is None:
             self._val_infer = make_infer_fn(
                 self.lanenet, cfg,
@@ -264,8 +263,13 @@ class Trainer:
                     v, cfg.effective_val_batch_size)
             if cfg.clas and valid_set_labels is not None:
                 beta = outputs["beta"].float().cpu().numpy()  # (B, C, o+1)
-                line = outputs["line_pred"].cpu().numpy()
-                horizon = outputs["horizon_pred"].cpu().numpy()
+                B = beta.shape[0]
+                # no head predictions in the seg phase: zeros, as in JAX
+                line = (outputs["line_pred"].cpu().numpy()
+                        if "line_pred" in outputs else np.zeros((B, 4)))
+                horizon = (outputs["horizon_pred"].cpu().numpy()
+                           if "horizon_pred" in outputs
+                           else np.zeros((B, cfg.resize)))
                 for j in range(beta.shape[0]):
                     rec = dict(valid_set_labels[counter])
                     rec["params"] = beta[j, : cfg.nclasses].tolist()
@@ -276,8 +280,20 @@ class Trainer:
         out = {k: m.avg for k, m in meters.items()}
 
         if cfg.clas and valid_set_labels is not None and records:
-            write_json_lines(os.path.join(self.save_path,
-                                          "validation_set_dst.json"), records)
+            val_set_path = os.path.join(self.save_path,
+                                        "validation_set_dst.json")
+            write_json_lines(val_set_path, records)
+            if cfg.nclasses > 3 and cfg.profile == "bev":
+                ls_result_path = os.path.join(self.save_path,
+                                              "ls_result.json")
+                write_lsq_results(val_set_path, ls_result_path, cfg.nclasses,
+                                  False, False, cfg.resize,
+                                  no_ortho=cfg.no_ortho)
+                acc = LaneEval.bench_one_submit(ls_result_path, val_set_path)
+                out["acc_seg"] = acc[0]
+                if self.verbose:
+                    print("===> Average ACC_SEG on val is {:.8}".format(
+                        acc[0]))
 
         if bp_laneeval and lanes_pred_all:
             # valid_set_labels are TuSimple gt lines in loader order; rows
@@ -313,11 +329,18 @@ class Trainer:
         for epoch in range(self.start_epoch, nepochs or cfg.nepochs):
             if self.verbose:
                 print("\n => Start train set for EPOCH {}".format(epoch + 1))
+            phase = cfg.phase_for_epoch(epoch)
             train_metrics = self.train_epoch(train_loader, epoch)
             last = {f"train_{k}": v for k, v in train_metrics.items()}
             if self.verbose:
                 print("===> Average loss on training set is {:.8f}".format(
                     train_metrics["loss"]))
+
+            if phase == "skip":
+                # no validation in the BP warm-up epochs
+                self._checkpoint(epoch, score=None)
+                self._log_scalars(epoch, last)
+                continue
 
             if valid_loader is not None and len(valid_loader) > 0:
                 val_metrics = self.validate(valid_loader, epoch,
@@ -330,7 +353,9 @@ class Trainer:
                 print("===> Average loss on validation set is {:.8f}".format(
                     val_metrics["loss"]))
 
-            if cfg.clas and test_loader is not None and cfg.end_to_end:
+            if cfg.profile == "bev":
+                score = val_metrics.get("exact_area", val_metrics["loss"])
+            elif cfg.clas and test_loader is not None and cfg.end_to_end:
                 score = test_model(test_loader, self.lanenet, cfg,
                                    save_path=self.save_path,
                                    verbose=self.verbose)
@@ -360,15 +385,22 @@ class Trainer:
     # ------------------------------------------------------------------
     def visualize_batch(self, batch, epoch: int, batch_idx: int = 0,
                         mode: str = "train") -> str:
-        """The weight-map panels of sample 0 (`train/visualize.py`), from
-        the eval forward of the current weights."""
+        """The panels of sample 0 (`train/visualize.py`) from the eval
+        forward of the current weights in the epoch's phase: a skip
+        epoch's input, gt and argmax, else the weight maps and curves."""
+        phase = self.cfg.phase_for_epoch(epoch)
         batch = prepare_batch(batch)
         out = self.lanenet.forward(batch["image"].to(self.device),
-                                   train=False)
+                                   phase=phase, train=False)
+        if phase == "skip":
+            return save_pretrain_panel(batch["image"], batch["gt"],
+                                       out.seg_logits, self.save_path,
+                                       batch_idx)
         gt = batch.get("params", batch.get("lanes"))
         return save_weightmap(mode, out.weightmaps, out.beta, gt,
                               batch["image"], self.save_path, batch_idx,
-                              resize=self.cfg.resize)
+                              resize=self.cfg.resize,
+                              normalized=self.cfg.profile == "bev")
 
     # ------------------------------------------------------------------
     def _checkpoint(self, epoch: int, score: Optional[float]):

@@ -6,8 +6,9 @@ does not use matplotlib). For sample 0 of a batch, three panels of the
 image's size stacked top to bottom and saved as a PNG under
 save_path/example/{train,valid,pretrain,testset}: the input image, the
 normalized sum of its lanes' weight maps on a viridis-like ramp, and a
-white panel with each lane's fitted curve x = poly(H-1 - row) drawn over
-the image rows in the lane's colour, plus, as points in the same colour,
+white panel with each lane's fitted curve drawn over the image rows in
+the lane's colour (BP: x = poly(H-1 - row) in pixels; BEV, normalized
+coordinates: x = W poly(1 - row / (H-1))), plus, as points in the same colour,
 the backprojected x coordinates when given (BP profile, at evenly spaced
 rows as the JAX figure places them) or else the ground-truth curves of
 BEV parameters. A panel is never skipped.
@@ -68,7 +69,7 @@ def _points(draw, xs, rows, colour):
 def save_weightmap(mode: str, weightmaps, beta, gt_params_or_lanes, image,
                    save_path: str, batch_idx: int = 0,
                    x_cal: Optional[np.ndarray] = None,
-                   resize: int = 256) -> str:
+                   resize: int = 256, normalized: bool = False) -> str:
     """Save the panels of sample 0 of a batch; returns the file's path.
 
     Args:
@@ -79,6 +80,7 @@ def save_weightmap(mode: str, weightmaps, beta, gt_params_or_lanes, image,
       image: (B, H, W, 3) input batch in [0, 1].
       x_cal: optional backprojected x coordinates (B, C, 56), BP profile,
         in pixels of the (H, 2 resize) image.
+      normalized: beta in the BEV profile's normalized coordinates.
     """
     from PIL import Image, ImageDraw
     out_dir = os.path.join(save_path, "example", mode)
@@ -97,7 +99,8 @@ def save_weightmap(mode: str, weightmaps, beta, gt_params_or_lanes, image,
     rows = np.arange(H, dtype=np.float64)
     for k in range(w.shape[0]):
         colour = _COLOURS[k % len(_COLOURS)]
-        xs = _poly(b[k], (H - 1.0) - rows)
+        xs = (_poly(b[k], 1.0 - rows / (H - 1.0)) * W if normalized
+              else _poly(b[k], (H - 1.0) - rows))
         pts = [(float(x), float(r)) for x, r in zip(xs, rows)
                if np.isfinite(x) and -W < x < 2 * W]
         if len(pts) > 1:

@@ -4,22 +4,26 @@
 The counterpart of `main.py`, with the same flags (the reference CLI of
 `lanedetection_end2end_tpu_torch/config.py::build_parser`, plus
 `--synthetic N` and `--test_only`); it imports nothing of the JAX
-package. The port trains the 'bp' profile in phase e2e (the path of
-Backprojection_Loss/train.sh):
+package. Both profiles train, through the staged schedule where asked:
 
   python main_torch.py --loss_policy backproject --nclasses 4 --order 3 \\
       --clas 1 --pretrained false --mask_percentage 0.20 --flip_on 1 \\
       --image_dir <imgs> --gt_dir <gt> --json_file <Labels/...json>
+  python main_torch.py --profile bev --image_dir <imgs> --gt_dir <gt> \\
+      --json_file <Labels/Curve_parameters.json>
+  python main_torch.py ... --pretrained true --pretrain_epochs 20 \\
+      --skip_epochs 10          # skip, then seg, then e2e epochs
+  python main_torch.py ... --end_to_end false   # seg epochs only
 
   --synthetic N   write an N-image synthetic TuSimple-format dataset under
                   save_path (the port's `data/synthetic.py`, the same files
                   as the JAX package's from the same seed) and train on it;
                   no --image_dir / --gt_dir needed.
   --test_only     load the best checkpoint and run only test-set inference
-                  and TuSimple LaneEval scoring; needs --clas 1 and a test
-                  set.
+                  and TuSimple LaneEval scoring; needs the 'bp' profile,
+                  --clas 1 and a test set.
   --evaluate      load the best checkpoint, validate, and score the test
-                  set.
+                  set ('bp' profile).
   (otherwise)     resume from the run directory's latest checkpoint, if
                   any, and train to --nepochs.
 
@@ -103,14 +107,19 @@ def main(argv=None):
 
     lanes_file = os.path.join(labels_dir, "lanes_ordered.json")
     line_file = os.path.join(labels_dir, "label_new.json")
-    labels_all = os.path.join(labels_dir, "label_data_all.json")
+    # the validation gt records: BEV its curve file's, BP the TuSimple ones
+    bev = cfg.profile == "bev"
+    labels_all = (cfg.json_file if bev
+                  else os.path.join(labels_dir, "label_data_all.json"))
     line_file = line_file if os.path.exists(line_file) else None
 
     def dataset_factory(valid_idx):
         return LaneDataset(
             cfg.profile, cfg.image_dir, cfg.gt_dir, valid_idx=valid_idx,
             resize=cfg.resize, nclasses=cfg.nclasses, flip_on=cfg.flip_on,
-            lanes_file=lanes_file, line_file=line_file, image_dtype="uint8")
+            curves_file=cfg.json_file if bev else None,
+            lanes_file=None if bev else lanes_file, line_file=line_file,
+            image_dtype="uint8")
 
     train_loader, valid_loader, valid_idx = get_loader(
         dataset_factory, cfg.num_train, cfg.batch_size,
@@ -118,8 +127,10 @@ def main(argv=None):
         flip_on=cfg.flip_on, split_percentage=cfg.split_percentage,
         seed=cfg.seed)
 
+    # the TuSimple test set is scored in the BP profile (its projections
+    # and its line head's presence logits); the BEV profile validates only
     test_loader = None
-    if cfg.clas and cfg.test_dir:
+    if cfg.clas and cfg.test_dir and not bev:
         test_label = os.path.join(cfg.test_dir, "test_label.json")
         if os.path.exists(test_label):
             test_loader = get_testloader(

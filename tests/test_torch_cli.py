@@ -96,8 +96,7 @@ def test_main_refuses_to_run_without_a_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,said", [
-    (["--profile", "bev", "--order", "2"], "item 7"),
-    (["--pretrained", "true"], "item 7"),
+    (["--learn_homography", "true"], "item 7"),
     (["--num_devices", "2"], "item 8"),
     (["--packed_train", "false"], "flax graph"),
     (["--use_pallas_wls", "false"], "K12")])

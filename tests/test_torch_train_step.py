@@ -305,8 +305,13 @@ def test_prepare_batch_matches_jax():
 
 
 def test_train_step_refuses_other_phases_and_profiles():
+    """Both profiles and the three phases are ported; what is refused is a
+    seg step without the background channel (as in JAX) and an unknown
+    phase."""
     cfg = train_sh_config(resize=RESIZE)
     net = LaneNet(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="background channel"):
         tsteps.make_loss_fn(net, cfg, phase="seg")
+    with pytest.raises(ValueError, match="unknown phase"):
+        tsteps.make_loss_fn(net, cfg, phase="pretrain")
 

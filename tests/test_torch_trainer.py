@@ -259,8 +259,6 @@ def test_empty_validation_repeats_the_train_loss(run, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("kw,said", [
-    (dict(profile="bev", order=2), "item 7"),
-    (dict(pretrained=True), "item 7"),
     (dict(learn_homography=True), "item 7"),
     (dict(num_devices=2), "item 8"),
     (dict(num_slices=2), "item 8"),
