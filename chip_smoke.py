@@ -189,9 +189,21 @@ a card. In order:
    epochs, then `--evaluate` on the card against the CPU, beta also
    against a float64 witness beside a bf16 control), every launch
    counted (`staged_phase`);
+4j. the learned homography (`train_sh_config(resize=256, reg_ls=1.0,
+   learn_homography=True)`, float32, seeded weights): the eval forward
+   on the card against the CPU (offsets, M, M_inv, beta, logits), M,
+   M_inv and beta also against a float64 witness beside a TF32 and a
+   bf16 control; a train step card against CPU (the loss, the whole
+   gradient's and the homography head's cosine against the card step's
+   own rerun, and damped), 3 steps with dropout on; `main_torch.main
+   --learn_homography true` on 4g's flags (2 epochs, a resume,
+   `--test_only` through `compute_coordinates_with_M`, `--evaluate` card
+   against CPU) and one epoch with `--packed_train false`; no launch of
+   any kernel wrapper in the whole phase (`homography_phase`);
 5. print the card line as nvidia-smi gives it, the kernels line (with
    the wide phase's, the race check's, the deferred-copy check's, the
-   Trainer's and the BEV phases' results beside the kernels; the C = 2
+   Trainer's, the BEV phases' and the learned homography's results
+   beside the kernels; the C = 2
    holdings as each kernel's `two_lanes`), and `{"ok": true, "device":
    {...}}` last.
 
@@ -2877,12 +2889,12 @@ def watch_resume():
 
 @contextlib.contextmanager
 def record_eval_inputs():
-    """Record, in the dict it yields, the Trainer's model ("model") and the
+    """Record, in the dict it yields, the Trainer's model ("model"), the
     images of every eval step it runs ("images"), as the step prepares
-    them."""
+    them, and the step's outputs on the host ("outputs")."""
     from lanedetection_end2end_tpu_torch.train import driver
     from lanedetection_end2end_tpu_torch.train.steps import prepare_batch
-    seen = {"images": []}
+    seen = {"images": [], "outputs": []}
     make = driver.Trainer.eval_step_for
 
     def watched(self, phase):
@@ -2891,7 +2903,10 @@ def record_eval_inputs():
 
         def recorded(batch):
             seen["images"].append(prepare_batch(batch)["image"].cpu())
-            return step(batch)
+            metrics, outputs = step(batch)
+            seen["outputs"].append({k: v.float().cpu()
+                                    for k, v in outputs.items()})
+            return metrics, outputs
         return recorded
 
     driver.Trainer.eval_step_for = watched
@@ -2912,8 +2927,8 @@ def bev_beta_witness(model, images):
     from lanedetection_end2end_tpu_torch.ops.tf32x3 import round_tf32
     net = copy.deepcopy(model).cpu().double().eval()
     with torch.no_grad():
-        _, dec = net.net(images.cpu().double().permute(0, 3, 1, 2), None,
-                         use_main_head=True)
+        _, dec, _ = net.net(images.cpu().double().permute(0, 3, 1, 2),
+                            None, use_main_head=True)
     dec = dec.permute(0, 2, 3, 1)                           # (B, H, W, C)
     f = net.fitter
     mask, xs = net._mask.cpu().double(), f.sep_xs.cpu().double()
@@ -3107,6 +3122,517 @@ def staged_phase(dev, card):
         "train_batch_ms": [1e3 * r["train_batch_time"] for r in rows],
         "eval_rel_cpu": rels, "card": card}
     shutil.rmtree(root, ignore_errors=True)
+    return summary, failures
+
+
+# ----------------------------------------------------------------------
+# Phase 4j: the learned homography, and the e2e step on the plain graph
+# ----------------------------------------------------------------------
+
+# 4g's flags with the learned homography: its e2e steps, its validation
+# and its test_model run LaneNet.forward (cuDNN and autograd), no kernel
+LH_ARGV = TRAINER_ARGV + ["--learn_homography", "true"]
+# Bars of phase 4j, each set from its card runs (H100 80GB HBM3, 700 W;
+# the readings span them; seeded offsets up to 10 pixels, M 6.3e-2 of max|M| off the fixed
+# matrix). M and M_inv against a float64 witness on the CPU, of
+# max|witness|: the DLT bar of tests/test_torch_dlt.py, DLT_TOL (read: the
+# card 2.8e-6 / 1.1e-5, the CPU 2.9e-6 / 1.2e-5); the control, the float32
+# solve of the witness offsets' system rounded to TF32, must read above
+# it (read 4.9e-3 / 2.5e-2).
+DLT_TOL = 1e-4
+# The card's eval forward against the CPU's: offsets, M, M_inv, line and
+# horizon logits, of each one's max, at LH_TOL (read up to 1.0e-5, M_inv);
+# beta against the CPU's and against the witness per coefficient column,
+# of the column's max, at LH_BETA_TOL (read up to 6.8e-5 and 5.9e-5, the
+# card's convolutions varying between runs; the CPU against float64
+# 4.3e-5), 7x above the readings; the control, the
+# witness's logits rounded to bf16, must read above it (read 2.5e-3 to
+# 3.2e-3 in the three higher columns; 3.5e-5 in the constant one, whose
+# max is the lane's pixel offset, so the control is held on the largest
+# column's reading). The same bars hold `--evaluate` card against CPU on
+# the trained weights (x_cal at LH_TOL, read 3.7e-6 to 5.7e-6; beta up
+# to 5.3e-5).
+LH_TOL, LH_BETA_TOL = 1e-4, 5e-4
+# The step's as-drawn whole-gradient cosine, card against CPU, at least
+# the card step against its own rerun less LH_NOISE_MARGIN, 4h's margin
+# (read: card against CPU 0.99966, the rerun 0.9999988 to 0.9999993, the
+# CPU against one input bit flipped 0.99920); damped, the whole and the
+# head cosines at F32_DAMPED (read 0.9999996 and 0.9999995, ratio 7.2e-6
+# to 9.1e-6 off 1).
+LH_NOISE_MARGIN = 5e-3
+# The head's as-drawn cosine, card against CPU: 1 - cosine at most
+# LH_HEAD_GAP (read 2.4e-6; the rerun 2.2e-7 to 7.2e-7, the CPU against
+# one input bit flipped 2.8e-6). The controls, the card step with M
+# detached in the fit (the head's gradient through the loss alone) or in
+# the loss (through the fit alone), must read above it (read 0.91 and
+# 1.09: the two routes nearly cancel, so either alone lies near right
+# angles to the head's gradient; their whole-gradient cosine reads
+# 0.984).
+LH_HEAD_GAP = 1e-4
+
+
+@contextlib.contextmanager
+def detached_M(route):
+    """Within: the learned homography's matrices detached where `route`
+    ("fit" or "loss") takes them, the control of phase 4j's head-gradient
+    bar."""
+    from lanedetection_end2end_tpu_torch.ops.losses import (
+        BackprojectionLoss)
+    from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
+    cls, name, cut = {"fit": (WLSFitter, "fit_with_M", (1,)),
+                      "loss": (BackprojectionLoss, "with_M", (3, 4))}[route]
+    orig = getattr(cls, name)
+
+    def detached(self, *args):
+        return orig(self, *(a.detach() if i in cut else a
+                            for i, a in enumerate(args)))
+
+    setattr(cls, name, detached)
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def all_wrappers():
+    """Every hand-written kernel's wrapper, training and serving."""
+    from lanedetection_end2end_tpu_torch.ops.backbone import (
+        downsampler, head_rowsums, upsampler)
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, encoder_fused_kernel)
+    from lanedetection_end2end_tpu_torch.ops.nb1d import nb1d, nb1d_chain
+    from lanedetection_end2end_tpu_torch.ops.wls_moments import wls_moments
+    return {**train_wrappers(), "nb1d": nb1d, "nb1d_chain": nb1d_chain,
+            "downsampler": downsampler, "upsampler": upsampler,
+            "head_rowsums": head_rowsums,
+            "encoder_fused": encoder_fused_kernel,
+            "decoder_fused": decoder_fused_kernel,
+            "wls_moments": wls_moments}
+
+
+def lh_witness(model, images):
+    """The learned homography's eval forward of `model` on `images` (B, H,
+    W, 3) float32 with every operation in float64 on the CPU (the
+    fitter's float32 constants taken as exact) -> {offsets, M, M_inv,
+    beta}, and two controls: "tf32 system", (M, M_inv) of the float32
+    solve of the witness offsets' system with A and b rounded to TF32,
+    and "bf16 logits", beta of the witness's logits rounded to bf16,
+    fitted with the witness's M. The offsets are the head's float64
+    pre-activation through tanh / 16, and the fit is its own: the rows
+    of `WLSFitter.__init__` for each sample's M, contracted in float64."""
+    import copy
+    from lanedetection_end2end_tpu_torch.geometry.dlt import (
+        dlt_matrices, dlt_system)
+    from lanedetection_end2end_tpu_torch.models.lanenet import make_fitter
+    from lanedetection_end2end_tpu_torch.ops.tf32x3 import round_tf32
+    net = copy.deepcopy(model).cpu().double().eval()
+    resize = net.cfg.resize
+    f = make_fitter(net.cfg, "cpu")
+    mask = net._mask.cpu().double()
+    ys, xs = f.sep_ys.double(), f.sep_xs.double()
+
+    def fit(logits, M):
+        w2 = (net._act(logits) * mask) ** 2                 # (B, H, W, C)
+        B, C = w2.shape[0], w2.shape[-1]
+        S0, S1 = w2.sum(2), (w2 * xs[:, None]).sum(2)       # (B, H, C)
+        D = M[:, 2, 1:2] * ys + M[:, 2, 2:3]                # (B, H)
+        alpha = M[:, 0, 0:1] / D
+        gamma = (M[:, 0, 1:2] * ys + M[:, 0, 2:3]) / D
+        y_rows = (M[:, 1, 1:2] * ys + M[:, 1, 2:3]) / D
+        y_rows = 1.0 - y_rows if f.normalized else (f.height - 1.0) - y_rows
+        t = y_rows / f.y_scale
+        Yr = torch.stack([t ** p for p in range(f.order, -1, -1)], -1)
+        Z = torch.einsum("bhc,bhi,bhj->bcij", S0, Yr, Yr)
+        X = torch.einsum("bhc,bhi->bci", S0 * (gamma + alpha * f.sep_x0)[
+            ..., None] + S1 * (alpha * f.sep_sx)[..., None], Yr)
+        return f._finish(torch.cat([Z.reshape(B * C, -1),
+                                    X.reshape(B * C, -1)], -1), B, C)
+
+    pre = {}
+    hook = net.homography_head.fc_offsets.register_forward_hook(
+        lambda m, i, o: pre.update(x=o))
+    with torch.no_grad():
+        enc, dec, _ = net.net(images.cpu().double().permute(0, 3, 1, 2),
+                              None)
+        net.homography_head(enc)
+        hook.remove()
+        offsets = torch.tanh(pre["x"]) / 16.0
+        M, M_inv = dlt_matrices(torch.linalg.solve(
+            *dlt_system(offsets, resize)))
+        dec = dec.permute(0, 2, 3, 1)                       # (B, H, W, C)
+        A, b = dlt_system(offsets.float(), resize)
+        control = dlt_matrices(torch.linalg.solve(round_tf32(A),
+                                                  round_tf32(b)))
+        return {"offsets": offsets, "M": M, "M_inv": M_inv,
+                "beta": fit(dec, M), "tf32 system": control,
+                "bf16 logits": fit(dec.to(torch.bfloat16).double(), M)}
+
+
+def beta_columns(got, want):
+    """max|diff| of each coefficient column over its max|want|."""
+    return [rel_err(got[..., i], want[..., i])[1]
+            for i in range(want.shape[-1])]
+
+
+def homography_phase(dev, card):
+    """Phase 4j: `train_sh_config(resize=256, reg_ls=1.0,
+    learn_homography=True)`, batch 8, float32, seeded weights, a seeded
+    non-zero `fc_offsets` among them:
+
+    (a) the eval forward (TF32 off) on the card against the same on the
+        CPU: offsets, M, M_inv, line and horizon logits at LH_TOL of max,
+        beta per coefficient column at LH_BETA_TOL; the card's M and
+        M_inv against a float64 witness at DLT_TOL (its TF32 control
+        above), its beta at LH_BETA_TOL (the bf16 control above);
+    (b) no launch of any hand-written kernel's wrapper over the whole
+        phase, read after each part;
+    (c) one train step with dropout off, card against CPU: the loss at
+        TOL_F32, the whole gradient's and the homography head's cosine at
+        least the card step against its own rerun less LH_NOISE_MARGIN
+        (beside the CPU step against itself with one input bit flipped),
+        and with the residual branches damped (bn2 x BN2_DAMP) at
+        F32_DAMPED; then 3 steps with dropout on: losses finite, the
+        `fc_offsets` gradient non-zero, ms per step (median of 3);
+    (d) `main_torch.main --learn_homography true` on 4g's flags: 2
+        epochs, a resume to 3 bit for bit, `--test_only` through
+        `compute_coordinates_with_M` reproducing the best epoch's test
+        accuracy, `--evaluate` on the card against `--no_cuda true`:
+        loss at TOL_F32, x_cal at LH_TOL of max, beta per column at
+        LH_BETA_TOL, test accuracy within ACC_TOL;
+    (e) 4g's flags with `--packed_train false`, one epoch.
+
+    Returns (summary, failures)."""
+    import shutil
+    from pathlib import Path
+
+    import main_torch
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.data.labels import read_json_lines
+    from lanedetection_end2end_tpu_torch.data.synthetic import (
+        make_synthetic_root)
+    from lanedetection_end2end_tpu_torch.eval.projections import Projections
+    from lanedetection_end2end_tpu_torch.geometry import bev_matrices_pixel
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+    from lanedetection_end2end_tpu_torch.train.checkpoint import (
+        best_checkpoint_path)
+    from lanedetection_end2end_tpu_torch.train.optim import define_optim
+    from lanedetection_end2end_tpu_torch.train.steps import (
+        make_train_step, prepare_batch)
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    failures, summary = [], {"card": card}
+    wrappers = all_wrappers()
+    reset_counts(wrappers)
+
+    def no_launches(label):
+        got = {n: v for n, v in read_counts(wrappers).items() if v != (0, 0)}
+        if got:
+            failures.append(f"{label}: kernel launches {got}")
+
+    def hold(label, value, bar, above=False):
+        ok = value > bar if above else value <= bar
+        if not ok:
+            failures.append(f"{label}: {value:.3e} "
+                            f"({'above' if not above else 'at or under'} "
+                            f"{bar:g})")
+        return "ok" if ok else "FAIL"
+
+    cfg = train_sh_config(resize=RESIZE, reg_ls=1.0, learn_homography=True)
+    # seeded like every other kernel, fc_offsets moves the trapezoid by a
+    # few pixels (printed)
+    sd = random_state_dict(LaneNet(cfg, device=dev), SEED)
+    models = {"card": LaneNet(cfg, device=dev),
+              "cpu": LaneNet(cfg, device="cpu")}
+    batch = synthetic_batch(SEED + 3)
+    images = prepare_batch(dict(batch))["image"]
+
+    # (a) the eval forward ---------------------------------------------
+    outs = {}
+    for where, model in models.items():
+        model.load_state_dict(sd)
+        with torch.no_grad():
+            o = model(images.to(next(model.parameters()).device))
+            offsets = model.homography_head(
+                o.encoder_features.permute(0, 3, 1, 2))
+        outs[where] = {"offsets": offsets.cpu(), "M": o.M.cpu(),
+                       "M_inv": o.M_inv.cpu(), "line": o.line_logits.cpu(),
+                       "horizon": o.horizon_logits.cpu(),
+                       "beta": o.beta.cpu()}
+    sync()
+    t0 = time.perf_counter()
+    wit = lh_witness(models["cpu"], images)
+    wit_s = time.perf_counter() - t0
+    c, p = outs["card"], outs["cpu"]
+    px = (c["offsets"] * torch.tensor([2.0 * RESIZE, 2.0 * RESIZE,
+                                       RESIZE])).abs()
+    fixed = torch.from_numpy(bev_matrices_pixel(RESIZE)[0])
+    print(f"learned homography: offsets of the seeded head up to "
+          f"{px.max().item():.2f} pixels (mean {px.mean().item():.2f}); M "
+          f"moves {rel_err(c['M'], fixed)[1]:.3e}"
+          f" of max|M| off the fixed matrix, on {card}")
+    read = {}
+    for k in ("offsets", "M", "M_inv", "line", "horizon"):
+        read[k] = rel_err(c[k], p[k])[1]
+        print(f"learned homography eval forward, card vs CPU, {k}: "
+              f"{read[k]:.3e} of max|CPU| (tol {LH_TOL:g}) "
+              f"{hold(f'eval {k} card vs CPU', read[k], LH_TOL)} on {card}")
+    cols = {"card vs CPU": beta_columns(c["beta"], p["beta"]),
+            "card vs float64": beta_columns(c["beta"], wit["beta"]),
+            "CPU vs float64": beta_columns(p["beta"], wit["beta"]),
+            "bf16 logits vs float64": beta_columns(wit["bf16 logits"],
+                                                   wit["beta"])}
+    for k in ("card vs CPU", "card vs float64"):
+        hold(f"eval beta {k}", max(cols[k]), LH_BETA_TOL)
+    hold("eval beta bf16 control", max(cols["bf16 logits vs float64"]),
+         LH_BETA_TOL, above=True)
+    print("learned homography eval beta per coefficient column, of the "
+          "column's max: " + "; ".join(
+              f"{k} " + ", ".join(f"{v:.2e}" for v in vs)
+              for k, vs in cols.items())
+          + f" (tol {LH_BETA_TOL:g}; the bf16 control must read above; "
+          f"the float64 witness took {wit_s:.1f} s on the CPU) on {card}")
+    dlt = {}
+    for i, k in enumerate(("M", "M_inv")):
+        dlt[k] = {"card": rel_err(c[k], wit[k])[1],
+                  "cpu": rel_err(p[k], wit[k])[1],
+                  "tf32 system": rel_err(wit["tf32 system"][i], wit[k])[1]}
+        hold(f"{k} card vs float64", dlt[k]["card"], DLT_TOL)
+        hold(f"{k} TF32 control", dlt[k]["tf32 system"], DLT_TOL, above=True)
+        print(f"learned homography {k} against the float64 witness, of its "
+              f"max: card {dlt[k]['card']:.3e}, CPU {dlt[k]['cpu']:.3e}, "
+              f"the TF32-rounded system {dlt[k]['tf32 system']:.3e} (tol "
+              f"{DLT_TOL:g}, the control must read above) on {card}")
+    summary["eval"] = {"card_vs_cpu": read, "beta_columns": cols,
+                       "dlt_vs_float64": dlt,
+                       "offsets_max_px": px.max().item()}
+    no_launches("eval forward")
+
+    # (c) train steps --------------------------------------------------
+    def one_step(where, weights, b=batch, gen=None, step=None):
+        model = models[where]
+        if step is None:
+            model.load_state_dict(weights)
+            opt = define_optim(model.parameters(), cfg.optimizer,
+                               cfg.learning_rate, cfg.weight_decay,
+                               cfg.clip_grad_norm)
+            step = make_train_step(
+                model, cfg, opt,
+                device=next(model.parameters()).device)
+        sync()
+        t0 = time.perf_counter()
+        metrics = step(b, gen)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        grads = {k: p.grad.detach().float().flatten().cpu()
+                 for k, p in model.named_parameters() if p.grad is not None}
+        return metrics["loss"].item(), grads, ms, step
+
+    def head(grads):
+        return {k: v for k, v in grads.items()
+                if k.startswith("homography_head.")}
+
+    def cosines(a, b):
+        return (cosine(whole(a), whole(b)), cosine(whole(head(a)),
+                                                   whole(head(b))),
+                (whole(a).norm() / whole(b).norm()).item())
+
+    loss_c, g_c, _, _ = one_step("card", sd)
+    loss_p, g_p, cpu_ms, _ = one_step("cpu", sd)
+    _, g_r, _, _ = one_step("card", sd)
+    nudged = dict(batch, image=batch["image"].clone())
+    nudged["image"][0, RESIZE // 2, RESIZE, 0] ^= 1
+    _, g_n, _, _ = one_step("cpu", sd, nudged)
+    damped = {k: v * BN2_DAMP if k.endswith("bn2.weight") else v
+              for k, v in sd.items()}
+    loss_cd, g_cd, _, _ = one_step("card", damped)
+    loss_pd, g_pd, _, _ = one_step("cpu", damped)
+    # the controls: the card step with the head's gradient cut on one of
+    # its two routes, M detached in the fit or in the loss
+    controls = {}
+    for route in ("fit", "loss"):
+        with detached_M(route):
+            controls[route] = one_step("card", sd)[1]
+    step_read = {"loss_rel": abs(loss_c - loss_p) / abs(loss_p),
+                 "damped_loss_rel": abs(loss_cd - loss_pd) / abs(loss_pd),
+                 "card_vs_cpu": cosines(g_c, g_p),
+                 "card_vs_rerun": cosines(g_c, g_r),
+                 "cpu_vs_nudged": cosines(g_p, g_n),
+                 "damped_card_vs_cpu": cosines(g_cd, g_pd),
+                 **{f"M_detached_in_{r}_vs_cpu": cosines(g, g_p)
+                    for r, g in controls.items()}}
+    (cw, ch, _), (rw, _, _) = (step_read["card_vs_cpu"],
+                               step_read["card_vs_rerun"])
+    dw, dh, dratio = step_read["damped_card_vs_cpu"]
+    verdict = [hold("step loss card vs CPU", step_read["loss_rel"], TOL_F32),
+               hold("damped step loss", step_read["damped_loss_rel"],
+                    TOL_F32),
+               hold("step whole-gradient cosine", rw - LH_NOISE_MARGIN - cw,
+                    0.0),
+               hold("step head-gradient cosine gap", 1 - ch, LH_HEAD_GAP),
+               hold("damped whole-gradient cosine", F32_DAMPED[0] - dw, 0.0),
+               hold("damped head-gradient cosine", F32_DAMPED[0] - dh, 0.0),
+               hold("damped norm ratio", abs(dratio - 1), F32_DAMPED[1])]
+    verdict += [hold(f"control, M detached in the {r}: head cosine gap",
+                     1 - step_read[f"M_detached_in_{r}_vs_cpu"][1],
+                     LH_HEAD_GAP, above=True) for r in controls]
+    shown = lambda k: tuple(round(x, 8) for x in step_read[k])
+    print(f"learned homography train step, card vs CPU (dropout off, "
+          f"{len(g_c)} leaves): loss {loss_c:.8g} / {loss_p:.8g} (rel "
+          f"{step_read['loss_rel']:.2e}, tol {TOL_F32:g}); (whole cosine, "
+          f"head cosine, norm ratio): card vs CPU {shown('card_vs_cpu')} "
+          f"(head: 1 - cosine within {LH_HEAD_GAP:g}), card vs its rerun "
+          f"{shown('card_vs_rerun')} (the whole bar: that less "
+          f"{LH_NOISE_MARGIN:g}), CPU vs one input bit flipped "
+          f"{shown('cpu_vs_nudged')}; bn2 x {BN2_DAMP}: loss rel "
+          f"{step_read['damped_loss_rel']:.2e}, "
+          f"{shown('damped_card_vs_cpu')} (least {F32_DAMPED[0]}, ratio "
+          f"within {F32_DAMPED[1]:g}); the controls, card with M detached "
+          f"in the fit {shown('M_detached_in_fit_vs_cpu')}, in the loss "
+          f"{shown('M_detached_in_loss_vs_cpu')} (head: 1 - cosine must "
+          f"read above {LH_HEAD_GAP:g}); {', '.join(verdict)}; the CPU step "
+          f"took {cpu_ms:.0f} ms on {card}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    losses, step_ms, step = [], [], None
+    for _ in range(TRAIN_STEPS):
+        loss, grads, ms, step = one_step("card", sd, gen=gen, step=step)
+        losses.append(loss)
+        step_ms.append(ms)
+        fc = grads["homography_head.fc_offsets.weight"]
+        if not (math.isfinite(loss) and torch.isfinite(whole(grads)).all()
+                and fc.abs().max().item() > 0):
+            failures.append(f"dropout-on step: loss {loss}, fc_offsets "
+                            f"max|g| {fc.abs().max().item()}")
+    ms = statistics.median(step_ms)
+    print(f"learned homography train steps, dropout on: losses "
+          f"{', '.join(f'{v:.6g}' for v in losses)}; {ms:.3f} ms per step "
+          f"of {BATCH} (median of {TRAIN_STEPS}: "
+          f"{', '.join(f'{t:.3f}' for t in step_ms)}), "
+          f"{1e3 * BATCH / ms:.1f} images/s, host clock, on {card}")
+    summary["step"] = dict(step_read, losses=losses, step_ms=step_ms,
+                           ms_per_step=ms)
+    no_launches("train steps")
+
+    # (d) main_torch.py with the learned homography ----------------------
+    root = Path(__file__).resolve().parent / "_smoke" / "homography"
+    shutil.rmtree(root, ignore_errors=True)
+    lh_cfg = main_torch.parse_args(LH_ARGV)[0]
+    make_synthetic_root(str(root / "synthetic_data"), num_train=32,
+                        num_test=4, seed=lh_cfg.seed)
+    argv = LH_ARGV + ["--save_path", str(root)]
+    run = root / lh_cfg.save_id
+    with_M_calls = []
+    with_M = Projections.compute_coordinates_with_M
+
+    def counted_with_M(self, *a):
+        with_M_calls.append(a[0].shape[0])
+        return with_M(self, *a)
+
+    def counted(label, extra):
+        reset_counts(wrappers)
+        out, secs = _main_torch(argv + extra)
+        no_launches(label)
+        print(f"learned homography {label}: {secs:.1f} s on {card}")
+        return out, secs
+
+    Projections.compute_coordinates_with_M = counted_with_M
+    try:
+        with watch_resume() as resumed:
+            _, fit_s = counted("fit, 2 epochs", ["--nepochs", "2"])
+            _, resume_s = counted("resume to 3", ["--nepochs", "3"])
+        fit_calls = len(with_M_calls)
+        if resumed != {"start": 2, "equal": True}:
+            failures.append(f"learned homography resume: {resumed}")
+        rows = read_json_lines(str(run / "scalars.jsonl"))
+        for r in rows:
+            vals = {k: r[k] for k in ("train_loss", "val_loss", "test_acc")}
+            print(f"learned homography epoch {r['epoch']}: {vals}, "
+                  f"{1e3 * r['train_batch_time']:.1f} ms a training batch "
+                  f"(the mean of {TRAIN_BATCHES}, data wait included) on "
+                  f"{card}")
+            if not all(map(math.isfinite, vals.values())):
+                failures.append(f"learned homography epoch {r['epoch']}: "
+                                f"{vals}")
+        if [r["epoch"] for r in rows] != [1, 2, 3]:
+            failures.append(f"learned homography epochs "
+                            f"{[r['epoch'] for r in rows]}")
+        best = best_checkpoint_path(str(run))
+        ckpt = torch.load(best, map_location="cpu", weights_only=False)
+        head_keys = [k for k in ckpt["state_dict"]["model"]
+                     if k.startswith("homography_head.")]
+        best_epoch = int(best.rsplit("_", 1)[1].split(".")[0])
+        out, test_s = counted("--test_only", ["--nepochs", "3",
+                                              "--test_only"])
+        test_calls = len(with_M_calls) - fit_calls
+        recorded = rows[best_epoch]["test_acc"]
+        print(f"learned homography --test_only: accuracy {out['acc']:.8f}, "
+              f"recorded at epoch {best_epoch + 1}: {recorded:.8f}; "
+              f"compute_coordinates_with_M calls: {fit_calls} in the fit, "
+              f"{test_calls} in --test_only; {len(head_keys)} "
+              f"homography_head entries in the checkpoint; on {card}")
+        if (out["acc"] != recorded or not fit_calls or not test_calls
+                or len(head_keys) != 32):
+            failures.append(f"learned homography --test_only: accuracy "
+                            f"{out['acc']} vs {recorded}, with_M calls "
+                            f"{fit_calls} / {test_calls}, head entries "
+                            f"{len(head_keys)}")
+        evals = {}
+        for where, extra in (("card", []), ("cpu", ["--no_cuda", "true"])):
+            with record_eval_inputs() as seen:
+                res, secs = (counted("--evaluate", ["--nepochs", "3",
+                                                    "--evaluate"])
+                             if where == "card" else _main_torch(
+                                 argv + ["--nepochs", "3", "--evaluate"]
+                                 + extra))
+            evals[where] = (res, torch.cat([o["beta"] for o in
+                                            seen["outputs"]]),
+                            torch.cat([o["x_cal"] for o in
+                                       seen["outputs"]]), secs)
+    finally:
+        Projections.compute_coordinates_with_M = with_M
+    (rc, bc, xc, _), (rp, bp, xp, cpu_s) = evals["card"], evals["cpu"]
+    ev = {"loss_rel": abs(rc["loss"] - rp["loss"]) / abs(rp["loss"]),
+          "x_cal": rel_err(xc, xp)[1], "beta_columns": beta_columns(bc, bp),
+          "test_acc": (rc["test_acc"], rp["test_acc"])}
+    verdict = [hold("--evaluate loss", ev["loss_rel"], TOL_F32),
+               hold("--evaluate x_cal", ev["x_cal"], LH_TOL),
+               hold("--evaluate beta", max(ev["beta_columns"]), LH_BETA_TOL),
+               hold("--evaluate test accuracy",
+                    abs(rc["test_acc"] - rp["test_acc"]), ACC_TOL)]
+    print(f"learned homography --evaluate, card vs CPU ({cpu_s:.1f} s): "
+          f"loss {rc['loss']:.8g} / {rp['loss']:.8g} (rel "
+          f"{ev['loss_rel']:.2e}, tol {TOL_F32:g}), x_cal {ev['x_cal']:.2e} "
+          f"of max|CPU| (tol {LH_TOL:g}), beta per column "
+          f"{', '.join(f'{v:.2e}' for v in ev['beta_columns'])} (tol "
+          f"{LH_BETA_TOL:g}), test accuracy {rc['test_acc']:.6f} / "
+          f"{rp['test_acc']:.6f} (tol {ACC_TOL}); {', '.join(verdict)} on "
+          f"{card}")
+    summary["cli"] = {"fit_2_epochs_s": fit_s, "resume_1_epoch_s": resume_s,
+                      "test_only_s": test_s,
+                      "train_batch_ms": [1e3 * r["train_batch_time"]
+                                         for r in rows],
+                      "evaluate_vs_cpu": ev}
+
+    # (e) packed_train false -------------------------------------------
+    plain_root = root / "plain"
+    plain_argv = TRAINER_ARGV + ["--packed_train", "false", "--save_path",
+                                 str(plain_root)]
+    shutil.copytree(root / "synthetic_data", plain_root / "synthetic_data")
+    reset_counts(wrappers)
+    _, plain_s = _main_torch(plain_argv + ["--nepochs", "1"])
+    no_launches("--packed_train false")
+    rows = read_json_lines(str(plain_root / main_torch.parse_args(
+        plain_argv)[0].save_id / "scalars.jsonl"))
+    vals = {k: rows[-1][k] for k in ("train_loss", "val_loss")}
+    print(f"--packed_train false, 1 epoch: {plain_s:.1f} s, {vals}, "
+          f"{1e3 * rows[-1]['train_batch_time']:.1f} ms a training batch, "
+          f"no kernel launch, on {card}")
+    if len(rows) != 1 or not all(map(math.isfinite, vals.values())):
+        failures.append(f"--packed_train false: {rows}")
+    summary["packed_train_false"] = {"epoch_s": plain_s, "losses": vals}
+    shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"learned homography phase: {summary['phase_s']:.1f} s on {card}")
     return summary, failures
 
 
@@ -3989,6 +4515,10 @@ def main() -> int:
     if failures:
         fail("staged schedule or BEV command line: " + "; ".join(failures))
     bev.update(staged)
+    # 4j. the learned homography and the plain-graph e2e step ------------
+    homography, failures = homography_phase(dev, card)
+    if failures:
+        fail("learned homography: " + "; ".join(failures))
 
     # 5. kernels line and result ----------------------------------------
     kernels = []
@@ -4040,7 +4570,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "wide": wide_summary,
                       "race_check": race_report,
                       "deferred_copies": defer_report,
-                      "trainer": trainer_summary, "bev": bev}))
+                      "trainer": trainer_summary, "bev": bev,
+                      "learned_homography": homography}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,13 +8,16 @@ with the same defaults, the presets (`bp_defaults`, `bev_defaults`,
 schedule (`phase_for_epoch`) and the run naming (`save_id`). The port has
 no environment knobs, so `save_id` appends none.
 
-Fields that select what the port does not run yet (the learned
-homography, more than one device) are accepted here and refused with
-NotImplementedError where a Trainer would act on them
-(`train/driver.py`). `no_cuda` is how a caller asks for the
-CPU (`torch_device`). The Pallas switches `use_pallas_wls` and
-`packed_train` are kept for the CLI: None and True select what the port
-runs (its kernels), False (the JAX package's XLA paths) is refused.
+Fields that select what the port does not run yet (more than one device)
+are accepted here and refused with NotImplementedError where a Trainer
+would act on them (`train/driver.py`). `no_cuda` is how a caller asks for
+the CPU (`torch_device`). The Pallas switches are kept for the CLI:
+`packed_train` None and True train the e2e phase on the port's kernels,
+False on the plain graph (`LaneNet.forward`, as JAX's flax graph); None
+takes the plain graph where the kernels do not serve the config (the
+learned homography), and True raises there (`train/steps.py`);
+`use_pallas_wls` None and True select the port's moments kernel, False
+(the JAX package's XLA moments) is refused.
 """
 
 from __future__ import annotations
@@ -125,7 +128,7 @@ class LaneConfig:
     prefetch: int = 2  # batches copied to the card ahead of the step
     seed: int = 0
     use_pallas_wls: Optional[bool] = None  # False refused by the Trainer
-    packed_train: Optional[bool] = None    # False refused by the Trainer
+    packed_train: Optional[bool] = None    # False: e2e on LaneNet.forward
     learn_homography: bool = False
     val_laneeval: bool = False  # LaneEval-score the validation split (bp)
 

@@ -5,8 +5,9 @@ Counterpart of `lanedetection_end2end_tpu/eval/projections.py`
 TuSimple heights and M_inv are float32 constants on the device, and every
 lane of every image backprojects in one float32 contraction, written as an
 element-wise product and sum so that TF32 cannot touch it (y_eval^3 is
-about 1.4e7 at resize 256). `compute_coordinates_with_M`, for the learned
-homography, is not ported yet.
+about 1.4e7 at resize 256). `compute_coordinates_with_M` backprojects
+with each sample's own matrices, for the learned homography, in the
+same element-wise float32 form (`geometry/dlt.py::backproject_with_M`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from lanedetection_end2end_tpu_torch.geometry import bev_matrices_pixel
+from lanedetection_end2end_tpu_torch.geometry.dlt import backproject_with_M
 
 
 class Projections:
@@ -41,6 +43,7 @@ class Projections:
         self.y_prime = torch.tensor(y_prime, **f32)             # (56,)
         # M_inv's entries as float32 values, scalars of the contraction
         self._Mi = [float(v) for v in np.float32(M_inv).ravel()]
+        self.order = order
 
     def compute_coordinates(self, beta: torch.Tensor) -> torch.Tensor:
         """beta (..., order+1) -> x in original-image pixels (..., 56):
@@ -52,7 +55,15 @@ class Projections:
         x_cal = (Mi[0] * x_prime + Mi[1] * yp + Mi[2]) / denom
         return x_cal * self.factor
 
-    def compute_coordinates_with_M(self, beta, M_b, M_inv_b):
-        raise NotImplementedError(
-            "the learned homography is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
+    def compute_coordinates_with_M(self, beta: torch.Tensor,
+                                   M_b: torch.Tensor,
+                                   M_inv_b: torch.Tensor) -> torch.Tensor:
+        """Per-sample variant: beta (B, C, order+1), M_b / M_inv_b
+        (B, 3, 3) -> (B, C, 56) original-image x. The heights' BEV images
+        follow each sample's M (the heights themselves in float32, as the
+        JAX package takes them)."""
+        y_d = ((torch.arange(160.0, 720.0, 10.0, device=M_b.device) - 80.0)
+               / self.factor)                                     # (56,)
+        x_cal = backproject_with_M(beta, y_d, 640.0 / self.factor, M_b,
+                                   M_inv_b)                       # (B, C, 56)
+        return x_cal * self.factor

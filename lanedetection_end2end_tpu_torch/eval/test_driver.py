@@ -8,7 +8,12 @@ ints, streams the JSON lines and scores them with LaneEval. Without the
 engine the forward is `LaneNet.forward(train=False)`, the plain float32
 module graph, as the JAX package runs its flax graph there; with
 `use_engine` it is `FusedLaneNetEngine` (the serving kernels K5 on a
-card). Timing synchronizes the card around each batch.
+card). With the learned homography, `LaneNet.forward` gives each image its
+own matrices and the backprojection takes them
+(`Projections.compute_coordinates_with_M`); the engine has no homography
+head, so `test_model` refuses `use_engine` there rather than score a
+model other than the one trained. Timing synchronizes the card around
+each batch.
 """
 
 from __future__ import annotations
@@ -45,13 +50,18 @@ def make_infer_fn(lanenet, cfg: LaneConfig, projections: Projections,
         images = images.to(device, non_blocking=True)
         if images.dtype == torch.uint8:
             images = images.float() * (1.0 / 255.0)
+        M_b = M_inv_b = None
         if engine is not None:
             beta, line_logits, horizon_logits = engine(packed, images)
         else:
             out = lanenet.forward(images, train=False)
-            beta = out.beta
+            beta, M_b, M_inv_b = out.beta, out.M, out.M_inv
             line_logits, horizon_logits = out.line_logits, out.horizon_logits
-        lanes_pred = projections.compute_coordinates(beta)  # (B, C, 56)
+        if M_b is not None:  # the learned homography
+            lanes_pred = projections.compute_coordinates_with_M(
+                beta, M_b, M_inv_b)
+        else:
+            lanes_pred = projections.compute_coordinates(beta)  # (B, C, 56)
         if cfg.clas:
             # the horizon row: round((factor * sum(sigmoid) + 80) / 10) * 10
             horizon_pred = torch.sigmoid(horizon_logits).sum(1)
@@ -113,13 +123,20 @@ def test_model(loader, lanenet, cfg: LaneConfig,
       gt_file: the TuSimple gt label file (default test_dir/test_label.json).
       save_path: output directory (default cfg.save_path).
       use_engine: serve through `FusedLaneNetEngine` on `lanenet`'s device
-        instead of `lanenet.forward`.
+        instead of `lanenet.forward`; ValueError with the learned
+        homography, which the engine does not run.
       stats: if given, receives `ms_per_batch` (the mean of the batches'
         synchronized times) and `batches`.
     Returns:
       the TuSimple accuracy.
     """
     assert cfg.end_to_end, "test inference requires the end-to-end graph"
+    if use_engine and cfg.learn_homography:
+        raise ValueError(
+            "test_model(use_engine=True) with learn_homography: the serving "
+            "engine has no homography head and would fit with the fixed "
+            "matrix, scoring a model other than the one trained; use "
+            "use_engine=False")
     gt_file = gt_file or os.path.join(cfg.test_dir, "test_label.json")
     save_path = save_path or cfg.save_path
     mkdir_if_missing(save_path)

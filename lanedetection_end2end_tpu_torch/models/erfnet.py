@@ -24,6 +24,9 @@ is given a `torch.Generator`.
   `output_conv2` of num_classes + 1 channels (the background), and
   `use_main_head` picks which one the forward returns (the seg phase of
   the staged schedule reads the aux head, the e2e phase the main one)
+- `do_segmentation`: a second decoder, `decoder_seg`, with num_classes + 1
+  channels (the reference's declared but dormant segmentation branch);
+  off by default, and `LaneNet` never turns it on, as in the JAX package
 """
 
 from __future__ import annotations
@@ -163,16 +166,24 @@ class Decoder(nn.Module):
 
 
 class ERFNet(nn.Module):
-    """Encoder + decoder; forward returns (encoder_features, seg_logits),
-    both NCHW, the logits from the main head or, with `pretrained` and
-    `use_main_head=False`, from the pretraining head."""
+    """Encoder + decoder; forward returns (encoder_features, seg_logits,
+    seg), all NCHW: the logits from the main head or, with `pretrained`
+    and `use_main_head=False`, from the pretraining head; `seg` the
+    `decoder_seg` logits with `do_segmentation`, else the encoder
+    features again (the reference's default)."""
 
-    def __init__(self, num_classes: int, pretrained: bool = False):
+    def __init__(self, num_classes: int, pretrained: bool = False,
+                 do_segmentation: bool = False):
         super().__init__()
         self.encoder = Encoder(num_classes)
         self.decoder = Decoder(num_classes, pretrained)
+        if do_segmentation:
+            self.decoder_seg = Decoder(num_classes + 1)
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 use_main_head: bool = True):
         enc = self.encoder(x, generator)
-        return enc, self.decoder(enc, use_main_head)
+        dec = self.decoder(enc, use_main_head)
+        if hasattr(self, "decoder_seg"):
+            return enc, dec, self.decoder_seg(enc)
+        return enc, dec, enc

@@ -22,8 +22,18 @@ half-block kernels, stride-2 blocks and the e2e tail on the lane-map
 kernels) in the compute dtype, for either profile: the fitter of both is
 separable ('bp': pixel coordinates; 'bev': the normalized homography). The
 module's `state_dict` carries the reference torch names (`net.*`,
-`line_classification.*`, `horizon_estimation.*`). The learned homography
-and the dormant `do_segmentation` decoder are not ported.
+`line_classification.*`, `horizon_estimation.*`).
+
+With `learn_homography` (BP profile), the module also holds
+`homography_head` (`models/dlt.py`): in the e2e phase its offsets give
+each sample its own matrices (`geometry/dlt.py::dlt_homography`), the fit
+runs `WLSFitter.fit_with_M` with them, and the output carries them as
+`M` and `M_inv`. The packed path has no place for them, so
+`packed_supported` is False there and the e2e step trains on `forward`,
+as the JAX package trains that option on its flax graph. The head runs
+in every phase (in train mode its BatchNorm statistics move), as the
+line and horizon heads do. ERFNet's dormant `do_segmentation` decoder is
+never turned on here, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,7 +48,8 @@ import torch.nn as nn
 from lanedetection_end2end_tpu_torch.config import LaneConfig
 from lanedetection_end2end_tpu_torch.device import resolve_device
 from lanedetection_end2end_tpu_torch.geometry import (
-    bev_matrices_normalized, bev_matrices_pixel)
+    bev_matrices_normalized, bev_matrices_pixel, dlt_homography)
+from lanedetection_end2end_tpu_torch.models.dlt import HomographyHead
 from lanedetection_end2end_tpu_torch.models.erfnet import ERFNet
 from lanedetection_end2end_tpu_torch.models.heads import Classification
 from lanedetection_end2end_tpu_torch.ops.activations import activation_fn
@@ -58,6 +69,9 @@ class LaneNetOutput:
     line_logits: Optional[torch.Tensor]      # (B, 4) bp | (B, 3, 4) bev | None
     horizon_logits: Optional[torch.Tensor]   # (B, resize) | None
     encoder_features: torch.Tensor           # (B, H/8, W/8, 128)
+    # learned homography only: the per-sample matrices of the e2e fit
+    M: Optional[torch.Tensor] = None         # (B, 3, 3)
+    M_inv: Optional[torch.Tensor] = None     # (B, 3, 3)
 
 
 def make_fitter(cfg: LaneConfig, device) -> WLSFitter:
@@ -100,6 +114,8 @@ class LaneNet(nn.Module):
                                                       cfg.profile)
             self.horizon_estimation = Classification("horizon", cfg.resize,
                                                      cfg.profile)
+        if cfg.learn_homography:
+            self.homography_head = HomographyHead()
         self._mask = row_mask(cfg, device)
         self._act = activation_fn(cfg.activation_layer)
         self.to(device).eval()
@@ -119,12 +135,14 @@ class LaneNet(nn.Module):
         self.train(train)
         with torch.set_grad_enabled(train):
             x = images.permute(0, 3, 1, 2).float()
-            enc, dec = self.net(x, generator, use_main_head=use_main)
+            enc, dec, _ = self.net(x, generator, use_main_head=use_main)
             dec = dec.permute(0, 2, 3, 1)                   # (B, H, W, C)
-            line = horizon = None
+            line = horizon = offsets = None
             if cfg.clas:
                 line = self.line_classification(enc)
                 horizon = self.horizon_estimation(enc)
+            if cfg.learn_homography:
+                offsets = self.homography_head(enc)
             enc = enc.permute(0, 2, 3, 1)
             if phase == "skip":
                 return LaneNetOutput(None, None, dec, None, None, enc)
@@ -138,9 +156,20 @@ class LaneNet(nn.Module):
                      for k in range(1, cfg.nclasses + 1)], dim=-1)
                 line = horizon = None
             masked = activated * self._mask
-            beta = self.fitter(masked)
+            M_b = M_inv_b = None
+            if offsets is not None and phase == "e2e":
+                M_b, M_inv_b = dlt_homography(offsets, cfg.resize)
+                beta = self.fitter.fit_with_M(masked, M_b)
+            else:
+                beta = self.fitter(masked)
         return LaneNetOutput(beta, masked.permute(0, 3, 1, 2), dec, line,
-                             horizon, enc)
+                             horizon, enc, M_b, M_inv_b)
+
+    def packed_supported(self, phase: str) -> bool:
+        """Whether `apply_packed` serves this config and phase: the e2e
+        phase with a separable fitter and no learned homography."""
+        return (phase == "e2e" and self.fitter.separable
+                and not self.cfg.learn_homography)
 
     def apply_packed(self, images: torch.Tensor, train: bool = False,
                      generator: Optional[torch.Generator] = None,
@@ -162,6 +191,9 @@ class LaneNet(nn.Module):
         formed either (`seg_logits` is None). In eval mode, or with
         another activation, the head runs on its own and `rowsums`
         reduces the logits."""
+        if not self.packed_supported("e2e"):
+            raise ValueError("apply_packed: the packed path does not serve "
+                             "this config (the learned homography)")
         self.train(train)
         cfg = self.cfg
         fused_maps = resolve_fused_maps(fused_blocks, fused_maps)

@@ -21,9 +21,15 @@ by leaf in the flax tree's layout. Layout conversions, forward:
 
 Both directions carry every leaf `LaneNetModule` makes: the encoder's
 predict head, the decoder's pretraining head `output_conv2` (with
-`pretrained`), and the line head of either variant (`fc_line1` of the
-'bp' profile, `fc_line1..4` of 'bev'). A leaf with no place on the other
-side raises; nothing is dropped.
+`pretrained`), the line head of either variant (`fc_line1` of the
+'bp' profile, `fc_line1..4` of 'bev'), the learned homography's head
+and ERFNet's dormant second decoder. No reference torch name exists for
+the last two (the reference's spatial-transformer head is dormant, and
+the JAX package's `port_torch_state_dict` has no place for them), so
+they take the flax names: `homography_head.<flax name>.*` (`conv1..4`,
+`conv{i}_bn`, `fc1`, `fc_offsets`; Dense kernels transposed, as every
+Linear) and `net.decoder_seg.*` laid out as `net.decoder.*`. A leaf with
+no place on the other side raises; nothing is dropped.
 """
 
 from __future__ import annotations
@@ -110,14 +116,30 @@ def _erfnet_state(p: Mapping, s: Mapping) -> StateDict:
         sd.update(fn(ep[n], es[n], f"net.encoder.layers.{i}"))
     sd.update(conv_state(ep["output_conv"], "net.encoder.output_conv"))
 
-    dp, ds = p["decoder"], s["decoder"]
-    # decoder.layers: 0=up1, 1-2=nb64_*, 3=up2, 4-5=nb16_*
-    for i, n in enumerate(_DEC_NAMES):
-        fn = upsampler_state if n.startswith("up") else nb1d_state
-        sd.update(fn(dp[n], ds[n], f"net.decoder.layers.{i}"))
-    for head in ("output_conv", "output_conv2"):
-        if head in dp:
-            sd.update(conv_transpose_state(dp[head], f"net.decoder.{head}"))
+    for side in ("decoder", "decoder_seg"):
+        if side not in p:
+            continue
+        dp, ds = p[side], s[side]
+        # decoder.layers: 0=up1, 1-2=nb64_*, 3=up2, 4-5=nb16_*
+        for i, n in enumerate(_DEC_NAMES):
+            fn = upsampler_state if n.startswith("up") else nb1d_state
+            sd.update(fn(dp[n], ds[n], f"net.{side}.layers.{i}"))
+        for head in ("output_conv", "output_conv2"):
+            if head in dp:
+                sd.update(conv_transpose_state(dp[head],
+                                               f"net.{side}.{head}"))
+    return sd
+
+
+def _homography_head_state(p: Mapping, s: Mapping) -> StateDict:
+    """`homography_head` under its flax names (models/dlt.py)."""
+    sd: StateDict = {}
+    for i in range(1, 5):
+        sd.update(conv_state(p[f"conv{i}"], f"homography_head.conv{i}"))
+        sd.update(bn_state(p[f"conv{i}_bn"], s[f"conv{i}_bn"],
+                           f"homography_head.conv{i}_bn"))
+    for fc in ("fc1", "fc_offsets"):
+        sd.update(dense_state(p[fc], f"homography_head.{fc}"))
     return sd
 
 
@@ -158,6 +180,9 @@ def state_dict_from_variables(variables: Mapping,
         for key in ("line_classification", "horizon_estimation"):
             sd.update(_classification_state(params[key], stats[key], key,
                                             resize, profile))
+    if "homography_head" in params:
+        sd.update(_homography_head_state(params["homography_head"],
+                                         stats["homography_head"]))
     left = _leaves(variables) - _carried(sd)
     if left:
         raise ValueError("leaves with no place in the port's state_dict: "
@@ -215,7 +240,7 @@ def _flax_path(name: str):
     place for."""
     parts = name.split(".")
     if parts[0] == "net" and len(parts) >= 3 and parts[1] in (
-            "encoder", "decoder"):
+            "encoder", "decoder", "decoder_seg"):
         side, rest = parts[1], parts[2:]
         names = _ENC_NAMES if side == "encoder" else _DEC_NAMES
         if (rest[0] == "layers" and len(rest) == 3 and rest[1].isdigit()
@@ -226,14 +251,14 @@ def _flax_path(name: str):
               and rest[0] == "initial_block" and rest[1] in ("conv", "bn")):
             path, leaf = ["erfnet", side, rest[0]], rest[1]
         elif len(rest) == 1 and rest[0] in (
-                ("output_conv",) if side == "encoder"
-                else ("output_conv", "output_conv2")):
+                ("output_conv", "output_conv2") if side == "decoder"
+                else ("output_conv",)):
             path, leaf = ["erfnet", side], rest[0]
         else:
             raise KeyError(f"{name}: no place in the flax tree")
         if leaf.startswith("bn"):
             kind = "bn"
-        elif side == "decoder" and (leaf.startswith("output_conv") or (
+        elif side != "encoder" and (leaf.startswith("output_conv") or (
                 leaf == "conv" and path[-1].startswith("up"))):
             kind = "convT"
         else:
@@ -247,6 +272,14 @@ def _flax_path(name: str):
             return [head, _DENSE_NAMES[leaf]], "dense"
         if leaf in _HEAD_CONVS:
             return [head, leaf], "conv"
+    if len(parts) == 2 and parts[0] == "homography_head":
+        leaf = parts[1]
+        if leaf.endswith("_bn") and leaf[:-3] in _HEAD_CONVS:
+            return list(parts), "bn"
+        if leaf in ("fc1", "fc_offsets"):
+            return list(parts), "dense"
+        if leaf in _HEAD_CONVS:
+            return list(parts), "conv"
     raise KeyError(f"{name}: no place in the flax tree")
 
 
@@ -282,7 +315,7 @@ def variables_from_state_dict(named: Mapping[str, torch.Tensor],
         elif kind == "convT":
             put("params", path, "kernel",
                 a.transpose(2, 3, 0, 1)[::-1, ::-1])
-        elif path[-1].startswith("fc_line"):
+        elif path[-1].startswith("fc_line") or path[0] == "homography_head":
             put("params", path, "kernel", a.T)
         else:  # a Linear after a flatten: (O, c*h*w) -> (h*w*c, O)
             h, w = (rows // 2, cols // 2) if path[-1] == "fc1" else (rows, 1)

@@ -2,9 +2,9 @@
 BCE-with-logits.
 
 Counterpart of `lanedetection_end2end_tpu/ops/losses.py`. Absent-lane
-masking is `where`-based (total functions), as there. The per-sample
-homography variant `BackprojectionLoss.with_M` is not ported yet (it
-belongs to the learned homography).
+masking is `where`-based (total functions), as there.
+`BackprojectionLoss.with_M` is the per-sample-homography variant of the
+learned homography (`geometry/dlt.py`).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from lanedetection_end2end_tpu_torch.device import resolve_device
 from lanedetection_end2end_tpu_torch.geometry import bev_matrices_pixel
+from lanedetection_end2end_tpu_torch.geometry.dlt import backproject_with_M
 
 
 # ----------------------------------------------------------------------
@@ -108,6 +109,7 @@ class BackprojectionLoss:
         self.Y = f32(np.stack(cols, axis=1))       # (56, order+1)
         self.y_prime = f32(y_prime)                # (56,)
         self.M_inv = [[float(np.float32(v)) for v in row] for row in M_inv]
+        self.y_d = f32(y_d)                        # (56,) resized heights
         self.order = order
         self.resize = resize
 
@@ -126,6 +128,25 @@ class BackprojectionLoss:
         yp = self.y_prime[None, :]
         denom = Mi[2][0] * x_prime + Mi[2][1] * yp + Mi[2][2]
         x_cal = (Mi[0][0] * x_prime + Mi[0][1] * yp + Mi[0][2]) / denom
+        valid = valid_samples.to(x_cal.dtype)
+        x_err = (x_gt.to(x_cal.dtype) - x_cal) * valid
+        count = valid.sum()
+        loss = torch.where(count > 0,
+                           (x_err * x_err).sum() / count.clamp(min=1.0),
+                           torch.zeros_like(count))
+        return loss, x_cal * valid
+
+    def with_M(self, params: torch.Tensor, x_gt: torch.Tensor,
+               valid_samples: torch.Tensor, M_b: torch.Tensor,
+               M_inv_b: torch.Tensor):
+        """`__call__` with each sample's own matrices M_b, M_inv_b
+        (B, 3, 3): the heights' BEV images, their Vandermonde rows and the
+        backprojection follow the learned homography, so gradients reach
+        it through the loss geometry as well as through the fit
+        (`geometry/dlt.py::backproject_with_M`, element-wise float32 as
+        `__call__`)."""
+        x_cal = backproject_with_M(params, self.y_d, self.resize, M_b,
+                                   M_inv_b)                       # (B, 56)
         valid = valid_samples.to(x_cal.dtype)
         x_err = (x_gt.to(x_cal.dtype) - x_cal) * valid
         count = valid.sum()

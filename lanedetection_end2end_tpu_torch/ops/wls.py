@@ -16,6 +16,12 @@ contraction of (S0 | S1) with the constant (2H, K) coefficient rows runs in
 float32 as an element-wise product and sum, so no TF32 setting can lower its
 precision (JAX's `Precision.HIGHEST`).
 
+The learned homography (`geometry/dlt.py`) gives each sample its own
+row-separable matrix: `sep_coeff_from_M` builds the (B, 2H, K)
+coefficient rows from them, differentiably, and `fit_with_M` contracts
+them with the same row sums, element-wise in float32 too; gradients reach
+both the weight maps and the matrices.
+
 A general homography (a camera roll, say) takes the full grid: a constant
 (H*W, K) basis of all products Y_i*Y_j (row-major) then Y_i*x, built once
 on the host, and the moments sum_n w^2[n] basis[n] from K12
@@ -86,6 +92,7 @@ class WLSFitter:
         self._unscale = f32(scale ** -powers)
         # reg_ls acts on the unscaled Z: reg_ls * scale^(-2p) in scaled coords
         self._reg_diag = f32(self.reg_ls * scale ** (-2.0 * powers))
+        self.normalized = normalized
         self.sep_coeff = self.sep_xs = self.basis = None
 
         if not self.separable:
@@ -117,6 +124,9 @@ class WLSFitter:
             [np.zeros((height, o1 * o1)), Yr * (alpha * sx)[:, None]], axis=1)
         self.sep_coeff = f32(np.concatenate([c0, c1], axis=0))  # (2H, K)
         self.sep_xs = f32((xs - x0) / sx)                         # (W,)
+        # constants of the per-sample-homography path (fit_with_M)
+        self.sep_ys = f32(ys)                                     # (H,)
+        self.sep_x0, self.sep_sx = x0, sx
 
     def __call__(self, wmaps: torch.Tensor) -> torch.Tensor:
         """Fit from activated, masked weight maps (B, H, W, C) -> beta
@@ -140,6 +150,48 @@ class WLSFitter:
                       dim=-1).float()
         moments = (S.unsqueeze(-1) * self.sep_coeff).sum(dim=1)  # (BC, K)
         return self._finish(moments, B, C)
+
+    def sep_coeff_from_M(self, M_b: torch.Tensor) -> torch.Tensor:
+        """Per-sample coefficient rows (B, 2H, K) from (B, 3, 3)
+        row-separable homographies (M[1,0] = M[2,0] = 0): the
+        differentiable twin of the host constants of `__init__`, in
+        float32."""
+        assert self.separable, "per-sample fitting needs separable form"
+        M_b = M_b.float()
+        ys = self.sep_ys[None, :]                            # (1, H)
+        D = M_b[:, 2, 1:2] * ys + M_b[:, 2, 2:3]             # (B, H)
+        alpha = M_b[:, 0, 0:1] / D
+        gamma = (M_b[:, 0, 1:2] * ys + M_b[:, 0, 2:3]) / D
+        y_rows = (M_b[:, 1, 1:2] * ys + M_b[:, 1, 2:3]) / D
+        y_rows = (1.0 - y_rows) if self.normalized else (
+            float(self.height - 1) - y_rows)
+        t = y_rows / self.y_scale
+        o1 = self.n_coeff
+        Yr = torch.stack([t ** p for p in range(self.order, -1, -1)],
+                         dim=-1)                             # (B, H, o1)
+        prods = (Yr[..., :, None] * Yr[..., None, :]).reshape(
+            *Yr.shape[:2], o1 * o1)
+        c0 = torch.cat(
+            [prods, Yr * (gamma + alpha * self.sep_x0)[..., None]], dim=-1)
+        c1 = torch.cat(
+            [torch.zeros_like(prods), Yr * (alpha * self.sep_sx)[..., None]],
+            dim=-1)
+        return torch.cat([c0, c1], dim=1)                    # (B, 2H, K)
+
+    def fit_with_M(self, wmaps: torch.Tensor, M_b: torch.Tensor
+                   ) -> torch.Tensor:
+        """Fit with per-sample homographies: wmaps (B, H, W, C), M_b
+        (B, 3, 3) row-separable -> beta (B, C, order+1); gradients reach
+        both arguments. float32, contracted element-wise."""
+        assert self.separable, "per-sample fitting needs separable form"
+        B, C = wmaps.shape[0], wmaps.shape[-1]
+        w2 = (wmaps * wmaps).float()
+        S0 = w2.sum(dim=2).transpose(1, 2)                          # (B,C,H)
+        S1 = (w2 * self.sep_xs[None, None, :, None]).sum(dim=2).transpose(1, 2)
+        S = torch.cat([S0, S1], dim=-1)                     # (B, C, 2H)
+        coeff = self.sep_coeff_from_M(M_b)                  # (B, 2H, K)
+        moments = (S.unsqueeze(-1) * coeff.unsqueeze(1)).sum(dim=2)
+        return self._finish(moments.reshape(B * C, -1), B, C)
 
     def _finish(self, moments: torch.Tensor, B: int, C: int) -> torch.Tensor:
         """Regularize + solve + unscale the fitted coefficients."""

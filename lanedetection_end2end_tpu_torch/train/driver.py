@@ -29,9 +29,11 @@ device, for both profiles and the staged schedule:
 When no validation batch runs, the validation loss repeats the epoch's
 train loss, as the JAX Trainer does, and that value then picks the best
 model and drives the plateau schedule; the Trainer prints a notice that
-the validation set was empty. The learned homography, more than one
-device, and `packed_train` or `use_pallas_wls` set to False (the JAX
-package's XLA paths) raise NotImplementedError.
+the validation set was empty. The learned homography and `packed_train`
+False train their e2e epochs on `LaneNet.forward` (`train/steps.py`),
+with the homography head in the checkpoints. More than one device, and
+`use_pallas_wls` False (the JAX package's XLA moments), raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -76,18 +78,10 @@ EMPTY_VALIDATION = ("notice: the validation set is empty; val_loss repeats "
 def check_supported(cfg: LaneConfig) -> None:
     """NotImplementedError for what the port does not train yet, naming
     the ROADMAP item that holds it."""
-    if cfg.learn_homography:
-        raise NotImplementedError(
-            "the learned homography is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
     if cfg.num_devices > 1 or cfg.num_slices > 1:
         raise NotImplementedError(
             "the port trains on one device; data parallelism is ROADMAP "
             "Queue 1 item 8")
-    if cfg.packed_train is False:
-        raise NotImplementedError(
-            "packed_train=False selects the JAX package's flax graph; the "
-            "port trains only on its kernel path (K6-K10)")
     if cfg.use_pallas_wls is False:
         raise NotImplementedError(
             "use_pallas_wls=False selects XLA's moments of the general-"

@@ -20,8 +20,14 @@ classifiers (cross entropy; argmax accuracy), and its segmentation
 classes are weighted [1, w, w] (BP: [1] + [w] * nclasses). As in the
 JAX package, skip and seg run on the plain float32 graph
 (`LaneNet.forward`, cuDNN and autograd; no kernel of the port), and e2e on
-the training backbone (`LaneNet.apply_packed`, K6-K10 on a card). Every
-metric stays on the device. A mesh of devices is not ported yet.
+the training backbone (`LaneNet.apply_packed`, K6-K10 on a card), except
+where the packed path does not serve the config (the learned homography)
+or `packed_train` is False: then e2e runs on `LaneNet.forward` too, as
+JAX runs it on its flax graph (`resolve_packed`; a forced True there
+raises). With the learned
+homography the backprojection loss takes each sample's matrices
+(`BackprojectionLoss.with_M`). Every metric stays on the device. A mesh
+of devices is not ported yet.
 
     step = make_train_step(lanenet, cfg, optimizer, phase)  # on the card
     metrics = step(batch, generator)                  # one optimizer step
@@ -92,6 +98,28 @@ def _pad_order2(beta: torch.Tensor) -> torch.Tensor:
     return beta[..., -3:]
 
 
+def resolve_packed(lanenet, cfg: LaneConfig, phase: str) -> bool:
+    """Whether `phase` trains on the packed backbone: the e2e phase where
+    `LaneNet.packed_supported` allows it, unless `cfg.packed_train` is
+    False (None, the default, selects it where it serves). The skip and
+    seg phases have no packed path and run `LaneNet.forward` whatever the
+    flag says. A forced True on an e2e config that the packed path does
+    not serve raises ValueError, where the JAX package's `_resolve_packed`
+    warns and runs its flax graph: the port gives no kernel's work to the
+    plain graph unasked."""
+    if phase != "e2e" or cfg.packed_train is False:
+        return False
+    supported = lanenet.packed_supported(phase)
+    if cfg.packed_train and not supported:
+        raise ValueError(
+            "packed_train=True was forced but the packed backbone does not "
+            "serve this configuration (the learned homography or a "
+            "non-separable homography; LaneNet.packed_supported): leave "
+            "packed_train unset or set it False to train e2e on "
+            "LaneNet.forward")
+    return supported
+
+
 def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
                  train: bool = True, fused_blocks: bool = True,
                  fused_maps: Optional[bool] = None) -> Callable:
@@ -114,7 +142,10 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
     autograd), as the JAX package runs them on its flax graph; the
     keywords of the packed path do not apply there. They need a
     segmentation head with the background channel (`pretrained`, or
-    `end_to_end` off): ValueError otherwise."""
+    `end_to_end` off): ValueError otherwise. So does the e2e phase where
+    `resolve_packed` says no (the learned homography, `packed_train`
+    False); there the backprojection loss takes the per-sample matrices
+    of the forward when it gives them."""
     if phase not in PHASES:
         raise ValueError(f"unknown phase {phase!r}")
     device = lanenet.fitter.sep_coeff.device
@@ -132,6 +163,7 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
         criterion = BackprojectionLoss(cfg.resize, cfg.order, cfg.no_mapping,
                                        device=device)
     dtype = _DTYPES[cfg.compute_dtype]
+    packed = resolve_packed(lanenet, cfg, phase)
 
     def curve_loss_bev(beta, gt_params):
         """Area or parameter MSE over the lanes, the MSE masking absent
@@ -150,18 +182,24 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
                                               gt_params[:, k])
         return loss
 
-    def curve_loss_bp(beta, lanes, valid_points):
-        """Backprojection MSE summed over the lanes / nclasses."""
+    def curve_loss_bp(beta, lanes, valid_points, M_b=None, M_inv_b=None):
+        """Backprojection MSE summed over the lanes / nclasses; with the
+        learned homography, on each sample's own matrices."""
         loss, x_cal = 0.0, []
         for k in range(cfg.nclasses):
-            lk, xk = criterion(beta[:, k], lanes[:, k], valid_points[:, k])
+            if M_b is not None:
+                lk, xk = criterion.with_M(beta[:, k], lanes[:, k],
+                                          valid_points[:, k], M_b, M_inv_b)
+            else:
+                lk, xk = criterion(beta[:, k], lanes[:, k],
+                                   valid_points[:, k])
             loss = loss + lk
             x_cal.append(xk)
         return loss / cfg.nclasses, torch.stack(x_cal, dim=1)
 
     def loss_fn(batch, generator=None):
         batch = prepare_batch(batch)
-        if phase == "e2e":
+        if packed:
             out = lanenet.apply_packed(batch["image"], train=train,
                                        generator=generator, dtype=dtype,
                                        fused_blocks=fused_blocks,
@@ -191,7 +229,8 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
                 metrics["exact_area"] = ((tl + tr) / 2.0).mean()
         else:
             curve, outputs["x_cal"] = curve_loss_bp(
-                beta, batch["lanes"], batch["valid_points"])
+                beta, batch["lanes"], batch["valid_points"], out.M,
+                out.M_inv)
         if phase == "e2e":
             loss = curve
         else:

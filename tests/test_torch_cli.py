@@ -17,6 +17,7 @@ from lanedetection_end2end_tpu.config import config_from_args as jax_args
 from lanedetection_end2end_tpu_torch.config import (
     build_parser, config_from_args)
 from lanedetection_end2end_tpu_torch.data.labels import read_json_lines
+from lanedetection_end2end_tpu_torch.train.driver import check_supported
 
 TRAIN_SH = ("--loss_policy backproject --save_freq 100 --weight_init xavier "
             "--use_cholesky 0 --split_percentage 0.1 --activation_layer square "
@@ -96,13 +97,26 @@ def test_main_refuses_to_run_without_a_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,said", [
-    (["--learn_homography", "true"], "item 7"),
     (["--num_devices", "2"], "item 8"),
-    (["--packed_train", "false"], "flax graph"),
+    (["--num_slices", "2"], "item 8"),
     (["--use_pallas_wls", "false"], "K12")])
 def test_main_refuses_unported_paths(tmp_path, extra, said):
     with pytest.raises(NotImplementedError, match=said):
         main_torch.main(_argv(tmp_path, "--nepochs", "1", *extra))
+
+
+@pytest.mark.parametrize("extra,field,value", [
+    (["--learn_homography", "true"], "learn_homography", True),
+    (["--packed_train", "false"], "packed_train", False)])
+def test_main_takes_the_learned_homography_and_the_plain_graph(
+        tmp_path, extra, field, value):
+    """Both flags reach the config under JAX's spelling, and nothing
+    refuses them any more (the runs are in
+    tests/test_torch_learned_homography.py)."""
+    cfg = main_torch.parse_args(_argv(tmp_path, *extra))[0]
+    assert getattr(cfg, field) is value
+    assert getattr(jax_args(list(extra)), field) is value
+    check_supported(cfg)
 
 
 def test_main_trains_resumes_tests_and_evaluates_on_the_cpu(tmp_path,

@@ -100,11 +100,6 @@ def test_projections_match_jax(resize, order, no_mapping):
                                atol=1e-5 * np.abs(want).max())
 
 
-def test_projections_learned_homography_is_refused():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Projections(32, 3).compute_coordinates_with_M(None, None, None)
-
-
 @pytest.fixture(scope="module")
 def weights():
     """The port's seeded LaneNet at resize 32 and the same weights in the

@@ -259,10 +259,8 @@ def test_empty_validation_repeats_the_train_loss(run, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("kw,said", [
-    (dict(learn_homography=True), "item 7"),
     (dict(num_devices=2), "item 8"),
     (dict(num_slices=2), "item 8"),
-    (dict(packed_train=False), "flax graph"),
     (dict(use_pallas_wls=False), "K12")])
 def test_unported_paths_raise(kw, said, tmp_path):
     cfg = train_sh_config(resize=RESIZE, save_path=str(tmp_path), **kw)
