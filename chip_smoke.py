@@ -200,10 +200,26 @@ a card. In order:
    `--test_only` through `compute_coordinates_with_M`, `--evaluate` card
    against CPU) and one epoch with `--packed_train false`; no launch of
    any kernel wrapper in the whole phase (`homography_phase`);
+4k. data parallelism (`dp_phase`): two ranks, one process each, NCCL
+   with a card a rank where the machine has two cards, else gloo with
+   both ranks on card 0, asked for explicitly: the float32 default step
+   of the train.sh config at full width and depth, SGD, dropout off, a
+   global batch of 8 (4 a rank) as drawn and damped, against the one
+   device's step on the same 8 images (loss, update cosine, norm ratio,
+   BatchNorm statistics, the ranks' weights bit for bit equal, each
+   rank's launches of K6-K10 the one device's); the engine's
+   `sharded_call` against the engine on each rank's own images bit for
+   bit, the fused kernels' outputs against the single call on all 8 bit
+   for bit, beta at DP_BETA of it (the bf16 heads' logits read beside);
+   `main_torch.run` over the two
+   ranks on 4g's flags and data (one epoch, a resume, `--evaluate`)
+   against one device (rank 1 writes nothing, rank 0 the one device's
+   files, the evaluation at DP_LOSS); each rank's step and the gradient
+   all-reduce timed beside the one device's step;
 5. print the card line as nvidia-smi gives it, the kernels line (with
    the wide phase's, the race check's, the deferred-copy check's, the
-   Trainer's, the BEV phases' and the learned homography's results
-   beside the kernels; the C = 2
+   Trainer's, the BEV phases', the learned homography's and the data
+   parallelism's results beside the kernels; the C = 2
    holdings as each kernel's `two_lanes`), and `{"ok": true, "device":
    {...}}` last.
 
@@ -2579,12 +2595,14 @@ def defer_check(dev):
 # `main_torch.main` on the train.sh flags at 256x512, batch 8, float32 (the
 # config's dtype), full ERFNet width and depth, on a 32-image synthetic
 # dataset the port writes: 24 training images (3 steps an epoch), 8 for
-# validation (1 eval step), 4 for the test set (1 padded batch of 8)
+# validation (1 eval step), 4 for the test set (1 padded batch of 8); one
+# card, on a machine with more too: the phases count this process's
+# launches (4k runs the ranks)
 TRAINER_ARGV = (
     "--loss_policy backproject --nclasses 4 --order 3 --clas 1 "
     "--pretrained false --mask_percentage 0.20 --flip_on 1 "
     "--synthetic 32 --split_percentage 0.25 --resize 256 --batch_size 8 "
-    "--save_freq 3 --print_freq 1").split()
+    "--save_freq 3 --print_freq 1 --num_devices 1").split()
 TRAIN_BATCHES, VAL_BATCHES = 3, 1
 TEST_MODEL_CALLS = 10  # warm test_model calls timed after the counted one
 ACC_TOL = 0.02  # test accuracy of the card against the CPU
@@ -2856,7 +2874,7 @@ BETA_COLUMN_TOL = 1e-3
 BETA_CONTROL = "bf16"
 BEV_ARGV = ("--profile bev --nclasses 4 --clas 1 --synthetic 32 "
             "--split_percentage 0.25 --resize 256 --batch_size 8 "
-            "--save_freq 3 --print_freq 1").split()
+            "--save_freq 3 --print_freq 1 --num_devices 1").split()
 
 
 @contextlib.contextmanager
@@ -3636,10 +3654,10 @@ def homography_phase(dev, card):
     return summary, failures
 
 
-def synthetic_batch(seed: int) -> dict:
+def synthetic_batch(seed: int, resize: int = RESIZE) -> dict:
     """A seeded batch of 8 in the dataset's compact form (host tensors)."""
     g = torch.Generator().manual_seed(seed)
-    H, W = RESIZE, 2 * RESIZE
+    H, W = resize, 2 * resize
     horizon = torch.zeros(BATCH, H)
     horizon[torch.arange(BATCH), torch.randint(H // 4, H // 2, (BATCH,),
                                                generator=g)] = 1.0
@@ -4212,6 +4230,403 @@ def two_lane_entry(name, by_dtype, bev, bev_launches):
     return out
 
 
+# ----------------------------------------------------------------------
+# 4k. data parallelism
+# ----------------------------------------------------------------------
+
+DP_WORLD = 2
+# Bars of phase 4k, the two-rank step against the one-device step on the
+# same 8 images: the loss, relative (the loss divides by counts of the
+# batch, and each rank scales its ratio by its share of the global count,
+# so the ranks' mean is the one device's loss); the update's norm ratio
+# within DP_NORM of 1 and the BatchNorm running statistics at (atol,
+# rtol), JAX's own bars for its sharded step (tests/test_packed_graph.py).
+# The cosine as drawn is held at the one-device step against its own
+# rerun less BEV_NOISE_MARGIN (4h's rule), damped at F32_DAMPED.
+DP_LOSS, DP_NORM, DP_STATS = 1e-4, 5e-2, (1e-4, 1e-3)
+# the sharded engine call: each rank's rows bit for bit the engine's on
+# that rank's 4 images; against the single call on all 8, beta (fitted
+# from the backbone's row sums, which run per image) within DP_BETA of
+# max (read 0); the heads' logits only read there, since cuDNN's bf16
+# heads at batch 4 and at batch 8 may sum in another order and round a
+# bf16 step apart (read 3.8e-3 and 3.3e-3 of max on an H100)
+DP_BETA = 1e-3
+DP_TIMED = 3  # warm steps timed on each rank and on the one device
+
+
+def dp_backend(count: int):
+    """-> (backend, devices) of phase 4k's two ranks: NCCL with a card a
+    rank where there are two, else gloo with both ranks on card 0, asked
+    for explicitly (the CLI never picks gloo on cards)."""
+    if count >= DP_WORLD:
+        return "nccl", [f"cuda:{r}" for r in range(DP_WORLD)]
+    return "gloo", ["cuda:0"] * DP_WORLD
+
+
+def dp_step(model, cfg, sd, batch, group=None):
+    """One SGD step with dropout off from the weights `sd` on `batch` ->
+    (loss, state after it on the CPU, launches of the training kernels,
+    ms of the step, host clock)."""
+    from lanedetection_end2end_tpu_torch.train.optim import define_optim
+    from lanedetection_end2end_tpu_torch.train.steps import make_train_step
+    dev = next(model.parameters()).device
+    sync = torch.cuda.synchronize
+    model.load_state_dict(sd)
+    opt = define_optim(model.parameters(), cfg.optimizer, cfg.learning_rate,
+                       cfg.weight_decay, cfg.clip_grad_norm)
+    step = make_train_step(model, cfg, opt, device=dev, group=group)
+    wrappers = train_wrappers()
+    reset_counts(wrappers)
+    sync()
+    t0 = time.perf_counter()
+    metrics = step(batch, None)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts(wrappers)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    return metrics["loss"].item(), state, counts, ms
+
+
+def dp_files(root):
+    """The run directory's files, the best checkpoint's epoch elided."""
+    import os
+    import re
+    return sorted(re.sub(r"model_best_epoch_\d+", "model_best_epoch_E",
+                         os.path.relpath(os.path.join(d, n), root))
+                  for d, _, names in os.walk(root) for n in names)
+
+
+def dp_writes(under: str) -> list:
+    """An audit hook on this process: every file it opens for writing,
+    renames, removes or creates under `under` lands in the list."""
+    seen = []
+
+    def hook(event, args):
+        if event == "open" and isinstance(args[0], str):
+            if args[0].startswith(under) and any(
+                    c in (args[1] or "r") for c in "wax+"):
+                seen.append(args[0])
+        elif event in ("os.rename", "os.remove", "os.mkdir",
+                       "shutil.copyfile") and any(
+                isinstance(a, str) and a.startswith(under) for a in args):
+            seen.append(f"{event} {args[0]}")
+
+    sys.addaudithook(hook)
+    return seen
+
+
+def dp_rank(dp, sd, damped, batch, images, fit):
+    """Phase 4k's work on rank `dp`: the step on its rows (as drawn and
+    damped; then DP_TIMED warm steps and the gradient all-reduce alone,
+    timed), the sharded engine call, the engine's own call and the
+    backbone's outputs on its images, and `main_torch.run` over the ranks (one epoch, a resume to
+    two, `--evaluate`), rank 1 recording any file it writes. Returns the
+    readings."""
+    import main_torch
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.models.fused_graph import (
+        decoder_fused, encoder_fused)
+    from lanedetection_end2end_tpu_torch.models.infer_engine import (
+        FusedLaneNetEngine)
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+    from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
+        decoder_fused_kernel, encoder_fused_kernel)
+    from lanedetection_end2end_tpu_torch.parallel import (
+        all_reduce_grads, gather_rows, local_rows)
+    from lanedetection_end2end_tpu_torch.parallel.mesh import local_slice
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g, dev = dp.group, dp.device
+    sync = torch.cuda.synchronize
+    fit_cfg, labels_dir = fit
+    writes = dp_writes(str(fit_cfg.save_path)) if dp.rank else []
+    out = {"rank": dp.rank, "device": str(dev), "backend": dp.backend}
+
+    cfg = train_sh_config(resize=RESIZE, reg_ls=1.0, optimizer="sgd")
+    model = LaneNet(cfg, device=dev)
+    local = local_rows(batch, g)
+    for key, weights in (("drawn", sd), ("damped", damped)):
+        loss, state, counts, _ = dp_step(model, cfg, weights, local, g)
+        out[key] = {"loss": loss, "state": state, "counts": counts}
+    out["step_ms"] = [dp_step(model, cfg, sd, local, g)[3]
+                      for _ in range(DP_TIMED)]
+    params = list(model.parameters())
+    for p in params:  # the step leaves unreached parameters' at None
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    ar_ms = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        all_reduce_grads(params, g)
+        sync()
+        ar_ms.append(1e3 * (time.perf_counter() - t0))
+    out["all_reduce_ms"] = ar_ms
+    out["grad_bytes"] = 4 * sum(p.numel() for p in params)
+
+    engine = FusedLaneNetEngine(train_sh_config(resize=RESIZE, reg_ls=1.0),
+                                device=dev)
+    packed = engine.prepare(sd)
+    x = images.to(dev)
+    call = engine.sharded_call(g)
+    call(packed, x)  # cuDNN plans of the heads
+    fused = {"encoder_fused": encoder_fused_kernel,
+             "decoder_fused": decoder_fused_kernel}
+    reset_counts(fused)
+    served = call(packed, x)
+    sync()
+    out["engine_counts"] = read_counts(fused)
+    rows = local_slice(x.shape[0], g)
+    own = engine(packed, local_rows(x, g))
+    out["own_equal"] = all(torch.equal(a[rows], b)
+                           for a, b in zip(served, own))
+    enc = encoder_fused(local_rows(x, g), packed["enc"])
+    S = decoder_fused(enc, packed["dec"])
+    out["engine"] = [t.float().cpu() for t in served]
+    out["enc"] = gather_rows(enc.float(), g).cpu()
+    out["S"] = gather_rows(S, g).cpu()
+
+    t0 = time.perf_counter()
+    runs = [main_torch.run(dp, fit_cfg.replace(nepochs=n, evaluate=ev),
+                           labels_dir, False)
+            for n, ev in ((1, False), (2, False), (2, True))]
+    out["fit_s"] = time.perf_counter() - t0
+    out["fit"] = [{k: float(v) for k, v in r.items()} for r in runs]
+    out["writes"] = list(writes)
+    return out
+
+
+def dp_phase(dev, card, sd):
+    """Phase 4k, data parallelism on the card: two ranks (NCCL with a card
+    each where the machine has two, else gloo with both on card 0), one
+    process each (`parallel/launch.py::spawn`), against one device here:
+
+    (a) the float32 default step of `train_sh_config(resize=256,
+        reg_ls=1.0)` at full width and depth, SGD, dropout off, a global
+        batch of 8 (4 a rank), from the seeded weights `sd` as drawn and
+        damped (bn2 x BN2_DAMP): the loss at DP_LOSS, the update's cosine
+        as drawn at least the one-device step against its own rerun less
+        BEV_NOISE_MARGIN and damped at F32_DAMPED, its norm ratio within
+        DP_NORM of 1, the BatchNorm running statistics at DP_STATS, the
+        two ranks' weights and statistics bit for bit equal, and each
+        rank's launches of K6-K10 the one device's (per step 17 + 17 of
+        each half, 3 + 3 / 2 + 2 / 1 + 1);
+    (b) the engine's `sharded_call` on 8 seeded images: 1 + 1 fused
+        launches a rank, each rank's rows of (beta, line, horizon) bit for
+        bit the engine's call on that rank's 4 images, the two ranks'
+        outputs equal; against the single call on all 8, `encoder_fused`'s
+        and `decoder_fused`'s outputs gathered bit for bit and beta at
+        DP_BETA of max (the heads' logits read beside, no bar);
+    (c) `main_torch.run` over the ranks on 4g's flags and data (one
+        epoch, a resume to two, `--evaluate`) against the same here on
+        one device: rank 1 writes nothing, rank 0 the one device's file
+        set; the resume reaches epoch 2; the evaluation on the two ranks'
+        best weights at DP_LOSS of the one device's on the same weights;
+    (d) times: each rank's step (median of DP_TIMED, host clock) beside
+        the one device's, and the gradient all-reduce alone (median of 5),
+        with the backend and the card; with gloo on one card they say
+        nothing about scaling.
+
+    Returns (summary, failures)."""
+    import shutil
+    from pathlib import Path
+
+    import main_torch
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.models.fused_graph import (
+        decoder_fused, encoder_fused)
+    from lanedetection_end2end_tpu_torch.models.infer_engine import (
+        FusedLaneNetEngine)
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+    from lanedetection_end2end_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    backend, devices = dp_backend(torch.cuda.device_count())
+    one_card = backend == "gloo"
+    print(f"data parallelism: {DP_WORLD} ranks, {backend} on "
+          f"{', '.join(devices)}" + (" (one card: gloo, asked for; its "
+                                     "times say nothing about scaling)"
+                                     if one_card else "") + f"; {card}")
+    failures = []
+    sd = {k: v.detach().cpu() for k, v in sd.items()}  # the ranks' copies
+    damped = {k: v * BN2_DAMP if k.endswith("bn2.weight") else v
+              for k, v in sd.items()}
+    batch = synthetic_batch(SEED + 3, RESIZE)
+    gi = torch.Generator(device=dev).manual_seed(SEED + 2)
+    images = torch.rand(BATCH, RESIZE, 2 * RESIZE, 3, generator=gi,
+                        device=dev)
+
+    root = Path(__file__).resolve().parent / "_smoke" / "dp"
+    shutil.rmtree(root, ignore_errors=True)
+    fit_cfg, synthetic, _ = main_torch.parse_args(
+        TRAINER_ARGV + ["--save_path", str(root / "ranks")])
+    fit_cfg, labels_dir = main_torch.data_config(fit_cfg, synthetic)
+
+    # the one device
+    cfg = train_sh_config(resize=RESIZE, reg_ls=1.0, optimizer="sgd")
+    model = LaneNet(cfg, device=dev)
+    one = {key: dp_step(model, cfg, w, batch) for key, w in
+           (("drawn", sd), ("rerun", sd), ("damped", damped))}
+    one_ms = [dp_step(model, cfg, sd, batch)[3] for _ in range(DP_TIMED)]
+    engine = FusedLaneNetEngine(train_sh_config(resize=RESIZE, reg_ls=1.0),
+                                device=dev)
+    packed = engine.prepare(sd)
+    single = [t.float().cpu() for t in engine(packed, images)]
+    enc = encoder_fused(images, packed["enc"])
+    single_enc = enc.float().cpu()
+    single_S = decoder_fused(enc, packed["dec"]).cpu()
+    del model, engine, packed, enc
+
+    # the ranks
+    t0 = time.perf_counter()
+    ranks = spawn(dp_rank, DP_WORLD, backend, devices,
+                  args=(sd, damped, batch, images.cpu(),
+                        (fit_cfg.replace(num_devices=DP_WORLD), labels_dir)))
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = ranks
+
+    # (a) the step
+    old = {k: v.cpu() for k, v in sd.items()}
+    keys = [k for k in old if "running" not in k and "num_batches" not in k]
+
+    def update(state):
+        return torch.cat([(state[k].double() - old[k].double()).flatten()
+                          for k in keys])
+
+    floor = cosine(update(one["drawn"][1]), update(one["rerun"][1]))
+    step = {}
+    for key in ("drawn", "damped"):
+        loss1, state1, counts1, _ = one[key]
+        got = r0[key]
+        rel = abs(got["loss"] - loss1) / abs(loss1)
+        du, d1 = update(got["state"]), update(state1)
+        cos = cosine(du, d1)
+        ratio = (du.norm() / d1.norm()).item()
+        least = floor - BEV_NOISE_MARGIN if key == "drawn" else F32_DAMPED[0]
+        stats = max(((got["state"][k] - state1[k]).abs()
+                     - DP_STATS[1] * state1[k].abs()).max().item()
+                    for k in state1 if "running" in k)
+        same = all(torch.equal(got["state"][k], r1[key]["state"][k])
+                   for k in got["state"])
+        counts_ok = (got["counts"] == counts1 == r1[key]["counts"]
+                     and counts1 == {n: PER_STEP["fused"][n]
+                                     for n in TRAIN_OPS})
+        step[key] = {"loss": got["loss"], "one_device_loss": loss1,
+                     "loss_rel": rel, "cosine": cos, "least_cosine": least,
+                     "norm_ratio": ratio, "stats_excess": stats,
+                     "ranks_equal": same}
+        print(f"data parallelism, step ({key} weights): loss {got['loss']:.8g}"
+              f" vs one device {loss1:.8g} (rel {rel:.3e}, tol {DP_LOSS:g}); "
+              f"update cosine {cos:.8f} (least {least:.8f}"
+              + (f": the one device against its rerun {floor:.8f} less "
+                 f"{BEV_NOISE_MARGIN:g}" if key == "drawn" else "")
+              + f"), norm ratio {ratio:.6f}; running statistics beyond "
+              f"rtol {DP_STATS[1]:g} by {stats:.3e} (atol {DP_STATS[0]:g});"
+              f" the ranks' weights and statistics bit for bit equal: {same};"
+              f" launches a rank {got['counts']}")
+        if not (rel <= DP_LOSS and cos >= least
+                and abs(ratio - 1) <= DP_NORM and stats <= DP_STATS[0]
+                and same and counts_ok):
+            failures.append(f"the two-rank step ({key} weights)")
+
+    # (b) the sharded engine call
+    enc_same = torch.equal(r0["enc"], single_enc) and torch.equal(
+        r1["enc"], single_enc)
+    S_same = torch.equal(r0["S"], single_S) and torch.equal(r1["S"],
+                                                            single_S)
+    errs = [rel_err(a, b)[1] for a, b in zip(r0["engine"], single)]
+    ranks_same = all(torch.equal(a, b)
+                     for a, b in zip(r0["engine"], r1["engine"]))
+    engine_counts = {n: (1, 0) for n in ("encoder_fused", "decoder_fused")}
+    own_same = r0["own_equal"] and r1["own_equal"]
+    print(f"data parallelism, sharded engine call: each rank's rows bit for "
+          f"bit the engine on its 4 images: {own_same}; the ranks equal: "
+          f"{ranks_same}; against the single call on all {BATCH}: "
+          f"encoder_fused and decoder_fused bit for bit: {enc_same}, "
+          f"{S_same}; beta of max|single| {errs[0]:.3e} (tol {DP_BETA:g}); "
+          f"line, horizon {errs[1]:.3e}, {errs[2]:.3e} (read, no bar: "
+          f"cuDNN's bf16 heads at batch 4 and 8); launches a rank "
+          f"{r0['engine_counts']}")
+    if not (own_same and enc_same and S_same and ranks_same
+            and errs[0] <= DP_BETA
+            and r0["engine_counts"] == r1["engine_counts"] == engine_counts):
+        failures.append("the sharded engine call")
+
+    # (c) main_torch.run over the ranks against one device
+    stdout = sys.stdout  # the Logger tee of the runs below
+    try:
+        one_cfg = fit_cfg.replace(save_path=str(root / "one"))
+        t0 = time.perf_counter()
+        for n in (1, 2):
+            main_torch.run(None, one_cfg.replace(nepochs=n), labels_dir,
+                           False)
+        one_fit_s = time.perf_counter() - t0
+        run_dir = root / "ranks" / fit_cfg.save_id
+        files_ranks = dp_files(run_dir)
+        files_one = dp_files(root / "one" / fit_cfg.save_id)
+        same_weights = main_torch.run(
+            None, fit_cfg.replace(nepochs=2, evaluate=True), labels_dir,
+            False)
+    finally:
+        sys.stdout = stdout
+    rows = [json.loads(line) for line in
+            open(run_dir / "scalars.jsonl").read().splitlines()]
+    ev = r0["fit"][2]
+    ev_rel = abs(ev["loss"] - same_weights["loss"]) / abs(
+        same_weights["loss"])
+    untimed = [[{k: v for k, v in r.items() if not k.endswith("_time")}
+                for r in rank["fit"]] for rank in ranks]
+    fit_ok = (r1["writes"] == [] and files_ranks == files_one
+              and [r["epoch"] for r in rows] == [1, 2]
+              and untimed[0] == untimed[1] and ev_rel <= DP_LOSS
+              and all(math.isfinite(v) for r in r0["fit"] for v in r.values()))
+    print(f"data parallelism, main_torch.run: rank 1 wrote {len(r1['writes'])}"
+          f" files, rank 0 the one device's {len(files_one)}: "
+          f"{files_ranks == files_one}; epochs {[r['epoch'] for r in rows]}; "
+          f"--evaluate on the two ranks' best weights: loss {ev['loss']:.8g},"
+          f" one device {same_weights['loss']:.8g} (rel {ev_rel:.3e}, tol "
+          f"{DP_LOSS:g}); {r0['fit_s']:.1f} s for the three runs on the "
+          f"ranks, {one_fit_s:.1f} s for the two fits on one device")
+    if not fit_ok:
+        failures.append(f"main_torch.run over the ranks (rank 1 wrote "
+                        f"{r1['writes'][:3]}; files {files_ranks} vs "
+                        f"{files_one})")
+
+    # (d) times
+    step_ms = [statistics.median(r["step_ms"]) for r in ranks]
+    ar_ms = [statistics.median(r["all_reduce_ms"]) for r in ranks]
+    print(f"data parallelism, times ({backend}"
+          + (", two ranks on one card" if one_card else "") + f"; {card}): "
+          f"a step of 4 a rank {', '.join(f'{t:.3f}' for t in step_ms)} ms "
+          f"(median of {DP_TIMED}: "
+          + "; ".join(", ".join(f"{t:.3f}" for t in r["step_ms"])
+                      for r in ranks)
+          + f"), one device a step of {BATCH} {statistics.median(one_ms):.3f}"
+          f" ms; the gradient all-reduce ({r0['grad_bytes'] / 1e6:.2f} MB) "
+          f"{', '.join(f'{t:.3f}' for t in ar_ms)} ms (median of 5); the "
+          f"ranks' process {ranks_s:.1f} s, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    summary = {
+        "backend": backend, "devices": devices, "card": card,
+        "one_card": one_card, "step": step,
+        "launches_per_rank": {n: list(v) for n, v in r0["drawn"]["counts"]
+                              .items() if v != (0, 0)},
+        "engine": {"own_rows_bit_equal": own_same,
+                   "enc_bit_equal": enc_same, "S_bit_equal": S_same,
+                   "beta_line_horizon_rel": errs,
+                   "launches_per_rank": {n: v[0] for n, v in
+                                         r0["engine_counts"].items()}},
+        "evaluate_loss_rel": ev_rel, "files_equal": files_ranks == files_one,
+        "rank1_writes": len(r1["writes"]),
+        "step_ms_per_rank": step_ms,
+        "step_ms_one_device": statistics.median(one_ms),
+        "all_reduce_ms": ar_ms, "grad_mb": r0["grad_bytes"] / 1e6,
+        "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase}
+    return summary, failures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4519,6 +4934,10 @@ def main() -> int:
     homography, failures = homography_phase(dev, card)
     if failures:
         fail("learned homography: " + "; ".join(failures))
+    # 4k. data parallelism over two ranks ---------------------------------
+    data_parallel, failures = dp_phase(dev, card, sd0)
+    if failures:
+        fail("data parallelism: " + "; ".join(failures))
 
     # 5. kernels line and result ----------------------------------------
     kernels = []
@@ -4571,7 +4990,8 @@ def main() -> int:
                       "race_check": race_report,
                       "deferred_copies": defer_report,
                       "trainer": trainer_summary, "bev": bev,
-                      "learned_homography": homography}))
+                      "learned_homography": homography,
+                      "data_parallel": data_parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -123,7 +123,14 @@ class LaneConfig:
 
     # ---- additions of the JAX package ----
     compute_dtype: str = "float32"  # float32 | bfloat16: backbone compute
-    num_devices: int = 0  # 0 = every local device; the port runs one
+    # ranks of data parallelism, a card each (main_torch.py starts them):
+    # 0 = every local card (on the CPU one rank), fewer where the batch
+    # does not divide, with a RuntimeWarning; an explicit count that does
+    # not divide the train or validation batch raises (JAX's rules,
+    # train/driver.py::resolve_world)
+    num_devices: int = 0
+    # JAX's two-level ("dcn", "data") mesh: here only its rule that it
+    # divides the ranks; one flat process group carries the collectives
     num_slices: int = 1
     prefetch: int = 2  # batches copied to the card ahead of the step
     seed: int = 0
@@ -254,6 +261,14 @@ _STORE_TRUE_FLAGS = {
 }
 
 
+# what --help says beside a flag's default
+_HELP = {
+    "num_devices": "ranks of data parallelism, a card each (0: every card, "
+                   "fewer where the batch does not divide). Two or more do "
+                   "not yet train faster than one card (PERF.md); 1 trains "
+                   "on one card."}
+
+
 def build_parser(profile: str = "bp") -> argparse.ArgumentParser:
     """argparse parser mirroring the reference `define_args`."""
     defaults = bev_defaults() if profile == "bev" else bp_defaults()
@@ -276,7 +291,8 @@ def build_parser(profile: str = "bp") -> argparse.ArgumentParser:
             parser.add_argument(flag, type=str, default=default)
         else:
             parser.add_argument(flag, type=type(default) if default is not None
-                                else str, default=default)
+                                else str, default=default,
+                                help=_HELP.get(f.name))
     parser.add_argument("--list", dest="skip_list", type=int, nargs="+",
                         default=[954, 2789],
                         help="Images you want to skip")

@@ -8,9 +8,11 @@ seed, epoch and flip give the same batches. In place of the JAX package's
 `DevicePrefetcher`, `DevicePrefetcher` here pins each host batch and copies
 it to the card with `non_blocking=True` on a side stream, `depth` batches
 ahead, and the consumer's stream waits on the copy's event before use; on
-the CPU the batches pass through as tensors. One process:
-`process_index` / `process_count` stay for multi-device data parallelism,
-which the port does not run yet.
+the CPU the batches pass through as tensors. Over N ranks
+(`parallel/`), each rank's loader takes `process_index` = its rank and
+`process_count` = N, decodes only its contiguous rows of each global batch
+(`Loader._local_slice`, JAX's) and its `DevicePrefetcher` copies them to
+the rank's own device.
 """
 
 from __future__ import annotations
@@ -240,21 +242,25 @@ class DevicePrefetcher:
 def get_loader(dataset_factory, num_train: int, batch_size: int,
                val_batch_size: Optional[int] = None, shuffle: bool = True,
                nworkers: int = 8, flip_on: bool = False,
-               split_percentage: float = 0.2, seed: int = 0
+               split_percentage: float = 0.2, seed: int = 0,
+               process_index: int = 0, process_count: int = 1
                ) -> Tuple[Loader, Loader, List[int]]:
     """Split + build train/val loaders.
 
     Parity with `get_loader` (Load_Data_new.py:293-326 BEV / :255-290 BP).
     `dataset_factory(valid_idx)` builds the dataset (it needs the validation
-    indices to suppress flips on validation images).
+    indices to suppress flips on validation images). Over several ranks,
+    rank `process_index` of `process_count` decodes only its rows of each
+    global batch (`Loader`).
     """
     train_idx, valid_idx = split_indices(num_train, split_percentage, shuffle)
     dataset = dataset_factory(valid_idx)
+    ranks = dict(process_index=process_index, process_count=process_count)
     train_loader = Loader(dataset, train_idx, batch_size, shuffle=True,
-                          flip=flip_on, nworkers=nworkers, seed=seed)
+                          flip=flip_on, nworkers=nworkers, seed=seed, **ranks)
     valid_loader = Loader(dataset, valid_idx,
                           val_batch_size or batch_size, shuffle=False,
-                          flip=False, nworkers=nworkers, seed=seed)
+                          flip=False, nworkers=nworkers, seed=seed, **ranks)
     return train_loader, valid_loader, valid_idx
 
 

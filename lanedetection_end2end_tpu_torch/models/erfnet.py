@@ -38,6 +38,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lanedetection_end2end_tpu_torch.ops.packed_graph import dropout2d
+from lanedetection_end2end_tpu_torch.parallel.collectives import (
+    all_reduce_mean)
 
 BN_EPS = 1e-3
 DROPOUT_1, DROPOUT_2 = 0.03, 0.3  # encoder 64- and 128-channel stages
@@ -50,13 +52,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics in f32 with the *biased* variance mean(x^2) - mean(x)^2,
     which is also what the running variance accumulates (momentum 0.1 on
     the new value); `torch.nn.BatchNorm2d` would store the unbiased one.
-    Computes in f32 and returns the input's dtype."""
+    Computes in f32 (float64 input in float64) and returns the input's
+    dtype. With a `sync_group`
+    (set by `parallel/collectives.py::set_sync_group`) the train-mode mean
+    and mean of squares are averaged over its ranks, so each rank
+    normalizes with the global batch's statistics, as GSPMD reduces the
+    JAX package's flax BatchNorm over the whole batch."""
+
+    sync_group = None  # None: this process's batch alone
 
     def forward(self, x):
-        xf = x.float()
+        ct = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(ct)
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            if self.sync_group is not None:
+                mean, mean2 = all_reduce_mean(
+                    torch.stack([mean, mean2]), self.sync_group).unbind(0)
+            var = (mean2 - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
@@ -64,8 +78,8 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
-        mul = self.weight.float() * torch.rsqrt(var + self.eps)
-        add = self.bias.float() - mean * mul
+        mul = self.weight.to(ct) * torch.rsqrt(var + self.eps)
+        add = self.bias.to(ct) - mean * mul
         y = xf * mul[None, :, None, None] + add[None, :, None, None]
         return y.to(x.dtype)
 

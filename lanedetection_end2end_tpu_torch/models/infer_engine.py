@@ -25,6 +25,8 @@ Usage:
     packed = engine.prepare(state_dict)       # once per checkpoint
     beta, line, horizon = engine(packed, images)
     engine.fitter = WLSFitter(M_general, ...) # later calls: blocks path
+    fn = engine.sharded_call(dp.group)        # one rank of N: its rows
+    beta, line, horizon = fn(packed, images)  # the global batch's
 
 `state_dict` carries the reference torch names (`LaneNet(cfg).state_dict()`
 or `models/port.py::state_dict_from_variables`). Both profiles serve: the
@@ -35,7 +37,7 @@ every kernel wrapper takes its plain version.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping
 
 import torch
 import torch.nn as nn
@@ -52,6 +54,8 @@ from lanedetection_end2end_tpu_torch.models.lanenet import (
 from lanedetection_end2end_tpu_torch.ops.activations import activation_fn
 from lanedetection_end2end_tpu_torch.ops.nb1d import (
     nb1d_chain, pack_chain, pack_nb1d)
+from lanedetection_end2end_tpu_torch.parallel.collectives import gather_rows
+from lanedetection_end2end_tpu_torch.parallel.mesh import local_rows
 
 BF16 = torch.bfloat16
 _HEADS = (("line_classification", "line"), ("horizon_estimation", "horizon"))
@@ -142,6 +146,19 @@ class FusedLaneNetEngine:
         else blocks. C is the config's `out_channels`, any count the head
         kernels take (1 to 8)."""
         return self._run(packed, images, blocks=not self.fitter.separable)
+
+    def sharded_call(self, group) -> Callable:
+        """The data-parallel serving call over the ranks of `group` (JAX's
+        `sharded_call(mesh)`): fn(packed, images) takes the global images
+        (B, H, W, 3) on every rank, runs this engine's kernels on the
+        rank's contiguous rows (`parallel/mesh.py::local_rows`) and
+        returns the global (beta, line, horizon), gathered in row order on
+        every rank. B must divide over the ranks."""
+        def fn(packed: Dict, images: torch.Tensor) -> tuple:
+            out = self(packed, local_rows(images, group))
+            return tuple(None if t is None else gather_rows(t, group)
+                         for t in out)
+        return fn
 
     @torch.no_grad()
     def _run(self, packed: Dict, images: torch.Tensor, blocks: bool

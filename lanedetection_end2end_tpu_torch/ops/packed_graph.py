@@ -62,6 +62,8 @@ from lanedetection_end2end_tpu_torch.ops.nb1d import _taps
 from lanedetection_end2end_tpu_torch.ops.nb_block import nb_half_a, nb_half_b
 from lanedetection_end2end_tpu_torch.ops.packed_conv import (
     channel_sums, packed_conv_act)
+from lanedetection_end2end_tpu_torch.parallel.collectives import (
+    all_reduce_mean)
 
 BN_MOMENTUM = 0.9  # weight of the old running value
 
@@ -76,9 +78,16 @@ def bn_mul_add(mom: Optional[torch.Tensor], bn, n: int,
     `bn` (a `torch.nn.BatchNorm2d`): from the batch moments `mom` (2, C) =
     [sum; sum of squares] over n values per channel in train mode, which
     also updates the running statistics in place; from the running
-    statistics otherwise."""
+    statistics otherwise. Where `bn` has a `sync_group`
+    (`parallel/collectives.py::set_sync_group`), the train-mode mean and
+    mean of squares are averaged over its ranks first (JAX's pmean of the
+    moments, `_bn_mul_add`)."""
     if train:
-        mean, mean2 = mom[0] / n, mom[1] / n
+        group = getattr(bn, "sync_group", None)
+        if group is None:
+            mean, mean2 = mom[0] / n, mom[1] / n
+        else:
+            mean, mean2 = all_reduce_mean(mom / n, group).unbind(0)
         var = mean2 - mean * mean
         with torch.no_grad():
             bn.running_mean.mul_(BN_MOMENTUM).add_(

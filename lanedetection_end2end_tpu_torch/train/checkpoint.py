@@ -8,6 +8,9 @@ payload has the same keys, `epoch`, `best epoch`, `arch`, `loss` and
 `state_dict`; here `state_dict` holds the torch `state_dict`s of the model
 and the optimizer and the steps taken, written with `torch.save`. A JAX
 checkpoint does not load here.
+
+Over N ranks (`group=`), rank 0 alone writes, and every rank reads after
+a barrier, so a file is whole before any rank opens it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from lanedetection_end2end_tpu_torch.parallel.collectives import rank_of
 from lanedetection_end2end_tpu_torch.train.state import TrainState
 from lanedetection_end2end_tpu_torch.utils.observability import (
     write_run_marker)
@@ -30,9 +35,20 @@ def _ckpt_path(save_path: str, epoch: int) -> str:
 
 def save_checkpoint(save_path: str, state: TrainState, epoch: int,
                     best_epoch: int, best_score: float, arch: str = "erfnet",
-                    is_best: bool = False) -> str:
+                    is_best: bool = False, group=None) -> str:
     """Write epoch `epoch`'s checkpoint, copy it to model_best on
-    improvement, delete the previous epoch's and update first_run.txt."""
+    improvement, delete the previous epoch's and update first_run.txt.
+    With `group`, rank 0 writes and every rank leaves after a barrier."""
+    filepath = _ckpt_path(save_path, epoch)
+    if rank_of(group) == 0:
+        _write(save_path, state, epoch, best_epoch, best_score, arch,
+               is_best)
+    if group is not None:
+        dist.barrier(group=group)
+    return filepath
+
+
+def _write(save_path, state, epoch, best_epoch, best_score, arch, is_best):
     payload = {
         "epoch": epoch + 1,
         "best epoch": best_epoch,
@@ -55,7 +71,6 @@ def save_checkpoint(save_path: str, state: TrainState, epoch: int,
     if os.path.exists(prev):
         os.remove(prev)
     write_run_marker(save_path, epoch)
-    return filepath
 
 
 def latest_checkpoint_epoch(save_path: str) -> Optional[int]:
@@ -71,9 +86,12 @@ def latest_checkpoint_epoch(save_path: str) -> Optional[int]:
     return epoch if os.path.exists(_ckpt_path(save_path, epoch)) else None
 
 
-def load_checkpoint(path: str, state: TrainState):
+def load_checkpoint(path: str, state: TrainState, group=None):
     """Load the checkpoint at `path` into `state` (its model and optimizer,
-    in place, on the model's device) -> (state, payload)."""
+    in place, on the model's device) -> (state, payload). With `group`,
+    every rank reads after a barrier."""
+    if group is not None:
+        dist.barrier(group=group)
     device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=False)
     sd = payload["state_dict"]

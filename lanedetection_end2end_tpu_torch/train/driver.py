@@ -1,7 +1,8 @@
 """Training driver: the epoch loop as one reusable Trainer.
 
-Counterpart of `lanedetection_end2end_tpu/train/driver.py::Trainer` on one
-device, for both profiles and the staged schedule:
+Counterpart of `lanedetection_end2end_tpu/train/driver.py::Trainer`, for
+both profiles and the staged schedule, on one device or on N ranks of a
+data-parallel world (one process and one card each, `parallel/`):
 
 - the phase of each epoch from `cfg.phase_for_epoch` (with `pretrained`:
   'skip' epochs in the BP profile, then 'seg' up to `pretrain_epochs`,
@@ -31,9 +32,20 @@ train loss, as the JAX Trainer does, and that value then picks the best
 model and drives the plateau schedule; the Trainer prints a notice that
 the validation set was empty. The learned homography and `packed_train`
 False train their e2e epochs on `LaneNet.forward` (`train/steps.py`),
-with the homography head in the checkpoints. More than one device, and
-`use_pallas_wls` False (the JAX package's XLA moments), raise
-NotImplementedError.
+with the homography head in the checkpoints. `use_pallas_wls` False (the
+JAX package's XLA moments) raises NotImplementedError.
+
+Over N ranks (`dp=`, a `parallel/mesh.py::DataParallel`; `main_torch.py
+--num_devices N` starts them), each rank holds the same weights (rank 0's,
+broadcast after the init and after a resume), loads its rows of each
+global batch and steps with the others (`train/steps.py`, `group=`).
+Every number that picks the best model or steps the plateau schedule is
+the same on every rank: the steps' metrics are averaged over the ranks,
+and the test-set score, computed on rank 0 alone as JAX's unsharded
+`test_model` is, is broadcast. Rank 0 alone writes: the Logger,
+`scalars.jsonl`, the checkpoints, the panels, `validation_set_dst.json`,
+`ls_result.json` and the LaneEval files. The world's size follows JAX's
+rules (`resolve_world`).
 """
 
 from __future__ import annotations
@@ -42,10 +54,12 @@ import json
 import os
 import sys
 import time
+import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lanedetection_end2end_tpu_torch.config import LaneConfig
 from lanedetection_end2end_tpu_torch.data.labels import write_json_lines
@@ -58,6 +72,9 @@ from lanedetection_end2end_tpu_torch.eval.test_driver import (
     make_infer_fn, test_model)
 from lanedetection_end2end_tpu_torch.models.init import init_weights
 from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+from lanedetection_end2end_tpu_torch.parallel.collectives import gather_rows
+from lanedetection_end2end_tpu_torch.parallel.mesh import (
+    check_slices, rank_seed, replicate)
 from lanedetection_end2end_tpu_torch.train.checkpoint import (
     _ckpt_path, latest_checkpoint_epoch, load_checkpoint, save_checkpoint)
 from lanedetection_end2end_tpu_torch.train.optim import (
@@ -76,16 +93,40 @@ EMPTY_VALIDATION = ("notice: the validation set is empty; val_loss repeats "
 
 
 def check_supported(cfg: LaneConfig) -> None:
-    """NotImplementedError for what the port does not train yet, naming
-    the ROADMAP item that holds it."""
-    if cfg.num_devices > 1 or cfg.num_slices > 1:
-        raise NotImplementedError(
-            "the port trains on one device; data parallelism is ROADMAP "
-            "Queue 1 item 8")
+    """NotImplementedError for what the port does not train."""
     if cfg.use_pallas_wls is False:
         raise NotImplementedError(
             "use_pallas_wls=False selects XLA's moments of the general-"
             "homography fit; the port computes them on K12 wls_moments")
+
+
+def resolve_world(cfg: LaneConfig, available: int) -> int:
+    """The number of ranks, by the JAX Trainer's mesh rules: `num_devices`
+    (0: every one of `available`) must divide the train and the
+    validation batch; an explicit count that does not raises ValueError,
+    an implicit one shrinks to the largest that does, with a
+    RuntimeWarning. `num_slices` must divide the result."""
+    requested = cfg.num_devices or available
+    ndev = requested
+    while cfg.batch_size % ndev or cfg.effective_val_batch_size % ndev:
+        ndev -= 1
+    if ndev != requested:
+        if cfg.num_devices:
+            # the user asked for exactly this many devices; silently
+            # training on fewer would waste the rest
+            raise ValueError(
+                f"batch_size={cfg.batch_size} (val "
+                f"{cfg.effective_val_batch_size}) does not divide over the "
+                f"requested num_devices={cfg.num_devices}; pick a divisible "
+                "batch size or a different device count")
+        warnings.warn(
+            f"mesh REDUCED from {requested} to {ndev} devices so the batch "
+            f"(train {cfg.batch_size} / val {cfg.effective_val_batch_size}) "
+            f"divides over the ranks: {requested - ndev} device(s) will sit "
+            "idle. Set a divisible batch_size or pass num_devices "
+            "explicitly.", RuntimeWarning, stacklevel=2)
+    check_slices(ndev, cfg.num_slices)
+    return ndev
 
 
 def _floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -100,23 +141,40 @@ def _floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 class Trainer:
     """Owns the model, the optimizer state and the steps, and runs the
     epoch loop. `device` None: the card unless `cfg.no_cuda`
-    (`LaneConfig.torch_device`)."""
+    (`LaneConfig.torch_device`). `dp`: this process's rank of a
+    data-parallel world (its device is the Trainer's); None: one device.
+    The world's size must be what `resolve_world` makes of the config:
+    ValueError otherwise."""
 
     def __init__(self, cfg: LaneConfig, log_to_file: bool = True,
-                 verbose: bool = True, device=None):
+                 verbose: bool = True, device=None, dp=None):
         check_supported(cfg)
+        world = dp.world if dp is not None else 1
+        want = resolve_world(cfg, world)
+        if want != world:
+            raise ValueError(
+                f"num_devices={cfg.num_devices} asks for {want} ranks but "
+                f"this Trainer runs in {world}: start one Trainer per rank "
+                "(parallel/launch.py::spawn, as main_torch.py does)")
         self.cfg = cfg
-        self.verbose = verbose
-        self.device = (cfg.torch_device() if device is None
-                       else resolve_device(device))
+        self.group = dp.group if dp is not None else None
+        self.is_main = dp is None or dp.is_main
+        self.verbose = verbose and self.is_main
+        if dp is not None:
+            self.device = dp.device
+        else:
+            self.device = (cfg.torch_device() if device is None
+                           else resolve_device(device))
         self.save_path = os.path.join(cfg.save_path, cfg.save_id)
-        mkdir_if_missing(self.save_path)
-        for sub in ("train", "valid", "pretrain", "testset"):
-            mkdir_if_missing(os.path.join(self.save_path, "example", sub))
+        if self.is_main:
+            mkdir_if_missing(self.save_path)
+            for sub in ("train", "valid", "pretrain", "testset"):
+                mkdir_if_missing(os.path.join(self.save_path, "example", sub))
 
         self.lanenet = LaneNet(cfg, device=self.device)
         init_weights(self.lanenet, cfg.weight_init,
                      torch.Generator().manual_seed(cfg.seed))
+        replicate(self.lanenet, self.group)
         self.optimizer = define_optim(
             self.lanenet.parameters(), cfg.optimizer, cfg.learning_rate,
             cfg.weight_decay, cfg.clip_grad_norm)
@@ -127,9 +185,9 @@ class Trainer:
         self._train_steps: Dict[str, Callable] = {}
         self._eval_steps: Dict[str, Callable] = {}
         self._val_infer = None
-        # dropout's draws
+        # dropout's draws, each rank its own
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed + 1)
+            rank_seed(cfg.seed + 1, dp.rank if dp is not None else 0))
 
         # best-model policy: BEV the minimum exact area; BP the maximum
         # test accuracy with clas, else the minimum validation loss
@@ -138,10 +196,10 @@ class Trainer:
         self.best_epoch = 0
         self.start_epoch = cfg.start_epoch
 
-        if log_to_file:
+        if log_to_file and self.is_main:
             sys.stdout = Logger(os.path.join(
                 self.save_path, f"log_train_start_{self.start_epoch}.txt"))
-        if verbose:
+        if self.verbose:
             n_params = sum(p.numel() for p in self.lanenet.parameters())
             print("Number of parameters in model {} is {:.3f}M".format(
                 cfg.mod.upper(), n_params / 1e6))
@@ -152,27 +210,54 @@ class Trainer:
         if phase not in self._train_steps:
             self._train_steps[phase] = make_train_step(
                 self.lanenet, self.cfg, self.optimizer, phase,
-                device=self.device, state=self.state)
+                device=self.device, state=self.state, group=self.group)
         return self._train_steps[phase]
 
     def eval_step_for(self, phase: str) -> Callable:
         """step(batch) -> (metrics, outputs) for `phase` (made once)."""
         if phase not in self._eval_steps:
             self._eval_steps[phase] = make_eval_step(
-                self.lanenet, self.cfg, phase, device=self.device)
+                self.lanenet, self.cfg, phase, device=self.device,
+                group=self.group)
         return self._eval_steps[phase]
 
     def _prefetch(self, loader):
         return DevicePrefetcher(loader, self.device, depth=self.cfg.prefetch)
 
+    def _from_main(self, value: Optional[float]) -> Optional[float]:
+        """Rank 0's `value` on every rank (itself on one device)."""
+        if self.group is None:
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def load(self, path: str):
+        """Load a checkpoint into the state on every rank -> payload."""
+        _, payload = load_checkpoint(path, self.state, self.group)
+        replicate(self.lanenet, self.group)
+        return payload
+
+    def test_score(self, test_loader) -> float:
+        """The TuSimple test accuracy of the current weights: on rank 0
+        alone (JAX's `test_model` is unsharded), the others wait and
+        receive it."""
+        score = None
+        if self.is_main:
+            score = test_model(test_loader, self.lanenet, self.cfg,
+                               save_path=self.save_path,
+                               verbose=self.verbose)
+        return self._from_main(score)
+
     # ------------------------------------------------------------------
     def maybe_resume(self) -> bool:
         """Resume from the latest epoch checkpoint of the run directory."""
+        if self.group is not None:
+            dist.barrier(group=self.group)
         epoch = latest_checkpoint_epoch(self.save_path)
         if epoch is None:
             return False
-        _, payload = load_checkpoint(_ckpt_path(self.save_path, epoch),
-                                     self.state)
+        payload = self.load(_ckpt_path(self.save_path, epoch))
         self.start_epoch = payload["epoch"]
         self.best_epoch = payload["best epoch"]
         self.best_score = payload["loss"]
@@ -209,7 +294,8 @@ class Trainer:
                       "Loss {loss.val:.8f} ({loss.avg:.8f})".format(
                           epoch + 1, i + 1, len(train_loader),
                           bt=batch_time, loss=meters["loss"]))
-            if cfg.save_freq and (i + 1) % cfg.save_freq == 0:
+            if (cfg.save_freq and (i + 1) % cfg.save_freq == 0
+                    and self.is_main):
                 self.visualize_batch(batch, epoch, batch_idx=i + 1,
                                      mode="train")
                 end = time.time()  # the panels are not the next batch's
@@ -247,9 +333,9 @@ class Trainer:
         for i, batch in enumerate(self._prefetch(valid_loader)):
             metrics, outputs = step(batch)
             if bp_laneeval:
-                lanes_pred_all.append(self._val_infer(
-                    prepare_batch(batch)["image"]).cpu().numpy())
-            if (i + 1) % 25 == 0:
+                lanes_pred_all.append(gather_rows(self._val_infer(
+                    prepare_batch(batch)["image"]), self.group).cpu().numpy())
+            if (i + 1) % 25 == 0 and self.is_main:
                 self.visualize_batch(batch, epoch, batch_idx=i + 1,
                                      mode="valid")
             for k, v in _floats(metrics).items():
@@ -274,43 +360,59 @@ class Trainer:
         out = {k: m.avg for k, m in meters.items()}
 
         if cfg.clas and valid_set_labels is not None and records:
-            val_set_path = os.path.join(self.save_path,
-                                        "validation_set_dst.json")
-            write_json_lines(val_set_path, records)
+            acc_seg = self._write_validation_records(records)
             if cfg.nclasses > 3 and cfg.profile == "bev":
-                ls_result_path = os.path.join(self.save_path,
-                                              "ls_result.json")
-                write_lsq_results(val_set_path, ls_result_path, cfg.nclasses,
-                                  False, False, cfg.resize,
-                                  no_ortho=cfg.no_ortho)
-                acc = LaneEval.bench_one_submit(ls_result_path, val_set_path)
-                out["acc_seg"] = acc[0]
-                if self.verbose:
-                    print("===> Average ACC_SEG on val is {:.8}".format(
-                        acc[0]))
+                out["acc_seg"] = self._from_main(acc_seg)
 
         if bp_laneeval and lanes_pred_all:
-            # valid_set_labels are TuSimple gt lines in loader order; rows
-            # of a padded final batch are sliced off
-            lanes = np.concatenate(lanes_pred_all, axis=0)
-            n = min(lanes.shape[0], len(valid_set_labels))
-            gt_path = os.path.join(self.save_path, "validation_gt.json")
-            pred_path = os.path.join(self.save_path,
-                                     "validation_predictions.json")
-            write_json_lines(gt_path, valid_set_labels[:n])
-            preds = []
-            for j in range(n):
-                rec = dict(valid_set_labels[j])
-                rec["lanes"] = np.int_(np.round(lanes[j])).tolist()
-                rec["run_time"] = 20
-                preds.append(rec)
-            write_json_lines(pred_path, preds)
-            acc = LaneEval.bench_one_submit(pred_path, gt_path)
-            out["acc"] = acc[0]
-            if self.verbose:
-                print("===> Average LaneEval ACC on val is {:.8}".format(
-                    acc[0]))
+            out["acc"] = self._from_main(
+                self._score_validation_lanes(lanes_pred_all,
+                                             valid_set_labels)
+                if self.is_main else None)
         return out
+
+    def _write_validation_records(self, records) -> Optional[float]:
+        """Rank 0: `validation_set_dst.json`, and in the BEV profile with 4
+        lanes its TuSimple lines (`ls_result.json`) and their LaneEval
+        score, returned (None otherwise, and on the other ranks)."""
+        cfg = self.cfg
+        if not self.is_main:
+            return None
+        val_set_path = os.path.join(self.save_path, "validation_set_dst.json")
+        write_json_lines(val_set_path, records)
+        if not (cfg.nclasses > 3 and cfg.profile == "bev"):
+            return None
+        ls_result_path = os.path.join(self.save_path, "ls_result.json")
+        write_lsq_results(val_set_path, ls_result_path, cfg.nclasses,
+                          False, False, cfg.resize, no_ortho=cfg.no_ortho)
+        acc = LaneEval.bench_one_submit(ls_result_path, val_set_path)
+        if self.verbose:
+            print("===> Average ACC_SEG on val is {:.8}".format(acc[0]))
+        return acc[0]
+
+    def _score_validation_lanes(self, lanes_pred_all,
+                                valid_set_labels) -> float:
+        """Rank 0: LaneEval of the validation split's predicted lanes."""
+        # valid_set_labels are TuSimple gt lines in loader order; rows
+        # of a padded final batch are sliced off
+        lanes = np.concatenate(lanes_pred_all, axis=0)
+        n = min(lanes.shape[0], len(valid_set_labels))
+        gt_path = os.path.join(self.save_path, "validation_gt.json")
+        pred_path = os.path.join(self.save_path,
+                                 "validation_predictions.json")
+        write_json_lines(gt_path, valid_set_labels[:n])
+        preds = []
+        for j in range(n):
+            rec = dict(valid_set_labels[j])
+            rec["lanes"] = np.int_(np.round(lanes[j])).tolist()
+            rec["run_time"] = 20
+            preds.append(rec)
+        write_json_lines(pred_path, preds)
+        acc = LaneEval.bench_one_submit(pred_path, gt_path)
+        if self.verbose:
+            print("===> Average LaneEval ACC on val is {:.8}".format(
+                acc[0]))
+        return acc[0]
 
     # ------------------------------------------------------------------
     def fit(self, train_loader, valid_loader, test_loader=None,
@@ -340,7 +442,8 @@ class Trainer:
                 val_metrics = self.validate(valid_loader, epoch,
                                             valid_set_labels)
             else:
-                print(EMPTY_VALIDATION)
+                if self.is_main:
+                    print(EMPTY_VALIDATION)
                 val_metrics = {"loss": train_metrics["loss"]}
             last.update({f"val_{k}": v for k, v in val_metrics.items()})
             if self.verbose:
@@ -350,9 +453,7 @@ class Trainer:
             if cfg.profile == "bev":
                 score = val_metrics.get("exact_area", val_metrics["loss"])
             elif cfg.clas and test_loader is not None and cfg.end_to_end:
-                score = test_model(test_loader, self.lanenet, cfg,
-                                   save_path=self.save_path,
-                                   verbose=self.verbose)
+                score = self.test_score(test_loader)
                 last["test_acc"] = score
             else:
                 score = val_metrics["loss"]
@@ -370,6 +471,8 @@ class Trainer:
     def _log_scalars(self, epoch: int, metrics: Dict[str, float]) -> None:
         """One line of `scalars.jsonl` per epoch: the epoch, the learning
         rate and the epoch's metrics."""
+        if not self.is_main:
+            return
         rec = {"epoch": epoch + 1, "lr": get_lr(self.optimizer)}
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(os.path.join(self.save_path, "scalars.jsonl"), "a") as f:
@@ -407,4 +510,4 @@ class Trainer:
                 self.best_epoch = epoch + 1
                 self.best_score = float(score)
         save_checkpoint(self.save_path, self.state, epoch, self.best_epoch,
-                        self.best_score, self.cfg.mod, is_best)
+                        self.best_score, self.cfg.mod, is_best, self.group)

@@ -26,8 +26,23 @@ or `packed_train` is False: then e2e runs on `LaneNet.forward` too, as
 JAX runs it on its flax graph (`resolve_packed`; a forced True there
 raises). With the learned
 homography the backprojection loss takes each sample's matrices
-(`BackprojectionLoss.with_M`). Every metric stays on the device. A mesh
-of devices is not ported yet.
+(`BackprojectionLoss.with_M`). Every metric stays on the device.
+
+Data parallelism (JAX's `mesh=`, run per shard in `shard_map`): with a
+process group (`group=`, `parallel/mesh.py`) each rank takes its rows of
+the global batch, its BatchNorms reduce their train-mode moments over the
+ranks (`set_sync_group`), the gradients are averaged in one all_reduce
+before the optimizer's update (so gradient clipping sees the global
+gradient), the metrics are averaged, and the eval step's outputs are
+gathered into the global batch's row order. The same collectives serve
+every phase and both graphs. The losses that divide by a count of the
+batch (the backprojection MSE by its valid points, the area loss by its
+present lanes, the weighted cross entropy by its weights) are the whole
+batch's ratio: each rank scales its ratio by its share of the global
+count (`_shares`), so the ranks' mean is the loss of one device on the
+global batch, as GSPMD computes it for the JAX package's flax graph. (JAX's
+packed shard_map step averages the shards' ratios instead; the two
+differ where the ranks count differently.)
 
     step = make_train_step(lanenet, cfg, optimizer, phase)  # on the card
     metrics = step(batch, generator)                  # one optimizer step
@@ -37,7 +52,8 @@ float, optionally `flip` (B,) bool; 'bp': `lanes` and `valid_points` (B,
 nclasses, 56), `line` (B, 4); 'bev': `params` (B, 4, 3), `line` (B, 4)
 class indices; both: `horizon` (B, resize), and `gt` (B, H, W) for skip
 and seg. `generator` is the `torch.Generator` (on the step's device) that
-dropout draws from; None turns dropout off.
+dropout draws from; None turns dropout off. Each rank of a data-parallel
+step draws from its own (`parallel/mesh.py::rank_seed`).
 """
 
 from __future__ import annotations
@@ -53,6 +69,8 @@ from lanedetection_end2end_tpu_torch.ops.losses import (
     BackprojectionLoss, area_loss, bce_with_logits, cross_entropy_logits,
     mse_params_loss, weighted_cross_entropy)
 from lanedetection_end2end_tpu_torch.ops.metrics import trapezoidal_area
+from lanedetection_end2end_tpu_torch.parallel.collectives import (
+    all_reduce_grads, all_reduce_mean, gather_rows, set_sync_group)
 from lanedetection_end2end_tpu_torch.train.state import TrainState
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -120,9 +138,21 @@ def resolve_packed(lanenet, cfg: LaneConfig, phase: str) -> bool:
     return supported
 
 
+def _shares(counts: torch.Tensor, group) -> torch.Tensor:
+    """Each rank's share of the global counts, counts / their mean over
+    the ranks (0 where every rank counts 0), in one all_reduce: a ratio
+    N_r / counts_r of this rank's rows times its share, averaged over the
+    ranks, is sum(N) / sum(counts), the global batch's ratio."""
+    counts = counts.detach().float()
+    mean = all_reduce_mean(counts, group)
+    return torch.where(mean > 0, counts / mean.clamp(min=1e-30),
+                       torch.zeros_like(counts))
+
+
 def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
                  train: bool = True, fused_blocks: bool = True,
-                 fused_maps: Optional[bool] = None) -> Callable:
+                 fused_maps: Optional[bool] = None,
+                 group=None) -> Callable:
     """Returns loss_fn(batch, generator) -> (loss, metrics, outputs) on
     `lanenet` (a `models/lanenet.py::LaneNet`) for `phase`.
 
@@ -145,7 +175,12 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
     `end_to_end` off): ValueError otherwise. So does the e2e phase where
     `resolve_packed` says no (the learned homography, `packed_train`
     False); there the backprojection loss takes the per-sample matrices
-    of the forward when it gives them."""
+    of the forward when it gives them.
+
+    `group`: the batch holds this rank's rows of a global batch, and each
+    loss that divides by a count of the batch is scaled by the rank's
+    share of the global count (`_shares`), so that the ranks' mean is the
+    global batch's loss."""
     if phase not in PHASES:
         raise ValueError(f"unknown phase {phase!r}")
     device = lanenet.fitter.sep_coeff.device
@@ -165,15 +200,15 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
     dtype = _DTYPES[cfg.compute_dtype]
     packed = resolve_packed(lanenet, cfg, phase)
 
-    def curve_loss_bev(beta, gt_params):
+    def curve_loss_bev(beta, gt_params, share):
         """Area or parameter MSE over the lanes, the MSE masking absent
         outer lanes."""
         loss = 0.0
         for k in range(cfg.nclasses):
             if cfg.loss_policy == "area":
-                loss = loss + area_loss(beta[:, k], gt_params[:, k],
-                                        order=cfg.order,
-                                        weight_funct=cfg.weight_funct)
+                loss = loss + share[k] * area_loss(
+                    beta[:, k], gt_params[:, k], order=cfg.order,
+                    weight_funct=cfg.weight_funct)
             elif k < 2:
                 loss = loss + mse_params_loss(beta[:, k], gt_params[:, k])
             else:
@@ -182,7 +217,8 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
                                               gt_params[:, k])
         return loss
 
-    def curve_loss_bp(beta, lanes, valid_points, M_b=None, M_inv_b=None):
+    def curve_loss_bp(beta, lanes, valid_points, share, M_b=None,
+                      M_inv_b=None):
         """Backprojection MSE summed over the lanes / nclasses; with the
         learned homography, on each sample's own matrices."""
         loss, x_cal = 0.0, []
@@ -193,9 +229,26 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
             else:
                 lk, xk = criterion(beta[:, k], lanes[:, k],
                                    valid_points[:, k])
-            loss = loss + lk
+            loss = loss + share[k] * lk
             x_cal.append(xk)
         return loss / cfg.nclasses, torch.stack(x_cal, dim=1)
+
+    def counted_shares(batch):
+        """The ratio losses' shares of their global counts, per lane for
+        the curve losses, last the cross entropy's: ones on one
+        process."""
+        if group is None:
+            return [1.0] * (cfg.nclasses + 1)
+        ones = torch.ones(cfg.nclasses + 1, device=device)
+        counts, ce = ones[:-1], ones[-1:]
+        if phase != "skip" and bev:
+            counts = (batch["params"] != 0).all(-1).sum(0)
+        elif phase != "skip":
+            counts = batch["valid_points"].float().sum(dim=(0, 2))
+        if phase != "e2e":
+            ce = seg_weights[batch["gt"]].sum().reshape(1)
+        return _shares(torch.cat([counts[:cfg.nclasses].float(), ce]),
+                       group).unbind(0)
 
     def loss_fn(batch, generator=None):
         batch = prepare_batch(batch)
@@ -209,10 +262,11 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
                                   generator=generator)
         metrics: Dict[str, torch.Tensor] = {}
         outputs: Dict[str, torch.Tensor] = {}
+        share = counted_shares(batch)
 
         if phase == "skip":
-            loss = weighted_cross_entropy(out.seg_logits, batch["gt"],
-                                          seg_weights)
+            loss = share[-1] * weighted_cross_entropy(
+                out.seg_logits, batch["gt"], seg_weights)
             metrics["loss"] = loss.detach()
             return loss, metrics, outputs
 
@@ -220,7 +274,7 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
         outputs["beta"] = beta
         if bev:
             gt_params = batch["params"]
-            curve = curve_loss_bev(beta, gt_params)
+            curve = curve_loss_bev(beta, gt_params, share)
             with torch.no_grad():
                 tl = trapezoidal_area(_pad_order2(beta[:, 0]),
                                       _pad_order2(gt_params[:, 0]))
@@ -229,13 +283,13 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
                 metrics["exact_area"] = ((tl + tr) / 2.0).mean()
         else:
             curve, outputs["x_cal"] = curve_loss_bp(
-                beta, batch["lanes"], batch["valid_points"], out.M,
+                beta, batch["lanes"], batch["valid_points"], share, out.M,
                 out.M_inv)
         if phase == "e2e":
             loss = curve
         else:
-            loss = weighted_cross_entropy(out.seg_logits, batch["gt"],
-                                          seg_weights)
+            loss = share[-1] * weighted_cross_entropy(
+                out.seg_logits, batch["gt"], seg_weights)
             metrics["area_sq" if bev else "rmse"] = curve.detach()
 
         if cfg.clas and phase == "e2e":
@@ -272,23 +326,43 @@ def _to_device(batch, device):
     return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
 
+def _mean_metrics(metrics: Dict[str, torch.Tensor],
+                  group) -> Dict[str, torch.Tensor]:
+    """The metrics' means over the ranks, in one all_reduce."""
+    if group is None or not metrics:
+        return metrics
+    values = all_reduce_mean(torch.stack([v.detach().float().reshape(())
+                                          for v in metrics.values()]), group)
+    return dict(zip(metrics, values.unbind(0)))
+
+
 def make_train_step(lanenet, cfg: LaneConfig,
                     optimizer: torch.optim.Optimizer, phase: str = "e2e",
                     device=None, fused_blocks: bool = True,
                     fused_maps: Optional[bool] = None,
-                    state: Optional[TrainState] = None) -> Callable:
+                    state: Optional[TrainState] = None,
+                    group=None) -> Callable:
     """Returns step(batch, generator) -> metrics: one forward, backward and
     optimizer update of `lanenet` in place. Runs on the card unless
     `device="cpu"`; `lanenet` must live on that device. `step.state`
     is the `TrainState` (model, optimizer, steps taken): `state` where
     given, else a new one. `phase`, `fused_blocks` and `fused_maps` as
-    in `make_loss_fn`."""
+    in `make_loss_fn`.
+
+    `group` (a process group, `parallel/mesh.py`): `batch` holds this
+    rank's rows of the global batch; `lanenet`'s BatchNorms reduce their
+    moments over the group from here on (`set_sync_group`), the gradients
+    and the metrics are the global batch's means, and every rank applies
+    the same update. None: one process, bit for bit as before."""
     device = resolve_device(device)
+    if group is not None:
+        set_sync_group(lanenet, group)
     loss_fn = make_loss_fn(lanenet, cfg, phase, train=True,
-                           fused_blocks=fused_blocks, fused_maps=fused_maps)
+                           fused_blocks=fused_blocks, fused_maps=fused_maps,
+                           group=group)
     if state is None:
         state = TrainState(lanenet, optimizer)
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(batch, generator: Optional[torch.Generator] = None):
         optimizer.zero_grad(set_to_none=True)
@@ -301,11 +375,12 @@ def make_train_step(lanenet, cfg: LaneConfig,
         unused = [p for p in params if p.grad is None]
         for p in unused:
             p.grad = torch.zeros_like(p)
+        all_reduce_grads(params, group)
         optimizer.step()
         for p in unused:
             p.grad = None
         state.step += 1
-        return metrics
+        return _mean_metrics(metrics, group)
 
     step.state = state
     return step
@@ -313,16 +388,22 @@ def make_train_step(lanenet, cfg: LaneConfig,
 
 def make_eval_step(lanenet, cfg: LaneConfig, phase: str = "e2e",
                    device=None, fused_blocks: bool = True,
-                   fused_maps: Optional[bool] = None) -> Callable:
+                   fused_maps: Optional[bool] = None,
+                   group=None) -> Callable:
     """Returns step(batch) -> (metrics, outputs): no gradients, running
-    BatchNorm statistics, no dropout."""
+    BatchNorm statistics, no dropout. With `group`, `batch` holds this
+    rank's rows; the metrics are the global batch's means and the outputs
+    the global batch's rows in order, on every rank."""
     device = resolve_device(device)
     loss_fn = make_loss_fn(lanenet, cfg, phase, train=False,
-                           fused_blocks=fused_blocks, fused_maps=fused_maps)
+                           fused_blocks=fused_blocks, fused_maps=fused_maps,
+                           group=group)
 
     def step(batch):
         with torch.no_grad():
             _, metrics, outputs = loss_fn(_to_device(batch, device))
+            metrics = _mean_metrics(metrics, group)
+            outputs = {k: gather_rows(v, group) for k, v in outputs.items()}
         return metrics, outputs
 
     return step

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Training and evaluation CLI of the PyTorch port, on one card.
+"""Training and evaluation CLI of the PyTorch port, on one card or N.
 
 The counterpart of `main.py`, with the same flags (the reference CLI of
 `lanedetection_end2end_tpu_torch/config.py::build_parser`, plus
@@ -29,12 +29,28 @@ package. Both profiles train, through the staged schedule where asked:
 
 It runs on the card; `--no_cuda true` runs it on the CPU, and without a
 card and without that flag it raises.
+
+  --num_devices N  N ranks of data parallelism, one process each, the
+                  global batch split over them (`--batch_size` and the
+                  validation batch must divide by N): on the card, NCCL
+                  with a card per rank (N above the cards present raises);
+                  with `--no_cuda true`, N gloo ranks on the CPU. 0 (the
+                  default) uses every card, fewer where the batch does not
+                  divide (a RuntimeWarning says so); on the CPU one rank.
+                  `--num_slices S` must divide the ranks. Two ranks or more
+                  do not yet train faster than one card (PERF.md, "Data
+                  parallelism"): on a machine with several cards the
+                  default warns, and `--num_devices 1` trains on one.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import warnings
+
+import torch
+import torch.distributed as dist
 
 from lanedetection_end2end_tpu_torch.config import (
     build_parser, config_from_args)
@@ -45,11 +61,11 @@ from lanedetection_end2end_tpu_torch.data.labels import (
 from lanedetection_end2end_tpu_torch.data.loader import (
     get_loader, get_testloader)
 from lanedetection_end2end_tpu_torch.data.synthetic import make_synthetic_root
-from lanedetection_end2end_tpu_torch.eval import test_driver
+from lanedetection_end2end_tpu_torch.parallel.launch import spawn
 from lanedetection_end2end_tpu_torch.train.checkpoint import (
-    best_checkpoint_path, load_checkpoint)
+    best_checkpoint_path)
 from lanedetection_end2end_tpu_torch.train.driver import (
-    Trainer, check_supported)
+    Trainer, check_supported, resolve_world)
 
 
 def parse_args(argv=None):
@@ -74,13 +90,48 @@ def parse_args(argv=None):
     return cfg, synthetic, test_only
 
 
+def ranks(cfg):
+    """-> (world, devices, backend) for the config: on the card one card
+    a rank over NCCL, `num_devices` 0 every card (JAX's rules,
+    `resolve_world`), more than the cards present a ValueError, and a
+    RuntimeWarning where `num_devices` 0 takes more than one card; with
+    `no_cuda` gloo ranks on the CPU, `num_devices` 0 one."""
+    if cfg.no_cuda:
+        world = resolve_world(cfg, max(cfg.num_devices, 1))
+        return world, ["cpu"] * world, "gloo"
+    cfg.torch_device()  # no card: RuntimeError
+    count = torch.cuda.device_count()
+    if cfg.num_devices > count:
+        raise ValueError(f"--num_devices {cfg.num_devices} asks for more "
+                         f"cards than the {count} this machine has")
+    world = resolve_world(cfg, count)
+    if world > 1 and not cfg.num_devices:
+        warnings.warn(
+            f"--num_devices 0 starts {world} ranks, one on each card; data "
+            "parallelism does not yet train faster than one card (PERF.md, "
+            "\"Data parallelism\"). Pass --num_devices 1 to train on one "
+            "card.", RuntimeWarning, stacklevel=2)
+    return world, [f"cuda:{r}" for r in range(world)], "nccl"
+
+
 def main(argv=None):
     cfg, synthetic, test_only = parse_args(argv)
-    # what the port does not run, and no card without --no_cuda, raise
-    # before any data is written
+    # what the port does not run, no card without --no_cuda, and a device
+    # count the batch or the machine does not allow, raise before any data
+    # is written
     check_supported(cfg)
-    cfg.torch_device()
+    world, devices, backend = ranks(cfg)
+    cfg, labels_dir = data_config(cfg, synthetic)
+    if world == 1:
+        return run(None, cfg, labels_dir, test_only)
+    return spawn(run, world, backend, devices,
+                 args=(cfg, labels_dir, test_only))[0]
 
+
+def data_config(cfg, synthetic: int = 0):
+    """-> (cfg, labels_dir): with `synthetic` N, an N-image synthetic
+    dataset under save_path (written once) and the config pointed at it;
+    SystemExit without image and gt directories."""
     if synthetic:
         synth_root = os.path.join(cfg.save_path, "synthetic_data")
         if not os.path.isdir(os.path.join(synth_root, "images")):
@@ -101,9 +152,21 @@ def main(argv=None):
     if not cfg.image_dir or not cfg.gt_dir:
         raise SystemExit("--image_dir and --gt_dir are required "
                          "(or use --synthetic N)")
-    trainer = Trainer(cfg, log_to_file=not cfg.test_mode)
-    print("=" * 40 + f"\nArgs:{cfg}\n" + "=" * 40)
-    print(f"device: {trainer.device}")
+    return cfg, labels_dir
+
+
+def run(dp, cfg, labels_dir: str, test_only: bool):
+    """Train, test or evaluate as the flags say, in one process or as rank
+    `dp` of N (a `parallel/mesh.py::DataParallel`): every rank loads its
+    rows of each batch, rank 0 alone writes and prints. Returns the last
+    epoch's metrics, the test accuracy or the evaluation's metrics."""
+    trainer = Trainer(cfg, log_to_file=not cfg.test_mode, dp=dp)
+    main_rank = trainer.is_main
+    say = print if main_rank else (lambda *a, **k: None)
+    group = trainer.group
+    say("=" * 40 + f"\nArgs:{cfg}\n" + "=" * 40)
+    say(f"device: {trainer.device}"
+        + (f" (rank 0 of {dp.world}, {dp.backend})" if dp else ""))
 
     lanes_file = os.path.join(labels_dir, "lanes_ordered.json")
     line_file = os.path.join(labels_dir, "label_new.json")
@@ -125,10 +188,12 @@ def main(argv=None):
         dataset_factory, cfg.num_train, cfg.batch_size,
         cfg.effective_val_batch_size, shuffle=True, nworkers=cfg.nworkers,
         flip_on=cfg.flip_on, split_percentage=cfg.split_percentage,
-        seed=cfg.seed)
+        seed=cfg.seed, process_index=dp.rank if dp else 0,
+        process_count=dp.world if dp else 1)
 
     # the TuSimple test set is scored in the BP profile (its projections
-    # and its line head's presence logits); the BEV profile validates only
+    # and its line head's presence logits), on rank 0 alone; the BEV
+    # profile validates only
     test_loader = None
     if cfg.clas and cfg.test_dir and not bev:
         test_label = os.path.join(cfg.test_dir, "test_label.json")
@@ -142,34 +207,35 @@ def main(argv=None):
     if cfg.clas and os.path.exists(labels_all):
         validation_set_path = os.path.join(trainer.save_path,
                                            "validation_set.json")
-        load_valid_set_file_all(valid_idx, validation_set_path,
-                                cfg.image_dir, labels_all)
+        if main_rank:
+            load_valid_set_file_all(valid_idx, validation_set_path,
+                                    cfg.image_dir, labels_all)
+        if group is not None:
+            dist.barrier(group=group)
         valid_set_labels = read_json_lines(validation_set_path)
 
     if test_only or cfg.evaluate:
         best = best_checkpoint_path(trainer.save_path)
         if best is None:
             raise SystemExit(f"no best checkpoint under {trainer.save_path}")
-        print(f"=> loading checkpoint '{best}'")
-        load_checkpoint(best, trainer.state)
+        say(f"=> loading checkpoint '{best}'")
+        trainer.load(best)
 
     if test_only:
         if test_loader is None:
             raise SystemExit("--test_only needs --clas 1 and a --test_dir "
                              "containing test_label.json")
-        acc = test_driver.test_model(test_loader, trainer.lanenet, cfg,
-                                     save_path=trainer.save_path)
-        print(f"===> TuSimple test accuracy: {acc:.8f}")
+        acc = trainer.test_score(test_loader)
+        say(f"===> TuSimple test accuracy: {acc:.8f}")
         return {"acc": acc}
 
     if cfg.evaluate:
         metrics = trainer.validate(valid_loader, epoch=cfg.nepochs,
                                    valid_set_labels=valid_set_labels)
-        print({k: float(v) for k, v in metrics.items()})
+        say({k: float(v) for k, v in metrics.items()})
         if test_loader is not None:
-            acc = test_driver.test_model(test_loader, trainer.lanenet, cfg,
-                                         save_path=trainer.save_path)
-            print(f"===> TuSimple test accuracy: {acc:.8f}")
+            acc = trainer.test_score(test_loader)
+            say(f"===> TuSimple test accuracy: {acc:.8f}")
             metrics["test_acc"] = acc
         return metrics
 

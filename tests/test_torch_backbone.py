@@ -26,6 +26,7 @@ from lanedetection_end2end_tpu_torch.ops.activations import ACTIVATIONS
 from lanedetection_end2end_tpu_torch.ops.backbone import (
     downsampler, downsampler_plain, head_rowsums, head_rowsums_plain,
     pack_downsampler, pack_head, pack_upsampler, upsampler, upsampler_plain)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bf16(a):

@@ -46,12 +46,15 @@ from lanedetection_end2end_tpu_torch.train import steps as tsteps
 from lanedetection_end2end_tpu_torch.train.optim import define_optim
 from test_torch_engine import _check_serving, _randomize_bn
 from test_torch_f32_fused import BF16, F32, SUFFIX, Stubs, _rn
+from test_torch_native_race import require_jax_native
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE = 32
 
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
+    require_jax_native()
     return synthetic.make_synthetic_root(
         str(tmp_path_factory.mktemp("bev_data")), num_train=10, num_test=2,
         seed=11)

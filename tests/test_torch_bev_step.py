@@ -39,6 +39,7 @@ from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
 from lanedetection_end2end_tpu_torch.train import steps as tsteps
 from lanedetection_end2end_tpu_torch.train.optim import define_optim
 from test_torch_train_step import flat, randomize_bn
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE, BATCH, LR = 32, 2, 1e-3
 CASES = [(2, "area"), (2, "mse")]  # 4 lanes: tests/test_torch_bev_step4.py

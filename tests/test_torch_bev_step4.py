@@ -9,6 +9,7 @@ from test_torch_bev_step import (  # noqa: F401  (collected here)
     run_bev, test_eval_step_matches_jax, test_metrics_match_jax,
     test_new_running_stats_match_jax, test_train_mode_beta_matches_jax,
     test_whole_gradient_matches_jax)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [(4, "area"), (4, "mse")]
 

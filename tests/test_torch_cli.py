@@ -18,6 +18,7 @@ from lanedetection_end2end_tpu_torch.config import (
     build_parser, config_from_args)
 from lanedetection_end2end_tpu_torch.data.labels import read_json_lines
 from lanedetection_end2end_tpu_torch.train.driver import check_supported
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TRAIN_SH = ("--loss_policy backproject --save_freq 100 --weight_init xavier "
             "--use_cholesky 0 --split_percentage 0.1 --activation_layer square "
@@ -96,13 +97,21 @@ def test_main_refuses_to_run_without_a_card(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "synthetic_data")
 
 
-@pytest.mark.parametrize("extra,said", [
-    (["--num_devices", "2"], "item 8"),
-    (["--num_slices", "2"], "item 8"),
-    (["--use_pallas_wls", "false"], "K12")])
-def test_main_refuses_unported_paths(tmp_path, extra, said):
-    with pytest.raises(NotImplementedError, match=said):
+@pytest.mark.parametrize("extra,error,said", [
+    # the ids keep the cases' names from when more than one device was
+    # refused (ROADMAP Queue 1 item 8); now a device count the batch does
+    # not divide, and slices that do not divide the ranks, are refused,
+    # as JAX refuses them
+    pytest.param(["--num_devices", "3"], ValueError, "does not divide",
+                 id="extra0-item 8"),
+    pytest.param(["--num_slices", "2"], ValueError, "num_slices=2",
+                 id="extra1-item 8"),
+    pytest.param(["--use_pallas_wls", "false"], NotImplementedError, "K12",
+                 id="extra2-K12")])
+def test_main_refuses_unported_paths(tmp_path, extra, error, said):
+    with pytest.raises(error, match=said):
         main_torch.main(_argv(tmp_path, "--nepochs", "1", *extra))
+    assert not os.path.exists(tmp_path / "synthetic_data")
 
 
 @pytest.mark.parametrize("extra,field,value", [

@@ -17,6 +17,7 @@ import chip_smoke
 import main_torch
 from lanedetection_end2end_tpu_torch.data.labels import read_json_lines
 from lanedetection_end2end_tpu_torch.train import checkpoint
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _argv(save_path, *extra):

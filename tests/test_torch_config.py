@@ -10,6 +10,7 @@ import lanedetection_end2end_tpu.config as jax_config
 import lanedetection_end2end_tpu.geometry.homography as jax_geo
 import lanedetection_end2end_tpu_torch.config as config
 import lanedetection_end2end_tpu_torch.geometry.homography as geo
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("preset", ["LaneConfig", "bp_defaults",

@@ -15,6 +15,8 @@ from lanedetection_end2end_tpu.data import synthetic as jax_synthetic
 from lanedetection_end2end_tpu.data import labels as jax_labels
 from lanedetection_end2end_tpu_torch.data import dataset, labels, loader
 from lanedetection_end2end_tpu_torch.data import native, synthetic
+from test_torch_native_race import require_jax_native
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE = 32
 
@@ -31,6 +33,7 @@ def _files(root):
 
 @pytest.fixture(scope="module")
 def roots(tmp_path_factory):
+    require_jax_native()
     base = tmp_path_factory.mktemp("synth_parity")
     port = synthetic.make_synthetic_root(str(base / "port"), num_train=10,
                                          num_test=3, seed=7)

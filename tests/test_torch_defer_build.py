@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 
 from lanedetection_end2end_tpu_torch.ops import _build
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = Path(_build.CSRC)
 SWITCH = "-DLD_DEFER_CP_ASYNC"

@@ -60,6 +60,7 @@ from lanedetection_end2end_tpu_torch.models.port import (
 from lanedetection_end2end_tpu_torch.ops.losses import BackprojectionLoss
 from lanedetection_end2end_tpu_torch.ops.tf32x3 import round_tf32
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE, BATCH = 32, 3
 DLT_TOL = 1e-4

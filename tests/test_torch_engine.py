@@ -39,6 +39,7 @@ from lanedetection_end2end_tpu_torch.models.port import (
 from lanedetection_end2end_tpu_torch.ops.backbone import (
     downsampler, head_rowsums, upsampler)
 from lanedetection_end2end_tpu_torch.ops.nb1d import nb1d
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE, BATCH = 64, 2
 

@@ -47,6 +47,7 @@ from lanedetection_end2end_tpu_torch.ops.nb1d import (
     nb1d_chain, nb1d_chain_plain, nb1d_plain, pack_chain, pack_nb1d)
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
 from lanedetection_end2end_tpu_torch.ops.wls_moments import wls_moments
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE, BATCH = 64, 2
 H, W = RESIZE, 2 * RESIZE

@@ -29,12 +29,15 @@ from lanedetection_end2end_tpu_torch.eval.projections import Projections
 from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
 from lanedetection_end2end_tpu_torch.models.port import (
     variables_from_state_dict)
+from test_torch_native_race import require_jax_native
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE = 32
 
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
+    require_jax_native()
     return make_synthetic_root(str(tmp_path_factory.mktemp("synth_eval")),
                                num_train=2, num_test=6, seed=11)
 

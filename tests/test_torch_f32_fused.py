@@ -17,6 +17,7 @@ import torch
 
 from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
 from lanedetection_end2end_tpu_torch.ops import nb_block as nb
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BF16, F32 = torch.bfloat16, torch.float32
 SUFFIX = {BF16: "", F32: "_f32"}

@@ -42,6 +42,7 @@ from lanedetection_end2end_tpu_torch.models.lanenet import (
 from lanedetection_end2end_tpu_torch.models.port import conv_transpose_state
 from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
 from test_torch_f32_fused import Stubs
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE, B, CIN, C = 32, 2, 16, 4
 F64 = torch.float64

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "lanedetection_end2end_tpu_torch"

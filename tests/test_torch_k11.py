@@ -28,6 +28,7 @@ from lanedetection_end2end_tpu.ops import packed_graph as pg
 from lanedetection_end2end_tpu.ops.pallas_packed_conv import (
     channel_sums as jax_channel_sums, packed_conv as jax_packed_conv)
 from lanedetection_end2end_tpu_torch.ops import packed_conv as pc
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 B, H, W = 2, 16, 32
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -30,6 +30,7 @@ from lanedetection_end2end_tpu_torch.models.port import (
     conv_transpose_state, downsampler_state, upsampler_state)
 from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
 from lanedetection_end2end_tpu_torch.ops import packed_graph as tg
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 B = 2
 DOWN = [(4, 3, 16), (16, 16, 64), (64, 64, 128)]  # lanes, channels, cout

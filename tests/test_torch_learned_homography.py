@@ -80,6 +80,7 @@ from lanedetection_end2end_tpu_torch.train import steps as tsteps
 from lanedetection_end2end_tpu_torch.train.checkpoint import _ckpt_path
 from lanedetection_end2end_tpu_torch.train.optim import define_optim
 from test_torch_train_step import flat, make_batch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE, BATCH, LR = 32, 2, 1e-3
 KW = dict(resize=RESIZE, batch_size=BATCH, reg_ls=1.0, learning_rate=LR)

@@ -13,6 +13,7 @@ from lanedetection_end2end_tpu.ops.metrics import (
     trapezoidal_area as jax_trapezoidal_area)
 from lanedetection_end2end_tpu_torch.ops import losses as tl
 from lanedetection_end2end_tpu_torch.ops.metrics import trapezoidal_area
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 RTOL = 1e-5

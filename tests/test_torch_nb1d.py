@@ -16,6 +16,7 @@ from lanedetection_end2end_tpu.ops.pallas_nb1d import pack_nb1d as jax_pack
 from lanedetection_end2end_tpu_torch.models.port import nb1d_state
 from lanedetection_end2end_tpu_torch.ops.nb1d import (
     fold_bn, nb1d, nb1d_plain, pack_nb1d)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _block(C, d, H, W, seed):

@@ -24,6 +24,7 @@ from lanedetection_end2end_tpu_torch.models.erfnet import NonBottleneck1D
 from lanedetection_end2end_tpu_torch.models.port import nb1d_state
 from lanedetection_end2end_tpu_torch.ops import nb_block as nb
 from lanedetection_end2end_tpu_torch.ops.packed_graph import nb1d_train
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # (C, d, H, W): the last is the resize-64 NB1D-128 plane, where d >= H, W
 SHAPES = [(16, 1, 8, 32), (16, 2, 8, 32), (64, 1, 8, 8), (64, 2, 8, 8),

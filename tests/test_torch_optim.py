@@ -12,6 +12,7 @@ import torch
 
 from lanedetection_end2end_tpu.train import optim as jo
 from lanedetection_end2end_tpu_torch.train import optim as to
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = {"a": (4, 3), "b": (5,), "c": (2, 2, 2)}
 

@@ -14,6 +14,7 @@ from lanedetection_end2end_tpu.ops.pallas_packed_conv import (
     channel_sums as jax_channel_sums)
 from lanedetection_end2end_tpu_torch.ops.packed_conv import (
     channel_sums, channel_sums_plain)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 B, H = 2, 8
 

@@ -27,6 +27,7 @@ from lanedetection_end2end_tpu_torch.models.port import (
     downsampler_state, state_dict_from_variables, variables_from_state_dict)
 from lanedetection_end2end_tpu_torch.ops import packed_graph as tg
 from lanedetection_end2end_tpu_torch.ops.activations import activation_fn
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE, BATCH = 32, 2
 ENC_BLOCKS = (["initial_block", "down1"] + [f"nb64_{i}" for i in range(5)]

@@ -44,6 +44,7 @@ from lanedetection_end2end_tpu_torch.models.port import (
 from lanedetection_end2end_tpu_torch.train import steps as tsteps
 from lanedetection_end2end_tpu_torch.train.optim import define_optim
 from test_torch_train_step import flat, make_batch, randomize_bn
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE, BATCH, LR = 32, 2, 1e-3
 CONFIGS = {

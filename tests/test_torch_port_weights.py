@@ -16,6 +16,7 @@ from lanedetection_end2end_tpu_torch.config import train_sh_config
 from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
 from lanedetection_end2end_tpu_torch.models.port import (
     state_dict_from_variables, variables_from_state_dict)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=[32, 64])

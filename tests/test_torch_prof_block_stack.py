@@ -29,6 +29,7 @@ from lanedetection_end2end_tpu.ops.pallas_nb1d import _nb1d_body
 from lanedetection_end2end_tpu_torch.ops.nb1d import (
     chain_blocks, nb1d_chain_plain)
 from lanedetection_end2end_tpu_torch.tools import prof_block_stack as pbs
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 B, REPS, H, W, D = 4, 2, 8, 16, 2
 STACKS = (1, 2, 4)

@@ -12,6 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BANNER = "========= COMPUTE-SANITIZER\n"
 CHILD = "race child: outputs finite: True\n"

@@ -58,6 +58,7 @@ from lanedetection_end2end_tpu_torch.ops.tf32x3 import convt_s2_phases
 from test_torch_engine import _randomize_bn
 from test_torch_fused_backbone import Stubs
 from test_torch_nb1d import _block
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 ONE_STEP = 2.0 ** -8  # one bf16 rounding step, relative

@@ -36,6 +36,7 @@ from test_torch_f32_fused import _rn, stubs  # noqa: F401 (a fixture)
 from test_torch_lanemaps import (
     _assert_grads, _assert_stats, _block_grads, _block_params, _down_case,
     _f32, _jax_block, _load, _run_down)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL_F32 = 1e-4  # chip_smoke.py's bar for float32 results, of max|reference|
 B, HS, WS = 2, 8, 16  # the small plane; the large one is 16 x 32

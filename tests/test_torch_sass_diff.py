@@ -6,6 +6,7 @@ CUDA toolkit is installed."""
 import pytest
 
 from lanedetection_end2end_tpu_torch.tools import sass_diff
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = {
     # demangled (c++filt) -> short name -> its role in the older checkout

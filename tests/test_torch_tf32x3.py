@@ -24,6 +24,7 @@ from lanedetection_end2end_tpu_torch.ops import nb_block as nb
 from lanedetection_end2end_tpu_torch.ops.tf32x3 import (
     _conv3_f64, conv3_tf32, conv3_tf32x3, round_tf32, split_tf32,
     wgrad3_tf32, wgrad3_tf32x3)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL_F32 = 1e-4  # chip_smoke.py's bar for float32 planes, of max|reference|
 B, H, W = 2, 8, 16

@@ -52,6 +52,7 @@ from lanedetection_end2end_tpu_torch.ops.nb_block import nb_half_a, nb_half_b
 from lanedetection_end2end_tpu_torch.ops.packed_conv import channel_sums
 from lanedetection_end2end_tpu_torch.train import steps as tsteps
 from lanedetection_end2end_tpu_torch.train.optim import define_optim, get_lr
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE, BATCH, LR = 32, 2, 1e-3
 

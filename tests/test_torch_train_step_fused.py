@@ -23,6 +23,7 @@ from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
 from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
 from lanedetection_end2end_tpu_torch.ops.packed_conv import channel_sums
 from test_torch_train_step import BATCH, NEAR_LOSS, RESIZE, run_both
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 OPS = (lm.downsampler_op, lm.lane_maps_op, lm.head_rowsums_op)
 

@@ -25,6 +25,7 @@ import torch
 
 from lanedetection_end2end_tpu_torch.ops import packed_conv as pc
 from test_torch_train_step import BATCH, NEAR_LOSS, RESIZE, run_both
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _counts():

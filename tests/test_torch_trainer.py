@@ -33,6 +33,8 @@ from lanedetection_end2end_tpu_torch.models.port import (
     _flax_path, state_dict_from_variables)
 from lanedetection_end2end_tpu_torch.train import checkpoint, driver
 from lanedetection_end2end_tpu_torch.train.optim import Scheduler
+from test_torch_native_race import require_jax_native
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE = 32
 
@@ -131,6 +133,7 @@ def run(tmp_path_factory):
     """The JAX Trainer: validate and score its seeded weights, then fit 2
     epochs. The port's Trainer on the same data, holding the same
     weights, does the same."""
+    require_jax_native()
     base = tmp_path_factory.mktemp("trainer_parity")
     root = make_synthetic_root(str(base / "data"), num_train=10, num_test=2,
                                seed=4)
@@ -258,13 +261,20 @@ def test_empty_validation_repeats_the_train_loss(run, capsys, tmp_path):
     assert driver.EMPTY_VALIDATION in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw,said", [
-    (dict(num_devices=2), "item 8"),
-    (dict(num_slices=2), "item 8"),
-    (dict(use_pallas_wls=False), "K12")])
-def test_unported_paths_raise(kw, said, tmp_path):
+@pytest.mark.parametrize("kw,error,said", [
+    # the ids keep the cases' names from when more than one device was
+    # refused (ROADMAP Queue 1 item 8); now a Trainer of one process
+    # refuses a config that asks for two ranks, and slices that do not
+    # divide the ranks (tests/test_torch_data_parallel.py runs two)
+    pytest.param(dict(num_devices=2), ValueError, "asks for 2 ranks",
+                 id="kw0-item 8"),
+    pytest.param(dict(num_slices=2), ValueError, "num_slices=2",
+                 id="kw1-item 8"),
+    pytest.param(dict(use_pallas_wls=False), NotImplementedError, "K12",
+                 id="kw2-K12")])
+def test_unported_paths_raise(kw, error, said, tmp_path):
     cfg = train_sh_config(resize=RESIZE, save_path=str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError, match=said):
+    with pytest.raises(error, match=said):
         driver.Trainer(cfg, log_to_file=False, verbose=False, device="cpu")
 
 

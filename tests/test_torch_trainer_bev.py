@@ -33,6 +33,8 @@ from lanedetection_end2end_tpu_torch.models.port import (
     state_dict_from_variables)
 from lanedetection_end2end_tpu_torch.train import driver
 from test_torch_trainer import _file_set
+from test_torch_native_race import require_jax_native
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RESIZE = 32
 
@@ -63,6 +65,7 @@ def _written(save_path):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
+    require_jax_native()
     base = tmp_path_factory.mktemp("trainer_bev")
     root = make_synthetic_root(str(base / "data"), num_train=10, num_test=2,
                                seed=6)

@@ -32,6 +32,8 @@ from lanedetection_end2end_tpu_torch.models.port import (
     state_dict_from_variables)
 from lanedetection_end2end_tpu_torch.train import driver
 from test_torch_trainer import _file_set, _loaders
+from test_torch_native_race import require_jax_native
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 STAGED = dict(pretrained=True, pretrain_epochs=2, skip_epochs=1)
 
@@ -45,6 +47,7 @@ def _cfg(mod, save_path, root):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
+    require_jax_native()
     base = tmp_path_factory.mktemp("trainer_staged")
     root = make_synthetic_root(str(base / "data"), num_train=10, num_test=2,
                                seed=8)

@@ -12,6 +12,7 @@ from lanedetection_end2end_tpu.ops.wls import WLSFitter as JaxFitter
 from lanedetection_end2end_tpu_torch.geometry import bev_matrices_pixel
 from lanedetection_end2end_tpu_torch.ops.solve import spd_solve
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4])

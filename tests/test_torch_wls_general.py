@@ -28,6 +28,7 @@ from lanedetection_end2end_tpu_torch.models.lanenet import make_fitter
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
 from lanedetection_end2end_tpu_torch.ops.wls_moments import (
     wls_moments, wls_moments_bwd_plain, wls_moments_plain)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROLL = 2.0  # degrees
 
