@@ -7,8 +7,9 @@
 `--profile` also traces two more calls of each engine (full, blocks, blocks
 with the rolled homography) and two more train steps of each of the four
 training configurations ({`fused_blocks`} x {`fused_maps`}) in bf16 and in
-float32 with torch.profiler and prints the card's busy time per call or
-step and its largest kernels. Needs one CUDA card, nvcc and the repository
+float32 with the port's trace tool (`utils/profiling.py`, on
+torch.profiler) and prints the card's busy time per call or step and its
+largest kernels. Needs one CUDA card, nvcc and the repository
 checkout; exits non-zero on any failed check and prints no result without
 a card. In order:
 
@@ -77,6 +78,11 @@ a card. In order:
    against the f32 `LaneNet` whose fit takes the rolled homography's
    moments from K12's plain version; ms per batch beside the full
    engine's;
+3f. the same 3 batches through the blocks path with the rolled
+   homography's fitter built with `use_pallas=False` (the config's
+   `use_pallas_wls=False`), the counts set to 0 just before: per call 4
+   `nb1d_chain` and no `wls_moments`, the outputs held as in 3b, beta at
+   PLAIN_MOMENTS_TOL of the K12 engine's, ms per batch beside it;
 3c. the block path (`encoder_blocks` -> `decoder_blocks`: 17 K1, 3 K2, 2
    K3, 1 K4 per call) on the same 3 batches with the launch counts set to
    0 just before; `encoder_fused` and `decoder_fused` bit for bit against
@@ -200,6 +206,22 @@ a card. In order:
    `--test_only` through `compute_coordinates_with_M`, `--evaluate` card
    against CPU) and one epoch with `--packed_train false`; no launch of
    any kernel wrapper in the whole phase (`homography_phase`);
+4l. the plain graph in bf16 (`bf16_graph_phase`): the skip and seg
+   steps of 4i's configuration and the learned-homography e2e step of
+   4j's with `compute_dtype="bfloat16"`, beside the same in float32:
+   an encoder convolution's input and output in the compute dtype (a
+   forward hook), parameters, gradients and adam's state float32, the
+   loss finite, no kernel launch, the bf16 eval forward's beta against
+   the float32 one at BF16_BETA, ms per step in both dtypes;
+4m. the trace tool (`trace_phase`, in a fresh process: `--trace-child`,
+   `trace_phase_in_child` says why) through the three harnesses of
+   `lanedetection_end2end_tpu_torch/tools/`: `prof_infer` (the engine's
+   infer function; `encoder_fused_kernel` and `decoder_fused_kernel`
+   once a call in its summary), `prof_train` (the float32 default step;
+   17 + 17 calls of each half block a step by the counters, and the
+   device kernels they launch counted in the summary), each trace's
+   `summarize` total within TRACE_AGREEMENT of `key_averages()`' CUDA
+   self time, and `prof_feed`'s six host-to-card rates;
 4k. data parallelism (`dp_phase`): two ranks, one process each, NCCL
    with a card a rank where the machine has two cards, else gloo with
    both ranks on card 0, asked for explicitly: the float32 default step
@@ -218,8 +240,9 @@ a card. In order:
    all-reduce timed beside the one device's step;
 5. print the card line as nvidia-smi gives it, the kernels line (with
    the wide phase's, the race check's, the deferred-copy check's, the
-   Trainer's, the BEV phases', the learned homography's and the data
-   parallelism's results beside the kernels; the C = 2
+   Trainer's, the BEV phases', the learned homography's, the data
+   parallelism's, the plain moments', the bf16 plain graph's and the
+   trace tool's results beside the kernels; the C = 2
    holdings as each kernel's `two_lanes`), and `{"ok": true, "device":
    {...}}` last.
 
@@ -1561,35 +1584,21 @@ class Recording:
         return self.fitter(maps)
 
 
-def roll_fitter(dev):
+def roll_fitter(dev, use_pallas=None):
     """The fit of the 256x512 config on its BP trapezoid after a camera roll
-    of ROLL_DEGREES about the image centre: a general homography."""
+    of ROLL_DEGREES about the image centre: a general homography, its
+    moments from K12 (`use_pallas` None) or from K12's plain version
+    (False, the config's `use_pallas_wls=False`)."""
     from lanedetection_end2end_tpu_torch.geometry import (
         bev_matrices_pixel, camera_roll)
     from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
     M = bev_matrices_pixel(RESIZE)[0] @ camera_roll(ROLL_DEGREES, RESIZE,
                                                     RESIZE / 2)
     fit = WLSFitter(M, RESIZE, 2 * RESIZE, 3, normalized=False, reg_ls=1.0,
-                    device=dev)
+                    device=dev, use_pallas=use_pallas)
     if fit.separable:
         fail("the rolled homography is separable")
     return fit
-
-
-class PlainFit:
-    """The general fit of `fitter` with its moments from K12's plain
-    version: the reference fitter of the f32 LaneNet on the card."""
-
-    def __init__(self, fitter):
-        self.fitter = fitter
-
-    def __call__(self, maps):
-        from lanedetection_end2end_tpu_torch.ops.wls_moments import (
-            wls_moments_plain)
-        B, Hm, Wm, C = maps.shape
-        moments = wls_moments_plain(maps.float().reshape(B, Hm * Wm, C),
-                                    self.fitter.basis)
-        return self.fitter._finish(moments, B, C)
 
 
 def chain_work(x, chain):
@@ -4138,54 +4147,52 @@ STRIDE2_OPS = {"K8": ("op_k8", "ds_dx_kernel", "ds1_"),
 def profile_steps(run_step, step_ms: float, label: str,
                   steps: int = 2) -> None:
     """`--profile`: trace `steps` more train steps (or engine calls) with
-    torch.profiler and print, after `label`, the card's busy time per step,
-    its idle share of the untraced step time `step_ms`, the number of
-    device kernels per step, and the kernels that took most of the card's
-    time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    the port's trace tool (`utils/profiling.py`) and print, after `label`,
+    the card's busy time per step, its idle share of the untraced step
+    time `step_ms`, the number of device kernels per step, and the
+    kernels that took most of the card's time. The summary counts the
+    card's kernels, copies and sets, not the ranges (such as the
+    optimizer's step) that only span them."""
+    import shutil
+    from pathlib import Path
+
+    from lanedetection_end2end_tpu_torch.utils.profiling import (
+        summarize, trace)
+    root = Path(__file__).resolve().parent / "_smoke" / "traces" / "profile"
+    with trace(str(root)) as t:
         for _ in range(steps):
             run_step()
         torch.cuda.synchronize()
-    # device kernels only: not the ops that launch them, nor the ranges
-    # (such as the optimizer's step) that only span them
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith("Optimizer.")
-            and e.self_device_time_total > 0]
-    if not rows:
+    s = summarize(t.dir, iters=steps)
+    shutil.rmtree(root, ignore_errors=True)
+    if not s.by_op:
         print(f"profile {label}: the trace shows no device time")
         return
-    busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
-    launches = sum(e.count for e in rows) / steps
+    busy = s.us_per_iter() / 1e3
+    launches = sum(r.count for r in s.by_op) / steps
     print(f"profile {label}: card busy {busy:.3f} ms of the {step_ms:.3f} "
           f"ms step (idle share {1 - busy / step_ms:.3f}), {launches:.0f} "
           f"device kernels per step")
     groups = dict.fromkeys(OWN_KERNELS, 0.0)
-    for e in rows:
+    for r in s.by_op:
         for name in groups:
-            if name in e.key:
-                groups[name] += e.self_device_time_total / 1e3 / steps
+            if name in r.name:
+                groups[name] += r.total_us / 1e3 / steps
     own = sum(groups.values())
     print(f"profile {label}: the hand-written kernels {own:.3f} ms per "
           f"step (" + ", ".join(f"{n} {v:.3f}" for n, v in groups.items()
                                 if v > 0)
           + f"), everything else {busy - own:.3f} ms")
-    ops = {op: sum(e.self_device_time_total for e in rows
-                   if any(t in e.key for t in tags)) / 1e3 / steps
+    ops = {op: sum(r.total_us for r in s.by_op
+                   if any(t in r.name for t in tags)) / 1e3 / steps
            for op, tags in STRIDE2_OPS.items()}
     if any(ops.values()):
         print(f"profile {label}: stride-2 ops "
               + ", ".join(f"{op} {v:.3f}" for op, v in ops.items())
               + " ms per step")
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[:16]:
-        print(f"profile {label}:   "
-              f"{e.self_device_time_total / 1e3 / steps:8.3f} ms "
-              f"x{e.count / steps:6.0f}  {e.key[:100]}")
+    for r in s.by_op[:16]:
+        print(f"profile {label}:   {r.total_us / 1e3 / steps:8.3f} ms "
+              f"x{r.count / steps:6.0f}  {r.name[:100]}")
 
 
 def numbers(s):
@@ -4627,12 +4634,333 @@ def dp_phase(dev, card, sd):
     return summary, failures
 
 
+# ----------------------------------------------------------------------
+# 3f. use_pallas_wls=False
+# ----------------------------------------------------------------------
+# beta of the blocks engine with the rolled homography's moments from K12's
+# plain version (float64 sums rounded once to float32) against the same
+# engine on K12 (float32 sums in another order), of max|beta|.
+PLAIN_MOMENTS_TOL = 1e-4
+
+
+def plain_moments_phase(engine, packed, images, wrappers, model, cfg,
+                        k12_outs, k12_ms, card):
+    """Phase 3f: `engine` (on the blocks path) with the rolled homography's
+    fitter built with `use_pallas=False`, the config's `use_pallas_wls`
+    False, on phase 3's batches: per call 4 `nb1d_chain` and no
+    `wls_moments` launch, the outputs held to the f32 LaneNet at the JAX
+    bars (`hold_serving`), beta at PLAIN_MOMENTS_TOL of the K12 engine's
+    `k12_outs` on the same images, ms per batch beside K12's `k12_ms`.
+    Sets `engine.fitter` and `model.fitter`; -> summary."""
+    label = (f"blocks engine, homography rolled {ROLL_DEGREES:g} degrees, "
+             "use_pallas_wls=False")
+    engine.fitter = model.fitter = roll_fitter(images.device,
+                                               use_pallas=False)
+    outs, b_ms, counts = serve(engine, packed, images, wrappers)
+    want = {n: 0 for n in wrappers}
+    want["nb1d_chain"] = N_BATCHES * 4
+    print(f"{label}: launches over {N_BATCHES} calls: {counts}")
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {want}")
+    worst = hold_serving(outs, images, model, cfg, label)
+    beta = max(rel_err(o[0], k[0])[1] for o, k in zip(outs, k12_outs))
+    b_med = statistics.median(b_ms)
+    print(f"{label}: beta {beta:.3e} of max|beta| off the engine on K12 "
+          f"(tol {PLAIN_MOMENTS_TOL:g}); {b_med:.3f} ms per batch of "
+          f"{BATCH} (median of {N_BATCHES}: "
+          f"{', '.join(f'{t:.3f}' for t in b_ms)}) against {k12_ms:.3f} "
+          f"on K12, on {card}")
+    if not beta <= PLAIN_MOMENTS_TOL:
+        fail(f"{label}: beta {beta:.3e} of max|beta| off the K12 engine's")
+    return {"launches": counts, "beta_vs_k12": beta, "vs_lanenet": worst,
+            "ms": b_med, "k12_ms": k12_ms, "card": card}
+
+
+# ----------------------------------------------------------------------
+# 4l. the plain graph in bf16
+# ----------------------------------------------------------------------
+# The bf16 eval forward's beta against the same weights' float32 forward,
+# of max|float32 beta|: the bf16 bar of tests/test_torch_bf16_graph.py
+# (ROADMAP Queue 3's bf16 parity limit).
+BF16_BETA = 3e-2
+BF16_STEPS = 3  # steps timed in each phase and dtype, after a first one
+
+
+def bf16_graph_phase(dev, card):
+    """Phase 4l, the plain graph (`LaneNet.forward`) with
+    `compute_dtype="bfloat16"` on the card, beside the same in float32:
+    the skip and seg steps of 4i's configuration (the train.sh config with
+    the pretraining head) and the e2e step of 4j's (the learned
+    homography), 256x512, batch 8, seeded weights, dropout off, adam:
+
+    (a) a forward hook on an encoder convolution reads its input and
+        output in the compute dtype; after the bf16 steps every
+        parameter, gradient and adam moment is float32;
+    (b) the loss finite; no launch of any kernel wrapper over the steps;
+    (c) beta of the bf16 eval forward on the seeded weights (seg and e2e)
+        against the float32 eval forward at BF16_BETA of max|beta|;
+    (d) ms per step, median of BF16_STEPS after a first step, in each
+        dtype.
+
+    Returns (summary, failures)."""
+    from lanedetection_end2end_tpu_torch.config import train_sh_config
+    from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
+    from lanedetection_end2end_tpu_torch.train.optim import define_optim
+    from lanedetection_end2end_tpu_torch.train.steps import (
+        make_train_step, prepare_batch)
+
+    failures, summary = [], {"card": card}
+    wrappers = all_wrappers()
+    batch = synthetic_batch(SEED + 5)
+    batch["gt"] = torch.randint(0, 5, (BATCH, RESIZE, 2 * RESIZE),
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 6), dtype=torch.uint8)
+    images = prepare_batch(dict(batch))["image"].to(dev)
+    for label, phase, extra in (
+            ("skip", "skip", dict(pretrained=True)),
+            ("seg", "seg", dict(pretrained=True)),
+            ("e2e, learned homography", "e2e",
+             dict(learn_homography=True))):
+        base = train_sh_config(resize=RESIZE, reg_ls=1.0, **extra)
+        sd = random_state_dict(LaneNet(base, device=dev), SEED)
+        row, betas = {}, {}
+        for dname in ("bfloat16", "float32"):
+            cfg = base.replace(compute_dtype=dname)
+            dt = cfg.torch_dtype()
+            model = LaneNet(cfg, device=dev)
+            model.load_state_dict(sd)
+            opt = define_optim(model.parameters(), cfg.optimizer,
+                               cfg.learning_rate, cfg.weight_decay,
+                               cfg.clip_grad_norm)
+            step = make_train_step(model, cfg, opt, phase, device=dev)
+            seen = set()
+            hook = model.net.encoder.layers[1].conv3x1_1.register_forward_hook(
+                lambda m, i, o: seen.add((i[0].dtype, o.dtype)))
+            reset_counts(wrappers)
+            ms, losses = [], []
+            for _ in range(1 + BF16_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step(batch)["loss"].item())
+                ms.append(1e3 * (time.perf_counter() - t0))
+            hook.remove()
+            launched = {n: v for n, v in read_counts(wrappers).items()
+                        if v != (0, 0)}
+            dtypes = {
+                "params": {p.dtype for p in model.parameters()},
+                "grads": {p.grad.dtype for p in model.parameters()
+                          if p.grad is not None},
+                "adam": {t.dtype for st in opt.state.values()
+                         for t in st.values() if t.dim() > 0}}
+            where = f"{label}, {dname}"
+            if seen != {(dt, dt)}:
+                failures.append(f"{where}: the encoder convolution read "
+                                f"{seen}, not {dt}")
+            if any(v != {torch.float32} for v in dtypes.values()):
+                failures.append(f"{where}: parameters, gradients, adam "
+                                f"{dtypes}")
+            if not all(math.isfinite(v) for v in losses):
+                failures.append(f"{where}: losses {losses}")
+            if launched:
+                failures.append(f"{where}: kernel launches {launched}")
+            row[dname] = {"ms": statistics.median(ms[1:]), "loss": losses,
+                          "hook": sorted({str(d) for pair in seen
+                                          for d in pair})}
+            if phase != "skip":
+                model.load_state_dict(sd)
+                with torch.no_grad():
+                    betas[dname] = model(images, phase=phase,
+                                         dtype=dt).beta.float()
+        if betas:
+            row["beta_vs_float32"] = rel_err(betas["bfloat16"],
+                                             betas["float32"])[1]
+            if not row["beta_vs_float32"] <= BF16_BETA:
+                failures.append(f"{label}: beta {row['beta_vs_float32']:.3e}"
+                                f" of max|beta| off float32")
+        beta_text = (f"; eval beta {row['beta_vs_float32']:.3e} of "
+                     f"max|beta| off float32 (tol {BF16_BETA:g})"
+                     if betas else "")
+        print(f"bf16 plain graph, {label}: {row['bfloat16']['ms']:.1f} ms a "
+              f"step in bf16, {row['float32']['ms']:.1f} in float32 (median "
+              f"of {BF16_STEPS}); losses bf16 "
+              + ", ".join(f"{v:.4g}" for v in row["bfloat16"]["loss"])
+              + f"; the encoder convolution in {row['bfloat16']['hook']}"
+              f"{beta_text}; 0 kernel launches; on {card}")
+        summary[label] = row
+    return summary, failures
+
+
+# ----------------------------------------------------------------------
+# 4m. the trace tool and the harnesses
+# ----------------------------------------------------------------------
+# summarize's device total against key_averages()' CUDA self time on the
+# same trace, relative.
+TRACE_AGREEMENT = 1e-2
+HARNESS_TRACED = {"infer": 3, "train": 2}  # traced calls / steps
+FEED_N = 10  # batches of 32 a rate of prof_feed
+
+
+def profiler_device_us(prof) -> float:
+    """The CUDA self time of `prof.key_averages()` (us): device kernels,
+    copies and sets, not the ranges that only span them."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")
+               and e.self_device_time_total > 0)
+
+
+def trace_phase(dev, card):
+    """Phase 4m, the trace tool (`utils/profiling.py`) through the three
+    harnesses of `lanedetection_end2end_tpu_torch/tools/`:
+
+    (a) `prof_infer` (the engine's infer function, batch 8, 2 warm, 5
+        timed, 3 traced calls): `encoder_fused_kernel` and
+        `decoder_fused_kernel` once per call in the summary;
+    (b) `prof_train` (the float32 default step, batch 8, 1 warm, 3 timed,
+        2 traced steps): 17 + 17 wrapper calls of each half block a step
+        by the launch counters, and in the summary as many device kernels
+        as those calls launch (a forward two `conv3tap_f32_kernel`, a
+        backward one `dyv_kernel`, two `wgrad3tap_f32_kernel` and two
+        `conv3tap_f32_kernel`: csrc/nb_half_fwd.cu, nb_half_bwd.cu);
+    (c) on each of those traces, `summarize`'s device total within
+        TRACE_AGREEMENT of `key_averages()`' CUDA self time;
+    (d) `prof_feed` at FEED_N batches of 32: its six rates.
+
+    Returns (summary, failures)."""
+    import shutil
+    from pathlib import Path
+
+    from lanedetection_end2end_tpu_torch.tools import (
+        prof_feed, prof_infer, prof_train)
+
+    root = Path(__file__).resolve().parent / "_smoke" / "traces"
+    shutil.rmtree(root, ignore_errors=True)
+    failures, summary = [], {"card": card}
+    t_phase = time.perf_counter()
+
+    def agreement(label, res):
+        s, want = res["summary"], profiler_device_us(res["trace"].profiler)
+        rel = abs(s.total_us - want) / max(want, 1e-30)
+        print(f"trace tool, {label}: summarize {s.total_us:.1f} us of device "
+              f"time, key_averages {want:.1f} us ({rel:.2e} apart, tol "
+              f"{TRACE_AGREEMENT:g}); {sum(r.count for r in s.by_op)} "
+              f"device events")
+        if not rel <= TRACE_AGREEMENT:
+            failures.append(f"{label}: summarize and key_averages "
+                            f"{rel:.2e} apart")
+        return rel
+
+    n = HARNESS_TRACED["infer"]
+    res = prof_infer.run(bs=BATCH, warm=2, timed=5, traced=n,
+                         trace_dir=str(root / "infer"), device=dev)
+    s = res["summary"]
+    per_call = {k: s.count_per_iter(k) for k in ("encoder_fused_kernel",
+                                                  "decoder_fused_kernel")}
+    if per_call != {k: 1.0 for k in per_call}:
+        failures.append(f"prof_infer: fused kernels per call {per_call}")
+    print(f"prof_infer, batch {BATCH}: {res['img_per_s']:.1f} img/s "
+          f"({res['ms_per_batch']:.2f} ms/batch) on {card}; traced "
+          f"{n} calls: {per_call}")
+    print("\n".join("prof_infer " + line
+                    for line in s.format(top=12).splitlines()))
+    summary["infer"] = {"img_per_s": res["img_per_s"],
+                        "ms_per_batch": res["ms_per_batch"],
+                        "device_us_per_call": s.us_per_iter(),
+                        "kernels_per_call": sum(r.count for r in s.by_op)
+                        / n, "fused_per_call": per_call,
+                        "agreement": agreement("prof_infer", res)}
+
+    n = HARNESS_TRACED["train"]
+    res = prof_train.run(bs=BATCH, warm=1, timed=3, traced=n,
+                         trace_dir=str(root / "train"), device=dev)
+    s = res["summary"]
+    calls = {k: v / n for k, v in res["half_calls"].items()}
+    fwd = calls["nb_half_a"] + calls["nb_half_b"]
+    bwd = calls["nb_half_a_bwd"] + calls["nb_half_b_bwd"]
+    want = {"conv3tap_f32_kernel": 2 * (fwd + bwd),
+            "wgrad3tap_f32_kernel": 2 * bwd, "dyv_kernel": bwd}
+    got = {k: s.count_per_iter(k) for k in want}
+    if calls != {k: 17.0 for k in calls}:
+        failures.append(f"prof_train: half-block calls a step {calls}")
+    if got != want:
+        failures.append(f"prof_train: K6/K7 device kernels a step {got}, "
+                        f"the counters predict {want}")
+    print(f"prof_train, float32 default step, batch {BATCH}: "
+          f"{res['img_per_s']:.1f} img/s ({res['ms_per_step']:.2f} ms/step)"
+          f" on {card}; traced {n} steps: half-block calls a step {calls}, "
+          f"K6/K7 device kernels a step {got} (predicted {want})")
+    print("\n".join("prof_train " + line
+                    for line in s.format(top=12).splitlines()))
+    summary["train"] = {"img_per_s": res["img_per_s"],
+                        "ms_per_step": res["ms_per_step"],
+                        "device_us_per_step": s.us_per_iter(),
+                        "kernels_per_step": sum(r.count for r in s.by_op)
+                        / n, "half_calls_per_step": calls,
+                        "k6_k7_kernels_per_step": got,
+                        "agreement": agreement("prof_train", res)}
+    shutil.rmtree(root, ignore_errors=True)
+
+    secs = prof_feed.run(bs=32, n=FEED_N, device=dev)
+    summary["feed"] = {}
+    for name in prof_feed.MODES:
+        line = prof_feed.report(name, secs[name], FEED_N, 32,
+                                secs["batch_mb"])
+        print(f"prof_feed {line} on {card}")
+        summary["feed"][name] = {"mb_per_s": FEED_N * secs["batch_mb"]
+                                 / secs[name],
+                                 "ms_per_batch": 1e3 * secs[name] / FEED_N}
+    print(f"prof_feed burn alone: {secs['burn_alone'] * 1e3:.1f} ms")
+    summary["feed"]["burn_alone_ms"] = 1e3 * secs["burn_alone"]
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"trace tool phase: {summary['seconds']:.1f} s")
+    return summary, failures
+
+
+TRACE_CHILD_TIMEOUT = 600  # seconds
+
+
+def trace_child() -> int:
+    """`--trace-child`: phase 4m in a process of its own; its last line is
+    the phase's summary and failures as JSON."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    summary, failures = trace_phase(torch.device("cuda", 0), gpu_line())
+    print(json.dumps({"summary": summary, "failures": failures}))
+    return 0
+
+
+def trace_phase_in_child():
+    """Phase 4m run by `--trace-child` in a fresh process, its output
+    echoed -> (summary, failures). After the fourteen profiler sessions
+    of `--profile` the same process lost device events from its later
+    sessions: 9 of 759 in `prof_infer`'s trace (one call's two fused
+    kernels among them) and 9 of 7,238 in `prof_train`'s on an H100,
+    `key_averages()` the same, which the phase's exact counts read as
+    missing kernels (`utils/profiling.py::trace`). A harness run from its
+    command line has a process of its own too."""
+    from pathlib import Path
+    res = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--trace-child"],
+        capture_output=True, text=True, timeout=TRACE_CHILD_TIMEOUT)
+    lines = res.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if res.returncode or not lines:
+        return {}, [f"the trace child exited {res.returncode}: "
+                    f"{res.stderr[-2000:]}"]
+    out = json.loads(lines[-1])
+    return out["summary"], out["failures"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if "--race-child" in sys.argv[1:]:
         return race_child()
+    if "--trace-child" in sys.argv[1:]:
+        return trace_child()
     if "--defer-only" in sys.argv[1:]:
         from lanedetection_end2end_tpu_torch.ops import _build
         _build.build(DEFER_SOURCES)
@@ -4851,7 +5179,7 @@ def main() -> int:
     for label, fitter, ref_fitter, call, per_call in (
             ("blocks engine", config_fitter, reference_fitter, on_blocks, 0),
             (f"blocks engine, homography rolled {ROLL_DEGREES:g} degrees",
-             roll.fitter, PlainFit(roll.fitter), engine, 1)):
+             roll.fitter, roll_fitter(dev, use_pallas=False), engine, 1)):
         engine.fitter, model.fitter = fitter, ref_fitter
         outs, b_ms, counts = serve(call, packed, images, wrappers)
         print(f"{label}: launches over {N_BATCHES} calls: {counts}")
@@ -4871,6 +5199,10 @@ def main() -> int:
         if profile:
             profile_steps(lambda: call(packed, images[0]), b_med,
                           f"{label} call")
+    # 3f. use_pallas_wls=False: the rolled homography's moments from K12's
+    # plain version, with the counts set to 0 just before
+    plain_moments = plain_moments_phase(engine, packed, images, wrappers,
+                                        model, cfg, outs, b_med, card)
     engine.fitter, model.fitter = config_fitter, reference_fitter
 
     # 3c. the whole encoder and decoder against the block path, and the
@@ -4934,6 +5266,14 @@ def main() -> int:
     homography, failures = homography_phase(dev, card)
     if failures:
         fail("learned homography: " + "; ".join(failures))
+    # 4l. the plain graph in bf16 ------------------------------------------
+    bf16_graph, failures = bf16_graph_phase(dev, card)
+    if failures:
+        fail("bf16 plain graph: " + "; ".join(failures))
+    # 4m. the trace tool and the three profiling harnesses ---------------
+    trace_tool, failures = trace_phase_in_child()
+    if failures:
+        fail("trace tool: " + "; ".join(failures))
     # 4k. data parallelism over two ranks ---------------------------------
     data_parallel, failures = dp_phase(dev, card, sd0)
     if failures:
@@ -4991,7 +5331,10 @@ def main() -> int:
                       "deferred_copies": defer_report,
                       "trainer": trainer_summary, "bev": bev,
                       "learned_homography": homography,
-                      "data_parallel": data_parallel}))
+                      "data_parallel": data_parallel,
+                      "plain_moments": plain_moments,
+                      "bf16_plain_graph": bf16_graph,
+                      "trace_tool": trace_tool}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

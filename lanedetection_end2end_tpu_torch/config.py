@@ -8,16 +8,18 @@ with the same defaults, the presets (`bp_defaults`, `bev_defaults`,
 schedule (`phase_for_epoch`) and the run naming (`save_id`). The port has
 no environment knobs, so `save_id` appends none.
 
-Fields that select what the port does not run yet (more than one device)
-are accepted here and refused with NotImplementedError where a Trainer
-would act on them (`train/driver.py`). `no_cuda` is how a caller asks for
-the CPU (`torch_device`). The Pallas switches are kept for the CLI:
-`packed_train` None and True train the e2e phase on the port's kernels,
-False on the plain graph (`LaneNet.forward`, as JAX's flax graph); None
-takes the plain graph where the kernels do not serve the config (the
-learned homography), and True raises there (`train/steps.py`);
-`use_pallas_wls` None and True select the port's moments kernel, False
-(the JAX package's XLA moments) is refused.
+`no_cuda` is how a caller asks for the CPU (`torch_device`), and
+`compute_dtype` ("float32" or "bfloat16", `torch_dtype`) is the dtype of
+every graph the steps run: the training backbone and the plain graph
+(`LaneNet.forward`) alike, the parameters staying float32. The Pallas
+switches are kept for the CLI: `packed_train` None and True train the
+e2e phase on the port's kernels, False on the plain graph (as JAX's flax
+graph); None takes the plain graph where the kernels do not serve the
+config (the learned homography), and True raises there
+(`train/steps.py`); `use_pallas_wls` None and True take the moments of a
+general-homography fit from the port's kernel K12, False from its plain
+version (float64 sums rounded once to float32), as the JAX package then
+takes XLA's moments (`ops/wls.py::WLSFitter`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from typing import List, Optional
 import torch
 
 from lanedetection_end2end_tpu_torch.device import resolve_device
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def str2bool(argument: str) -> bool:
@@ -134,7 +139,7 @@ class LaneConfig:
     num_slices: int = 1
     prefetch: int = 2  # batches copied to the card ahead of the step
     seed: int = 0
-    use_pallas_wls: Optional[bool] = None  # False refused by the Trainer
+    use_pallas_wls: Optional[bool] = None  # False: plain moments, no K12
     packed_train: Optional[bool] = None    # False: e2e on LaneNet.forward
     learn_homography: bool = False
     val_laneeval: bool = False  # LaneEval-score the validation split (bp)
@@ -213,6 +218,10 @@ class LaneConfig:
                 return "seg"
             return "e2e"
         return "e2e" if self.end_to_end else "seg"
+
+    def torch_dtype(self) -> torch.dtype:
+        """`compute_dtype` as a torch dtype (KeyError for another name)."""
+        return COMPUTE_DTYPES[self.compute_dtype]
 
     def torch_device(self) -> torch.device:
         """The CPU where `no_cuda`, else the current card (RuntimeError

@@ -5,8 +5,9 @@ per-batch pipeline (the e2e forward, the sigmoid gating of the line and
 horizon branches, the polynomial backprojection, the bounds clipping) runs
 on the device in one function, `make_infer_fn`; the host only rounds to
 ints, streams the JSON lines and scores them with LaneEval. Without the
-engine the forward is `LaneNet.forward(train=False)`, the plain float32
-module graph, as the JAX package runs its flax graph there; with
+engine the forward is `LaneNet.forward(train=False)`, the plain module
+graph in `cfg.compute_dtype`, as the JAX package runs its flax graph in
+its LaneNet's dtype there; with
 `use_engine` it is `FusedLaneNetEngine` (the serving kernels K5 on a
 card). With the learned homography, `LaneNet.forward` gives each image its
 own matrices and the backprojection takes them
@@ -54,7 +55,8 @@ def make_infer_fn(lanenet, cfg: LaneConfig, projections: Projections,
         if engine is not None:
             beta, line_logits, horizon_logits = engine(packed, images)
         else:
-            out = lanenet.forward(images, train=False)
+            out = lanenet.forward(images, train=False,
+                                  dtype=cfg.torch_dtype())
             beta, M_b, M_inv_b = out.beta, out.M, out.M_inv
             line_logits, horizon_logits = out.line_logits, out.horizon_logits
         if M_b is not None:  # the learned homography

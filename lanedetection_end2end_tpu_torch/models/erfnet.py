@@ -5,7 +5,11 @@ hold the weights under the reference torch names (`encoder.initial_block`,
 `encoder.layers.{i}`, `decoder.layers.{i}`, `decoder.output_conv`), so a
 reference checkpoint loads directly. The forward is the f32 reference of
 the serving engine (eval mode) and of the packed training backbone
-(`ops/packed_graph.py`, which reads these modules' parameters). In train
+(`ops/packed_graph.py`, which reads these modules' parameters); run with
+bf16 convolution weights (`call_in_dtype`) it is the bf16 plain graph,
+each layer in the dtype flax's `dtype=` gives it; an ERFNet built with
+`compute_dtype` (`models/registry.py::define_model`) runs so by itself.
+In train
 mode (`module.train()`), BatchNorm normalizes with the batch statistics and
 updates the running ones by the JAX package's rule (`BatchNorm2d` below),
 and the encoder's NB1D blocks apply Dropout2d (0.03 in the 64-channel
@@ -45,6 +49,22 @@ BN_EPS = 1e-3
 DROPOUT_1, DROPOUT_2 = 0.03, 0.3  # encoder 64- and 128-channel stages
 
 ENC_DILATIONS = [1] * 5 + [2, 4, 8, 16] * 2  # NB1D blocks of the encoder
+COMPUTE_LAYERS = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
+
+
+def call_in_dtype(module: nn.Module, dtype: torch.dtype, *args, **kwargs):
+    """`module(*args, **kwargs)` with the weights and biases of its
+    convolutions and linear layers cast to `dtype` for the call, as
+    flax's `dtype=` casts a Conv's or a Dense's kernel and bias (the cast
+    is differentiable, so gradients reach the float32 parameters). The
+    BatchNorms' scales and biases and every buffer stay float32."""
+    if dtype == torch.float32:
+        return module(*args, **kwargs)
+    params = {f"{name}.{k}" if name else k: p.to(dtype)
+              for name, m in module.named_modules()
+              if isinstance(m, COMPUTE_LAYERS)
+              for k, p in m.named_parameters(recurse=False)}
+    return torch.func.functional_call(module, params, args, kwargs)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -92,8 +112,12 @@ class DownsamplerBlock(nn.Module):
         self.bn = BatchNorm2d(noutput, eps=BN_EPS)
 
     def forward(self, x):
-        y = torch.cat([self.conv(x), F.max_pool2d(x, 2, 2)], dim=1)
-        return F.relu(self.bn(y))
+        """The convolution in its weight's dtype (the compute dtype), the
+        pool in x's; the concatenation takes the wider dtype, as flax's
+        does, and the block returns the compute dtype."""
+        conv = self.conv(x.to(self.conv.weight.dtype))
+        y = torch.cat([conv, F.max_pool2d(x, 2, 2)], dim=1)
+        return F.relu(self.bn(y).to(conv.dtype))
 
 
 class NonBottleneck1D(nn.Module):
@@ -121,9 +145,9 @@ class NonBottleneck1D(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, in_channels: int = 3):
         super().__init__()
-        self.initial_block = DownsamplerBlock(3, 16)
+        self.initial_block = DownsamplerBlock(in_channels, 16)
         layers = [DownsamplerBlock(16, 64)]
         layers += [NonBottleneck1D(64, d, DROPOUT_1)
                    for d in ENC_DILATIONS[:5]]
@@ -184,18 +208,27 @@ class ERFNet(nn.Module):
     seg), all NCHW: the logits from the main head or, with `pretrained`
     and `use_main_head=False`, from the pretraining head; `seg` the
     `decoder_seg` logits with `do_segmentation`, else the encoder
-    features again (the reference's default)."""
+    features again (the reference's default). `compute_dtype` other than
+    float32 runs the forward through `call_in_dtype` in it (the
+    parameters stay float32); `LaneNet` keeps float32 here and passes its
+    dtype per call."""
 
     def __init__(self, num_classes: int, pretrained: bool = False,
-                 do_segmentation: bool = False):
+                 do_segmentation: bool = False, in_channels: int = 3,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.encoder = Encoder(num_classes)
+        self.out_channels, self.compute_dtype = num_classes, compute_dtype
+        self.encoder = Encoder(num_classes, in_channels)
         self.decoder = Decoder(num_classes, pretrained)
         if do_segmentation:
             self.decoder_seg = Decoder(num_classes + 1)
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 use_main_head: bool = True):
+        w = self.encoder.initial_block.conv.weight
+        if self.compute_dtype != w.dtype == torch.float32:  # not yet cast
+            return call_in_dtype(self, self.compute_dtype, x, generator,
+                                 use_main_head=use_main_head)
         enc = self.encoder(x, generator)
         dec = self.decoder(enc, use_main_head)
         if hasattr(self, "decoder_seg"):

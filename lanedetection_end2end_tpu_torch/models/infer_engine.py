@@ -16,7 +16,10 @@ needs:
   (5 x 64, 8 x 128, 2 x 64, 2 x 16 channels), the stride-2 blocks and the
   output head as bf16 PyTorch modules between them (cuDNN: in JAX they
   are XLA convolutions, no Pallas kernel), then f32 activation, row mask
-  and `self.fitter(masked)`, whose moments run on K12 `wls_moments`.
+  and `self.fitter(masked)`, whose moments run on K12 `wls_moments`, or
+  on its plain version where the fitter has `use_pallas=False` (the
+  engine's own fitter takes the config's `use_pallas_wls`, as JAX's
+  engine takes its LaneNet's fitter).
   Activations stay NHWC in memory (channels_last around the cuDNN calls),
   so the chain kernel's NHWC planes are views.
 

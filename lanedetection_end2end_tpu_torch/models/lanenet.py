@@ -2,10 +2,15 @@
 and horizon heads, for both profiles and the three phases.
 
 Counterpart of `lanedetection_end2end_tpu/models/lanenet.py` (`LaneNet.apply`
-and `LaneNet.apply_packed`). `forward` is the plain float32 PyTorch graph:
-the reference that the serving engine and the packed training path are
-checked against, and the graph the skip and seg phases train on, as the
-JAX package trains them on its flax graph. The phases:
+and `LaneNet.apply_packed`). `forward` is the plain PyTorch graph, in
+float32 (the reference that the serving engine and the packed training
+path are checked against) or in the compute dtype the steps pass (the
+graph the skip and seg phases train on, as the JAX package trains them on
+its flax graph in its `LaneNet(cfg, dtype)`). In bf16 it casts as flax's
+`dtype=` does: each convolution and linear layer takes its input, weight
+and bias in bf16, each BatchNorm takes its statistics in float32 and
+returns bf16, the parameters stay float32, and the logits are widened to
+float32 before the activation, the mask and the fit. The phases:
 
 - 'e2e': activation of the logits -> row mask -> WLS fit, and the heads;
 - 'seg': the detached argmax of the logits split into per-lane maps
@@ -50,7 +55,8 @@ from lanedetection_end2end_tpu_torch.device import resolve_device
 from lanedetection_end2end_tpu_torch.geometry import (
     bev_matrices_normalized, bev_matrices_pixel, dlt_homography)
 from lanedetection_end2end_tpu_torch.models.dlt import HomographyHead
-from lanedetection_end2end_tpu_torch.models.erfnet import ERFNet
+from lanedetection_end2end_tpu_torch.models.erfnet import (
+    ERFNet, call_in_dtype)
 from lanedetection_end2end_tpu_torch.models.heads import Classification
 from lanedetection_end2end_tpu_torch.ops.activations import activation_fn
 from lanedetection_end2end_tpu_torch.ops.packed_graph import (
@@ -83,7 +89,7 @@ def make_fitter(cfg: LaneConfig, device) -> WLSFitter:
         M, _ = bev_matrices_pixel(cfg.resize, cfg.no_mapping)
     return WLSFitter(M, cfg.image_height, cfg.image_width, cfg.order,
                      normalized=cfg.profile == "bev", reg_ls=cfg.reg_ls,
-                     device=device)
+                     device=device, use_pallas=cfg.use_pallas_wls)
 
 
 def zero_rows(cfg: LaneConfig) -> int:
@@ -122,12 +128,16 @@ class LaneNet(nn.Module):
 
     def forward(self, images: torch.Tensor, phase: str = "e2e",
                 train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> LaneNetOutput:
-        """images (B, H, W, 3) float -> the outputs of `phase`, float32.
-        `train` sets the modules' mode: batch statistics (running ones
-        updated), gradients recorded, and Dropout2d drawn from `generator`
-        when one is given; eval records no gradient."""
+                generator: Optional[torch.Generator] = None,
+                dtype: torch.dtype = torch.float32) -> LaneNetOutput:
+        """images (B, H, W, 3) float -> the outputs of `phase`. `train`
+        sets the modules' mode: batch statistics (running ones updated),
+        gradients recorded, and Dropout2d drawn from `generator` when one
+        is given; eval records no gradient. `dtype` is the compute dtype
+        of the backbone and the heads (`models/erfnet.py::call_in_dtype`):
+        the encoder features and the line and horizon logits come out in
+        it, the segmentation logits, the weight maps, beta and the
+        matrices in float32."""
         if phase not in PHASES:
             raise ValueError(f"unknown phase {phase!r}")
         cfg = self.cfg
@@ -135,14 +145,15 @@ class LaneNet(nn.Module):
         self.train(train)
         with torch.set_grad_enabled(train):
             x = images.permute(0, 3, 1, 2).float()
-            enc, dec, _ = self.net(x, generator, use_main_head=use_main)
-            dec = dec.permute(0, 2, 3, 1)                   # (B, H, W, C)
+            enc, dec, _ = call_in_dtype(self.net, dtype, x, generator,
+                                         use_main_head=use_main)
+            dec = dec.permute(0, 2, 3, 1).float()           # (B, H, W, C)
             line = horizon = offsets = None
             if cfg.clas:
-                line = self.line_classification(enc)
-                horizon = self.horizon_estimation(enc)
+                line = call_in_dtype(self.line_classification, dtype, enc)
+                horizon = call_in_dtype(self.horizon_estimation, dtype, enc)
             if cfg.learn_homography:
-                offsets = self.homography_head(enc)
+                offsets = call_in_dtype(self.homography_head, dtype, enc)
             enc = enc.permute(0, 2, 3, 1)
             if phase == "skip":
                 return LaneNetOutput(None, None, dec, None, None, enc)
@@ -217,17 +228,6 @@ class LaneNet(nn.Module):
             line = horizon = None
             if cfg.clas:
                 e = enc.permute(0, 3, 1, 2)  # NCHW view of NHWC features
-                line = _call_in_dtype(self.line_classification, e, dtype)
-                horizon = _call_in_dtype(self.horizon_estimation, e, dtype)
+                line = call_in_dtype(self.line_classification, dtype, e)
+                horizon = call_in_dtype(self.horizon_estimation, dtype, e)
         return LaneNetOutput(beta, None, dec, line, horizon, enc)
-
-
-def _call_in_dtype(module: nn.Module, x: torch.Tensor,
-                   dtype: torch.dtype) -> torch.Tensor:
-    """`module(x)` with its float32 parameters cast to `dtype` for the
-    call (the cast is differentiable, so gradients reach the float32
-    parameters); buffers stay as they are."""
-    if dtype == torch.float32:
-        return module(x)
-    params = {k: v.to(dtype) for k, v in module.named_parameters()}
-    return torch.func.functional_call(module, params, (x,))

@@ -26,7 +26,12 @@ A general homography (a camera roll, say) takes the full grid: a constant
 (H*W, K) basis of all products Y_i*Y_j (row-major) then Y_i*x, built once
 on the host, and the moments sum_n w^2[n] basis[n] from K12
 (`ops/wls_moments.py`: its kernel on a CUDA tensor, its plain version on a
-CPU tensor). As in JAX, x there is the raw projected x, not centred.
+CPU tensor), or, with `use_pallas=False` (the config's `use_pallas_wls`),
+from `wls_moments_plain` on either device: JAX's switch from its Pallas
+kernel to one HIGHEST-precision matmul, here a float64 contraction
+rounded once to float32, which no TF32 setting reaches. As in JAX, x
+there is the raw projected x, not centred, and a separable fit ignores
+the switch.
 
 The Vandermonde basis is built on y/scale and beta rescaled exactly;
 Tikhonov `reg_ls` plus a trace-relative floor make the solve total
@@ -35,13 +40,16 @@ Tikhonov `reg_ls` plus a trace-relative floor make the solve total
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from lanedetection_end2end_tpu_torch.device import resolve_device
 from lanedetection_end2end_tpu_torch.geometry import projective_grid
 from lanedetection_end2end_tpu_torch.ops.solve import spd_solve
-from lanedetection_end2end_tpu_torch.ops.wls_moments import wls_moments
+from lanedetection_end2end_tpu_torch.ops.wls_moments import (
+    wls_moments, wls_moments_plain)
 
 REG_FLOOR = 1e-8  # relative diagonal floor making the solve total
 
@@ -62,13 +70,17 @@ class WLSFitter:
       reg_ls: Tikhonov strength in unscaled coordinates.
       device: where the constants live; None (the default) is the card,
         and raises without one. Pass "cpu" for the CPU.
+      use_pallas: a general homography's moments from K12 (None, True)
+        or from `wls_moments_plain` (False); JAX's `use_pallas`.
 
     The solve is always `spd_solve` (the config's `use_cholesky` is inert).
     """
 
     def __init__(self, M: np.ndarray, height: int, width: int, order: int,
-                 normalized: bool, reg_ls: float = 0.0, device=None):
+                 normalized: bool, reg_ls: float = 0.0, device=None,
+                 use_pallas: Optional[bool] = None):
         device = resolve_device(device)
+        self.use_pallas = use_pallas
         if order not in (0, 1, 2, 3):
             raise NotImplementedError(
                 f"Requested order {order} for polynomial fit is not implemented")
@@ -134,7 +146,9 @@ class WLSFitter:
         B, H, W, C = wmaps.shape
         if not self.separable:
             w = wmaps.float().reshape(B, H * W, C)      # a view, lanes inner
-            return self._finish(wls_moments(w, self.basis), B, C)
+            moments = (wls_moments_plain if self.use_pallas is False
+                       else wls_moments)(w, self.basis)
+            return self._finish(moments, B, C)
         w2 = (wmaps * wmaps).float()
         S0 = w2.sum(dim=2).transpose(1, 2)                          # (B,C,H)
         S1 = (w2 * self.sep_xs[None, None, :, None]).sum(dim=2).transpose(1, 2)

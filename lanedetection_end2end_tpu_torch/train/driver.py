@@ -10,7 +10,8 @@ data-parallel world (one process and one card each, `parallel/`):
   and an eval step per phase, made once and held as opaque callables
   (`train_step_for`, `eval_step_for`): e2e on the training backbone in
   `cfg.compute_dtype` on the default kernel path (`fused_blocks=True`,
-  `fused_maps=True`: K6-K10 on a card), skip and seg on the plain graph;
+  `fused_maps=True`: K6-K10 on a card), skip and seg on the plain graph
+  in the same dtype;
 - per-epoch validation with metric meters (none in a skip epoch; the
   seg step validates), the fitted-curve records of every validation
   image (`validation_set_dst.json`) and, in the BEV profile with `clas`
@@ -32,8 +33,9 @@ train loss, as the JAX Trainer does, and that value then picks the best
 model and drives the plateau schedule; the Trainer prints a notice that
 the validation set was empty. The learned homography and `packed_train`
 False train their e2e epochs on `LaneNet.forward` (`train/steps.py`),
-with the homography head in the checkpoints. `use_pallas_wls` False (the
-JAX package's XLA moments) raises NotImplementedError.
+with the homography head in the checkpoints. `use_pallas_wls` reaches
+the LaneNet's fitter (`models/lanenet.py::make_fitter`); both shipped
+homographies are separable, so it changes nothing there, as in JAX.
 
 Over N ranks (`dp=`, a `parallel/mesh.py::DataParallel`; `main_torch.py
 --num_devices N` starts them), each rank holds the same weights (rank 0's,
@@ -92,14 +94,6 @@ EMPTY_VALIDATION = ("notice: the validation set is empty; val_loss repeats "
                     "drives the best model and the plateau schedule")
 
 
-def check_supported(cfg: LaneConfig) -> None:
-    """NotImplementedError for what the port does not train."""
-    if cfg.use_pallas_wls is False:
-        raise NotImplementedError(
-            "use_pallas_wls=False selects XLA's moments of the general-"
-            "homography fit; the port computes them on K12 wls_moments")
-
-
 def resolve_world(cfg: LaneConfig, available: int) -> int:
     """The number of ranks, by the JAX Trainer's mesh rules: `num_devices`
     (0: every one of `available`) must divide the train and the
@@ -148,7 +142,6 @@ class Trainer:
 
     def __init__(self, cfg: LaneConfig, log_to_file: bool = True,
                  verbose: bool = True, device=None, dp=None):
-        check_supported(cfg)
         world = dp.world if dp is not None else 1
         want = resolve_world(cfg, world)
         if want != world:
@@ -488,7 +481,8 @@ class Trainer:
         phase = self.cfg.phase_for_epoch(epoch)
         batch = prepare_batch(batch)
         out = self.lanenet.forward(batch["image"].to(self.device),
-                                   phase=phase, train=False)
+                                   phase=phase, train=False,
+                                   dtype=self.cfg.torch_dtype())
         if phase == "skip":
             return save_pretrain_panel(batch["image"], batch["gt"],
                                        out.seg_logits, self.save_path,

@@ -18,13 +18,15 @@ and 3 with four lanes, the MSE masking an absent outer lane ('bev',
 of the two ego lanes (`exact_area`), its line head is four 3-way
 classifiers (cross entropy; argmax accuracy), and its segmentation
 classes are weighted [1, w, w] (BP: [1] + [w] * nclasses). As in the
-JAX package, skip and seg run on the plain float32 graph
-(`LaneNet.forward`, cuDNN and autograd; no kernel of the port), and e2e on
-the training backbone (`LaneNet.apply_packed`, K6-K10 on a card), except
-where the packed path does not serve the config (the learned homography)
-or `packed_train` is False: then e2e runs on `LaneNet.forward` too, as
-JAX runs it on its flax graph (`resolve_packed`; a forced True there
-raises). With the learned
+JAX package, skip and seg run on the plain graph (`LaneNet.forward`,
+cuDNN and autograd; no kernel of the port), and e2e on the training
+backbone (`LaneNet.apply_packed`, K6-K10 on a card), except where the
+packed path does not serve the config (the learned homography) or
+`packed_train` is False: then e2e runs on `LaneNet.forward` too, as JAX
+runs it on its flax graph (`resolve_packed`; a forced True there
+raises). Every graph runs in `cfg.compute_dtype`, as JAX runs its flax
+graph and its packed backbone in its LaneNet's dtype; the parameters,
+their gradients and the optimizer's state stay float32. With the learned
 homography the backprojection loss takes each sample's matrices
 (`BackprojectionLoss.with_M`). Every metric stays on the device.
 
@@ -72,9 +74,6 @@ from lanedetection_end2end_tpu_torch.ops.metrics import trapezoidal_area
 from lanedetection_end2end_tpu_torch.parallel.collectives import (
     all_reduce_grads, all_reduce_mean, gather_rows, set_sync_group)
 from lanedetection_end2end_tpu_torch.train.state import TrainState
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
 
 def prepare_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Device-side batch preparation for compact-transfer batches: applies
@@ -168,9 +167,9 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
     convolutions (the stride-2 blocks with `fused_maps=False`, the heads)
     follow PyTorch's TF32 flags, which the step leaves as they are.
 
-    The skip and seg phases run `LaneNet.forward` (float32, PyTorch
-    autograd), as the JAX package runs them on its flax graph; the
-    keywords of the packed path do not apply there. They need a
+    The skip and seg phases run `LaneNet.forward` (PyTorch autograd) in
+    `cfg.compute_dtype`, as the JAX package runs them on its flax graph;
+    the keywords of the packed path do not apply there. They need a
     segmentation head with the background channel (`pretrained`, or
     `end_to_end` off): ValueError otherwise. So does the e2e phase where
     `resolve_packed` says no (the learned homography, `packed_train`
@@ -197,7 +196,7 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
     if not bev:
         criterion = BackprojectionLoss(cfg.resize, cfg.order, cfg.no_mapping,
                                        device=device)
-    dtype = _DTYPES[cfg.compute_dtype]
+    dtype = cfg.torch_dtype()
     packed = resolve_packed(lanenet, cfg, phase)
 
     def curve_loss_bev(beta, gt_params, share):
@@ -259,7 +258,7 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
                                        fused_maps=fused_maps)
         else:
             out = lanenet.forward(batch["image"], phase=phase, train=train,
-                                  generator=generator)
+                                  generator=generator, dtype=dtype)
         metrics: Dict[str, torch.Tensor] = {}
         outputs: Dict[str, torch.Tensor] = {}
         share = counted_shares(batch)

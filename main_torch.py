@@ -28,7 +28,10 @@ package. Both profiles train, through the staged schedule where asked:
                   any, and train to --nepochs.
 
 It runs on the card; `--no_cuda true` runs it on the CPU, and without a
-card and without that flag it raises.
+card and without that flag it raises. `--compute_dtype bfloat16` runs
+every phase's graph in bf16 (the parameters, their gradients and adam's
+state stay float32); `--use_pallas_wls false` takes a general
+homography's fit moments from K12's plain version.
 
   --num_devices N  N ranks of data parallelism, one process each, the
                   global batch split over them (`--batch_size` and the
@@ -65,7 +68,7 @@ from lanedetection_end2end_tpu_torch.parallel.launch import spawn
 from lanedetection_end2end_tpu_torch.train.checkpoint import (
     best_checkpoint_path)
 from lanedetection_end2end_tpu_torch.train.driver import (
-    Trainer, check_supported, resolve_world)
+    Trainer, resolve_world)
 
 
 def parse_args(argv=None):
@@ -116,10 +119,8 @@ def ranks(cfg):
 
 def main(argv=None):
     cfg, synthetic, test_only = parse_args(argv)
-    # what the port does not run, no card without --no_cuda, and a device
-    # count the batch or the machine does not allow, raise before any data
-    # is written
-    check_supported(cfg)
+    # no card without --no_cuda, and a device count the batch or the
+    # machine does not allow, raise before any data is written
     world, devices, backend = ranks(cfg)
     cfg, labels_dir = data_config(cfg, synthetic)
     if world == 1:

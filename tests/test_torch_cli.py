@@ -17,7 +17,7 @@ from lanedetection_end2end_tpu.config import config_from_args as jax_args
 from lanedetection_end2end_tpu_torch.config import (
     build_parser, config_from_args)
 from lanedetection_end2end_tpu_torch.data.labels import read_json_lines
-from lanedetection_end2end_tpu_torch.train.driver import check_supported
+from lanedetection_end2end_tpu_torch.train.driver import Trainer
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 TRAIN_SH = ("--loss_policy backproject --save_freq 100 --weight_init xavier "
@@ -105,9 +105,7 @@ def test_main_refuses_to_run_without_a_card(tmp_path, monkeypatch):
     pytest.param(["--num_devices", "3"], ValueError, "does not divide",
                  id="extra0-item 8"),
     pytest.param(["--num_slices", "2"], ValueError, "num_slices=2",
-                 id="extra1-item 8"),
-    pytest.param(["--use_pallas_wls", "false"], NotImplementedError, "K12",
-                 id="extra2-K12")])
+                 id="extra1-item 8")])
 def test_main_refuses_unported_paths(tmp_path, extra, error, said):
     with pytest.raises(error, match=said):
         main_torch.main(_argv(tmp_path, "--nepochs", "1", *extra))
@@ -125,7 +123,27 @@ def test_main_takes_the_learned_homography_and_the_plain_graph(
     cfg = main_torch.parse_args(_argv(tmp_path, *extra))[0]
     assert getattr(cfg, field) is value
     assert getattr(jax_args(list(extra)), field) is value
-    check_supported(cfg)
+    Trainer(cfg, log_to_file=False, verbose=False)
+
+
+def test_main_trains_with_use_pallas_wls_false(tmp_path, monkeypatch):
+    """`--use_pallas_wls false` (JAX's XLA moments; the port's plain
+    moments) trains an epoch: the flag reaches the Trainer's fitter, which
+    stays separable on the shipped homography and fits from row sums."""
+    import sys
+    monkeypatch.setattr(sys, "stdout", sys.stdout)  # the Logger tee
+    fitters = []
+    init = Trainer.__init__
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        fitters.append(self.lanenet.fitter)
+
+    monkeypatch.setattr(Trainer, "__init__", spy)
+    last = main_torch.main(_argv(tmp_path, "--nepochs", "1",
+                                 "--use_pallas_wls", "false"))
+    assert torch.isfinite(torch.tensor(last["train_loss"]))
+    assert [(f.use_pallas, f.separable) for f in fitters] == [(False, True)]
 
 
 def test_main_trains_resumes_tests_and_evaluates_on_the_cpu(tmp_path,

@@ -269,13 +269,22 @@ def test_empty_validation_repeats_the_train_loss(run, capsys, tmp_path):
     pytest.param(dict(num_devices=2), ValueError, "asks for 2 ranks",
                  id="kw0-item 8"),
     pytest.param(dict(num_slices=2), ValueError, "num_slices=2",
-                 id="kw1-item 8"),
-    pytest.param(dict(use_pallas_wls=False), NotImplementedError, "K12",
-                 id="kw2-K12")])
+                 id="kw1-item 8")])
 def test_unported_paths_raise(kw, error, said, tmp_path):
     cfg = train_sh_config(resize=RESIZE, save_path=str(tmp_path), **kw)
     with pytest.raises(error, match=said):
         driver.Trainer(cfg, log_to_file=False, verbose=False, device="cpu")
+
+
+def test_trainer_takes_use_pallas_wls_false(tmp_path):
+    """`use_pallas_wls=False` reaches the Trainer's fitter, as JAX's
+    LaneNet hands it to its WLSFitter (the shipped homography stays
+    separable: the flag changes no fit there)."""
+    cfg = train_sh_config(resize=RESIZE, save_path=str(tmp_path),
+                          use_pallas_wls=False)
+    t = driver.Trainer(cfg, log_to_file=False, verbose=False, device="cpu")
+    assert t.lanenet.fitter.use_pallas is False
+    assert t.lanenet.fitter.separable
 
 
 def test_trainer_refuses_to_fall_back_to_the_cpu(tmp_path, monkeypatch):

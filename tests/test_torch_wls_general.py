@@ -9,7 +9,11 @@ with a 2 degree camera roll (`M_roll`), against JAX `WLSFitter(use_pallas=
 True, pallas_interpret=True)`: beta at rtol 2e-3, atol 2e-4 and its
 gradient at rtol 2e-3, atol 1e-4 (JAX's bars for its Pallas fitter against
 its XLA one, tests/test_pallas_wls.py:99, :117). Both shipped homographies
-are separable, so only such a rolled matrix reaches K12."""
+are separable, so only such a rolled matrix reaches K12. The port's
+`WLSFitter(use_pallas=False)` (the config's `use_pallas_wls=False`)
+against JAX's `use_pallas=False` fitter (XLA's HIGHEST-precision matmul)
+at the same bars, values and gradients; it takes its moments from
+`wls_moments_plain` and never from the K12 wrapper."""
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ from lanedetection_end2end_tpu_torch.config import train_sh_config
 from lanedetection_end2end_tpu_torch.geometry import (
     bev_matrices_normalized, bev_matrices_pixel, camera_roll)
 from lanedetection_end2end_tpu_torch.models.lanenet import make_fitter
+from lanedetection_end2end_tpu_torch.ops import wls as wls_module
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
 from lanedetection_end2end_tpu_torch.ops.wls_moments import (
     wls_moments, wls_moments_bwd_plain, wls_moments_plain)
@@ -210,3 +215,83 @@ def test_general_fit_refuses_row_sums_and_config_reaches_fitter():
                      reg_ls=0.5, use_pallas=False)
     assert (made.order, made.reg_ls, made.separable) == (2, 0.5, True)
     assert made.basis is None and made.y_scale == jfit.y_scale
+
+
+# ----------------------------------------------------------------------
+# use_pallas=False: the plain moments
+# ----------------------------------------------------------------------
+
+def _xla_fitters(M, H, W, order, normalized, reg_ls):
+    return (WLSFitter(M, H, W, order, normalized=normalized, reg_ls=reg_ls,
+                      device="cpu", use_pallas=False),
+            JaxFitter(M, H, W, order, normalized=normalized, reg_ls=reg_ls,
+                      use_pallas=False))
+
+
+@pytest.mark.parametrize("M,normalized,order,reg_ls", CASES, ids=IDS)
+def test_plain_moments_fit_matches_jax_xla_fitter(M, normalized, order,
+                                                  reg_ls):
+    H, W = 32, 64
+    fit, jfit = _xla_fitters(M, H, W, order, normalized, reg_ls)
+    w = _wmaps(H, W, 30 + order)
+    want = np.asarray(jfit(jnp.asarray(w), layout="nhwc"))
+    got = fit(torch.from_numpy(w)).numpy()
+    assert got.shape == (2, 4, order + 1) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("M,normalized,order,reg_ls",
+                         [(m_roll(16), False, 3, 1.0),
+                          (m_roll_normalized(), True, 1, 1e-3)],
+                         ids=["pixel-order3", "normalized-order1"])
+def test_plain_moments_fit_grad_matches_jax_xla_fitter(M, normalized, order,
+                                                       reg_ls):
+    H, W = 16, 32
+    fit, jfit = _xla_fitters(M, H, W, order, normalized, reg_ls)
+    w = _wmaps(H, W, 40 + order, lo=0.1)
+    want = np.asarray(jax.grad(lambda a: jnp.sum(
+        jfit(a, layout="nhwc") ** 2))(jnp.asarray(w)))
+    wt = torch.from_numpy(w).requires_grad_(True)
+    (fit(wt) ** 2).sum().backward()
+    assert wt.grad is not None and torch.isfinite(wt.grad).all()
+    np.testing.assert_allclose(wt.grad.numpy(), want, rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("use_pallas,plain_calls,wrapper_calls",
+                         [(False, 1, 0), (None, 0, 1), (True, 0, 1)],
+                         ids=["false", "none", "true"])
+def test_use_pallas_picks_the_moments(monkeypatch, use_pallas, plain_calls,
+                                      wrapper_calls):
+    """False takes `wls_moments_plain`, never the K12 wrapper; None and
+    True take the wrapper (its plain version on a CPU tensor). The fit is
+    the same function either way."""
+    calls = {"plain": 0, "wrapper": 0}
+
+    def counted(key, fn):
+        def call(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(wls_module, "wls_moments_plain",
+                        counted("plain", wls_module.wls_moments_plain))
+    monkeypatch.setattr(wls_module, "wls_moments",
+                        counted("wrapper", wls_module.wls_moments))
+    fit = WLSFitter(m_roll(32), 32, 64, 3, normalized=False, reg_ls=1.0,
+                    device="cpu", use_pallas=use_pallas)
+    w = torch.from_numpy(_wmaps(32, 64, 50))
+    got = fit(w)
+    assert calls == {"plain": plain_calls, "wrapper": wrapper_calls}
+    want = WLSFitter(m_roll(32), 32, 64, 3, normalized=False, reg_ls=1.0,
+                     device="cpu")(w)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("flag", [None, True, False])
+def test_config_flag_reaches_the_fitter(flag):
+    """`use_pallas_wls` reaches the fitter of `make_fitter` (LaneNet's,
+    the engine's); the shipped homography stays separable and fits from
+    row sums whatever the flag says, as in JAX."""
+    cfg = train_sh_config(resize=32, use_pallas_wls=flag)
+    fit = make_fitter(cfg, "cpu")
+    assert fit.use_pallas is flag and fit.separable
