@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --defer-only
+    python3 chip_smoke.py --tiles-only
 
 `--profile` also traces two more calls of each engine (full, blocks, blocks
 with the rolled homography) and two more train steps of each of the four
@@ -14,7 +15,7 @@ checkout; exits non-zero on any failed check and prints no result without
 a card. In order:
 
 1. build the fifteen kernel libraries from
-   `lanedetection_end2end_tpu_torch/csrc/`, and the seven of phase 4f in
+   `lanedetection_end2end_tpu_torch/csrc/`, and the eight of phase 4f in
    the deferred-copy variant (one nvcc per source, all at once), and
    print the card's name and power limit;
 2. hold each serving kernel against its plain PyTorch version on CUDA
@@ -25,14 +26,18 @@ a card. In order:
 2b. the same for the training kernels, in bf16 and then in float32:
    forward and backward of `nb_half_a` and `nb_half_b` at every (C, d,
    plane) of the 256x512 train step at batch 8 plus the d >= H edge (in
-   float32 each beside its single-TF32 control, see below), and
-   the stride-2 ops at their seven shapes: `downsampler_op` x3 (inputs
-   with planted pooling ties, the input gradient required at all three),
+   float32 each beside its single-TF32 control, see below; each shape
+   timed beside cuDNN's products alone, `library` lines, these and the
+   kernels in card time, `card_ms`), the stride-2 ops at their seven shapes:
+   `downsampler_op` x3 (inputs with planted pooling ties, the input
+   gradient required at all three),
    `lane_maps_op` x3 (the two upsamplers with moments, the head with f32
    output and none) and `head_rowsums_op`, in float32 each K8 / K9
    product result (y, dx, dweight) beside its single-TF32 control, and
    every K8 / K9 shape timed beside cuDNN's products (`F.conv2d`,
-   `F.conv_transpose2d`, `conv2d_weight`, TF32 off); then one whole
+   `F.conv_transpose2d`, `conv2d_weight`, TF32 off); one `tile` line per
+   instantiation of the bf16 3-tap tiles at each C: registers, local
+   bytes, blocks an SM, any local memory failing; then one whole
    NB1D block per (C, d) and every downsampler and upsampler block
    forward and backward through autograd (bf16), on the kernels and on
    their plain versions;
@@ -45,7 +50,8 @@ a card. In order:
    `channel_sums` at its five stride-2 and three NB1D planes, against the
    plain versions, timed beside them and beside one cuDNN call
    (`F.conv2d` + relu forward, `aten.convolution_backward` with the relu
-   mask, on channels_last operands of the same dtype, TF32 off);
+   mask, on channels_last operands of the same dtype, TF32 off), K11 and
+   its cuDNN call in card time (`card_ms`), the rest in CUDA events;
 2c. the kernels of the blocks-mode engine: `nb1d_chain` at its four
    256x512 chains and the resize-64 d = 16 edge against its plain version
    and, bit for bit, against K1 launched block by block (its input left
@@ -151,18 +157,20 @@ a card. In order:
    ("Device not supported"), the kernels line says so and no race check
    is claimed;
 4f. the deferred-copy check: one `encoder_fused`, one `decoder_fused`
-   and one `nb1d_chain` call at resize 64, and the float32 training
-   kernels whose tiles issue cp.async, forward and backward, at the
-   256x512 train step's shapes, batch 8 (`nb_half_a` / `nb_half_b` at
-   C = 16, 64, 128; `downsampler_op` 16 -> 64, 64 -> 128; `lane_maps_op`
-   128 -> 64, 64 -> 16), on the normal build and on `ops/_build.py`'s
+   and one `nb1d_chain` call at resize 64, and the training kernels whose
+   tiles issue cp.async, forward and backward, at the 256x512 train
+   step's shapes, batch 8 (`nb_half_a` / `nb_half_b` at C = 16, 64, 128
+   in float32 and in bf16; `downsampler_op` 16 -> 64, 64 -> 128;
+   `lane_maps_op` 128 -> 64, 64 -> 16; K11 in bf16 at C = 64), on the
+   normal build and on `ops/_build.py`'s
    "defer" build (-DLD_DEFER_CP_ASYNC, built beside the normal libraries
    in step 1), where a cp.async copy lands only at its group's wait and
    its destination holds NaN until then, so a read of a ring stage before
    its wait shows every time: the outputs must be finite and equal the
    normal build's bit for bit (the sums of f32 atomics at TOL_REDUCE).
-   `--defer-only` builds those seven libraries in both builds and runs
-   this phase alone;
+   `--defer-only` builds those eight libraries in both builds and runs
+   this phase alone (`--tiles-only` runs phases 2b's half blocks and 2d's
+   K11 in bf16 alone, the quick check of the bf16 tiles);
 4g. the training entry point: `main_torch.main` on the train.sh flags
    (float32, full width and depth) at 256x512, batch 8, on a 32-image
    synthetic dataset (24 training images, 3 steps an epoch; 8 for
@@ -255,9 +263,13 @@ kernels, with `bwd_launches` beside it; for K11 and `channel_sums` of the
 3 bf16 steps of phase 4d), and
 `ms`, `plain_ms` and `bound_ms` are per
 engine call or per train step (batch 8): the sum over the path's shapes of
-the median time (or bound) times the launches per call (for K11 and
+the time (or bound) times the launches per call (for K11 and
 `channel_sums` per unfused step; `packed_conv`, which no path runs, is
 weighted as if the step ran it at each of its 68 convolutions).
+A time is the median of 20 CUDA-event readings around one call, but for
+the half blocks and K11 (kernel and library, not the plain version),
+whose time is the card's (`card_ms`: calls queued behind a spin kernel,
+the host's work per call outside the reading).
 `encoder_fused` and `decoder_fused` carry their time per call beside
 `block_sequence_ms`, that of the 23 wrapper calls of K1-K4 computing the
 same outputs, and their bound counts only the bytes that must cross HBM
@@ -435,6 +447,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import itertools
 import json
 import math
 import statistics
@@ -537,6 +550,99 @@ def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def card_ms(fn, reps: int = 20) -> float:
+    """ms the card takes for one call of `fn`: a spin kernel
+    (`torch.cuda._sleep`) holds the stream while the host queues `reps`
+    calls, and CUDA events around those calls read how long the card took
+    to run them back to back, so the host's work per call (casts of the
+    taps, the ctypes call) is outside the reading and the device work it
+    queues inside. The spin is lengthened until the host has queued the
+    calls before it ends (a call of many launches would fill the card's
+    launch queue first and hold the host: it raises); median of 3
+    readings."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, readings = 1 << 24, []
+    while len(readings) < 3:
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        queued = 1e3 * (time.perf_counter() - t0)
+        c.record()
+        c.synchronize()
+        if queued > 0.8 * a.elapsed_time(b):  # the spin ended too soon
+            if cycles >= 1 << 30:
+                raise RuntimeError("card_ms: the host did not queue the "
+                                   "calls within a 0.6 s spin")
+            cycles *= 2
+            continue
+        readings.append(b.elapsed_time(c) / reps)
+    return statistics.median(readings)
+
+
+# the planes of the 256x512 train step at batch 8 (C = 16, 64, 128)
+P16, P64, P128 = ((BATCH, RESIZE // 2, RESIZE, 16),
+                  (BATCH, RESIZE // 4, RESIZE // 2, 64),
+                  (BATCH, RESIZE // 8, RESIZE // 4, 128))
+# (half, plane, d, launches a default step): the half blocks of phase 2b
+HALF_CASES = ([("a", P64, 1, 7), ("a", P128, 1, 8), ("a", P16, 1, 2),
+               ("b", P64, 1, 7), ("b", P16, 1, 2)]
+              + [("b", P128, d, 2) for d in (2, 4, 8, 16)])
+# (plane, d, axis, launches an unfused step): K11 in phase 2d; relu on 'h'
+K11_CASES = ([(P64, 1, a, 14) for a in "hw"] + [(P128, 1, a, 8) for a in "hw"]
+             + [(P128, d, a, 2) for d in (2, 4, 8, 16) for a in "hw"]
+             + [(P16, 1, a, 4) for a in "hw"])
+
+
+def _conv_parts(x, k, axis: str, d: int):
+    """cuDNN's operands of one 3-tap convolution of x (B, H, W, C) by taps
+    k (3, ci, co): (channels_last input, (co, ci, kh, kw) weight,
+    padding, dilation)."""
+    xn = x.permute(0, 3, 1, 2)
+    w4 = k.to(x.dtype).permute(2, 1, 0)
+    w4 = (w4.unsqueeze(-1) if axis == "h" else w4.unsqueeze(2)).contiguous()
+    pad, dil = ((d, 0), (d, 1)) if axis == "h" else ((0, d), (1, d))
+    return xn, w4, pad, dil
+
+
+def cudnn_conv(x, k, b, axis: str, d: int, act: bool):
+    """K11's function through cuDNN -> (forward, backward) closures:
+    `F.conv2d` (+ relu), `aten.convolution_backward` (of the relu-masked
+    dy)."""
+    import torch.nn.functional as F
+    xn, w4, pad, dil = _conv_parts(x, k, axis, d)
+    bias = b.to(x.dtype) if b is not None else None
+    fwd = lambda: (torch.relu if act else (lambda t: t))(
+        F.conv2d(xn, w4, bias, padding=pad, dilation=dil))
+    y = fwd()
+    dy = torch.randn_like(y)
+    bwd = lambda: torch.ops.aten.convolution_backward(
+        dy * (y > 0) if act else dy, xn, w4,
+        [w4.shape[0]] if b is not None else None, [1, 1], list(pad),
+        list(dil), False, [0, 0], 1, [True, True, b is not None])
+    return fwd, bwd
+
+
+def cudnn_products(x, kh, kw, d: int):
+    """A half block's products alone through cuDNN: the 3x1 and 1x3
+    convolutions forward, their input and weight gradients backward ->
+    (forward, backward) closures."""
+    import torch.nn.functional as F
+    parts = [_conv_parts(x, k, axis, d) for k, axis in ((kh, "h"),
+                                                        (kw, "w"))]
+    fwd = lambda: [F.conv2d(xn, w4, None, padding=pad, dilation=dil)
+                   for xn, w4, pad, dil in parts]
+    dys = [torch.randn_like(y) for y in fwd()]
+    bwd = lambda: [torch.ops.aten.convolution_backward(
+        dy, xn, w4, None, [1, 1], list(pad), list(dil), False, [0, 0], 1,
+        [True, True, False]) for dy, (xn, w4, pad, dil) in zip(dys, parts)]
+    return fwd, bwd
 
 
 def random_state_dict(model: torch.nn.Module, seed: int) -> dict:
@@ -828,17 +934,20 @@ TRAIN_KEYS = ("ms", "plain_ms", "bound_ms", "ops_ms", "bwd_ms",
 
 
 def time_and_record(label, s, per_step, verdict, fwd, pfwd, bwd, pbwd, work,
-                    flop_per_s=BF16_FLOP_PER_S):
-    """Time a training kernel's forward and backward and their plain
-    versions (medians), compute both bounds from `work(backward)` ->
+                    flop_per_s=BF16_FLOP_PER_S, timer=median_ms):
+    """Time a training kernel's forward and backward with `timer`
+    (median_ms: CUDA events around each call; card_ms: the card's time)
+    and their plain versions with median_ms (dozens of launches a call,
+    which would fill the card's launch queue behind card_ms's spin),
+    compute both bounds from `work(backward)` ->
     (flop, bytes) at `flop_per_s`, print the check line and add `per_step`
     times each number to the summary `s`. At TF32X3_FLOP_PER_S (the
     float32 tiles on the tensor cores) the FFMA bounds, at
     FP32_FLOP_PER_S, are printed and summed beside them (`ffma_bound_ms`,
     `bwd_ffma_bound_ms`). Returns the forward's and the backward's ms."""
     with torch.no_grad():
-        f_ms, pf_ms = median_ms(fwd), median_ms(pfwd)
-        pb_ms, b_ms = median_ms(pbwd), median_ms(bwd)
+        f_ms, pf_ms = timer(fwd), median_ms(pfwd)
+        pb_ms, b_ms = median_ms(pbwd), timer(bwd)
     fb, f_by = bound_ms(*work(False), flop_per_s)
     bb, b_by = bound_ms(*work(True), flop_per_s)
     ffma = ""
@@ -903,16 +1012,12 @@ def check_training_kernels(dev, g, dt):
     es = torch.finfo(dt).bits // 8
     rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else TF32X3_FLOP_PER_S
     pt = plane_tols(dt)
-    B, H, W = BATCH, RESIZE, 2 * RESIZE
-    p64, p128, p16 = ((B, H // 4, W // 4, 64), (B, H // 8, W // 8, 128),
-                      (B, H // 2, W // 2, 16))
-    # (half, plane, d, launches per train step)
-    cases = [("a", p64, 1, 7), ("a", p128, 1, 8), ("a", p16, 1, 2),
-             ("b", p64, 1, 7), ("b", p16, 1, 2)]
-    cases += [("b", p128, d, 2) for d in (2, 4, 8, 16)]
-    # edge: the resize=64 NB1D-128 plane (8x16) with d = 16 >= H, W
-    cases += [("a", (2, 8, 16, 128), 1, 0), ("b", (2, 8, 16, 128), 16, 0)]
-    summary = {n: dict.fromkeys(TRAIN_KEYS, 0.0)
+    # (half, plane, d, launches per train step) at 256x512, batch 8, and
+    # the edge: the resize=64 NB1D-128 plane (8x16) with d = 16 >= H, W
+    cases = HALF_CASES + [("a", (2, 8, 16, 128), 1, 0),
+                          ("b", (2, 8, 16, 128), 16, 0)]
+    summary = {n: {**dict.fromkeys(K11_KEYS, 0.0),
+                   "library_of": LIBRARY_OF_HALF}
                for n in ("nb_half_a", "nb_half_b")}
     failures = []
 
@@ -968,9 +1073,44 @@ def check_training_kernels(dev, g, dt):
             lambda: nb.half_fwd_plain(x, mul, add, kh, bh, kw, bw, d),
             lambda: nb.half_bwd_kernel(*bwd_args),
             lambda: nb.half_bwd_plain(*bwd_args),
-            lambda bwd: half_work(shape, d, bwd, es), rate)
-
+            lambda bwd: half_work(shape, d, bwd, es), rate, card_ms)
+        with torch.no_grad():
+            l_f, l_b = (card_ms(f) for f in cudnn_products(x, kh, kw, d))
+        print(f"library {label}: cuDNN's products alone, forward {l_f:.4f} "
+              f"ms, backward {l_b:.4f} ms")
+        s["library_ms"] += per_step * l_f
+        s["bwd_library_ms"] += per_step * l_b
     return summary, failures
+
+
+# what a half block's library_ms measures (no library call computes a
+# whole half block)
+LIBRARY_OF_HALF = ("cuDNN's products alone at each shape, channels_last, "
+                   "TF32 off: the 3x1 and 1x3 F.conv2d forward, their input "
+                   "and weight gradients (aten.convolution_backward) "
+                   "backward")
+
+
+def bf16_tiles(dev):
+    """What the card makes of the bf16 3-tap tiles (csrc/conv3tap.cuh,
+    wgrad3tap.cuh) at each C: registers, local (spilled) bytes, blocks
+    resident on an SM and shared bytes of each instantiation the half
+    blocks launch. Any local memory, or no block resident, fails. ->
+    ({C: {kernel: info}}, failures)"""
+    from lanedetection_end2end_tpu_torch.ops.nb_block import tile_info
+    out, failures = {}, []
+    for C in (16, 64, 128):
+        out[C] = tile_info(C, dev)
+        for name, info in out[C].items():
+            ok = info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+            print(f"tile bf16 C={C} {name}: {info['registers']} registers, "
+                  f"{info['local_bytes']} local bytes, "
+                  f"{info['blocks_per_sm']} blocks an SM, "
+                  f"{info['smem_bytes']} shared bytes "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"bf16 tile C={C} {name}: {info}")
+    return out, failures
 
 
 def s2_work(small_pixels, cs, cl, k, planes_bytes, backward, es=2):
@@ -1397,18 +1537,6 @@ def check_two_lanes(dev, g):
 K11_KEYS = TRAIN_KEYS + ("library_ms", "bwd_library_ms")
 
 
-def k11_cases():
-    """(plane, d, axis, launches per unfused train step): every
-    convolution of the 17 NB1D blocks at 256x512, batch 8; relu on the
-    3x1 ('h') convolutions."""
-    B, H, W = BATCH, RESIZE, 2 * RESIZE
-    p64, p128, p16 = ((B, H // 4, W // 4, 64), (B, H // 8, W // 8, 128),
-                      (B, H // 2, W // 2, 16))
-    cases = [(p64, 1, a, 14) for a in "hw"] + [(p128, 1, a, 8) for a in "hw"]
-    cases += [(p128, d, a, 2) for d in (2, 4, 8, 16) for a in "hw"]
-    return cases + [(p16, 1, a, 4) for a in "hw"]
-
-
 def k11_work(shape, d, axis, es, act, backward):
     """FLOP of the taps that land on the plane (twice backward: dx and dk)
     and bytes: forward x read and y written (y f32 without act:
@@ -1427,31 +1555,8 @@ def k11_work(shape, d, axis, es, act, backward):
     return flop, planes + 3 * C * C * (es + 4 * backward) + 4 * C
 
 
-def library_conv(x, k, b, axis, d, act):
-    """One cuDNN call computing the same function as K11 on the same
-    operands (channels_last, x's dtype): F.conv2d with the (3, 1) or
-    (1, 3) kernel, its dilation and bias, relu where `act`; and its
-    backward, `aten.convolution_backward` (with the relu mask) -> (fwd,
-    bwd) closures. Timed beside the kernel; the port never calls it."""
-    import torch.nn.functional as F
-    xn = x.permute(0, 3, 1, 2)
-    w4 = k.to(x.dtype).permute(2, 1, 0)
-    w4 = (w4.unsqueeze(-1) if axis == "h" else w4.unsqueeze(2)).contiguous()
-    pad, dil = ((d, 0), (d, 1)) if axis == "h" else ((0, d), (1, d))
-    bias = b.to(x.dtype) if b is not None else None
-    fwd = lambda: (torch.relu if act else (lambda t: t))(
-        F.conv2d(xn, w4, bias, padding=pad, dilation=dil))
-    y = fwd()
-    dy = torch.randn_like(y)
-    bwd = lambda: torch.ops.aten.convolution_backward(
-        dy * (y > 0) if act else dy, xn, w4,
-        [w4.shape[0]] if b is not None else None, [1, 1], list(pad),
-        list(dil), False, [0, 0], 1, [True, True, b is not None])
-    return fwd, bwd
-
-
-def check_k11(dev, g):
-    """Phase 2d. `packed_conv_act` forward and backward (dx, dk, db) and
+def check_k11(dev, g, dtypes=DTYPE_NAMES):
+    """Phase 2d (in each dtype of `dtypes`). `packed_conv_act` forward and backward (dx, dk, db) and
     `packed_conv` forward, dx and dW at every (plane, d, axis) of the
     unfused 256x512 train step at batch 8, and `channel_sums` at its five
     stride-2 and three NB1D planes, in bf16 and in float32, each against
@@ -1465,13 +1570,15 @@ def check_k11(dev, g):
                    for dt in DTYPE_NAMES.values()}
                for n in ("packed_conv_act", "packed_conv", "channel_sums")}
     failures = []
-    for dt, dname in DTYPE_NAMES.items():
+    for dt, dname in dtypes.items():
         es = torch.finfo(dt).bits // 8
         rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else TF32X3_FLOP_PER_S
         plane_tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
         # float32 weight gradients at TOL_F32, beside their control
         dk_tol = () if dt == torch.bfloat16 else (TOL_F32,)
-        for shape, d, axis, per_step in k11_cases():
+        # every convolution of the 17 NB1D blocks at 256x512, batch 8;
+        # relu on the 3x1 ('h') ones
+        for shape, d, axis, per_step in K11_CASES:
             C, act = shape[-1], axis == "h"
             x = rn(*shape).to(dt)
             k, b = rn(3, C, C) / (3 * C) ** 0.5, 0.1 * rn(C)
@@ -1513,7 +1620,7 @@ def check_k11(dev, g):
                                                           act),
                      lambda: pc.packed_conv_bwd_kernel(*args),
                      lambda: pc.packed_conv_act_bwd_plain(*args),
-                     library_conv(x, k, b, axis, d, act), act),
+                     cudnn_conv(x, k, b, axis, d, act), act),
                     ("packed_conv",
                      [("y", yc, pyc, TOL_F32),
                       ("dx", cgrads[0], pcgrads[0], plane_tol),
@@ -1522,7 +1629,7 @@ def check_k11(dev, g):
                      lambda: pc.packed_conv_fwd_plain(x, k, axis, d),
                      lambda: pc.packed_conv_bwd_kernel(*cargs, bias=False),
                      lambda: pc.packed_conv_bwd_plain(x, dyc, k, axis, d),
-                     library_conv(x, k, None, axis, d, False), False)):
+                     cudnn_conv(x, k, None, axis, d, False), False)):
                 # packed_conv runs on no path: weighted as if the step ran
                 # it in place of each of its convolutions
                 s = summary[name][dname]
@@ -1533,9 +1640,9 @@ def check_k11(dev, g):
                     s, per_step, verdict, fwd, pfwd, bwd, pbwd,
                     lambda bwd_, a=act_: k11_work(shape, d, axis, es, a,
                                                   bwd_),
-                    flop_per_s=rate)
+                    flop_per_s=rate, timer=card_ms)
                 with torch.no_grad():
-                    l_f, l_b = median_ms(lib[0]), median_ms(lib[1])
+                    l_f, l_b = card_ms(lib[0]), card_ms(lib[1])
                 print(f"check {name} {label}: cuDNN F.conv2d "
                       f"{'+ relu ' if act_ else ''}{l_f:.4f} ms, "
                       f"convolution_backward {l_b:.4f} ms")
@@ -2450,29 +2557,34 @@ def race_check():
 # variant (-DLD_DEFER_CP_ASYNC): every library whose kernels issue cp.async
 DEFER_SOURCES = ("encoder_fused", "decoder_fused", "nb1d_chain",
                  "nb_half_fwd", "nb_half_bwd", "downsampler_op",
-                 "lane_maps_op")
+                 "lane_maps_op", "packed_conv")
 # outputs summed with f32 atomics, in an order that changes from run to
 # run: held at TOL_REDUCE of max|normal|; every other output bit for bit
 DEFER_SUMS = ("mom", "dmul", "dadd", "dkh", "dbh", "dkw", "dbw", "dweight",
-              "dbias")
+              "dbias", "dk", "db", "dk_plain")
 
 
 def defer_calls(dev):
     """{label: call}: each call returns {output name: tensor}. The serving
-    kernels at resize 64 (batch 2, seeded random weights), and the float32
+    kernels at resize 64 (batch 2, seeded random weights), and the
     training kernels of the default train step, forward and backward, at
     its 256x512 shapes, batch 8: `nb_half_a` on the 16-channel plane,
     `nb_half_b` on the 64-channel plane (d = 1) and the 128-channel one
-    (d = 16), `downsampler_op` 16 -> 64 and 64 -> 128, `lane_maps_op`
-    128 -> 64 and 64 -> 16 (the shapes whose tiles issue cp.async; the
-    first downsampler and the head run on FFMA). Every input is made once,
-    here; a backward reads the stashes of the plain forward."""
+    (d = 16), each in float32 and in bf16 (the float32 and the bf16 3-tap
+    tiles), `downsampler_op` 16 -> 64 and 64 -> 128, `lane_maps_op`
+    128 -> 64 and 64 -> 16 in float32 (the shapes whose tiles issue
+    cp.async; the first downsampler and the head run on FFMA), and K11 in
+    bf16 on the 64-channel plane (`packed_conv_act` as a 3x1 convolution
+    with relu, `packed_conv` as a 1x3 one: the tiles' bias, bias + relu
+    and f32-output epilogues). Every input is made once, here; a backward
+    reads the stashes of the plain forward."""
     from lanedetection_end2end_tpu_torch.config import train_sh_config
     from lanedetection_end2end_tpu_torch.models.infer_engine import (
         FusedLaneNetEngine)
     from lanedetection_end2end_tpu_torch.models.lanenet import LaneNet
     from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
     from lanedetection_end2end_tpu_torch.ops import nb_block as nb
+    from lanedetection_end2end_tpu_torch.ops import packed_conv as pc
     from lanedetection_end2end_tpu_torch.ops.backbone_fused import (
         decoder_fused_kernel, encoder_fused_kernel)
     from lanedetection_end2end_tpu_torch.ops.nb1d import nb1d_chain
@@ -2492,18 +2604,19 @@ def defer_calls(dev):
 
     calls = {"serving resize 64": serving}
     B, H, W = BATCH, RESIZE, 2 * RESIZE
-    for half, (h, w, C), d in (("a", (H // 2, W // 2, 16), 1),
-                               ("b", (H // 4, W // 4, 64), 1),
-                               ("b", (H // 8, W // 8, 128), 16)):
-        xh = rn(B, h, w, C)
+    for dt, (half, (h, w, C), d) in itertools.product(
+            (torch.float32, torch.bfloat16),
+            (("a", (H // 2, W // 2, 16), 1), ("b", (H // 4, W // 4, 64), 1),
+             ("b", (H // 8, W // 8, 128), 16))):
+        xh = rn(B, h, w, C).to(dt)
         kh, kw = rn(3, C, C) / (3 * C) ** 0.5, rn(3, C, C) / (3 * C) ** 0.5
         bh, bw = 0.1 * rn(C), 0.1 * rn(C)
         mul = add = None
         if half == "b":
             mul, add = 0.5 + torch.rand(C, generator=g, device=dev), rn(C)
         py, pmid, _ = nb.half_fwd_plain(xh, mul, add, kh, bh, kw, bw, d)
-        bwd_args = (xh, mul, add, pmid, py, rn(B, h, w, C), 1e-3 * rn(2, C),
-                    kh, kw, d)
+        bwd_args = (xh, mul, add, pmid, py, rn(B, h, w, C).to(dt),
+                    1e-3 * rn(2, C), kh, kw, d)
 
         def half_call(half=half, xh=xh, mul=mul, add=add, kh=kh, bh=bh,
                       kw=kw, bw=bw, d=d, bwd_args=bwd_args):
@@ -2514,7 +2627,23 @@ def defer_calls(dev):
             out.update((n, t) for n, t in zip(
                 names, nb.half_bwd_kernel(*bwd_args)) if t is not None)
             return out
-        calls[f"nb_half_{half} {(B, h, w, C)} d={d}"] = half_call
+        calls[f"nb_half_{half} {DTYPE_NAMES[dt]} {(B, h, w, C)} d={d}"] = (
+            half_call)
+
+    xk = rn(B, H // 4, W // 4, 64).to(torch.bfloat16)
+    k, bk = rn(3, 64, 64) / 192 ** 0.5, 0.1 * rn(64)
+    yk = pc.packed_conv_act_fwd_plain(xk, k, bk, "h", 1, True)
+    act_args = (xk, yk, rn(*xk.shape).to(xk.dtype), k, "h", 1, True)
+    plain_args = (xk, None, rn(*xk.shape).to(xk.dtype), k, "w", 1, False)
+
+    def k11_call():
+        dx, dk, db = pc.packed_conv_bwd_kernel(*act_args)
+        cdx, cdk, _ = pc.packed_conv_bwd_kernel(*plain_args, bias=False)
+        return {"y": pc.packed_conv_act(xk, k, bk, "h", 1, True),
+                "dx": dx, "dk": dk, "db": db,
+                "y_plain": pc.packed_conv(xk, k, "w", 1),
+                "dx_plain": cdx, "dk_plain": cdk}
+    calls[f"K11 bfloat16 {tuple(xk.shape)} d=1"] = k11_call
 
     for (h, w, cin), cout in (((H // 2, W // 2, 16), 64),
                               ((H // 4, W // 4, 64), 128)):
@@ -4953,6 +5082,27 @@ def trace_phase_in_child():
     return out["summary"], out["failures"]
 
 
+def tiles_only() -> int:
+    """`--tiles-only`: phases 2b and 2d in bf16 alone, the half blocks and
+    K11 on the bf16 3-tap tiles against their plain versions, with the
+    tiles' occupancy lines (about a minute with the builds)."""
+    from lanedetection_end2end_tpu_torch.ops import _build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(gpu_line())
+    _build.build(["nb_half_fwd", "nb_half_bwd", "packed_conv"])
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    _, failures = check_training_kernels(dev, g, torch.bfloat16)
+    _, f = bf16_tiles(dev)
+    failures += f
+    _, f = check_k11(dev, g, {torch.bfloat16: "bfloat16"})
+    if failures + f:
+        fail("bf16 3-tap tiles: " + "; ".join(failures + f))
+    print("bf16 3-tap tiles: every check ok")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4969,6 +5119,8 @@ def main() -> int:
         if failures:
             fail("deferred copies: " + "; ".join(failures))
         return 0
+    if "--tiles-only" in sys.argv[1:]:
+        return tiles_only()
     from lanedetection_end2end_tpu_torch.config import train_sh_config
     from lanedetection_end2end_tpu_torch.models.infer_engine import (
         FusedLaneNetEngine)
@@ -5103,6 +5255,10 @@ def main() -> int:
         lanemaps, f2 = check_lanemap_kernels(dev, g, dt)
         train_summary[dname] = {**halves, **lanemaps}
         failures += f + f2
+    occupancy, f = bf16_tiles(dev)
+    failures += f
+    for n in ("nb_half_a", "nb_half_b"):
+        train_summary["bfloat16"][n]["occupancy"] = occupancy
     failures += check_blocks_through_autograd(dev, g, model.net)
     if failures:
         fail("training kernel disagrees with its plain version: "

@@ -98,39 +98,15 @@ using ldtc::cp_async16;
 using ldtc::cp_async4;
 using ldtc::cp_async_commit;
 using ldtc::cp_async_wait;
+using ldtc::fence_proxy_async;
+using ldtc::keep;
 using ldtc::mma_tf32;
 using ldtc::split_tf32;
+using ldtc::wgmma_commit;
+using ldtc::wgmma_fence;
+using ldtc::wgmma_wait0;
 
 // ---- PTX -----------------------------------------------------------------
-
-// Shared-memory writes of the generic proxy (the split B operands) become
-// visible to wgmma, which reads through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Registers an in-flight wgmma reads or writes, pinned at this point: the
-// compiler may neither reuse them nor read them before the wait above.
-template <int K>
-__device__ __forceinline__ void keep(float (&r)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int K>
-__device__ __forceinline__ void keep(uint32_t (&r)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 // The B operand of wgmma in shared memory, K-major without swizzle: core
 // matrices of 8 rows (n) x 4 tf32 (k), 128 contiguous bytes each, row r at

@@ -27,8 +27,8 @@
 //
 // Design: five launches. (1) `dyv_kernel`, one elementwise pass with a
 // per-channel reduction. (2, 4) the weight gradient (bf16: wgrad3tap.cuh's
-// WMMA over pixel tiles; float32: conv3tap_f32.cuh's 3xTF32 wgmma over
-// pixel chunks, mma.sync at C = 16; f32 atomicAdd at the end). (3, 5) the
+// bf16 wgmma over pixel chunks; float32: conv3tap_f32.cuh's 3xTF32 wgmma;
+// both mma.sync at C = 16; f32 atomicAdd at the end). (3, 5) the
 // shared convolution (conv3tap.cuh or conv3tap_f32.cuh) on transposed taps
 // with the masking epilogues. f32 atomics make the last bits of dk, db,
 // dmul and dadd depend on the order blocks finish in. Every f32 output
@@ -143,6 +143,14 @@ int half_bwd_entry(const void* x, const void* muladd, const void* ymid,
 #undef LD_ARGS
 }
 
+template <int C>
+int bwd_info(int* info) {
+  int rc = conv_info<C, EPI_MASK_SUM, bf16>(info);
+  if (!rc) rc = conv_info<C, EPI_PLAIN, bf16>(info + 4);
+  if (!rc) rc = conv_info<C, EPI_PRO_BWD, bf16>(info + 8);
+  return rc ? rc : wgrad_info<C>(info + 12);
+}
+
 }  // namespace
 
 // x, ymid, yout, dyout, dyv, dmid, dx: (B, H, W, C) bf16 contiguous (dyv,
@@ -172,4 +180,22 @@ LD_API int ld_nb_half_bwd_f32(const void* x, const void* muladd,
   return half_bwd_entry<float>(x, muladd, ymid, yout, dyout, dmom, khT, kwT,
                                dyv, dmid, dx, dkh, dbh, dkw, dbw, dmuladd, B,
                                H, W, C, d, stream);
+}
+
+// What the card makes of the bf16 tiles of the backward at C (16, 64 or
+// 128), for a report (conv3tap.cuh's tile_info: registers, local bytes,
+// blocks an SM, shared bytes): info[0..3] the convolution with the relu
+// mask, [4..7] the plain one (half A's dx), [8..11] the one with the
+// prologue's backward (half B's dx), [12..15] the weight gradient.
+LD_API int ld_nb_half_bwd_info(int C, int* info) {
+  switch (C) {
+    case 16:
+      return bwd_info<16>(info);
+    case 64:
+      return bwd_info<64>(info);
+    case 128:
+      return bwd_info<128>(info);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

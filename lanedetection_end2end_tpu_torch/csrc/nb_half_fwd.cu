@@ -25,8 +25,9 @@
 // byte): the operations bound it for C = 64 and 128, the bytes for C = 16.
 //
 // Design: two launches of the shared implicit-GEMM convolution (bf16:
-// conv3tap.cuh on WMMA; float32: conv3tap_f32.cuh, wgmma in 3xTF32 with a
-// cp.async ring), the second with the moments epilogue. The intermediate
+// conv3tap.cuh, wgmma in bf16 on persistent blocks; float32:
+// conv3tap_f32.cuh, wgmma in 3xTF32; both with a cp.async ring), the
+// second with the moments epilogue. The intermediate
 // ymid is needed by the backward anyway, so its round trip through device
 // memory is no extra traffic. `mom` must be zero before the call.
 
@@ -75,6 +76,12 @@ int half_fwd_entry(const void* x, const void* kh, const void* bh,
 #undef LD_ARGS
 }
 
+template <int C>
+int fwd_info(int* info) {
+  const int rc = conv_info<C, EPI_BIAS_RELU, bf16>(info);
+  return rc ? rc : conv_info<C, EPI_BIAS_MOM, bf16>(info + 4);
+}
+
 }  // namespace
 
 // x, ymid, yout: (B, H, W, C) bf16 contiguous; kh, kw: (3, C, C) bf16
@@ -96,4 +103,21 @@ LD_API int ld_nb_half_fwd_f32(const void* x, const void* kh, const void* bh,
                               void* stream) {
   return half_fwd_entry<float>(x, kh, bh, kw, bw, muladd, ymid, yout, mom, B,
                                H, W, C, d, stream);
+}
+
+// What the card makes of the bf16 tiles of the forward at C (16, 64 or
+// 128), for a report (conv3tap.cuh's tile_info: registers, local bytes,
+// blocks an SM, shared bytes): info[0..3] the first convolution (prologue,
+// bias and relu), info[4..7] the second (bias and moments).
+LD_API int ld_nb_half_fwd_info(int C, int* info) {
+  switch (C) {
+    case 16:
+      return fwd_info<16>(info);
+    case 64:
+      return fwd_info<64>(info);
+    case 128:
+      return fwd_info<128>(info);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

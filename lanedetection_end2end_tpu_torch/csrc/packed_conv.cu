@@ -32,9 +32,9 @@
 // operations bound it for C = 128, C = 64 sits at the ridge, the bytes
 // bound C = 16.
 //
-// Design: bf16 runs the shared WMMA implicit GEMM (conv3tap.cuh) with a
-// bias, bias + relu or f32-output epilogue, and the shared weight gradient
-// (wgrad3tap.cuh); f32 runs the 3xTF32 tiles of conv3tap_f32.cuh. The
+// Design: bf16 runs the shared implicit GEMM on bf16 wgmma (conv3tap.cuh)
+// with a bias, bias + relu or f32-output epilogue, and the shared weight
+// gradient (wgrad3tap.cuh); f32 runs the 3xTF32 tiles of conv3tap_f32.cuh. The
 // backward is up to three launches: `dz_kernel` (the relu mask and the
 // bias gradient in one elementwise pass, skipped for packed_conv), the
 // transposed convolution and the weight gradient. dk and db are summed

@@ -1,9 +1,10 @@
-// Tensor-core and copy primitives shared by the float32 3-tap tiles
-// (conv3tap_f32.cuh: K6, K7, K11), the stride-2 tiles (conv_s2_mma.cuh:
-// K8, K9) and the NB1D row tile (nb1d.cuh): asynchronous 16- and 4-byte
-// copies into shared memory (deferred in a debug build, see below), the 3xTF32
-// split of an f32 operand, and the warp-level mma.sync products with the
-// ldmatrix loads of their bf16 fragments.
+// Tensor-core and copy primitives shared by the 3-tap tiles (conv3tap.cuh,
+// wgrad3tap.cuh in bf16, conv3tap_f32.cuh in float32: K6, K7, K11), the
+// stride-2 tiles (conv_s2_mma.cuh: K8, K9) and the NB1D row tile
+// (nb1d.cuh): asynchronous 16- and 4-byte copies into shared memory
+// (deferred in a debug build, see below), the 3xTF32 split of an f32
+// operand, the warp-level mma.sync products with the ldmatrix loads of
+// their bf16 fragments, and the fences and waits of wgmma.
 //
 // Fragments of one warp's m16 x n8 product (thread (g, tg) = (lane / 4,
 // lane % 4)): the accumulator c[2h + e] is row g + 8h, column 2tg + e. TF32
@@ -216,5 +217,38 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(s)
       : "memory");
 }
+
+// ---- wgmma (sm_90a) ----
+
+// Shared-memory writes of the generic proxy (stores, and cp.async copies
+// once waited for) become visible to wgmma, which reads its shared-memory
+// operands through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Registers an in-flight wgmma reads or writes, pinned at this point: the
+// compiler may neither reuse them nor read them before the wait above.
+template <int K>
+__device__ __forceinline__ void keep(float (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int K>
+__device__ __forceinline__ void keep(uint32_t (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 
 }  // namespace ldtc

@@ -31,6 +31,7 @@ atomicAdd, so their last bits change from run to run.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -212,6 +213,34 @@ def half_bwd_kernel(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int):
     if dma is None:
         return dx, None, None, dkh, dbh, dkw, dbw
     return dx, dma[0], dma[1], dkh, dbh, dkw, dbw
+
+
+# the kernels whose occupancy `ld_nb_half_fwd_info` / `ld_nb_half_bwd_info`
+# report, in their order (the bf16 3-tap tiles, csrc/conv3tap.cuh and
+# csrc/wgrad3tap.cuh), and what each reports of one
+TILE_KERNELS = {"nb_half_fwd": ("conv bias relu", "conv bias moments"),
+                "nb_half_bwd": ("conv relu mask", "conv plain",
+                                "conv prologue backward", "wgrad")}
+TILE_INFO = ("registers", "local_bytes", "blocks_per_sm", "smem_bytes")
+
+
+def tile_info(C: int, device) -> dict:
+    """What the card makes of the bf16 3-tap tiles at C (16, 64, 128):
+    {kernel: {registers, local_bytes, blocks_per_sm, smem_bytes}} for each
+    instantiation the half blocks launch. Needs a card."""
+    if C not in (16, 64, 128):
+        raise ValueError(f"nb_half kernels: C={C} not in (16, 64, 128)")
+    out = {}
+    for lib, names in TILE_KERNELS.items():
+        info = (ctypes.c_int * (len(TILE_INFO) * len(names)))()
+        fn = kernel(lib, f"ld_{lib}_info", "ip")
+        with torch.cuda.device(device):
+            rc = fn(C, ctypes.addressof(info))
+        if rc != 0:
+            raise RuntimeError(f"ld_{lib}_info failed: CUDA error {rc}")
+        for i, name in enumerate(names):
+            out[name] = dict(zip(TILE_INFO, info[4 * i:4 * i + 4]))
+    return out
 
 
 # ----------------------------------------------------------------------

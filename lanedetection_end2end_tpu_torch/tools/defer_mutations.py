@@ -1,14 +1,19 @@
-"""Mutation check of the deferred-copy phase (`chip_smoke.py --defer-only`).
+"""Mutation check of the deferred-copy phase (`chip_smoke.py --defer-only`)
+and of the bf16 3-tap tiles' checks (`chip_smoke.py --tiles-only`).
 
-Each mutation skips the first `cp.async` wait of one ring loop (the
+Each of MUTATIONS skips the first `cp.async` wait of one ring loop (the
 iteration i = 0), so that loop reads its first chunk before the chunk has
 landed: the fault that the "defer" build (-DLD_DEFER_CP_ASYNC,
-`csrc/tc_common.cuh`) exists to make visible. For each mutation this tool
-copies the checkout into OUT/<name> (build outputs left out), applies the
-mutation there, runs `chip_smoke.py --defer-only` in the copy, writes its
-output to OUT/<name>.log and prints the exit code and the lines that
-failed. It exits 1 if the phase passes on any mutated copy. Needs a card,
-nvcc and a checkout; the checkout itself is never modified.
+`csrc/tc_common.cuh`) exists to make visible; each runs `--defer-only`.
+Each of TILE_MUTATIONS plants a fault of the bf16 tiles' index plan that
+only their checks against the plain versions can see (the prologue
+applied to rows that the tap zeroed, a tap offset off by one); each runs
+`--tiles-only`. For each mutation this tool copies the checkout into
+OUT/<name> (build outputs left out), applies the mutation there, runs
+chip_smoke.py in the copy with the mutation's flag, writes its output to
+OUT/<name>.log and prints the exit code and the lines that failed. It
+exits 1 if a check passes on any mutated copy. Needs a card, nvcc and a
+checkout; the checkout itself is never modified.
 
     python -m lanedetection_end2end_tpu_torch.tools.defer_mutations OUT
 """
@@ -24,6 +29,9 @@ ROOT = Path(__file__).resolve().parents[2]
 CSRC = "lanedetection_end2end_tpu_torch/csrc/"
 _F32 = "    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk i landed"
 _F32_NEW = "    if (i > 0) cp_async_wait<STAGES - 2>();"
+_BF16 = ("    cp_async_wait<T::STAGES - 2>();  // this thread's copies of chunk "
+         "i landed")
+_BF16_NEW = "    if (i > 0) cp_async_wait<T::STAGES - 2>();"
 # name -> (header, occurrence (1-based) of the old text, old, new)
 MUTATIONS = {
     # the row tile's pass loop: wait and barrier both skipped at i = 0
@@ -45,7 +53,33 @@ MUTATIONS = {
         "    ldtc::cp_async_wait<MM_STAGES - 2>();  // this thread's chunk i "
         "landed",
         "    if (i > 0) ldtc::cp_async_wait<MM_STAGES - 2>();"),
+    # the bf16 3-tap tiles (K6 / K7 forward and dx, K11): the convolution
+    # and the weight gradient
+    "conv3tap_conv_first_wait": (
+        "conv3tap.cuh", 1,
+        "    cp_async_wait_upto(nst - 2);  // this thread's copies of chunk i "
+        "landed",
+        "    if (i > 0) cp_async_wait_upto(nst - 2);"),
+    "wgrad3tap_first_wait": ("wgrad3tap.cuh", 1, _BF16, _BF16_NEW),
 }
+TILE_MUTATIONS = {
+    # the convolution applies the prologue to the staged rows that the
+    # copy zero-filled (taps off the plane), making them relu(add)
+    "conv3tap_prologue_on_padding": (
+        "conv3tap.cuh", 1,
+        "        if (geo.staged_pixel(R0, h0, c0, j) < 0) continue;\n", ""),
+    # the weight gradient applies the prologue to its zero-filled pixels
+    "wgrad3tap_prologue_on_padding": (
+        "wgrad3tap.cuh", 1,
+        "        if (staged_pixel(R0, h0, c0, j) < 0) continue;\n", ""),
+    # the convolution's tap +d reads one staged row too far
+    "conv3tap_tap_off_by_one": (
+        "conv3tap.cuh", 1,
+        "      const int base = geo.base(t);",
+        "      const int base = geo.base(t) + (t == 2);"),
+}
+FLAGS = {**{n: "--defer-only" for n in MUTATIONS},
+         **{n: "--tiles-only" for n in TILE_MUTATIONS}}
 _LEFT_OUT = shutil.ignore_patterns("_build", "_smoke", "_archive", ".git",
                                    "__pycache__")
 
@@ -62,30 +96,32 @@ def main(argv) -> int:
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
+    names = list(FLAGS)
     out = Path(argv[0]).resolve()
     out.mkdir(parents=True, exist_ok=True)
     missed = []
-    for name, (header, nth, old, new) in MUTATIONS.items():
+    for name in names:
+        header, nth, old, new = {**MUTATIONS, **TILE_MUTATIONS}[name]
         copy = out / name
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(ROOT, copy, ignore=_LEFT_OUT)
         src = copy / CSRC / header
         src.write_text(mutate(src.read_text(), nth, old, new))
-        run = subprocess.run([sys.executable, "chip_smoke.py", "--defer-only"],
+        run = subprocess.run([sys.executable, "chip_smoke.py", FLAGS[name]],
                              cwd=copy, capture_output=True, text=True)
         log = run.stdout + run.stderr
         (out / f"{name}.log").write_text(log)
         print(f"mutation {name} ({header}, occurrence {nth}): "
-              f"--defer-only exit {run.returncode}")
+              f"{FLAGS[name]} exit {run.returncode}")
         for line in log.splitlines():
             if line.endswith("FAIL"):
                 print("  " + line)
         if run.returncode == 0:
             missed.append(name)
     if missed:
-        print(f"the deferred-copy phase missed: {', '.join(missed)}")
+        print(f"the checks missed: {', '.join(missed)}")
         return 1
-    print(f"the deferred-copy phase failed on all {len(MUTATIONS)} mutations")
+    print(f"the checks failed on all {len(names)} mutations")
     return 0
 
 

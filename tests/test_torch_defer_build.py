@@ -139,12 +139,13 @@ def _includes(name, seen=None):
 def test_the_defer_phase_reaches_every_ring_loop():
     """Every source that issues cp.async is built into a library of the
     deferred-copy phase, every library of the phase issues cp.async, and
-    the train step's libraries (K6-K9) are among them."""
+    the train step's libraries (K6-K9) and K11's are among them."""
     import chip_smoke
     issuers = {src.name for src in CSRC.glob("*.cu*")
                if src.name != "tc_common.cuh"
                and re.search(r"\bcp_async(16|4)\(", src.read_text())}
-    assert issuers == {"nb1d.cuh", "conv3tap_f32.cuh", "conv_s2_mma.cuh"}
+    assert issuers == {"nb1d.cuh", "conv3tap_f32.cuh", "conv_s2_mma.cuh",
+                       "conv3tap.cuh", "wgrad3tap.cuh"}
     reached = set()
     for lib in chip_smoke.DEFER_SOURCES:
         mine = (_includes(f"{lib}.cu") | {f"{lib}.cu"}) & issuers
@@ -152,12 +153,13 @@ def test_the_defer_phase_reaches_every_ring_loop():
         reached |= mine
     assert reached == issuers
     assert {"nb_half_fwd", "nb_half_bwd", "downsampler_op",
-            "lane_maps_op"} <= set(chip_smoke.DEFER_SOURCES)
+            "lane_maps_op", "packed_conv"} <= set(chip_smoke.DEFER_SOURCES)
 
 
 @pytest.mark.parametrize("name", [
     "nb1d_first_wait", "conv3tap_f32_conv_first_wait",
-    "conv3tap_f32_wgrad_first_wait", "conv_s2_mma_first_wait"])
+    "conv3tap_f32_wgrad_first_wait", "conv_s2_mma_first_wait",
+    "conv3tap_conv_first_wait", "wgrad3tap_first_wait"])
 def test_each_mutation_skips_one_first_wait(name):
     """`tools/defer_mutations.py` still finds its text in the sources, and
     the mutated source differs from the original only in that one wait."""
@@ -170,3 +172,21 @@ def test_each_mutation_skips_one_first_wait(name):
     assert mutated.replace(new, old, 1) == text
     with pytest.raises(ValueError):
         dm.mutate(text, text.count(old) + 1, old, new)
+
+
+@pytest.mark.parametrize("name", [
+    "conv3tap_prologue_on_padding", "wgrad3tap_prologue_on_padding",
+    "conv3tap_tap_off_by_one"])
+def test_each_tile_mutation_applies_once(name):
+    """The tool's mutations of the bf16 tiles' index plan still find their
+    text in the sources and change it, and run the bf16 tiles' checks
+    (`--tiles-only`); the first-wait ones run the deferred-copy phase."""
+    from lanedetection_end2end_tpu_torch.tools import defer_mutations as dm
+    header, nth, old, new = dm.TILE_MUTATIONS[name]
+    text = (CSRC / header).read_text()
+    mutated = dm.mutate(text, nth, old, new)
+    assert mutated != text
+    assert len(mutated) - len(text) == len(new) - len(old)
+    assert dm.FLAGS[name] == "--tiles-only"
+    assert {dm.FLAGS[n] for n in dm.MUTATIONS} == {"--defer-only"}
+    assert not set(dm.MUTATIONS) & set(dm.TILE_MUTATIONS)
