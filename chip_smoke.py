@@ -31,11 +31,16 @@ a card. In order:
    kernels in card time, `card_ms`), the stride-2 ops at their seven shapes:
    `downsampler_op` x3 (inputs with planted pooling ties, the input
    gradient required at all three),
-   `lane_maps_op` x3 (the two upsamplers with moments, the head with f32
-   output and none) and `head_rowsums_op`, in float32 each K8 / K9
-   product result (y, dx, dweight) beside its single-TF32 control, and
-   every K8 / K9 shape timed beside cuDNN's products (`F.conv2d`,
-   `F.conv_transpose2d`, `conv2d_weight`, TF32 off); one `tile` line per
+   `lane_maps_op` x3 (the two upsamplers with moments; the head at cout 4
+   with f32 output and none, `check_head`: y, dx, dweight and dbias bit
+   for bit a second launch, the wrappers' refusals of moments and of 9
+   lanes before any launch and its C entry's refusal of moments, timed in
+   card time beside `F.conv_transpose2d` and the transposed
+   `aten.convolution_backward`, TF32 off) and `head_rowsums_op`, in
+   float32 each K8 / K9 product result (y, dx, dweight) beside its
+   single-TF32 control, and the upsamplers timed beside cuDNN's products
+   (`F.conv2d`, `F.conv_transpose2d`, `conv2d_weight`, TF32 off); one
+   `tile` line per
    instantiation of the bf16 3-tap tiles at each C: registers, local
    bytes, blocks an SM, any local memory failing; then one whole
    NB1D block per (C, d) and every downsampler and upsampler block
@@ -48,10 +53,13 @@ a card. In order:
    d = 1, each as a 3x1 convolution with relu and a 1x3 one without; in
    float32 each weight gradient beside its single-TF32 control), and
    `channel_sums` at its five stride-2 and three NB1D planes, against the
-   plain versions, timed beside them and beside one cuDNN call
-   (`F.conv2d` + relu forward, `aten.convolution_backward` with the relu
-   mask, on channels_last operands of the same dtype, TF32 off), K11 and
-   its cuDNN call in card time (`card_ms`), the rest in CUDA events;
+   plain versions, timed beside them and beside one library call (K11:
+   cuDNN's `F.conv2d` + relu forward, `aten.convolution_backward` with
+   the relu mask, on channels_last operands of the same dtype, TF32 off;
+   `channel_sums`: `torch.var_mean(x.float(), dim=(0, 1, 2))`), the
+   kernels and their library calls in card time (`card_ms`), the plain
+   versions in CUDA events; `channel_sums` also bit for bit a second
+   launch, and its error against a float64 sum printed;
 2c. the kernels of the blocks-mode engine: `nb1d_chain` at its four
    256x512 chains and the resize-64 d = 16 edge against its plain version
    and, bit for bit, against K1 launched block by block (its input left
@@ -62,9 +70,10 @@ a card. In order:
    gradient through autograd against autograd of the plain version;
 2e. the kernels that take the lane count, at two lanes (the BEV egolane
    config `bev_defaults(resize=256)`: normalized column coordinate and
-   its mask rows), in bf16 and float32: K9's 2x2 head at cout 2 (f32
-   out, no moments) and `head_rowsums_op` (K10, bit for bit a second
-   launch), forward and backward, against their plain versions; then
+   its mask rows), in bf16 and float32: K9's 2x2 head at cout 2
+   (`check_head`, as in 2b) and `head_rowsums_op` (K10, bit for bit a
+   second launch), forward and backward, against their plain versions;
+   then
    `decoder_fused` at C = 2 on a BEV model's seeded weights, bit for bit
    its block sequence (K4 at C = 2) and against its plain version at
    TOL_S beside the control; each timed beside its plain version;
@@ -267,8 +276,8 @@ the time (or bound) times the launches per call (for K11 and
 `channel_sums` per unfused step; `packed_conv`, which no path runs, is
 weighted as if the step ran it at each of its 68 convolutions).
 A time is the median of 20 CUDA-event readings around one call, but for
-the half blocks and K11 (kernel and library, not the plain version),
-whose time is the card's (`card_ms`: calls queued behind a spin kernel,
+the half blocks, K11, K9's 2x2 head and `channel_sums` (kernel and
+library, not the plain version), whose time is the card's (`card_ms`: calls queued behind a spin kernel,
 the host's work per call outside the reading).
 `encoder_fused` and `decoder_fused` carry their time per call beside
 `block_sequence_ms`, that of the 23 wrapper calls of K1-K4 computing the
@@ -296,9 +305,12 @@ TFLOP/s beside it as `ffma_bound_ms` / `bwd_ffma_bound_ms`), or over 67
 TFLOP/s (float32 K10, FFMA); `library_ms` is
 null where no single PyTorch call computes the fused function, for
 wls_moments the time of `torch.matmul` (TF32 off) of the squared weights,
-laid out as (B*C, N), with the basis, at the engine's shape, for
-channel_sums the time of `torch.var_mean(x.float(), dim=(0, 1, 2))`, which
-gives the same statistics, for the serving downsampler and upsampler
+laid out as (B*C, N), with the basis, at the engine's shape (beside
+the kernel's and the matmul's card time alone, `card_ms` and
+`library_card_ms`), for channel_sums the card time of
+`torch.var_mean(x.float(), dim=(0, 1, 2))`, which gives the same
+statistics (beside the kernel's card time and `f64_rel_err`, its largest
+error against a float64 sum), for the serving downsampler and upsampler
 (K2, K3) cuDNN's bf16 product alone at their shapes per engine call
 (`F.conv2d` 3x3/s2/p1, `F.conv_transpose2d`, channels_last; no pool,
 BatchNorm or relu), for downsampler_op and lane_maps_op cuDNN's
@@ -306,10 +318,12 @@ products alone on the same operands (bf16, or float32 with TF32 off) at
 the train step's shapes, which no single call computes with the bias, the
 pool and the moments (`library_of` says which calls; forward: `F.conv2d`
 3x3/s2/p1, `F.conv_transpose2d`; `bwd_library_ms`: the transposed
-convolution or the convolution for dx plus `conv2d_weight`; K9's 2x2 head,
-on the eval step only, apart as `head_library_ms` beside the kernel's
-`head_ms`), for K11 the cuDNN calls of phase 2d (`bwd_library_ms` for the
-backward). None is used in the port.
+convolution or the convolution for dx plus `conv2d_weight`; K9's 2x2 head
+at cout 4, on the eval step only, apart as `head`, its own numbers in
+card time with `F.conv_transpose2d` (bias included) and the transposed
+`aten.convolution_backward` (dx, dweight, dbias) as its library calls,
+and at cout 2 in `two_lanes` the same way), for K11 the cuDNN calls of
+phase 2d (`bwd_library_ms` for the backward). None is used in the port.
 
 Tolerances: a kernel and its plain version do the same bf16-operand,
 f32-accumulate arithmetic in another summation order, so bf16 outputs may
@@ -371,7 +385,12 @@ in both dtypes, every float32 y and dx) and the float32 weight gradients
 at TOL_F32 = 1e-4 of max|plain| (the 3xTF32 products keep f32 accuracy;
 one TF32 product would miss that bar), the bias gradients and the bf16
 weight gradients, summed with f32 atomics over up to 262,144 pixels, at
-TOL_REDUCE; `channel_sums` at TOL_REDUCE in bf16 and TOL_F32 in float32.
+TOL_REDUCE; `channel_sums` at TOL_REDUCE in bf16 and TOL_F32 in float32,
+and bit for bit against a second launch (a fixed-order reduction, no
+atomics). K9's 2x2 head keeps the bars it had (bf16 dx at TOL_BF16, its
+f32 logits and sums at TOL_REDUCE in bf16, everything but dbias at
+TOL_F32 in float32) and its y, dx, dweight and dbias must reproduce
+themselves bit for bit (K10's pass and fixed-order sum).
 
 A whole block through autograd has two independent forwards, so a relu
 whose argument lies within a rounding step of zero may open on one side
@@ -518,8 +537,9 @@ SOURCES = {
     "row12": ("nb1d_chain.cu", None),
 }
 # what a kernel's library_ms measures where it is not one call of the
-# same function (K8 / K9: cuDNN's products only), and K9's head shape
-LIBRARY_NOTES = ("library_of", "head_library_ms", "head_ms")
+# same function (K8 / K9: cuDNN's products only), and K9's head at cout 4
+# with its own numbers
+LIBRARY_NOTES = ("library_of", "head")
 SERVING = ("nb1d", "downsampler", "upsampler", "head_rowsums")
 FUSED = ("encoder_fused", "decoder_fused")  # the full engine's kernels
 BLOCKS = ("nb1d_chain", "wls_moments")  # the blocks-mode engine's kernels
@@ -1155,6 +1175,143 @@ def s2_library(label, s, per_step, k_ms, lib_fwd, lib_bwd):
     return l_f, l_b
 
 
+def check_head(dev, g, dt, cout):
+    """K9's 2x2 head (`lane_maps_op` at k = 2: f32 logits, no moments, as
+    the eval step and `head_train` run it) at `cout` lanes on the 256x512
+    batch-8 input plane (B, 128, 256, 16) of dtype `dt`: forward and
+    backward against the plain versions (bf16 dx at TOL_BF16, f32 results
+    at TOL_REDUCE, every float32 plane and dweight at TOL_F32 beside the
+    single-TF32 control), y, dx, dweight and dbias bit for bit a second
+    launch, the wrappers' refusals before any launch (moments asked for, a
+    moment cotangent, HEAD_MAX_LANES + 1 lanes) and the C entry's own
+    refusal of moments; timed in card time (`card_ms`) beside the bound
+    (FFMA) and one library call each way on the same operands in `dt`
+    (`F.conv_transpose2d` with the bias; `aten.convolution_backward`,
+    transposed, dx, dweight and dbias; TF32 off), the plain versions in
+    CUDA events. Returns (summary, failures)."""
+    import torch.nn.functional as F
+
+    from lanedetection_end2end_tpu_torch.ops import _build
+    from lanedetection_end2end_tpu_torch.ops import lanemaps as lm
+    from lanedetection_end2end_tpu_torch.ops.tf32x3 import (
+        conv_s2_tf32, convt_s2_tf32, wgrad_s2_tf32)
+
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    es = torch.finfo(dt).bits // 8
+    f32 = dt == torch.float32
+    pt = plane_tols(dt)
+    dname = DTYPE_NAMES[dt]
+    B, h, w, cin = BATCH, RESIZE // 2, RESIZE, 16
+    s = dict.fromkeys(TRAIN_KEYS, 0.0)
+    failures = []
+    x = rn(B, h, w, cin).to(dt)
+    wt = rn(cin, cout, 2, 2) / (cin ** 0.5)
+    bias = 0.1 * rn(cout)
+    dy = rn(B, 2 * h, 2 * w, cout)
+    op = lambda: lm.lane_maps_op(x, wt, bias, 2, torch.float32, False)
+    plain = lambda: lm.lane_maps_fwd_plain(x, wt, bias, 2, torch.float32,
+                                           False)
+    args = (x, None, dy, None, wt, 2)
+    with torch.no_grad():
+        y, mom = op()
+        torch.cuda.synchronize()
+        py, _ = plain()
+        grads = lm.lane_maps_bwd_kernel(*args)
+        torch.cuda.synchronize()
+        pgrads = lm.lane_maps_bwd_plain(*args)
+        y2, _ = op()
+        grads2 = lm.lane_maps_bwd_kernel(*args)
+    label = (f"lane_maps_op {dname} {tuple(x.shape)}->{cout} k=2 float32 "
+             "out no moments")
+    verdict = hold(label, [
+        ("y", y, py, *pt), ("dx", grads[0], pgrads[0], *pt),
+        ("dweight", grads[1], pgrads[1], *pt),
+        ("dbias", grads[2], pgrads[2])], s, failures)
+    if mom is not None:
+        failures.append(f"{label}: moments returned")
+    if f32:
+        with torch.no_grad():
+            cy = lm.lane_maps_fwd_plain(x, wt, bias, 2, torch.float32, False,
+                                        convt=convt_s2_tf32)[0]
+            cdx = lm.lane_maps_bwd_plain(*args, conv=conv_s2_tf32)[0]
+            cdw = lm.lane_maps_bwd_plain(*args, wgrad=wgrad_s2_tf32)[1]
+        tf32_control(label, [("y", y, py, cy),
+                             ("dx", grads[0], pgrads[0], cdx),
+                             ("dweight", grads[1], pgrads[1], cdw)],
+                     failures)
+    differ = [n for n, a, b in zip(("y", "dx", "dweight", "dbias"),
+                                   (y, *grads), (y2, *grads2))
+              if not torch.equal(a, b)]
+    print(f"check {label}: y, dx, dweight, dbias of a second launch bit "
+          f"for bit equal: {'ok' if not differ else 'FAIL ' + str(differ)}")
+    if differ:
+        failures.append(f"{label}: {', '.join(differ)} do not reproduce "
+                        "themselves bit for bit")
+
+    # refusals: the wrappers raise before any launch, the entry refuses
+    refused = []
+    wide, wide_b = rn(cin, lm.HEAD_MAX_LANES + 1, 2, 2), rn(
+        lm.HEAD_MAX_LANES + 1)
+    zero_mom = torch.zeros(2, cout, device=dev)
+    for what, call in (
+            ("moments", lambda: lm.lane_maps_op(x, wt, bias, 2,
+                                                torch.float32, True)),
+            ("a moment cotangent", lambda: lm.lane_maps_bwd_kernel(
+                x, y, dy, zero_mom, wt, 2)),
+            (f"{lm.HEAD_MAX_LANES + 1} lanes", lambda: lm.lane_maps_op(
+                x, wide, wide_b, 2, torch.float32, False))):
+        before = (lm.lane_maps_op.launches, lm.lane_maps_op.bwd_launches)
+        try:
+            call()
+            refused.append(f"{what} accepted")
+        except ValueError:
+            pass
+        if (lm.lane_maps_op.launches,
+                lm.lane_maps_op.bwd_launches) != before:
+            refused.append(f"{what} launched")
+    try:
+        _build.launch(_build.kernel(
+            "lane_maps_op", _build.plane_symbol("ld_lane_maps_op_fwd", dt),
+            "p" * 5 + "i" * 8 + "p"), dev, x.data_ptr(),
+            wt.contiguous().data_ptr(), bias.data_ptr(), y2.data_ptr(),
+            zero_mom.data_ptr(), B, h, w, cin, cout, 2, 0, 1)
+        refused.append("the C entry took moments")
+    except RuntimeError:
+        pass
+    torch.cuda.synchronize()
+    print(f"check {label}: refuses moments, a moment cotangent and "
+          f"{lm.HEAD_MAX_LANES + 1} lanes before any launch, its C entry "
+          f"moments: {'ok' if not refused else 'FAIL ' + str(refused)}")
+    if refused:
+        failures.append(f"{label}: " + ", ".join(refused))
+
+    # forward: x read, y written; backward: x and dy read, dx written
+    planes = (es * x.numel() + 4 * y.numel(),
+              2 * es * x.numel() + 4 * y.numel())
+    k_ms = time_and_record(
+        label, s, 1, verdict, op, plain,
+        lambda: lm.lane_maps_bwd_kernel(*args),
+        lambda: lm.lane_maps_bwd_plain(*args),
+        lambda bwd: s2_work((B, h, w), cin, cout, 2, planes, bwd, es),
+        FP32_FLOP_PER_S, timer=card_ms)
+    # one library call each way on the same operands in the planes'
+    # dtype (its output and dy in that dtype, the kernel's f32); timed
+    # here, used nowhere in the port
+    xn, wl, bl = x.permute(0, 3, 1, 2), wt.to(dt), bias.to(dt)
+    dyn = dy.to(dt).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        l_f = card_ms(lambda: F.conv_transpose2d(xn, wl, bl, stride=2))
+        l_b = card_ms(lambda: torch.ops.aten.convolution_backward(
+            dyn, xn, wl, [cout], [2, 2], [0, 0], [1, 1], True, [0, 0], 1,
+            [True, True, True]))
+    s["library_ms"], s["bwd_library_ms"] = l_f, l_b
+    print(f"library {label}: F.conv_transpose2d {l_f:.4f} ms (kernel "
+          f"{k_ms[0]:.4f}, {k_ms[0] / l_f:.2f}x), convolution_backward "
+          f"{l_b:.4f} ms (kernel {k_ms[1]:.4f}, {k_ms[1] / l_b:.2f}x), card "
+          "time")
+    return s, failures
+
+
 def check_lanemap_kernels(dev, g, dt):
     """Phase 2b, the stride-2 training ops in dtype `dt`: `downsampler_op`,
     `lane_maps_op` and `head_rowsums_op`, forward and backward (the
@@ -1245,78 +1402,69 @@ def check_lanemap_kernels(dev, g, dt):
                             conv2d_weight(xn, wl.shape, dzn, stride=2,
                                           padding=1)))
 
-    # K9: the two upsamplers (moments, output in the planes' dtype) and the
-    # head as the eval step runs it (f32 out, no moments)
+    # K9: the two upsamplers (moments, output in the planes' dtype); the
+    # head as the eval step runs it apart (check_head), with its own numbers
     s = summary["lane_maps_op"]
     s["library_of"] = ("cuDNN's products only at the two upsamplers: "
                        "F.conv_transpose2d forward; F.conv2d + "
-                       "conv2d_weight backward (TF32 off); the head's shape "
-                       "apart as head_library_ms beside head_ms")
-    for (h, w, cin), cout, k, out_dtype, want_mom, per_step in (
-            ((H // 8, W // 8, 128), 64, 3, dt, True, 1),
-            ((H // 4, W // 4, 64), 16, 3, dt, True, 1),
-            ((H // 2, W // 2, 16), 4, 2, torch.float32, False, 0)):
+                       "conv2d_weight backward (TF32 off); the head at cout "
+                       "4 apart as `head`, in card time beside one call "
+                       "each way")
+    for (h, w, cin), cout in (((H // 8, W // 8, 128), 64),
+                              ((H // 4, W // 4, 64), 16)):
         x = rn(B, h, w, cin).to(dt)
-        wt = rn(cin, cout, k, k) / (k * k * cin / 4) ** 0.5
+        wt = rn(cin, cout, 3, 3) / (9 * cin / 4) ** 0.5
         bias = 0.1 * rn(cout)
-        dy = rn(B, 2 * h, 2 * w, cout).to(out_dtype)
-        dmom = 1e-3 * rn(2, cout) if want_mom else None
-        op = lambda: lm.lane_maps_op(x, wt, bias, k, out_dtype, want_mom)
-        plain = lambda: lm.lane_maps_fwd_plain(x, wt, bias, k, out_dtype,
-                                               want_mom)
+        dy = rn(B, 2 * h, 2 * w, cout).to(dt)
+        dmom = 1e-3 * rn(2, cout)
+        op = lambda: lm.lane_maps_op(x, wt, bias, 3, dt, True)
+        plain = lambda: lm.lane_maps_fwd_plain(x, wt, bias, 3, dt, True)
         with torch.no_grad():
             y, mom = op()
             torch.cuda.synchronize()
             py, pmom = plain()
-            args = (x, py if want_mom else None, dy, dmom, wt, k)
+            args = (x, py, dy, dmom, wt, 3)
             grads = lm.lane_maps_bwd_kernel(*args)
             torch.cuda.synchronize()
             pgrads = lm.lane_maps_bwd_plain(*args)
-        label = (f"lane_maps_op {dname} {tuple(x.shape)}->{cout} k={k} "
-                 f"{DTYPE_NAMES[out_dtype]} out"
-                 + ("" if want_mom else " no moments"))
-        pairs = [("y", y, py, *pt)] + (
-            [("mom", mom, pmom)] if want_mom else [])
-        verdict = hold(label, pairs + [
+        label = f"lane_maps_op {dname} {tuple(x.shape)}->{cout} k=3 {dname} out"
+        verdict = hold(label, [
+            ("y", y, py, *pt), ("mom", mom, pmom),
             ("dx", grads[0], pgrads[0], *pt),
             ("dweight", grads[1], pgrads[1], *pt),
             ("dbias", grads[2], pgrads[2])], s, failures)
-        if (mom is None) != (not want_mom):
-            failures.append(f"{label}: moments returned {mom is not None}")
         if f32:
             with torch.no_grad():
-                cy = lm.lane_maps_fwd_plain(x, wt, bias, k, out_dtype,
-                                            want_mom, convt=convt_s2_tf32)[0]
+                cy = lm.lane_maps_fwd_plain(x, wt, bias, 3, dt, True,
+                                            convt=convt_s2_tf32)[0]
                 cdx = lm.lane_maps_bwd_plain(*args, conv=conv_s2_tf32)[0]
                 cdw = lm.lane_maps_bwd_plain(*args, wgrad=wgrad_s2_tf32)[1]
             tf32_control(label, [("y", y, py, cy),
                                  ("dx", grads[0], pgrads[0], cdx),
                                  ("dweight", grads[1], pgrads[1], cdw)],
                          failures)
-        ybytes = y.numel() * y.element_size()
         # backward reads y only to fold the moment cotangent
-        planes = (es * x.numel() + ybytes,
-                  2 * es * x.numel() + ybytes * (1 + want_mom))
+        planes = (es * (x.numel() + y.numel()),
+                  2 * es * (x.numel() + y.numel()))
         k_ms = time_and_record(
-            label, s, per_step, verdict, op, plain,
+            label, s, 1, verdict, op, plain,
             lambda: lm.lane_maps_bwd_kernel(*args),
             lambda: lm.lane_maps_bwd_plain(*args),
-            lambda bwd: s2_work((B, h, w), cin, cout, k, planes, bwd, es),
+            lambda bwd: s2_work((B, h, w), cin, cout, 3, planes, bwd, es),
             rate)
         # cuDNN on the same operands (in bf16 its output is bf16; TF32 is
         # off); timed here, used nowhere in the port
         xn, wb = x.permute(0, 3, 1, 2), wt.to(dt)
-        dpn = dy.to(dt).permute(0, 3, 1, 2)
-        pad = 1 if k == 3 else 0
-        l_f, _ = s2_library(
-            label, s, per_step, k_ms,
-            lambda: F.conv_transpose2d(xn, wb, stride=2, padding=pad,
-                                       output_padding=pad),
-            lambda: (F.conv2d(dpn, wb, stride=2, padding=pad),
-                     conv2d_weight(dpn, wb.shape, xn, stride=2,
-                                   padding=pad)))
-        if not want_mom:
-            s["head_library_ms"], s["head_ms"] = l_f, k_ms[0]
+        dpn = dy.permute(0, 3, 1, 2)
+        s2_library(
+            label, s, 1, k_ms,
+            lambda: F.conv_transpose2d(xn, wb, stride=2, padding=1,
+                                       output_padding=1),
+            lambda: (F.conv2d(dpn, wb, stride=2, padding=1),
+                     conv2d_weight(dpn, wb.shape, xn, stride=2, padding=1)))
+    head, f = check_head(dev, g, dt, 4)
+    failures += f
+    s["head"] = {"cout": 4, **numbers(head), **bwd_numbers(head)}
 
     # K10: the fused tail, with the fitter's column coordinate and mask
     s = summary["head_rowsums_op"]
@@ -1418,37 +1566,10 @@ def check_two_lanes(dev, g):
         wt, bias = rn(16, C, 2, 2) / 4.0, 0.1 * rn(C)
 
         # K9's head at cout 2: f32 logits, no moments
-        s = dict.fromkeys(TRAIN_KEYS, 0.0)
-        dy = rn(B, H, W, C)
-        op = lambda: lm.lane_maps_op(x, wt, bias, 2, torch.float32, False)
-        plain = lambda: lm.lane_maps_fwd_plain(x, wt, bias, 2, torch.float32,
-                                               False)
-        with torch.no_grad():
-            y, mom = op()
-            torch.cuda.synchronize()
-            py, _ = plain()
-            args = (x, None, dy, None, wt, 2)
-            grads = lm.lane_maps_bwd_kernel(*args)
-            torch.cuda.synchronize()
-            pgrads = lm.lane_maps_bwd_plain(*args)
-        label = (f"lane_maps_op {dname} {tuple(x.shape)}->{C} k=2 float32 "
-                 "out no moments, two lanes")
-        verdict = hold(label, [
-            ("y", y, py, *pt), ("dx", grads[0], pgrads[0], *pt),
-            ("dweight", grads[1], pgrads[1], *pt),
-            ("dbias", grads[2], pgrads[2])], s, failures)
-        if mom is not None:
-            failures.append(f"{label}: moments returned")
-        planes = (es * x.numel() + 4 * y.numel(),
-                  2 * es * x.numel() + 4 * y.numel())
-        rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
-        time_and_record(
-            label, s, 1, verdict, op, plain,
-            lambda: lm.lane_maps_bwd_kernel(*args),
-            lambda: lm.lane_maps_bwd_plain(*args),
-            lambda bwd: s2_work((B, H // 2, W // 2), 16, C, 2, planes, bwd,
-                                es), rate)
+        s, f = check_head(dev, g, dt, C)
+        failures += f
         out["lane_maps_op"][dname] = s
+        rate = BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S
 
         # K10 at C = 2
         s = dict.fromkeys(TRAIN_KEYS, 0.0)
@@ -1555,6 +1676,22 @@ def k11_work(shape, d, axis, es, act, backward):
     return flop, planes + 3 * C * C * (es + 4 * backward) + 4 * C
 
 
+# (plane, launches an unfused step): channel_sums in phase 2d, the five
+# stride-2 blocks (down x3, up x2), then the NB1D BatchNorms per plane
+SUMS_CASES = ((P16, 1), (P64, 1), (P128, 1), (P64, 1), (P16, 1), (P64, 14),
+              (P128, 16), (P16, 4))
+
+
+def sums_f64_err(x, got):
+    """channel_sums' f32 result against the float64 sums of the same plane
+    on the card: max|diff| / max|float64|, over the sums and the sums of
+    squares (each row against its own max)."""
+    xd = x.double().reshape(-1, x.shape[-1])
+    want = torch.stack([xd.sum(0), (xd * xd).sum(0)])
+    return max(((got[k].double() - want[k]).abs().max()
+                / want[k].abs().max()).item() for k in range(2))
+
+
 def check_k11(dev, g, dtypes=DTYPE_NAMES):
     """Phase 2d (in each dtype of `dtypes`). `packed_conv_act` forward and backward (dx, dk, db) and
     `packed_conv` forward, dx and dW at every (plane, d, axis) of the
@@ -1650,27 +1787,29 @@ def check_k11(dev, g, dtypes=DTYPE_NAMES):
                 s["bwd_library_ms"] += per_step * l_b
 
         s = summary["channel_sums"][dname]
-        p16, p64, p128 = ((BATCH, RESIZE // 2, RESIZE, 16),
-                          (BATCH, RESIZE // 4, RESIZE // 2, 64),
-                          (BATCH, RESIZE // 8, RESIZE // 4, 128))
-        # the five stride-2 blocks (down x3, up x2), then the NB1D
-        # BatchNorms per plane, with their launches per unfused step
-        for shape, per_step in ((p16, 1), (p64, 1), (p128, 1), (p64, 1),
-                                (p16, 1), (p64, 14), (p128, 16), (p16, 4)):
+        for shape, per_step in SUMS_CASES:
             x = rn(*shape).to(dt)
-            got = pc.channel_sums(x)
-            torch.cuda.synchronize()
             label = f"channel_sums {dname} {shape}"
-            verdict = hold(label, [("sums", got, pc.channel_sums_plain(x),
-                                    TOL_F32 if dt == torch.float32
-                                    else TOL_REDUCE)], s, failures)
-            k_ms = median_ms(lambda: pc.channel_sums(x))
+            with torch.no_grad():
+                got = pc.channel_sums(x)
+                again = pc.channel_sums(x)
+                torch.cuda.synchronize()
+                verdict = hold(label, [
+                    ("sums", got, pc.channel_sums_plain(x),
+                     TOL_F32 if dt == torch.float32 else TOL_REDUCE)],
+                    s, failures)
+                f64 = sums_f64_err(x, got)
+            if not torch.equal(got, again):
+                failures.append(f"{label}: a second launch differs")
+            s["f64_rel_err"] = max(s.get("f64_rel_err", 0.0), f64)
+            k_ms = card_ms(lambda: pc.channel_sums(x))
             p_ms = median_ms(lambda: pc.channel_sums_plain(x))
-            l_ms = median_ms(lambda: torch.var_mean(x.float(),
-                                                    dim=(0, 1, 2)))
+            l_ms = card_ms(lambda: torch.var_mean(x.float(), dim=(0, 1, 2)))
             b_ms, by = bound_ms(*sums_work(shape, es))
-            print(f"check {label}: {verdict}; kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, var_mean {l_ms:.4f} ms, bound "
+            print(f"check {label}: {verdict}; a second launch bit for bit: "
+                  f"{torch.equal(got, again)}; against a float64 sum "
+                  f"{f64:.2e} of max; kernel {k_ms:.4f} ms (card), plain "
+                  f"{p_ms:.4f} ms, var_mean {l_ms:.4f} ms (card), bound "
                   f"{b_ms:.4f} ms ({by}); x{per_step} per unfused step")
             for key, v in (("ms", k_ms), ("plain_ms", p_ms),
                            ("bound_ms", b_ms), ("library_ms", l_ms)):
@@ -1826,6 +1965,10 @@ def check_blocks_kernels(dev, g, packed, maps, basis):
         w3 = w if w.dim() == 3 else w.unsqueeze(-1)
         l_ms = median_ms(lambda: torch.matmul(
             w3.square().permute(0, 2, 1).reshape(rows, N), bas))
+        # card time of the kernel and of the matmul alone on its operands
+        sq = w3.square().permute(0, 2, 1).reshape(rows, N)
+        k_card = card_ms(lambda: wls_moments(w, bas))
+        l_card = card_ms(lambda: torch.matmul(sq, bas))
         label = f"wls_moments {label} -> {tuple(got.shape)}"
         print(f"check {label}: max|diff| {err:.3e} ({rel:.2e} of max|plain|,"
               f" tol {TOL_F32:g}), gradient against autograd of the plain "
@@ -1834,12 +1977,14 @@ def check_blocks_kernels(dev, g, packed, maps, basis):
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.matmul of (BC, N) "
               f"w^2 and the basis (TF32 off) {l_ms:.4f} ms "
               f"({'faster' if l_ms < k_ms else 'slower'} than the kernel), "
-              f"bound {b_ms:.4f} ms ({by}); x{per_call} per engine call")
+              f"bound {b_ms:.4f} ms ({by}); card time: kernel {k_card:.4f} "
+              f"ms, the matmul alone {l_card:.4f} ms; x{per_call} per "
+              "engine call")
         if not ok:
             failures.append(label)
         record(s, per_call, k_ms, p_ms, b_ms, by)
         if per_call:
-            s["library_ms"] = l_ms
+            s.update(library_ms=l_ms, card_ms=k_card, library_card_ms=l_card)
     return summary, failures
 
 
@@ -4255,20 +4400,21 @@ def unfused_phase(dev, sd0, profile=False):
 
 OWN_KERNELS = (  # device functions of csrc/, as the profiler names them
     "conv3tap_kernel", "wgrad3tap_kernel", "dyv_kernel",
-    "channel_sums_kernel", "ds_dx_kernel", "lm_fwd_kernel",
-    "l2s_kernel", "wgrad_s2_kernel", "dyv_fold_kernel", "hr_bwd_kernel",
+    "channel_sums_kernel", "channel_sums_fold_kernel", "ds_dx_kernel",
+    "lm_head_fwd_kernel", "lm_head_bwd_kernel", "lm_head_sum_kernel",
+    "dyv_fold_kernel", "hr_bwd_kernel",
     "hr_sum_kernel", "head_rowsums_kernel", "downsampler_kernel",
     "upsampler_kernel",
     "nb1d_chain_kernel", "wls_partial_kernel", "wls_sum_kernel",
     "conv3tap_f32_kernel", "wgrad3tap_f32_kernel", "dz_kernel",
-    "wgrad_s2_f32_kernel", "encoder_fused_kernel", "decoder_fused_kernel",
+    "encoder_fused_kernel", "decoder_fused_kernel",
     "s2_gemm_kernel", "s2_wgrad_kernel", "ds1_fwd_kernel", "ds1_wgrad_kernel")
 # the stride-2 ops' device kernels, by the op tag in their template
 # arguments (csrc/conv_s2.cuh: op_k8, op_k9, and the epilogues op_k8_fwd,
-# ...) or by a name only one op launches (K10: its forward, the pass of its
-# backward and the fixed-order sum)
+# ...) or by a name only one op launches (K9's head: its forward, the pass
+# of its backward and the fixed-order sum; K10: the same three of its own)
 STRIDE2_OPS = {"K8": ("op_k8", "ds_dx_kernel", "ds1_"),
-               "K9": ("op_k9", "lm_fwd_kernel"),
+               "K9": ("op_k9", "lm_head_"),
                "K10": ("hr_bwd_kernel", "hr_sum_kernel",
                        "head_rowsums_kernel")}
 
@@ -5466,14 +5612,15 @@ def main() -> int:
                 entry["float32"].update(bwd_launches=f32[1],
                                         **bwd_numbers(f))
             entry["float32"].update({k: f[k] for k in LIBRARY_NOTES
-                                     if k in f})
+                                     + ("f64_rel_err",) if k in f})
         if "k1_ms" in s:
             entry["k1_block_by_block_ms"] = s["k1_ms"]
         if "blocks_ms" in s:
             entry["block_sequence_ms"] = s["blocks_ms"]
         if "block_img_per_s" in s:
             entry["block_img_per_s"] = s["block_img_per_s"]
-        for key in ("occupancy", "stage_ms"):
+        for key in ("occupancy", "stage_ms", "f64_rel_err", "card_ms",
+                    "library_card_ms"):
             if key in s:
                 entry[key] = s[key]
         entry.update({k: s[k] for k in LIBRARY_NOTES if k in s})

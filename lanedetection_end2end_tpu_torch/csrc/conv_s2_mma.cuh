@@ -11,11 +11,11 @@
 //   a block of 8 in the serving kernels; N = the output channels; K = taps
 //   x CK input channels, in chunks of KC channels of one tap. Two
 //   geometries feed its A rows:
-//     ConvGeo  - gather_large, the 3x3/s2/p1 convolution (K8 forward, K9
+//     ConvGeo  - the large gather, the 3x3/s2/p1 convolution (K8 forward, K9
 //                input gradient): row (p, tap) is the large plane's pixel
 //                (2h + ky - 1, 2w + kx - 1), zero where that is off the
 //                plane;
-//     PhaseGeo - gather_small, the transposed convolution 3x3/s2/p1/op1
+//     PhaseGeo - the small gather, the transposed convolution 3x3/s2/p1/op1
 //                (K9 forward, K8 input gradient), split by output parity
 //                (py, px) = blockIdx.y into four dense convolutions of the
 //                small plane with 1, 2, 2 and 4 taps: an even output row
@@ -176,7 +176,7 @@ __device__ __forceinline__ Pix pix_of(int p, int npix, int Hs, int Ws) {
   return q;
 }
 
-// gather_large: A row (p, tap t = 3 ky + kx) is the large plane (B, 2Hs,
+// The large gather: A row (p, tap t = 3 ky + kx) is the large plane (B, 2Hs,
 // 2Ws, CL) at (2h + ky - 1, 2w + kx - 1); the output row is p itself.
 template <typename T>
 struct ConvGeo {
@@ -196,7 +196,7 @@ struct ConvGeo {
   }
 };
 
-// gather_small by output parity: phase = 2 py + px; along one axis parity
+// The small gather by output parity: phase = 2 py + px; along one axis parity
 // 0 has the tap k = 1 at offset 0, parity 1 the taps k = 0 at offset +1
 // and k = 2 at offset 0. A row (p, t) is the small plane (B, Hs, Ws, CST)
 // at (h + dh, w + dw), zero past its edge; the output row is the large

@@ -2,7 +2,8 @@
 // activation, the top-row mask and the separable WLS row sums, fused. The
 // device code, shared by the serving entry point (head_rowsums.cu), the
 // training forward of K10 (head_rowsums_op.cu) and the head pass of the
-// whole-decoder kernel (decoder_fused.cu).
+// whole-decoder kernel (decoder_fused.cu); its pixel loads and taps also
+// serve head_quads.cuh (K10's backward, K9's 2x2 head in lane_maps_op.cu).
 //
 // Replaces the TPU body `body_head` (lanedetection_end2end_tpu/ops/
 // pallas_backbone.py:310) plus the tail of `_decoder_plane_b`
@@ -96,12 +97,13 @@ __device__ __forceinline__ void load_pixel(const T* p, float (&f)[CIN]) {
 }
 
 // The taps into shared memory as the row body reads them: taps[(q CIN +
-// ci) ct + c] = K[i][j][ci][c] (q = 2 i + j), then the ct biases; lanes c
-// >= C zero. `w` in the serving layout (2, 2, CIN, C) of type T (K4, the
-// whole decoder), or kParam: the parameter's own (CIN, C, 2, 2) f32,
-// rounded to the planes' type T (K10). Every thread of the block calls it;
-// the caller syncs before reading.
-template <typename T, bool kParam>
+// ci) ct + c] = K[i][j][ci][c] (q = 2 i + j), then the ct biases (zeros
+// without kBias: `bias` is not read); lanes c >= C zero. `w` in the serving
+// layout (2, 2, CIN, C) of type T (K4, the whole decoder), or kParam: the
+// parameter's own (CIN, C, 2, 2) f32, rounded to the planes' type T (K10,
+// K9's head). Every thread of the block calls it; the caller syncs before
+// reading.
+template <typename T, bool kParam, bool kBias = true>
 __device__ __forceinline__ void load_taps(const void* w, const float* bias,
                                           int C, float* taps) {
   const int ct = lane_pad(C);
@@ -110,7 +112,7 @@ __device__ __forceinline__ void load_taps(const void* w, const float* bias,
     float v = 0.0f;
     if (c < C) {
       if (k == NQ * CIN)
-        v = bias[c];
+        v = kBias ? bias[c] : 0.0f;
       else if (kParam)
         v = round_as<T>(static_cast<const float*>(
             w)[((k % CIN) * C + c) * NQ + k / CIN]);

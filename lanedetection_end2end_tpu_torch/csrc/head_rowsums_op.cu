@@ -26,23 +26,20 @@
 // output row; the backward reads x (and dS, 1/(2 cin) of it) and writes
 // dx, about 768 FFMA per input pixel at C = 4, 8: HBM bounds both.
 //
-// Design of the backward: the 2x2/s2 transposed convolution has no
-// overlap, input pixel (h, w) alone makes output pixels (2h + i, 2w + j),
-// so ddec, dx and the pixel's share of dweight are all local to it: the
-// whole backward is ONE pass over x, and no gradient plane is formed. A
-// block of 256 threads owns TILE = 512 consecutive input pixels, two
-// sub-tiles of one pixel a thread. Per pixel: its 16 channels (16-byte
-// loads), the 2 x 2 quad's C logits in f32 from the taps in shared memory,
-// ddec, dbias (f32, in registers), dp = T(ddec) in registers, dx = T(sum
-// dp K) written once. The sub-tile's x and dp go to shared memory, where
-// each thread folds x^T dp for its one or two weight-gradient entries in
-// pixel order. A block writes its 64 C + C partial sums to its column of
-// `part`; a second, tiny launch (hr_sum_kernel) adds the columns in a fixed
-// order, one warp an entry. No atomics, no zero-fill, no gradient plane:
-// dweight and dbias reproduce themselves bit for bit, and the partition
-// (TILE pixels a block) depends on the shape alone.
+// Design of the backward (head_quads.cuh, whose pass K9's 2x2 head runs
+// too): the 2x2/s2 transposed convolution has no overlap, so ddec, dx and
+// the pixel's share of dweight are local to an input pixel, and the whole
+// backward is ONE pass over x that forms no gradient plane. Per pixel: its
+// 16 channels, the 2 x 2 quad's C logits in f32 from the taps in shared
+// memory, ddec, dbias (f32, in registers), dp = T(ddec) in registers, dx =
+// T(sum dp K) written once; each block folds x^T dp for its TILE = 512
+// pixels in pixel order into its column of `part`; a second, tiny launch
+// (hr_sum_kernel) adds the columns in a fixed order. No atomics, no
+// zero-fill, no gradient plane: dweight and dbias reproduce themselves bit
+// for bit, and the partition (TILE pixels a block) depends on the shape
+// alone.
 
-#include "head_rowsums.cuh"
+#include "head_quads.cuh"
 
 using ldhead::CIN;
 using ldhead::NQ;
@@ -50,25 +47,66 @@ using ldhead::THREADS;
 
 namespace {
 
-constexpr int SUB = 2;                   // sub-tiles a block
-constexpr int TILE = SUB * THREADS;      // input pixels a block
-constexpr int XP = CIN + 4;              // pitch of the staged x, floats
-
-// shared memory of the backward at CT lanes: the taps and biases, the
-// sub-tile's x and dp, the warps' dbias parts (floats)
-__host__ __device__ constexpr int taps_floats(int ct) {
-  return (NQ * CIN * ct + ct + 3) / 4 * 4;
-}
-__host__ __device__ constexpr int dp_pitch(int ct) { return NQ * ct + 4; }
-__host__ __device__ constexpr int bwd_smem_bytes(int ct) {
-  return 4 * (taps_floats(ct) + THREADS * (XP + dp_pitch(ct)) +
-              (THREADS / 32) * ct);
-}
+// The quads' ddec from dS (B, H, 2C) f32 and the logits recomputed from
+// the taps: 4 dec^3 (dS0[b, r, c] + xs[w] dS1[b, r, c]), zero for rows r <
+// zero_rows and lanes c >= C.
+template <int CT>
+struct RowSumsGrad {
+  const float* dS;
+  const float* xs;
+  int H, W, C, zero_rows;
+  struct Pixel {
+    int r0, b;
+    float2 xc;
+  };
+  struct Row {
+    float g0[CT], g1[CT];
+  };
+  struct Quad {
+    float dec[CT];
+    float xcol;
+  };
+  __device__ __forceinline__ Pixel pixel(int p) const {
+    const int Hh = H / 2, Wh = W / 2;
+    const int w = p % Wh, hb = p / Wh;
+    Pixel px;
+    px.r0 = 2 * (hb % Hh);
+    px.b = hb / Hh;
+    px.xc = make_float2(__ldg(xs + 2 * w), __ldg(xs + 2 * w + 1));
+    return px;
+  }
+  __device__ __forceinline__ void row(const Pixel& px, int i, Row& g) const {
+    const bool live = px.r0 + i >= zero_rows;
+    const float* gp = dS + ((size_t)px.b * H + px.r0 + i) * 2 * C;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      g.g0[c] = live && c < C ? __ldg(gp + c) : 0.0f;
+      g.g1[c] = live && c < C ? __ldg(gp + C + c) : 0.0f;
+    }
+  }
+  __device__ __forceinline__ void quad(const Pixel& px, int j,
+                                       const float (&xv)[CIN],
+                                       const float* taps, const float* tq,
+                                       Quad& d) const {
+#pragma unroll
+    for (int c = 0; c < CT; ++c) d.dec[c] = taps[NQ * CIN * CT + c];
+#pragma unroll
+    for (int ci = 0; ci < CIN; ++ci)
+#pragma unroll
+      for (int c = 0; c < CT; ++c)
+        d.dec[c] = fmaf(xv[ci], tq[ci * CT + c], d.dec[c]);
+    d.xcol = j ? px.xc.y : px.xc.x;
+  }
+  // lanes c >= C and masked rows: g0 = g1 = 0, so ddec = 0
+  __device__ __forceinline__ float dd(const Row& g, const Quad& d,
+                                      int c) const {
+    return 4.0f * d.dec[c] * d.dec[c] * d.dec[c] * (g.g0[c] + d.xcol * g.g1[c]);
+  }
+};
 
 // x: (B, H/2, W/2, CIN) of npix pixels; dS: (B, H, 2C) f32; weight: (CIN,
 // C, 2, 2) f32; dx: like x; part: (64 CT + CT, gridDim.x) f32, this
-// block's column of the weight-gradient entries o = (ci 4 + q) CT + c
-// (q = 2 i + j), then the CT bias entries
+// block's column (ldhead::quad_bwd_pass)
 // (Two blocks an SM at C <= 4: the 128-register cap costs a few bytes of
 // spill, and on an H100 the pass ran faster that way than as one block an
 // SM of up to 198 registers.)
@@ -80,156 +118,17 @@ __global__ void __launch_bounds__(THREADS, CT <= 4 ? 2 : 1) hr_bwd_kernel(
     float* __restrict__ part, int npix, int H, int W, int C,
     int zero_rows) {
   extern __shared__ __align__(16) float sm[];
-  constexpr int NO = NQ * CIN * CT;                  // weight entries
-  constexpr int OPT = (NO + THREADS - 1) / THREADS;  // entries a thread
-  constexpr int DP = dp_pitch(CT);
-  float* taps = sm;
-  float* xt = sm + taps_floats(CT);
-  float* dps = xt + THREADS * XP;
-  float* red = dps + THREADS * DP;
-  ldhead::load_taps<T, true>(weight, bias, C, taps);
+  ldhead::load_taps<T, true>(weight, bias, C, sm);
   __syncthreads();
-
-  float acc[OPT], db[CT];
-#pragma unroll
-  for (int k = 0; k < OPT; ++k) acc[k] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < CT; ++c) db[c] = 0.0f;
-  const int Hh = H / 2, Wh = W / 2;
-  float* xrow = xt + threadIdx.x * XP;
-  float* dprow = dps + threadIdx.x * DP;
-
-#pragma unroll 1
-  for (int sub = 0; sub < SUB; ++sub) {
-    const int p = (blockIdx.x * SUB + sub) * THREADS + threadIdx.x;
-    float xv[CIN];
-    if (p < npix) {
-      ldhead::load_pixel<false>(x + (size_t)p * CIN, xv);
-      const int w = p % Wh, hb = p / Wh;
-      const int r0 = 2 * (hb % Hh), b = hb / Hh;
-      const float2 xc =
-          make_float2(__ldg(xs + 2 * w), __ldg(xs + 2 * w + 1));
-      float dxa[CIN];
-#pragma unroll
-      for (int ci = 0; ci < CIN; ++ci) dxa[ci] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const bool live = r0 + i >= zero_rows;
-        const float* g = dS + ((size_t)b * H + r0 + i) * 2 * C;
-        float g0[CT], g1[CT];
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          g0[c] = live && c < C ? __ldg(g + c) : 0.0f;
-          g1[c] = live && c < C ? __ldg(g + C + c) : 0.0f;
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int q = 2 * i + j;
-          const float* tq = taps + q * CIN * CT;
-          float dec[CT];
-#pragma unroll
-          for (int c = 0; c < CT; ++c) dec[c] = taps[NQ * CIN * CT + c];
-#pragma unroll
-          for (int ci = 0; ci < CIN; ++ci)
-#pragma unroll
-            for (int c = 0; c < CT; ++c)
-              dec[c] = fmaf(xv[ci], tq[ci * CT + c], dec[c]);
-          const float xcol = j ? xc.y : xc.x;
-          float dp[CT];
-#pragma unroll
-          for (int c = 0; c < CT; ++c) {
-            // lanes c >= C and masked rows: g0 = g1 = 0, so ddec = 0
-            const float dd =
-                4.0f * dec[c] * dec[c] * dec[c] * (g0[c] + xcol * g1[c]);
-            db[c] += dd;  // the bias gradient from the f32 value
-            dp[c] = ldhead::round_as<T>(dd);
-            dprow[q * CT + c] = dp[c];
-          }
-#pragma unroll
-          for (int ci = 0; ci < CIN; ++ci)
-#pragma unroll
-            for (int c = 0; c < CT; ++c)
-              dxa[ci] = fmaf(dp[c], tq[ci * CT + c], dxa[ci]);
-        }
-      }
-      float lo[8], hi[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) lo[k] = dxa[k], hi[k] = dxa[8 + k];
-      store8(dx + (size_t)p * CIN, lo);  // one rounding to T
-      store8(dx + (size_t)p * CIN + 8, hi);
-    } else {
-#pragma unroll
-      for (int ci = 0; ci < CIN; ++ci) xv[ci] = 0.0f;
-#pragma unroll
-      for (int e = 0; e < NQ * CT; ++e) dprow[e] = 0.0f;
-    }
-#pragma unroll
-    for (int ci = 0; ci < CIN; ci += 4)
-      *reinterpret_cast<float4*>(xrow + ci) =
-          make_float4(xv[ci], xv[ci + 1], xv[ci + 2], xv[ci + 3]);
-    __syncthreads();  // the sub-tile's x and dp staged
-    // this thread's weight-gradient entries: sum over the sub-tile's
-    // pixels, in order, of x[ci] dp[q][c]
-#pragma unroll
-    for (int k = 0; k < OPT; ++k) {
-      const int o = threadIdx.x + k * THREADS;
-      if (o < NO) {
-        const float* xo = xt + o / (NQ * CT);
-        const float* dpo = dps + o % (NQ * CT);
-        float a = acc[k];
-#pragma unroll 8
-        for (int pp = 0; pp < THREADS; ++pp)
-          a = fmaf(xo[pp * XP], dpo[pp * DP], a);
-        acc[k] = a;
-      }
-    }
-    __syncthreads();  // the next sub-tile rewrites x and dp
-  }
-
-  const int nblk = gridDim.x;
-#pragma unroll
-  for (int k = 0; k < OPT; ++k) {
-    const int o = threadIdx.x + k * THREADS;
-    if (o < NO) part[(size_t)o * nblk + blockIdx.x] = acc[k];
-  }
-  // the bias gradient: fold the warp, then the warps in order
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int c = 0; c < CT; ++c) {
-    for (int off = 16; off > 0; off >>= 1)
-      db[c] += __shfl_down_sync(0xffffffffu, db[c], off);
-    if (lane == 0) red[warp * CT + c] = db[c];
-  }
-  __syncthreads();
-  if (threadIdx.x < CT) {
-    float v = 0.0f;
-    for (int wp = 0; wp < THREADS / 32; ++wp) v += red[wp * CT + threadIdx.x];
-    part[(size_t)(NO + threadIdx.x) * nblk + blockIdx.x] = v;
-  }
+  ldhead::quad_bwd_pass<T, CT>(
+      x, RowSumsGrad<CT>{dS, xs, H, W, C, zero_rows}, sm, dx, part, npix);
 }
 
-// The columns of `part` (nblk of them) added in a fixed order, one warp an
-// entry: lane l takes columns l, l + 32, ..., then the lanes fold. Writes
-// dweight (CIN, C, 2, 2) and dbias (C,) in the parameters' layouts.
+// The columns of `part` added in a fixed order (ldhead::sum_columns).
 __global__ void __launch_bounds__(THREADS) hr_sum_kernel(
     const float* __restrict__ part, int nblk, int C,
     float* __restrict__ dweight, float* __restrict__ dbias) {
-  const int ct = ldhead::lane_pad(C), no = NQ * CIN * ct;
-  const int o = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (o >= no + ct) return;  // the whole warp
-  const float* row = part + (size_t)o * nblk;
-  float v = 0.0f;
-  for (int k = lane; k < nblk; k += 32) v += row[k];
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane != 0) return;
-  const int c = o % ct;
-  if (c >= C) return;
-  if (o < no)
-    dweight[((o / (NQ * ct)) * C + c) * NQ + (o / ct) % NQ] = v;
-  else
-    dbias[c] = v;
+  ldhead::sum_columns(part, nblk, C, dweight, dbias);
 }
 
 template <typename T, int CT>
@@ -237,21 +136,15 @@ int launch_bwd(const T* x, const float* dS, const float* weight,
                const float* bias, const float* xs, T* dx, float* part,
                float* dweight, float* dbias, int npix, int H, int W, int C,
                int zero_rows, cudaStream_t s) {
-  const int smem = bwd_smem_bytes(CT);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        hr_bwd_kernel<T, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int nblk = (npix + TILE - 1) / TILE;
-  hr_bwd_kernel<T, CT><<<nblk, THREADS, smem, s>>>(
-      x, dS, weight, bias, xs, dx, part, npix, H, W, C, zero_rows);
-  const int rc = (int)cudaGetLastError();
+  int rc = ldhead::allow_pass_smem(hr_bwd_kernel<T, CT>, CT);
   if (rc) return rc;
-  const int entries = NQ * CIN * CT + CT;
-  hr_sum_kernel<<<(entries + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0,
-                  s>>>(part, nblk, C, dweight, dbias);
+  const int nblk = ldhead::pass_blocks(npix);
+  hr_bwd_kernel<T, CT><<<nblk, THREADS, ldhead::bwd_smem_bytes(CT), s>>>(
+      x, dS, weight, bias, xs, dx, part, npix, H, W, C, zero_rows);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  hr_sum_kernel<<<ldhead::sum_blocks(CT), THREADS, 0, s>>>(part, nblk, C,
+                                                           dweight, dbias);
   return (int)cudaGetLastError();
 }
 

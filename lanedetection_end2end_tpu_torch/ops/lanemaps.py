@@ -11,6 +11,7 @@ f32:
   lane_maps_op(x, weight (cin, cout, k, k), bias, k, out_dtype, want_mom)
       -> (y, mom | None)
       y = ConvTranspose(x) + bias: k = 3 is 3x3/s2/p1/op1, k = 2 is 2x2/s2
+      (the output head: 16 -> 1 to 8 lanes, no moments)
   head_rowsums_op(x, weight (cin, C, 2, 2), bias, xs (W,), zero_rows) -> S
       dec = ConvTranspose2x2/s2(x) + bias in f32, never written;
       w2 = (dec^2)^2, rows [0, zero_rows) zero;
@@ -41,11 +42,13 @@ by autograd as they stand, and `*_bwd_plain`, the kernels' order), in any
 float dtype. The TPU's lane maps, `plan`, `sel`, `red`, `pool` and `btile`
 matrices are lane-packing devices and are not ported.
 
-The moments, the bias and the weight gradients of K8 and K9 are summed
-with f32 atomicAdd, so their last bits change from run to run. K10 sums
-its weight and bias gradients in a fixed order (per tile of
-`HEAD_BWD_TILE` input pixels, then over the tiles), so they reproduce
-themselves bit for bit, as S does.
+The moments, the bias and the weight gradients of K8 and of K9's two
+upsamplers are summed with f32 atomicAdd, so their last bits change from
+run to run. K10 and K9's 2x2 head (`lane_maps_op` at k = 2, which takes
+no moments) run one backward pass (`csrc/head_quads.cuh`) and sum their
+weight and bias gradients in a fixed order (per tile of `HEAD_BWD_TILE`
+input pixels, then over the tiles), so they reproduce themselves bit for
+bit, as S does.
 """
 
 from __future__ import annotations
@@ -65,16 +68,19 @@ from lanedetection_end2end_tpu_torch.ops.nb_block import (
 BF16 = torch.bfloat16
 F32 = torch.float32
 # the channels whose moments the kernels reduce (256 % C == 0); checked
-# only where moments are asked for, so the 2x2 head takes any C <= 16
+# only where moments are asked for (never of the 2x2 head)
 _MOM_CHANNELS = (4, 16, 64, 128)
 # the (cin, cout) the kernels take at k = 3: K8 the config's three
 # downsamplers, K9 its two upsamplers (on the tensor cores but for the
-# first downsampler); K9 at k = 2 takes up to 16 channels each side
+# first downsampler); K9 at k = 2, the head, takes HEAD_CIN input channels
+# and 1 to HEAD_MAX_LANES output channels
 _DOWN_SHAPES = ((3, 16), (16, 64), (64, 128))
 _UP_SHAPES = ((128, 64), (64, 16))
-# input pixels a block of K10's backward owns, one column of partial sums
-# each (csrc/head_rowsums_op.cu, TILE)
+# input pixels a block of the head's backward pass owns (K10 and K9 at k =
+# 2), one column of partial sums each (csrc/head_quads.cuh, TILE); the
+# lanes the head tile takes (ldhead::MAXC)
 HEAD_BWD_TILE = 512
+HEAD_MAX_LANES = 8
 
 
 def _fold_moments(dy, y, dmom):
@@ -105,7 +111,7 @@ def conv_s2(large, w, k: int):
     """The k x k stride-2 convolution (k = 3: padding 1; k = 2: none) of a
     large NHWC plane (B, 2Hs, 2Ws, cl) with the parameter w (cs, cl, k, k)
     -> the small plane (B, Hs, Ws, cs), in the plane's float dtype
-    (`gather_large` of the kernels)."""
+    (the large gather of the kernels)."""
     return _nhwc(F.conv2d(_nchw_as_is(large), w.to(large.dtype), stride=2,
                           padding=_convt_pad(k).get("padding", 0)))
 
@@ -285,9 +291,31 @@ def _check_mom_channels(C: int, name: str):
 def _check_shape(name: str, cin: int, cout: int, k: int = 3):
     """The channels of a stride-2 op: one of the shapes the kernels take."""
     shapes = _DOWN_SHAPES if name == "downsampler_op" else _UP_SHAPES
-    if not ((cin, cout) in shapes if k == 3 else cin <= 16 and cout <= 16):
+    if not ((cin, cout) in shapes if k == 3
+            else cin == HEAD_CIN and 1 <= cout <= HEAD_MAX_LANES):
         raise ValueError(f"{name}: {cin} -> {cout} channels at k={k} is not "
                          "a shape the kernels take")
+
+
+def _check_lane_maps_moments(k: int, cout: int):
+    """Moments asked of lane_maps_op (`want_mom`, or a moment cotangent):
+    the upsamplers' channels only; the 2x2 head takes none."""
+    if k == 2:
+        raise ValueError("lane_maps_op: the 2x2 head (k=2) takes no moments")
+    _check_mom_channels(cout, "lane_maps_op")
+
+
+def head_lanes(C: int) -> int:
+    """C lanes padded to the head tile's unrolled width (ldhead::lane_pad):
+    1, 2, 4 or 8."""
+    return 1 if C <= 1 else 2 if C <= 2 else 4 if C <= 4 else 8
+
+
+def head_part_floats(npix: int, C: int) -> int:
+    """Floats of the partial sums of the head's backward pass over npix
+    input pixels at C lanes: 64 + 1 entries a padded lane, one column per
+    block of HEAD_BWD_TILE pixels."""
+    return (4 * HEAD_CIN + 1) * head_lanes(C) * -(-npix // HEAD_BWD_TILE)
 
 
 def _check_out_dtype(plane: torch.dtype, out: torch.dtype):
@@ -358,10 +386,12 @@ def _lane_maps_fwd_cuda(x, weight, bias, k, out_dtype, want_mom):
     symbol = _check_plane(x, "ld_lane_maps_op_fwd")
     _check_out_dtype(x.dtype, out_dtype)
     if want_mom:
-        _check_mom_channels(cout, "lane_maps_op")
+        _check_lane_maps_moments(k, cout)
     _check_shape("lane_maps_op", cin, cout, k)
     w, b = _check_weight(weight, bias, cin, cout, k)
-    wt = _taps_first(w, 1, x.dtype)                       # (k, k, cin, cout)
+    # the head reads the parameter as it lies (rounded to x's dtype in the
+    # kernel); the upsamplers (k, k, cin, cout) taps in x's dtype
+    wt = w if k == 2 else _taps_first(w, 1, x.dtype)
     y = torch.empty(B, 2 * H, 2 * W, cout, dtype=out_dtype, device=x.device)
     mom = (torch.zeros(2, cout, dtype=F32, device=x.device) if want_mom
            else None)
@@ -380,7 +410,7 @@ def lane_maps_bwd_kernel(x, y, dy, dmom, weight, k: int):
     pad = _convt_pad(k).get("padding", 0)
     symbol = _check_plane(x, "ld_lane_maps_op_bwd")
     if dmom is not None:
-        _check_mom_channels(cout, "lane_maps_op")
+        _check_lane_maps_moments(k, cout)
     _check_shape("lane_maps_op", cin, cout, k)
     dy = dy.contiguous()
     _check_out_dtype(x.dtype, dy.dtype)
@@ -390,14 +420,24 @@ def lane_maps_bwd_kernel(x, y, dy, dmom, weight, k: int):
         check_cuda(y, dy.dtype, dy.shape, "y")
     w = weight.float().contiguous()
     check_cuda(w, F32, (cin, cout, k, k), "weight")
-    wt = _taps_first(w, 0, x.dtype)                       # (k, k, cout, cin)
-    dp = torch.empty(dy.shape, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
-    acc = torch.zeros(w.numel() + cout, dtype=F32, device=x.device)
-    dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
+    if k == 2:
+        # the head: one pass over x writes dx and per-block partial sums,
+        # a second launch adds them in order into dweight and dbias, which
+        # it writes whole; the parameter read as it lies, no dp plane
+        wt = w
+        scratch = torch.empty(head_part_floats(B * H * W, cout), dtype=F32,
+                              device=x.device)
+        dweight = torch.empty_like(w)
+        dbias = torch.empty(cout, dtype=F32, device=x.device)
+    else:
+        wt = _taps_first(w, 0, x.dtype)                   # (k, k, cout, cin)
+        scratch = torch.empty(dy.shape, dtype=x.dtype, device=x.device)
+        acc = torch.zeros(w.numel() + cout, dtype=F32, device=x.device)
+        dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
     launch(kernel("lane_maps_op", symbol, "p" * 9 + "i" * 8 + "p"),
            x.device, x.data_ptr(), _ptr(y if dmom is not None else None),
-           dy.data_ptr(), _ptr(dmom), wt.data_ptr(), dp.data_ptr(),
+           dy.data_ptr(), _ptr(dmom), wt.data_ptr(), scratch.data_ptr(),
            dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), B, H, W, cin,
            cout, k, pad, int(dy.dtype == F32))
     lane_maps_op.bwd_launches += 1
@@ -447,8 +487,7 @@ def head_rowsums_bwd_kernel(x, dS, weight, bias, xs, zero_rows: int):
                                    "ld_head_rowsums_op_bwd")
     dS = dS.float().contiguous()
     check_cuda(dS, F32, (B, 2 * Hh, 2 * C), "dS")
-    tiles = -(-B * Hh * Wh // HEAD_BWD_TILE)
-    part = torch.empty((4 * cin + 1) * C * tiles, dtype=F32,
+    part = torch.empty(head_part_floats(B * Hh * Wh, C), dtype=F32,
                        device=x.device)
     dx = torch.empty_like(x)
     dweight = torch.empty_like(w)
@@ -531,7 +570,8 @@ def lane_maps_op(x, weight, bias, k: int, out_dtype=None,
                  want_mom: bool = True):
     """ConvTranspose (k = 3: 3x3/s2/p1/op1, k = 2: 2x2/s2) + bias, written
     once at (B, 2H, 2W, cout) in `out_dtype` (default: x's), with the
-    moments of the result when `want_mom` (else None)."""
+    moments of the result when `want_mom` (else None; the kernels take no
+    moments at k = 2)."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     return _LaneMaps.apply(x, weight, bias, k, out_dtype, want_mom)
 

@@ -31,8 +31,11 @@ it (`*_fwd_plain`, differentiable by autograd as it stands, and
 version; a CUDA tensor launches the kernel (`csrc/packed_conv.cu`,
 `csrc/channel_sums.cu`) or raises. The wrappers count their launches
 (`launches`, and `bwd_launches` for the backward). The weight and bias
-gradients of the kernels, and the channel sums, are summed with f32
-atomicAdd, so their last bits change from run to run. channel_sums'
+gradients of K11 are summed with f32 atomicAdd, so their last bits change
+from run to run; the channel sums are a fixed-order reduction (per-block
+partials over a partition fixed by the shape, then a second launch that
+adds them in order), so they reproduce themselves bit for bit
+(`channel_sums_ordered` states that order in PyTorch). channel_sums'
 backward, dx = ds1 + 2 x ds2, is plain PyTorch as in the JAX package.
 """
 
@@ -231,16 +234,31 @@ def packed_conv(x: torch.Tensor, k: torch.Tensor, axis: str,
 # channel_sums
 # ----------------------------------------------------------------------
 
+# csrc/channel_sums.cu: threads a block and 16-byte loads a thread
+SUMS_THREADS, SUMS_LOADS = 256, 8
+
+
+def channel_sums_blocks(npix: int, C: int, itemsize: int) -> int:
+    """Blocks of the channel_sums kernel (partial-sum columns) over npix
+    pixels of C channels of `itemsize` bytes: each owns SUMS_LOADS rounds
+    of one 16-byte vector a thread."""
+    per_block = SUMS_THREADS // (C * itemsize // 16) * SUMS_LOADS
+    return -(-npix // per_block)
+
+
 def _channel_sums_cuda(x: torch.Tensor) -> torch.Tensor:
     C = x.shape[-1]
-    if C % 8 or not 8 <= C <= 128:
-        raise ValueError(f"channel_sums kernel: C={C} is not a multiple of "
-                         "8 in [8, 128]")
+    if C & (C - 1) or not 8 <= C <= 128:
+        raise ValueError(f"channel_sums kernel: C={C} is not a power of "
+                         "two in [8, 128]")
     f32 = x.dtype == torch.float32
     xp = check_cuda(x, torch.float32 if f32 else torch.bfloat16, name="x")
-    out = torch.zeros(2, C, dtype=torch.float32, device=x.device)
-    launch(kernel("channel_sums", "ld_channel_sums", "ppiiip"), x.device,
-           xp, out.data_ptr(), x.numel() // C, C, int(f32))
+    npix = x.numel() // C
+    part = torch.empty(2 * C * channel_sums_blocks(npix, C, x.element_size()),
+                       dtype=torch.float32, device=x.device)
+    out = torch.empty(2, C, dtype=torch.float32, device=x.device)
+    launch(kernel("channel_sums", "ld_channel_sums", "pppiiip"), x.device,
+           xp, part.data_ptr(), out.data_ptr(), npix, C, int(f32))
     channel_sums.launches += 1
     return out
 

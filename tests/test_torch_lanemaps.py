@@ -193,8 +193,8 @@ def test_upsampler_matches_jax(cin, cout):
     _assert_grads(_block_grads(block, t, convt=True), jg)
 
 
-def _head_case(rng, H2=4, W2=16):
-    cin, C = 16, 4
+def _head_case(rng, H2=4, W2=16, C=4):
+    cin = 16
     x = _f32(rng, B, H2, W2, cin)
     params = {"kernel": _f32(rng, 2, 2, cin, C, scale=0.2),
               "bias": _f32(rng, C, scale=0.1)}
@@ -209,15 +209,19 @@ def _head_grads(conv, t):
             "bias": conv.bias.grad.numpy()}
 
 
-def test_head_matches_jax():
+@pytest.mark.parametrize("cout", [2, 4])
+def test_head_matches_jax(cout):
     """The 2x2/s2 head where the tail is not fused: `lane_maps_op` with f32
-    output and no moments, as `head_packed` runs it."""
+    output and no moments, as `head_packed` runs it, at the BEV profile's
+    2 lanes and the BP profile's 4 (JAX's head packs 32 input pixels a row
+    at cout 2, 16 at cout 4)."""
     rng = np.random.default_rng(4)
-    x, params, conv = _head_case(rng)
-    wy = _f32(rng, B, 8, 32, 4)
+    W2 = 16 if cout == 4 else 32
+    x, params, conv = _head_case(rng, W2=W2, C=cout)
+    wy = _f32(rng, B, 8, 2 * W2, cout)
 
     def f(p, xx):
-        y = pg.head_packed(xx.reshape(B, 4, -1), p, cin=16, cout=4,
+        y = pg.head_packed(xx.reshape(B, 4, -1), p, cin=16, cout=cout,
                            pallas=True).reshape(wy.shape)
         return jnp.sum(y * wy), y
     (_, jy), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(

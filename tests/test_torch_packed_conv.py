@@ -41,6 +41,11 @@ def test_channel_sums_matches_jax(C, W):
     assert sums.shape == (2, C) and sums.dtype == torch.float32
     np.testing.assert_allclose(sums.detach().numpy(), np.asarray(jsums),
                                rtol=1e-5, atol=1e-4)
+    # a float64 witness bounds the f32 sums at the same bar
+    xd = x.astype(np.float64).reshape(-1, C)
+    np.testing.assert_allclose(sums.detach().numpy(),
+                               np.stack([xd.sum(0), (xd * xd).sum(0)]),
+                               rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(jdx), rtol=1e-5,
                                atol=1e-6)
 
