@@ -45,7 +45,9 @@ a card. In order:
    bytes, blocks an SM, any local memory failing; then one whole
    NB1D block per (C, d) and every downsampler and upsampler block
    forward and backward through autograd (bf16), on the kernels and on
-   their plain versions;
+   their plain versions; every output of the float32 half blocks and of
+   K8 / K9 in both dtypes (y, dx and the fixed-order sums: moments, dk,
+   db, dmul, dadd, dweight, dbias) bit for bit against a second launch;
 2d. K11 and `channel_sums` in bf16 and in float32: `packed_conv_act`
    forward and backward (dx, dk, db) and `packed_conv` forward, dx and dW
    at every (plane, d, axis) of the unfused 256x512 train step at batch 8
@@ -65,9 +67,11 @@ a card. In order:
    and, bit for bit, against K1 launched block by block (its input left
    untouched); `wls_moments` (K12) on the masked maps of one blocks-engine
    call with a general homography (the config's BP trapezoid after a 2
-   degree camera roll) and at the JAX package's three test shapes, against
-   its plain version, bit for bit against a second launch, and its
-   gradient through autograd against autograd of the plain version;
+   degree camera roll), at the JAX package's three test shapes and at one
+   whose tiles break TMA's 16-byte rules (they arrive by cp.async),
+   against its plain version, bit for bit against a second launch, and
+   its gradient through autograd against autograd of the plain version,
+   its card time beside `torch.matmul`'s and its bound;
 2e. the kernels that take the lane count, at two lanes (the BEV egolane
    config `bev_defaults(resize=256)`: normalized column coordinate and
    its mask rows), in bf16 and float32: K9's 2x2 head at cout 2
@@ -142,6 +146,12 @@ a card. In order:
    finite loss and gradients, parameters moved; then, counted anew, one
    step with `fused_maps=False` (17 / 17 / 17 / 17 and 5 of
    channel_sums), which keeps that path driven;
+4r. the float32 default step twice from one state (weights, Adam's
+   moments and the BatchNorm statistics after one counted step, the
+   batch, the dropout generator), each with the launch counts set to 0
+   just before: the metrics, every gradient, every updated parameter and
+   every BatchNorm statistic bit for bit equal (the kernels' fixed-order
+   float32 sums; cuDNN's deterministic algorithms in the heads);
 3e. the BEV profile's engine (phase 3's batches, `bev_defaults`, 2
    lanes, order 2, seeded weights): 1 `encoder_fused` + 1
    `decoder_fused` a call and nothing else, beta held to the f32 LaneNet
@@ -170,14 +180,16 @@ a card. In order:
    tiles issue cp.async, forward and backward, at the 256x512 train
    step's shapes, batch 8 (`nb_half_a` / `nb_half_b` at C = 16, 64, 128
    in float32 and in bf16; `downsampler_op` 16 -> 64, 64 -> 128;
-   `lane_maps_op` 128 -> 64, 64 -> 16; K11 in bf16 at C = 64), on the
+   `lane_maps_op` 128 -> 64, 64 -> 16; K11 in bf16 at C = 64; K12 at a
+   shape whose tiles arrive by cp.async and at one they reach by TMA), on
+   the
    normal build and on `ops/_build.py`'s
    "defer" build (-DLD_DEFER_CP_ASYNC, built beside the normal libraries
    in step 1), where a cp.async copy lands only at its group's wait and
    its destination holds NaN until then, so a read of a ring stage before
    its wait shows every time: the outputs must be finite and equal the
    normal build's bit for bit (the sums of f32 atomics at TOL_REDUCE).
-   `--defer-only` builds those eight libraries in both builds and runs
+   `--defer-only` builds those nine libraries in both builds and runs
    this phase alone (`--tiles-only` runs phases 2b's half blocks and 2d's
    K11 in bf16 alone, the quick check of the bf16 tiles);
 4g. the training entry point: `main_torch.main` on the train.sh flags
@@ -354,7 +366,9 @@ of head_rowsums differ only by f32 summation order: < 1e-4. The engine
 against the f32 LaneNet: the JAX package's own bars (beta max relative
 error < 3e-2, line/horizon rtol = atol = 1e-2). The training kernels'
 f32 reductions (moments, dk, db, dmul, dadd) sum bf16-exact products in
-another order, with atomics, over operands of which a few may differ from
+another order (with atomics in the bf16 half blocks, in a fixed order in
+K8 / K9 and in every float32 kernel), over operands of which a few may
+differ from
 the plain version's by one bf16 step: max|diff| / max|plain| < 2e-3. The
 stride-2 ops have no relu inside and their pool routing is a function of
 the input alone, so the same bars hold for them without exception, planted
@@ -997,6 +1011,18 @@ def plane_tols(dt):
     return (TOL_F32,) if dt == torch.float32 else ()
 
 
+def bitwise(label, pairs, failures):
+    """Each (name, first launch's output, second launch's) bit for bit
+    equal: the fixed-order sums reproduce themselves."""
+    differ = [n for n, a, b in pairs if not torch.equal(a, b)]
+    print(f"check {label}: two launches bit for bit equal in "
+          f"{', '.join(n for n, _, _ in pairs)}: "
+          f"{'ok' if not differ else 'FAIL, differ: ' + ', '.join(differ)}")
+    if differ:
+        failures.append(f"{label}: two launches differ in "
+                        + ", ".join(differ))
+
+
 def tf32_control(label, rows, failures):
     """The float32 tiles' control: each product result of the kernels (y,
     dx, the weight gradients) against the plain version, printed beside
@@ -1078,6 +1104,14 @@ def check_training_kernels(dev, g, dt):
                           for n, a, b in zip(names[1:], grads[1:],
                                              pgrads[1:])], s, failures)
         if dt == torch.float32:
+            # the float32 sums are fixed-order: a second launch of each
+            # direction gives every output bit for bit
+            with torch.no_grad():
+                y2, mom2 = call()
+                grads2 = [t for t in nb.half_bwd_kernel(*bwd_args)
+                          if t is not None]
+            bitwise(label, [("y", y, y2), ("mom", mom, mom2)]
+                    + list(zip(names, grads, grads2)), failures)
             with torch.no_grad():
                 cy = nb.half_fwd_plain(x, mul, add, kh, bh, kw, bw, d,
                                        conv=conv3_tf32)[0]
@@ -1272,9 +1306,9 @@ def check_head(dev, g, dt, cout):
     try:
         _build.launch(_build.kernel(
             "lane_maps_op", _build.plane_symbol("ld_lane_maps_op_fwd", dt),
-            "p" * 5 + "i" * 8 + "p"), dev, x.data_ptr(),
+            "p" * 6 + "i" * 9 + "p"), dev, x.data_ptr(),
             wt.contiguous().data_ptr(), bias.data_ptr(), y2.data_ptr(),
-            zero_mom.data_ptr(), B, h, w, cin, cout, 2, 0, 1)
+            zero_mom.data_ptr(), None, B, h, w, cin, cout, 2, 0, 1, 0)
         refused.append("the C entry took moments")
     except RuntimeError:
         pass
@@ -1363,7 +1397,13 @@ def check_lanemap_kernels(dev, g, dt):
             torch.cuda.synchronize()
             pgrads = lm.downsampler_bwd_plain(*args)
             nodx = lm.downsampler_bwd_kernel(*args, need_dx=False)
+            y2, mom2 = lm.downsampler_op(x, wt, bias)
+            grads2 = lm.downsampler_bwd_kernel(*args)
         label = f"downsampler_op {dname} {tuple(x.shape)}->{cout}"
+        # fixed-order sums in both dtypes: a second launch bit for bit
+        bitwise(label, [("y", y, y2), ("mom", mom, mom2)]
+                + list(zip(("dx", "dweight", "dbias"), grads, grads2))
+                + [("dweight without dx", nodx[1], grads[1])], failures)
         verdict = hold(label, [
             ("y", y, py, *pt), ("mom", mom, pmom),
             ("dx", grads[0], pgrads[0], *pt),
@@ -1427,7 +1467,12 @@ def check_lanemap_kernels(dev, g, dt):
             grads = lm.lane_maps_bwd_kernel(*args)
             torch.cuda.synchronize()
             pgrads = lm.lane_maps_bwd_plain(*args)
+            y2, mom2 = op()
+            grads2 = lm.lane_maps_bwd_kernel(*args)
         label = f"lane_maps_op {dname} {tuple(x.shape)}->{cout} k=3 {dname} out"
+        bitwise(label, [("y", y, y2), ("mom", mom, mom2)]
+                + list(zip(("dx", "dweight", "dbias"), grads, grads2)),
+                failures)
         verdict = hold(label, [
             ("y", y, py, *pt), ("mom", mom, pmom),
             ("dx", grads[0], pgrads[0], *pt),
@@ -1940,6 +1985,10 @@ def check_blocks_kernels(dev, g, packed, maps, basis):
     cases += [(f"JAX test shape {shape}", rn(*shape[:2]),
                rn(shape[1], shape[2]), 0)
               for shape in ((8, 1024, 12), (3, 4096, 30), (32, 2000, 6))]
+    # rows of 1001 x 2 floats: no tile meets TMA's 16-byte rules, every
+    # one arrives by cp.async
+    cases.append(("odd shape (3, 1001, 2), K 7", rn(3, 1001, 2), rn(1001, 7),
+                  0))
     for label, w, bas, per_call in cases:
         got = wls_moments(w, bas)
         again = wls_moments(w, bas)
@@ -2702,7 +2751,7 @@ def race_check():
 # variant (-DLD_DEFER_CP_ASYNC): every library whose kernels issue cp.async
 DEFER_SOURCES = ("encoder_fused", "decoder_fused", "nb1d_chain",
                  "nb_half_fwd", "nb_half_bwd", "downsampler_op",
-                 "lane_maps_op", "packed_conv")
+                 "lane_maps_op", "packed_conv", "wls_moments")
 # outputs summed with f32 atomics, in an order that changes from run to
 # run: held at TOL_REDUCE of max|normal|; every other output bit for bit
 DEFER_SUMS = ("mom", "dmul", "dadd", "dkh", "dbh", "dkw", "dbw", "dweight",
@@ -2721,8 +2770,9 @@ def defer_calls(dev):
     cp.async; the first downsampler and the head run on FFMA), and K11 in
     bf16 on the 64-channel plane (`packed_conv_act` as a 3x1 convolution
     with relu, `packed_conv` as a 1x3 one: the tiles' bias, bias + relu
-    and f32-output epilogues). Every input is made once, here; a backward
-    reads the stashes of the plain forward."""
+    and f32-output epilogues), and K12 on a shape whose tiles arrive by
+    cp.async and on one they reach by TMA. Every input is made once, here;
+    a backward reads the stashes of the plain forward."""
     from lanedetection_end2end_tpu_torch.config import train_sh_config
     from lanedetection_end2end_tpu_torch.models.infer_engine import (
         FusedLaneNetEngine)
@@ -2817,6 +2867,15 @@ def defer_calls(dev):
             dx, dw, db = lm.lane_maps_bwd_kernel(*args)
             return {"y": y, "mom": mom, "dx": dx, "dweight": dw, "dbias": db}
         calls[f"lane_maps_op {(B, h, w, cin)}->{cout}"] = up_call
+
+    # K12 on an odd shape, whose tiles break TMA's 16-byte rules and
+    # arrive by cp.async (w rows of 1001 x 2 floats), and on an aligned
+    # one, by TMA alone
+    from lanedetection_end2end_tpu_torch.ops.wls_moments import wls_moments
+    for shape, kb in (((3, 1001, 2), 7), ((8, 4096, 4), 20)):
+        wm, bas = rn(*shape), rn(shape[1], kb)
+        calls[f"wls_moments {shape} K={kb}"] = (
+            lambda wm=wm, bas=bas: {"moments": wls_moments(wm, bas)})
     return calls
 
 
@@ -3001,8 +3060,10 @@ def trainer_phase(dev, card):
         failures.append(f"scalars.jsonl epochs {[r['epoch'] for r in rows]}")
     for r in rows:
         losses = {k: r[k] for k in ("train_loss", "val_loss")}
-        print(f"trainer epoch {r['epoch']}: {losses}, test_acc "
-              f"{r['test_acc']:.6f}, {1e3 * r['train_batch_time']:.1f} ms "
+        # full precision: two runs of one tree print the same digits
+        print(f"trainer epoch {r['epoch']}: train_loss "
+              f"{r['train_loss']!r}, val_loss {r['val_loss']!r}, test_acc "
+              f"{r['test_acc']!r}, {1e3 * r['train_batch_time']:.1f} ms "
               f"a training batch ({8 / r['train_batch_time']:.1f} images/s;"
               f" the mean of the epoch's {TRAIN_BATCHES} batches, data wait "
               f"included{', the first calls too' if r['epoch'] == 1 else ''}"
@@ -3098,8 +3159,8 @@ def trainer_phase(dev, card):
         if not ok:
             failures.append(f"test_model engine {key}: {errs[key]:.2e} of "
                             f"max|LaneNet|")
-    print(f"test_model: accuracy {accs[False]:.6f} on LaneNet.forward, "
-          f"{accs[True]:.6f} through the engine (tol {ACC_TOL}); warm, "
+    print(f"test_model: accuracy {accs[False]!r} on LaneNet.forward, "
+          f"{accs[True]!r} through the engine (tol {ACC_TOL}); warm, "
           f"median of {TEST_MODEL_CALLS} calls: {ms[False]:.3f} / "
           f"{ms[True]:.3f} ms per batch of {cfg.batch_size} "
           f"({len(test_set)} real images) on {card}")
@@ -3114,6 +3175,8 @@ def trainer_phase(dev, card):
         "train_batch_ms": [1e3 * r["train_batch_time"] for r in rows],
         "train_images_per_s": [8 / r["train_batch_time"] for r in rows],
         "test_acc": [r["test_acc"] for r in rows],
+        "train_loss": [r["train_loss"] for r in rows],
+        "val_loss": [r["val_loss"] for r in rows],
         "eval_loss_rel_cpu": loss_rel, "eval_beta_rel_cpu": beta_rel,
         "test_model_ms_per_batch": ms[False],
         "test_model_engine_ms_per_batch": ms[True]}
@@ -4180,8 +4243,8 @@ class Trainer:
             if weights == "seeded":
                 floor = cosine(gk, whole(g_r))
                 read["rerun"] = floor
-                rerun = (f"; the kernel step against its own rerun, whose "
-                         f"f32 atomics add in another order: {floor:.8f}")
+                rerun = (f"; the kernel step against its own rerun: "
+                         f"{floor:.8f}")
                 if noise_margin is not None:
                     cos_min = floor - noise_margin
                     rerun += f", less {noise_margin:g}"
@@ -4327,6 +4390,67 @@ def train_phase(dev, sd0, dtype, profile=False):
     return counts
 
 
+def repro_phase(dev, sd0):
+    """Phase 4r: the float32 default e2e step, twice from one state. One
+    counted step from the seeded weights moves them, Adam's moments and
+    the BatchNorm statistics off their starting values; that state (the
+    model's, the optimizer's, the batch and the dropout generator's) is
+    kept, and two steps are taken from it, each with the launch counts
+    set to 0 just before and read just after. Their metrics (the loss and
+    its parts), every gradient, every updated parameter and every
+    BatchNorm statistic must be bit for bit equal: the kernels' sums are
+    fixed-order in float32 (csrc/fold.cuh) and cuDNN's heads run their
+    deterministic algorithms (`train/steps.py::deterministic_cudnn`).
+    Returns (summary, failures)."""
+    import copy
+    tr = Trainer(dev, sd0, "float32", fused_blocks=True)
+    wrappers = train_wrappers()
+    step = tr.fresh_step()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    tr.one_step(step, gen)
+    model, opt = step.state.model, step.state.optimizer
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt_state = copy.deepcopy(opt.state_dict())
+    gen_state = gen.get_state()
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        # load_state_dict keeps the tensors it is given, which the update
+        # then changes in place: each run loads a copy
+        opt.load_state_dict(copy.deepcopy(opt_state))
+        gen.set_state(gen_state)
+        reset_counts(wrappers)
+        _, grads, ms = tr.one_step(step, gen)
+        counts = read_counts(wrappers)
+        runs.append((dict(tr.metrics), grads,
+                     {k: v.detach().clone()
+                      for k, v in model.state_dict().items()}, counts, ms))
+    (m1, g1, s1, c1, ms1), (m2, g2, s2, c2, ms2) = runs
+    failures = []
+    want = {n: PER_STEP["fused"][n] for n in c1}
+    if c1 != want or c2 != want:
+        failures.append(f"launches {c1} / {c2}, expected {want}")
+    metrics_equal = m1 == m2
+    grads_differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    state_differ = [k for k in s1 if not torch.equal(s1[k], s2[k])]
+    ok = metrics_equal and not grads_differ and not state_differ
+    print(f"reproducibility, float32 default step twice from one state: "
+          f"metrics {m1} / {m2} ({'equal' if metrics_equal else 'DIFFER'});"
+          f" {len(g1) - len(grads_differ)} of {len(g1)} gradients and "
+          f"{len(s1) - len(state_differ)} of {len(s1)} updated parameters "
+          f"and BatchNorm statistics bit for bit equal; launches a step "
+          f"{c1}; {ms1:.3f} / {ms2:.3f} ms: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"the float32 step does not reproduce itself: "
+                        f"metrics equal {metrics_equal}, gradients differ "
+                        f"{grads_differ[:6]}, state differs "
+                        f"{state_differ[:6]}")
+    return {"loss": m1["loss"], "metrics_equal": metrics_equal,
+            "gradients_equal": len(g1) - len(grads_differ),
+            "gradients": len(g1), "state_equal": len(s1) - len(state_differ),
+            "state": len(s1)}, failures
+
+
 def bev_train_phase(dev, profile=False):
     """Phase 4h: `bev_defaults(resize=256, nclasses=2)` in float32 (the
     config's dtype) on the default path, adam, seeded weights and a
@@ -4405,7 +4529,7 @@ OWN_KERNELS = (  # device functions of csrc/, as the profiler names them
     "dyv_fold_kernel", "hr_bwd_kernel",
     "hr_sum_kernel", "head_rowsums_kernel", "downsampler_kernel",
     "upsampler_kernel",
-    "nb1d_chain_kernel", "wls_partial_kernel", "wls_sum_kernel",
+    "nb1d_chain_kernel", "wls_stream_kernel", "fold_rows_kernel",
     "conv3tap_f32_kernel", "wgrad3tap_f32_kernel", "dz_kernel",
     "encoder_fused_kernel", "decoder_fused_kernel",
     "s2_gemm_kernel", "s2_wgrad_kernel", "ds1_fwd_kernel", "ds1_wgrad_kernel")
@@ -5531,6 +5655,10 @@ def main() -> int:
     sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     fused_launches = {dtype: train_phase(dev, sd0, dtype, profile=profile)
                       for dtype in DTYPE_NAMES.values()}
+    # 4r. the float32 default step twice from one state, bit for bit
+    reproducibility, failures = repro_phase(dev, sd0)
+    if failures:
+        fail("reproducibility: " + "; ".join(failures))
     # 4d. the unfused path in bf16 and float32
     unfused_launches = unfused_phase(dev, sd0, profile=profile)
     # each kernel's launches from the main path's counted steps of its
@@ -5633,6 +5761,7 @@ def main() -> int:
                       "race_check": race_report,
                       "deferred_copies": defer_report,
                       "trainer": trainer_summary, "bev": bev,
+                      "reproducibility": reproducibility,
                       "learned_homography": homography,
                       "data_parallel": data_parallel,
                       "plain_moments": plain_moments,

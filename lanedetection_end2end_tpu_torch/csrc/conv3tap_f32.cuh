@@ -55,8 +55,10 @@
 // (C = 128) or 16 input channels of one tap. The epilogues are
 // conv3tap.cuh's without its bf16 roundings; each thread holds two adjacent
 // channels of two pixel rows per 8 channels, and the per-channel sums fold
-// over the warp with shuffles, over the block in shared memory, and reach
-// the global buffer with one atomicAdd per block and channel.
+// over the warp with shuffles, over the block's warps in warp order in
+// shared memory, and the block writes them to its row of a partials
+// buffer, which one fixed-order fold (fold.cuh) adds up after the
+// entry point's last launch.
 //
 // wgrad3tap_f32_kernel (C = 64, 128): dk[t] += shift_t(f(in))^T @ dy,
 // M = C input channels, N = C output channels, K = the block's pixels in
@@ -66,10 +68,17 @@
 // same on mma.sync: wgmma's 64 rows would be a quarter used, and the
 // 16-channel plane is bound by its bytes; this tile with its rows 16 .. 63
 // zero took more than twice the mma.sync one's time on the H100
-// (PERF.md). The block's C x C sums meet in
-// shared memory and add to dk row by row with f32 atomicAdd (the last bits
-// depend on the order blocks finish in; dk must be zero before the
-// launch).
+// (PERF.md). Each block writes its C x C sums (the two warpgroups'
+// halves of the pixel steps at C = 64, the 8 warps' at C = 16, added in a
+// fixed order in shared memory) to its row of a partials buffer, and the
+// fold adds the rows: no atomics, so dk, like every sum here, is bit for
+// bit the same from launch to launch, and is written whole.
+//
+// The block partitions depend on the shape alone: the convolution's
+// blocks are its BM-pixel tiles; the weight gradient takes WG_PER_TAP[C]
+// blocks a tap (one wave of the H100: 3, 2 and 1 blocks an SM at C = 16,
+// 64, 128), each a run of whole pixel chunks (ops/nb_block.py sizes the
+// partials from the same counts).
 //
 // Each C in {16, 64, 128} has one fixed tile per kernel, which takes any
 // d >= 1 (also d >= H or W, where the shifted taps read only zeros) and
@@ -79,6 +88,7 @@
 
 #include <stdint.h>
 
+#include "fold.cuh"
 #include "tc_common.cuh"
 #include "wgrad3tap.cuh"
 
@@ -298,8 +308,15 @@ struct ConvTile {
 // taps at -d, 0, +d along rows (axis 0) or columns (axis 1); f is the
 // prologue when pmul != nullptr. Arguments and epilogues as
 // conv3tap.cuh's conv3tap_kernel, in f32 throughout: nothing is rounded
-// to bf16. `sums` is (2, C) (one row used by EPI_MASK_SUM), zero before
-// the launch.
+// to bf16. `part` is the partials of the sums epilogues, SUMS(EPI) x C
+// floats a block (the block's row).
+// rows of sums an epilogue keeps: [sum] or [sum; second sum]
+__host__ __device__ constexpr int sums_of(int EPI) {
+  return EPI == EPI_MASK_SUM ? 1
+         : EPI == EPI_BIAS_MOM || EPI == EPI_PRO_BWD ? 2
+                                                      : 0;
+}
+
 template <int C, int EPI>
 __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
     conv3tap_f32_kernel(const float* __restrict__ in,
@@ -308,7 +325,7 @@ __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
                         const float* __restrict__ padd,
                         const float* __restrict__ vec,
                         const float* __restrict__ aux,
-                        float* __restrict__ out, float* __restrict__ sums,
+                        float* __restrict__ out, float* __restrict__ part,
                         int npix, int H, int W, int d, int axis) {
   using T = ConvTile<C>;
   extern __shared__ __align__(128) float smem32[];
@@ -474,7 +491,7 @@ __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
         *reinterpret_cast<float2*>(out + base) = make_float2(o[0], o[1]);
       }
     }
-  if (EPI == EPI_BIAS_MOM || EPI == EPI_MASK_SUM || EPI == EPI_PRO_BWD) {
+  if (sums_of(EPI) > 0) {
     // lanes with equal tg hold the same channels: fold them onto lanes
     // 0..3 (tg = lane there), then sum the 8 warps' rows in shared memory
     float red[C / 2];
@@ -506,8 +523,9 @@ __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
         a0 += sRed[k * 2 * C + threadIdx.x];
         a1 += sRed[k * 2 * C + C + threadIdx.x];
       }
-      atomicAdd(sums + threadIdx.x, a0);
-      if (EPI != EPI_MASK_SUM) atomicAdd(sums + C + threadIdx.x, a1);
+      float* row = part + (size_t)blockIdx.x * sums_of(EPI) * C;
+      row[threadIdx.x] = a0;
+      if (sums_of(EPI) == 2) row[C + threadIdx.x] = a1;
     }
   }
 }
@@ -543,7 +561,8 @@ struct WgradTile {
                 "room for dk");
 };
 
-// dk[t] += sum over this block's pixel chunks of shift_t(f(in))^T @ dy;
+// The sum over this block's pixel chunks of shift_t(f(in))^T @ dy, to the
+// block's row of `part` (3 C C floats a row, tap t at t C C, [ci][co]);
 // blockIdx.y is the tap t, f the prologue when pmul != nullptr.
 template <int C>
 __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
@@ -551,7 +570,7 @@ __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
                          const float* __restrict__ pmul,
                          const float* __restrict__ padd,
                          const float* __restrict__ dy,
-                         float* __restrict__ dk, int npix, int H, int W,
+                         float* __restrict__ part, int npix, int H, int W,
                          int d, int axis, int chunks_per_block) {
   using T = WgradTile<C>;
   extern __shared__ __align__(128) float smem32[];
@@ -664,25 +683,40 @@ __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
     }
   }
 
-  // acc[0][4j + 2h + e]: ci = m0 + g + 8h, co = 8j + 2tg + e. The
-  // warpgroups' sums meet in shared memory, which then adds to dk row by
-  // row (coalesced atomics)
-  cp_async_wait<0>();
-  __syncthreads();     // the ring is free
-  float* sK = smem32;  // C x LK
-  for (int i = threadIdx.x; i < C * C; i += THREADS)
-    sK[i / C * T::LK + i % C] = 0.0f;
-  __syncthreads();
+  // acc[0][4j + 2h + e]: ci = m0 + g + 8h, co = 8j + 2tg + e. At C = 128
+  // each (ci, co) is one thread's; at C = 64 warpgroup 0's sums (the even
+  // steps) meet warpgroup 1's (the odd ones) in shared memory, in that
+  // order. The row goes out in pairs of channels.
+  float* row = part + ((size_t)blockIdx.x * 3 + t) * C * C;
+  if (T::KSPLIT == 2) {
+    cp_async_wait<0>();
+    __syncthreads();     // the ring is free
+    float* sK = smem32;  // C x LK
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sK[(m0 + g + 8 * (e / 2)) * T::LK + 8 * j + 2 * tg + e % 2] =
+              acc[0][4 * j + e];
+    }
+    __syncthreads();
+    if (wg == 0) return;
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[0][4 * j + e] =
+            sK[(m0 + g + 8 * (e / 2)) * T::LK + 8 * j + 2 * tg + e % 2] +
+            acc[0][4 * j + e];
+  }
 #pragma unroll
   for (int j = 0; j < C / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      atomicAdd(sK + (m0 + g + 8 * (e / 2)) * T::LK + 8 * j + 2 * tg + e % 2,
-                acc[0][4 * j + e]);
-  __syncthreads();
-  float* dkt = dk + (size_t)t * C * C;
-  for (int i = threadIdx.x; i < C * C; i += THREADS)
-    atomicAdd(dkt + i, sK[i / C * T::LK + i % C]);
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(row + (m0 + g + 8 * h) * C + 8 * j +
+                                 2 * tg) =
+          make_float2(acc[0][4 * j + 2 * h], acc[0][4 * j + 2 * h + 1]);
 }
 
 // The weight gradient at C = 16, on mma.sync. wgmma's smallest tile is 64
@@ -712,8 +746,8 @@ __global__ void __launch_bounds__(THREADS)
                              const float* __restrict__ pmul,
                              const float* __restrict__ padd,
                              const float* __restrict__ dy,
-                             float* __restrict__ dk, int npix, int H, int W,
-                             int d, int axis, int chunks_per_block) {
+                             float* __restrict__ part, int npix, int H,
+                             int W, int d, int axis, int chunks_per_block) {
   using T = WgradTile<16>;
   constexpr int C = T::C;
   extern __shared__ __align__(128) float smem32[];
@@ -807,23 +841,22 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // acc[ni][2h + e]: ci = g + 8h, co = ni * 8 + 2tg + e. The 8 warps' sums
-  // meet in shared memory, which then adds to dk (coalesced atomics)
+  // meet in shared memory, a C x C tile a warp, and thread (ci, co) adds
+  // them in warp order to the block's row of `part` (tap t at t C C)
   cp_async_wait<0>();
   __syncthreads();     // the ring is free
-  float* sK = smem32;  // C x LD
-  for (int i = threadIdx.x; i < C * C; i += THREADS)
-    sK[i / C * T::LD + i % C] = 0.0f;
-  __syncthreads();
+  float* sK = smem32 + warp * C * C;
 #pragma unroll
   for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      atomicAdd(sK + (g + 8 * (e / 2)) * T::LD + ni * 8 + 2 * tg + e % 2,
-                acc[ni][e]);
+      sK[(g + 8 * (e / 2)) * C + ni * 8 + 2 * tg + e % 2] = acc[ni][e];
   __syncthreads();
-  float* dkt = dk + (size_t)t * C * C;
-  for (int i = threadIdx.x; i < C * C; i += THREADS)
-    atomicAdd(dkt + i, sK[i / C * T::LD + i % C]);
+  static_assert(C * C == THREADS && 8 * C * C <= STAGES * T::STAGE,
+                "a thread an entry; room for the warps' tiles");
+  float a = 0.0f;
+  for (int k = 0; k < THREADS / 32; ++k) a += smem32[k * C * C + threadIdx.x];
+  part[((size_t)blockIdx.x * 3 + t) * C * C + threadIdx.x] = a;
 }
 
 // ---- launches -------------------------------------------------------------
@@ -835,49 +868,67 @@ int allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// the block rows of the sums of a convolution over npix pixels
+template <int C>
+int conv_rows(int npix) {
+  return grid_1d(npix, ConvTile<C>::BM);
+}
+
+// `sums` ((SUMS(EPI), C) f32) is written whole by the fold of `pp`, which
+// takes the blocks' partials here; pp may be null for an epilogue without
+// sums
 template <int C, int EPI>
 int launch_conv_f32(const float* in, const float* w, const float* pmul,
                     const float* padd, const float* vec, const float* aux,
                     float* out, float* sums, int npix, int H, int W, int d,
-                    int axis, cudaStream_t stream) {
+                    int axis, cudaStream_t stream, ldfold::Partials* pp) {
   using T = ConvTile<C>;
+  float* part = nullptr;
+  if (sums_of(EPI) > 0) {
+    part = pp ? pp->take(conv_rows<C>(npix), sums_of(EPI) * C, sums)
+              : nullptr;
+    if (part == nullptr) return (int)cudaErrorInvalidValue;
+  }
   int rc = allow_smem(conv3tap_f32_kernel<C, EPI>, T::SMEM);
   if (rc) return rc;
   conv3tap_f32_kernel<C, EPI>
-      <<<grid_1d(npix, T::BM), THREADS, T::SMEM, stream>>>(
-          in, w, pmul, padd, vec, aux, out, sums, npix, H, W, d, axis);
+      <<<conv_rows<C>(npix), THREADS, T::SMEM, stream>>>(
+          in, w, pmul, padd, vec, aux, out, part, npix, H, W, d, axis);
   return (int)cudaGetLastError();
 }
 
+// blocks a tap of the weight gradient: one wave of the H100's 132 SMs, a
+// third a tap, at the tiles' 3, 2 and 1 blocks an SM
+template <int C>
+constexpr int wg_per_tap() {
+  return C == 16 ? 132 : C == 64 ? 88 : 44;
+}
+
+// (blocks a tap, pixel chunks a block) of the weight gradient
+template <int C>
+void wgrad_split(int npix, int& blocks, int& cpb) {
+  const int nchunks = grid_1d(npix, WgradTile<C>::KP);
+  cpb = grid_1d(nchunks, wg_per_tap<C>());
+  blocks = grid_1d(nchunks, cpb);
+}
+
+// dk ((3, C, C) f32) is written whole by the fold of `pp`, which takes the
+// blocks' partials here
 template <int C>
 int launch_wgrad_f32(const float* in, const float* pmul, const float* padd,
                      const float* dy, float* dk, int npix, int H, int W,
-                     int d, int axis, cudaStream_t stream) {
+                     int d, int axis, cudaStream_t stream,
+                     ldfold::Partials* pp) {
   using T = WgradTile<C>;
   auto kern = wgrad3tap_f32_kernel<C>;
+  int blocks, cpb;
+  wgrad_split<C>(npix, blocks, cpb);
+  float* part = pp ? pp->take(blocks, 3 * C * C, dk) : nullptr;
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
   int rc = allow_smem(kern, T::SMEM);
   if (rc) return rc;
-  // one wave: the blocks the card holds at once, a third per tap (the
-  // fewer blocks, the fewer atomics into dk)
-  static int slots = 0;
-  if (slots == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        THREADS, T::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    slots = per_sm * sms;
-  }
-  const int nchunks = (npix + T::KP - 1) / T::KP;
-  const int per_tap = slots / 3 > 1 ? slots / 3 : 1;
-  const int cpb = (nchunks + per_tap - 1) / per_tap;
-  dim3 grid((nchunks + cpb - 1) / cpb, 3);
-  kern<<<grid, THREADS, T::SMEM, stream>>>(in, pmul, padd, dy, dk, npix, H,
-                                           W, d, axis, cpb);
+  kern<<<dim3(blocks, 3), THREADS, T::SMEM, stream>>>(
+      in, pmul, padd, dy, part, npix, H, W, d, axis, cpb);
   return (int)cudaGetLastError();
 }
 
@@ -885,24 +936,44 @@ int launch_wgrad_f32(const float* in, const float* pmul, const float* padd,
 
 namespace ldconv {
 
-// The float32 overloads of conv3tap.cuh's launch_conv and wgrad3tap.cuh's
-// launch_wgrad: the same arguments, every plane f32.
+// conv3tap.cuh's launch_conv and wgrad3tap.cuh's launch_wgrad with the
+// partials of the float32 tiles as a last argument, so that a caller
+// templated on the plane type calls them alike: the float32 overloads sum
+// through `pp` (folded by the caller's pp->fold), the bf16 ones ignore it
+// and sum into `sums` / `dk` with f32 atomics (zero before the call).
 template <int C, int EPI>
 int launch_conv(const float* in, const float* w, const float* pmul,
                 const float* padd, const float* vec, const float* aux,
                 float* out, float* sums, int npix, int H, int W, int d,
-                int axis, cudaStream_t stream) {
+                int axis, cudaStream_t stream, ldfold::Partials* pp) {
   return ldconv32::launch_conv_f32<C, EPI>(in, w, pmul, padd, vec, aux, out,
-                                           sums, npix, H, W, d, axis,
-                                           stream);
+                                           sums, npix, H, W, d, axis, stream,
+                                           pp);
+}
+
+template <int C, int EPI, typename TO>
+int launch_conv(const bf16* in, const bf16* w, const float* pmul,
+                const float* padd, const float* vec, const bf16* aux,
+                TO* out, float* sums, int npix, int H, int W, int d,
+                int axis, cudaStream_t stream, ldfold::Partials*) {
+  return launch_conv<C, EPI, TO>(in, w, pmul, padd, vec, aux, out, sums,
+                                 npix, H, W, d, axis, stream);
 }
 
 template <int C>
 int launch_wgrad(const float* in, const float* pmul, const float* padd,
                  const float* dy, float* dk, int npix, int H, int W, int d,
-                 int axis, cudaStream_t stream) {
+                 int axis, cudaStream_t stream, ldfold::Partials* pp) {
   return ldconv32::launch_wgrad_f32<C>(in, pmul, padd, dy, dk, npix, H, W, d,
-                                       axis, stream);
+                                       axis, stream, pp);
+}
+
+template <int C>
+int launch_wgrad(const bf16* in, const float* pmul, const float* padd,
+                 const bf16* dy, float* dk, int npix, int H, int W, int d,
+                 int axis, cudaStream_t stream, ldfold::Partials*) {
+  return launch_wgrad<C>(in, pmul, padd, dy, dk, npix, H, W, d, axis,
+                         stream);
 }
 
 }  // namespace ldconv

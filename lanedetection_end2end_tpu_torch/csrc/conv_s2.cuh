@@ -29,9 +29,14 @@
 // tile (head_quads.cuh). What is left here: the ops' tags, `gather_small`
 // (one thread per output value: the first downsampler's input gradient,
 // which no train step asks for) and the backward's head, the dyv fold.
+// Every sum over blocks of K8 and K9 (moments, bias and weight
+// gradients) goes to the blocks' rows of a partials buffer, and one
+// fixed-order fold (fold.cuh) at the end of each entry point adds them:
+// they reproduce themselves bit for bit, in bf16 and in float32.
 #pragma once
 
 #include "common.cuh"
+#include "fold.cuh"
 
 namespace lds2 {
 
@@ -74,24 +79,20 @@ __device__ __forceinline__ float gather_small(const T* __restrict__ sb,
   return acc;
 }
 
-// Every thread of the block holds partial sums (s0, s1) of channel
-// threadIdx.x % C, which holds for a grid-stride walk over a channel-fastest
-// array when EW_THREADS % C == 0. Reduce over the block and add to out0[c]
-// and out1[c] (either may be null). Every thread of the block must call it.
-__device__ __forceinline__ void block_channel_add(float s0, float s1, int C,
-                                                  float* out0, float* out1) {
-  __shared__ float red[2 * EW_THREADS];
-  red[threadIdx.x] = s0;
-  red[EW_THREADS + threadIdx.x] = s1;
+// Every thread of the block holds a partial sum s of channel threadIdx.x %
+// C, which holds for a grid-stride walk over a channel-fastest array when
+// EW_THREADS % C == 0. Reduce over the block, each channel's threads in
+// ascending order, into row[0 .. C) (the block's row of a partials
+// buffer). Every thread of the block must call it.
+__device__ __forceinline__ void block_channel_sums(float s, int C,
+                                                   float* row) {
+  __shared__ float red[EW_THREADS];
+  red[threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.x < C) {
-    float a0 = 0.0f, a1 = 0.0f;
-    for (int i = threadIdx.x; i < EW_THREADS; i += C) {
-      a0 += red[i];
-      a1 += red[EW_THREADS + i];
-    }
-    if (out0 != nullptr) atomicAdd(out0 + threadIdx.x, a0);
-    if (out1 != nullptr) atomicAdd(out1 + threadIdx.x, a1);
+    float a = 0.0f;
+    for (int i = threadIdx.x; i < EW_THREADS; i += C) a += red[i];
+    row[threadIdx.x] = a;
   }
 }
 
@@ -99,14 +100,14 @@ __device__ __forceinline__ void block_channel_add(float s0, float s1, int C,
 // gradient in f32, the bias gradient summed from that f32 value, one
 // rounding to the plane's type TP (none for float32).
 //   f = dy + ds1[c] + 2 * y * ds2[c]   (dmom null: f = dy, y is not read)
-//   db[c] += f;  out = TP(f)
-// dy, y: n values, channel fastest, of the forward's output type T; db:
-// (C,) f32, zero on entry.
+//   db[c] = sum f;  out = TP(f)
+// dy, y: n values, channel fastest, of the forward's output type T; part:
+// the blocks' sums of f, C floats a block (a partials buffer).
 template <typename T, typename TP, class Tag>
 __global__ void __launch_bounds__(EW_THREADS) dyv_fold_kernel(
     const T* __restrict__ dy, const T* __restrict__ y,
     const float* __restrict__ dmom, TP* __restrict__ out,
-    float* __restrict__ db, long long n, int C) {
+    float* __restrict__ part, long long n, int C) {
   const int c = threadIdx.x % C;
   const float ds1 = dmom ? dmom[c] : 0.0f, ds2 = dmom ? dmom[C + c] : 0.0f;
   float acc = 0.0f;
@@ -117,15 +118,20 @@ __global__ void __launch_bounds__(EW_THREADS) dyv_fold_kernel(
     acc += f;
     stf(out, i, f);
   }
-  block_channel_add(acc, 0.0f, C, db, nullptr);
+  block_channel_sums(acc, C, part + (size_t)blockIdx.x * C);
 }
 
+// db ((C,) f32) is written whole by the fold of `pp`, which takes the
+// blocks' partials here
 template <class Tag, typename T, typename TP>
 int launch_dyv_fold(const T* dy, const T* y, const float* dmom, TP* out,
-                    float* db, long long n, int C, cudaStream_t s) {
+                    float* db, long long n, int C, cudaStream_t s,
+                    ldfold::Partials& pp) {
   if (C < 1 || EW_THREADS % C != 0) return (int)cudaErrorInvalidValue;
+  float* part = pp.take(ew_blocks(n), C, db);
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
   dyv_fold_kernel<T, TP, Tag><<<ew_blocks(n), EW_THREADS, 0, s>>>(
-      dy, y, dmom, out, db, n, C);
+      dy, y, dmom, out, part, n, C);
   return (int)cudaGetLastError();
 }
 

@@ -26,14 +26,19 @@
 //   The op (the kernel's template argument) supplies the geometry and the
 //   epilogue, which runs on the accumulators in registers: bias, one
 //   rounding to the output type, per-channel moments folded over the warp
-//   by shuffles and over the block in shared memory, one atomicAdd per
-//   block and channel; K8's pool channels and pool gradient.
+//   by shuffles and over the block's warps in warp order in shared memory,
+//   written to the block's row of a partials buffer; K8's pool channels
+//   and pool gradient.
 //
 //   s2_wgrad_kernel, a GEMM per tap (blockIdx.y): dW[tap] = small^T (CS x
 //   pixels) @ large_tap (pixels x CL), K = pixels in chunks of 32, split
-//   over blocks (one wave); the small rows are read as the transposed A
-//   operand. Each block adds its CS x CL sums to dW with one f32 atomicAdd
-//   per weight.
+//   over a fixed number of blocks a tap (s2_per_tap: one wave of the
+//   H100); the small rows are read as the transposed A operand. Each
+//   block writes its CS x CL sums to its row of a partials buffer.
+//
+//   No atomics: the callers fold the partials in a fixed order (fold.cuh)
+//   after their last launch, so the moments and the weight gradients
+//   reproduce themselves bit for bit.
 //
 // Both walk K through a ring of MM_STAGES shared-memory stages filled by
 // 16-byte cp.async copies (channel runs are contiguous in NHWC; src-size 0
@@ -65,6 +70,10 @@ constexpr int MM_BM = 64;        // GEMM rows (small-plane pixels) a block
 constexpr int MM_STAGES = 3;     // depth of the cp.async ring
 constexpr int MM_KP = 32;        // pixels a chunk of the weight gradient
 constexpr int MM_MAXC = 128;     // channels of the block's moment sums
+// floats of a block's sums in s2_gemm_kernel: the 4 warps' [sums | second
+// sums] of up to MM_MAXC channels each, then two per thread (K8's pool
+// channels)
+constexpr int MM_RED = (MM_THREADS / 32) * 2 * MM_MAXC + 2 * MM_THREADS;
 
 // ---- fragments -------------------------------------------------------------
 
@@ -258,11 +267,13 @@ __device__ __forceinline__ void stf2(bf16* p, float a, float b, float& ra,
 }
 
 // Per-thread sums s[j][e] of channel 8j + 2tg + e (the accumulator's
-// columns), folded over the 8 lanes that hold the same channels and added
-// to red[] in shared memory.
+// columns), folded over the 8 lanes that hold the same channels by xor
+// shuffles and written to this warp's slot of red[] in shared memory
+// (warp w's sums at red + w * 2 MM_MAXC).
 template <int NT>
 __device__ __forceinline__ void fold_channels(float (&s)[NT][2], float* red) {
   const int lane = threadIdx.x & 31;
+  float* slot = red + (threadIdx.x >> 5) * 2 * MM_MAXC;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -271,16 +282,22 @@ __device__ __forceinline__ void fold_channels(float (&s)[NT][2], float* red) {
       v += __shfl_xor_sync(0xffffffffu, v, 4);
       v += __shfl_xor_sync(0xffffffffu, v, 8);
       v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < 4) atomicAdd(red + 8 * j + 2 * lane + e, v);
+      if (lane < 4) slot[8 * j + 2 * lane + e] = v;
     }
 }
 
-// After a barrier: the block's sums red[0 .. 2C) to mom (2, C), one
-// atomicAdd per channel and row.
-__device__ __forceinline__ void flush_moments(const float* red, int C,
-                                              float* mom) {
-  for (int c = threadIdx.x; c < 2 * C; c += MM_THREADS)
-    atomicAdd(mom + c, red[c]);
+// After a barrier: entry c of the warps' slots, added in warp order
+__device__ __forceinline__ float warp_sum(const float* red, int c) {
+  float a = 0.0f;
+#pragma unroll
+  for (int w = 0; w < MM_THREADS / 32; ++w) a += red[w * 2 * MM_MAXC + c];
+  return a;
+}
+
+// This block's row of a moments partials buffer (2C floats a row; the
+// rows of phase blockIdx.y follow those of the phases before it)
+__device__ __forceinline__ float* moment_row(float* part, int C) {
+  return part + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * C;
 }
 
 // ---- the implicit GEMM -----------------------------------------------------
@@ -312,7 +329,7 @@ struct GemmTile {
 // the BM rows p0 .. p0 + BM - 1 and phase `phase`, computed by the
 // block's 32 NW threads through the ring in `smem` (G::SMEM bytes); op.wt
 // is taps-first (9, CK, N) of type T; `red` is the op's shared memory for
-// block sums (2 MM_MAXC floats, or nullptr for an op that keeps none).
+// block sums (MM_RED floats, or nullptr for an op that keeps none).
 // The tile function of K8 and K9 (s2_gemm_kernel, 4 warps) and of the
 // serving kernels' stride-2 passes (downsampler.cuh, upsampler.cuh: 8
 // warps, standalone and inside the fused kernels): each output's sum runs
@@ -398,9 +415,7 @@ __device__ __forceinline__ void s2_tile(const Op& op, int p0, int phase,
 template <typename T, int CK, int N, class Op>
 __global__ void __launch_bounds__(MM_THREADS) s2_gemm_kernel(const Op op) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ float red[2 * MM_MAXC];  // the block's moment sums
-  for (int i = threadIdx.x; i < 2 * MM_MAXC; i += MM_THREADS) red[i] = 0.0f;
-  // (the tile's first barrier orders these stores before the epilogue)
+  __shared__ float red[MM_RED];  // the block's moment sums
   s2_tile<T, CK, N, MM_THREADS / 32>(op, blockIdx.x * MM_BM, blockIdx.y,
                                      reinterpret_cast<T*>(smem_raw), red);
 }
@@ -435,15 +450,16 @@ struct WgradTile {
                 "a tile the block can stage");
 };
 
-// dW[cs][cl][ky][kx] (CS, CL, 3, 3) f32 += the block's pixel chunks of
-// small[p][cs] * large[tap pixel of p][cl], tap = blockIdx.y = 3 ky + kx.
-// small: (B, Hs, Ws, CST), its first MP >= CS channels staged (rows MP
-// past CS are products never written); large: (B, 2Hs, 2Ws, CL). `Tag`
-// names the op in a profile.
+// The sum over the block's pixel chunks of small[p][cs] * large[tap pixel
+// of p][cl], tap = blockIdx.y = 3 ky + kx, to the block's row of `part`
+// (CS CL 9 floats a row, in dW's layout (CS, CL, 3, 3): entry (cs CL + cl)
+// 9 + tap). small: (B, Hs, Ws, CST), its first MP >= CS channels staged
+// (rows MP past CS are products never written); large: (B, 2Hs, 2Ws, CL).
+// `Tag` names the op in a profile.
 template <typename T, int MP, int CL, class Tag>
 __global__ void __launch_bounds__(MM_THREADS) s2_wgrad_kernel(
     const T* __restrict__ small, const T* __restrict__ large,
-    float* __restrict__ dW, int npix, int Hs, int Ws, int CST, int CS,
+    float* __restrict__ part, int npix, int Hs, int Ws, int CST, int CS,
     int chunks_per_block) {
   using G = WgradTile<T, MP, CL>;
   using M = Mma<T>;
@@ -523,6 +539,7 @@ __global__ void __launch_bounds__(MM_THREADS) s2_wgrad_kernel(
 
   // acc[mt][j][2h + e]: cs = (warp MT + mt) 16 + g + 8h, cl = 8j + 2tg + e
   const int g = lane >> 2, tg = lane & 3;
+  float* row = part + (size_t)blockIdx.x * CS * CL * 9;
 #pragma unroll
   for (int mt = 0; mt < G::MT; ++mt)
 #pragma unroll
@@ -534,18 +551,31 @@ __global__ void __launch_bounds__(MM_THREADS) s2_wgrad_kernel(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int cl = 8 * j + 2 * tg + e;
-          atomicAdd(dW + ((size_t)cs * CL + cl) * 9 + tap,
-                    acc[mt][j][2 * h + e]);
+          row[((size_t)cs * CL + cl) * 9 + tap] = acc[mt][j][2 * h + e];
         }
     }
 }
 
-// dW (CS, CL, 3, 3) f32, zero on entry, += the weight gradient between the
-// first CS <= MP channels of `small` (pitch CST) and the CL of `large`,
-// over about one wave of blocks split evenly across the nine taps.
+// Blocks a tap of the weight gradient: a ninth of one wave of the H100's
+// 132 SMs at the blocks an SM holds of each instantiation (f32 64x16: 6,
+// 64x64: 4, 128x64: 2; bf16 8, 6, 4). A constant, so that the partition,
+// and with it the order of the sums, depends on the shape alone
+// (ops/lanemaps.py keeps the same table).
+template <typename T, int MP, int CL>
+constexpr int s2_per_tap() {
+  return (sizeof(T) == 4 ? (MP == 128 ? 2 : CL == 16 ? 6 : 4)
+                         : (MP == 128 ? 4 : CL == 16 ? 8 : 6)) *
+         132 / 9;
+}
+
+// dW (CS, CL, 3, 3) f32, written whole by the fold of `pp`, which takes
+// the blocks' partials here: the weight gradient between the first CS <=
+// MP channels of `small` (pitch CST) and the CL of `large`, over
+// s2_per_tap blocks a tap, each a run of whole pixel chunks.
 template <typename T, int MP, int CL, class Tag>
 int launch_s2_wgrad(const T* small, const T* large, float* dW, int B, int Hs,
-                    int Ws, int CST, int CS, cudaStream_t s) {
+                    int Ws, int CST, int CS, cudaStream_t s,
+                    ldfold::Partials& pp) {
   using G = WgradTile<T, MP, CL>;
   if (CS > MP || CST < MP) return (int)cudaErrorInvalidValue;
   auto kern = s2_wgrad_kernel<T, MP, CL, Tag>;
@@ -554,26 +584,15 @@ int launch_s2_wgrad(const T* small, const T* large, float* dW, int B, int Hs,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
     if (e != cudaSuccess) return (int)e;
   }
-  static int slots = 0;  // blocks the card holds at once
-  if (slots == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        MM_THREADS, G::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    slots = per_sm * sms;
-  }
   const int npix = B * Hs * Ws;
   const int nchunks = (npix + MM_KP - 1) / MM_KP;
-  const int per_tap = slots / 9 > 1 ? slots / 9 : 1;
-  const int cpb = (nchunks + per_tap - 1) / per_tap;
-  dim3 grid((nchunks + cpb - 1) / cpb, 9);
-  kern<<<grid, MM_THREADS, G::SMEM, s>>>(small, large, dW, npix, Hs, Ws, CST,
-                                         CS, cpb);
+  const int cpb = (nchunks + s2_per_tap<T, MP, CL>() - 1) /
+                  s2_per_tap<T, MP, CL>();
+  const int blocks = (nchunks + cpb - 1) / cpb;
+  float* part = pp.take(blocks, CS * CL * 9, dW);
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
+  kern<<<dim3(blocks, 9), MM_THREADS, G::SMEM, s>>>(small, large, part, npix,
+                                                    Hs, Ws, CST, CS, cpb);
   return (int)cudaGetLastError();
 }
 

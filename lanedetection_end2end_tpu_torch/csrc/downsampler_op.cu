@@ -33,7 +33,7 @@
 // the tensor cores (conv_s2_mma.cuh): the forward is an implicit GEMM over
 // the 3x3/s2 taps of x (`op_k8_fwd`, N = cc) whose epilogue adds the bias,
 // rounds once, writes the pool channels from the same windows of x and
-// reduces the moments in the block, one atomicAdd per block and channel;
+// reduces the moments in the block to its row of a partials scratch;
 // the input gradient is the transposed convolution by output parity
 // (`op_k8_dx`, N = cin), whose epilogue adds the pool gradient at the
 // where-chain's pick; the weight gradient a GEMM per tap. The first
@@ -43,9 +43,11 @@
 // input gradient, which no train step asks for, on conv_s2.cuh's gather
 // (one thread per output value). The entries take no other shape.
 // Backward: three launches (dyv fold, dx, weight gradient); dx is skipped
-// when the caller passes no buffer (the images need no gradient).
-// f32 atomics make the last bits of mom, dbias and dweight depend on the
-// order blocks finish in. Every f32 output must be zero before the call.
+// when the caller passes no buffer (the images need no gradient). No
+// atomics: the blocks write their sums (mom; dbias, dweight) to a
+// partials scratch in an order fixed inside each block, and a last launch
+// of each entry, fold.cuh's fixed-order fold, adds them into the f32
+// outputs, which it writes whole: they reproduce themselves bit for bit.
 
 #include "conv_s2_mma.cuh"
 
@@ -139,13 +141,14 @@ __device__ __forceinline__ void load_window(const T* __restrict__ x, int b,
     }
 }
 
-// y (B, H/2, W/2, 16) = [T(conv + bias) | maxpool], mom (2, 16) += the
-// moments of the rounded y; wt: (3, 3, 3, 13), staged in shared memory
+// y (B, H/2, W/2, 16) = [T(conv + bias) | maxpool]; the moments of the
+// rounded y to the block's row of part (2 x 16 floats a block); wt: (3, 3,
+// 3, 13), staged in shared memory
 template <typename T>
 __global__ void __launch_bounds__(EW_THREADS) ds1_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ wt,
     const float* __restrict__ bias, T* __restrict__ y,
-    float* __restrict__ mom, int B, int H, int W) {
+    float* __restrict__ part, int B, int H, int W) {
   __shared__ float sw[D1_K * D1_CC + D1_CC];
   __shared__ float red[EW_THREADS / 32][2 * D1_COUT];
   for (int i = threadIdx.x; i < D1_K * D1_CC + D1_CC; i += EW_THREADS)
@@ -192,20 +195,21 @@ __global__ void __launch_bounds__(EW_THREADS) ds1_fwd_kernel(
   if (threadIdx.x < 2 * D1_COUT) {
     float a = 0.0f;
     for (int k = 0; k < EW_THREADS / 32; ++k) a += red[k][threadIdx.x];
-    atomicAdd(mom + threadIdx.x, a);
+    part[(size_t)blockIdx.x * 2 * D1_COUT + threadIdx.x] = a;
   }
 }
 
-// dW (13, 3, 3, 3) += sum_p dz[p][co] * window_p: sixteen threads per small
+// dW (13, 3, 3, 3) = sum_p dz[p][co] * window_p: sixteen threads per small
 // pixel, thread co % 16 keeping the 27 sums of its output channel (co < 13;
-// the three others read no gradient), reduced in the block, then one
-// atomicAdd per weight and block. dz: (B, H/2, W/2, 16).
+// the three others read no gradient), the two half-warps folded by a
+// shuffle, the 8 warps added in warp order in shared memory, and the block
+// writes its sums to its row of part (351 floats a block, in dW's layout).
+// dz: (B, H/2, W/2, 16).
 template <typename T>
 __global__ void __launch_bounds__(EW_THREADS) ds1_wgrad_kernel(
-    const T* __restrict__ dz, const T* __restrict__ x, float* __restrict__ dW,
-    int B, int H, int W) {
-  __shared__ float red[D1_CC * D1_K];
-  for (int i = threadIdx.x; i < D1_CC * D1_K; i += EW_THREADS) red[i] = 0.0f;
+    const T* __restrict__ dz, const T* __restrict__ x,
+    float* __restrict__ part, int B, int H, int W) {
+  __shared__ float red[EW_THREADS / 32][D1_CC * D1_K];
   const int co = threadIdx.x % 16;
   const int Hs = H / 2, Ws = W / 2, npix = B * Hs * Ws;
   float acc[D1_K];
@@ -220,31 +224,34 @@ __global__ void __launch_bounds__(EW_THREADS) ds1_wgrad_kernel(
 #pragma unroll
     for (int t = 0; t < D1_K; ++t) acc[t] = fmaf(g, v[t], acc[t]);
   }
-  __syncthreads();  // red is zero
 #pragma unroll
   for (int t = 0; t < D1_K; ++t) {
     const float a = acc[t] + __shfl_xor_sync(0xffffffffu, acc[t], 16);
     if ((threadIdx.x & 31) < 16 && co < D1_CC)
-      atomicAdd(red + co * D1_K + t, a);
+      red[threadIdx.x / 32][co * D1_K + t] = a;
   }
   __syncthreads();
+  float* row = part + (size_t)blockIdx.x * D1_CC * D1_K;
   for (int i = threadIdx.x; i < D1_CC * D1_K; i += EW_THREADS) {
     const int c = i / D1_K, t = i % D1_K;  // t = (3 ky + kx) 3 + ci
     const int ky = t / 9, kx = (t / 3) % 3, ci = t % 3;
-    atomicAdd(dW + ((c * D1_CIN + ci) * 3 + ky) * 3 + kx, red[i]);
+    float a = 0.0f;
+    for (int k = 0; k < EW_THREADS / 32; ++k) a += red[k][i];
+    row[((c * D1_CIN + ci) * 3 + ky) * 3 + kx] = a;
   }
 }
 
 // The forward on the tensor cores: the 3x3/s2/p1 convolution of x (the
 // large plane, `large` = x) into the cc conv channels, bias, one rounding,
 // the pool channels cc .. cout from the windows of x, and the moments of
-// the rounded y. wt: (3, 3, cin, cc); y: (B, Hs, Ws, cout).
+// the rounded y to the block's row of `part` (2 cout floats a block).
+// wt: (3, 3, cin, cc); y: (B, Hs, Ws, cout).
 template <typename T>
 struct op_k8_fwd : ConvGeo<T> {
   const T* wt;
   const float* bias;
   T* y;
-  float* mom;
+  float* part;
   int cin, cout, cc;
 
   template <int NT>
@@ -275,7 +282,7 @@ struct op_k8_fwd : ConvGeo<T> {
     fold_channels(s0, red);
     fold_channels(s1, red + cout);
     // the pool channels: thread i keeps channel i % cin (MM_THREADS % cin
-    // == 0), the rows ascend with i
+    // == 0), the rows ascend with i; its sums at the end of red[]
     const int c = threadIdx.x % cin;
     float q0 = 0.0f, q1 = 0.0f;
     for (int i = threadIdx.x; i < MM_BM * cin; i += MM_THREADS) {
@@ -289,10 +296,24 @@ struct op_k8_fwd : ConvGeo<T> {
       q0 += f;
       q1 += f * f;
     }
-    atomicAdd(red + cc + c, q0);
-    atomicAdd(red + cout + cc + c, q1);
+    float* pool = red + MM_RED - 2 * MM_THREADS;
+    pool[threadIdx.x] = q0;
+    pool[MM_THREADS + threadIdx.x] = q1;
     __syncthreads();
-    flush_moments(red, cout, mom);
+    // channel by channel: the conv channels' warps in warp order, the pool
+    // channels' threads in ascending order
+    float* row = moment_row(part, cout);
+    for (int i = threadIdx.x; i < 2 * cout; i += MM_THREADS) {
+      const int m = i / cout, ch = i % cout;
+      float a = 0.0f;
+      if (ch < cc) {
+        a = warp_sum(red, m * cout + ch);
+      } else {
+        for (int t = ch - cc; t < MM_THREADS; t += cin)
+          a += pool[m * MM_THREADS + t];
+      }
+      row[i] = a;
+    }
   }
 };
 
@@ -338,7 +359,8 @@ struct op_k8_dx : PhaseGeo<T> {
 
 template <typename T, int CK, int N>
 int ds_fwd_mma(const T* x, const T* wt, const float* bias, T* y, float* mom,
-               int B, int H, int W, int cin, int cout, cudaStream_t s) {
+               int B, int H, int W, int cin, int cout, cudaStream_t s,
+               ldfold::Partials& pp) {
   op_k8_fwd<T> op;
   op.large = x;
   op.npix = B * (H / 2) * (W / 2);
@@ -348,7 +370,8 @@ int ds_fwd_mma(const T* x, const T* wt, const float* bias, T* y, float* mom,
   op.wt = wt;
   op.bias = bias;
   op.y = y;
-  op.mom = mom;
+  op.part = pp.take(grid_1d(op.npix, MM_BM), 2 * cout, mom);
+  if (op.part == nullptr) return (int)cudaErrorInvalidValue;
   op.cin = cin;
   op.cout = cout;
   op.cc = cout - cin;
@@ -380,32 +403,44 @@ bool known_shape(int cin, int cout) {
 }
 
 template <typename T>
-int ds_fwd(const void* x, const void* wt, const void* bias, void* y,
-           void* mom, int B, int H, int W, int cin, int cout, void* stream) {
-  if (!known_shape(cin, cout) || H % 2 || W % 2)
-    return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
+int ds_fwd_launch(const void* x, const void* wt, const void* bias, void* y,
+                  void* mom, int B, int H, int W, int cin, int cout,
+                  cudaStream_t s, ldfold::Partials& pp) {
   const T* xt = static_cast<const T*>(x);
   const T* w = static_cast<const T*>(wt);
   const float* b = static_cast<const float*>(bias);
   T* yt = static_cast<T*>(y);
   float* m = static_cast<float*>(mom);
   if (cin == 16)
-    return ds_fwd_mma<T, 16, 48>(xt, w, b, yt, m, B, H, W, cin, cout, s);
+    return ds_fwd_mma<T, 16, 48>(xt, w, b, yt, m, B, H, W, cin, cout, s, pp);
   if (cin == 64)
-    return ds_fwd_mma<T, 64, 64>(xt, w, b, yt, m, B, H, W, cin, cout, s);
-  ds1_fwd_kernel<T><<<ew_blocks((long long)B * (H / 2) * (W / 2)), EW_THREADS,
-                      0, s>>>(xt, w, b, yt, m, B, H, W);
+    return ds_fwd_mma<T, 64, 64>(xt, w, b, yt, m, B, H, W, cin, cout, s, pp);
+  const int blocks = ew_blocks((long long)B * (H / 2) * (W / 2));
+  float* part = pp.take(blocks, 2 * D1_COUT, m);
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
+  ds1_fwd_kernel<T><<<blocks, EW_THREADS, 0, s>>>(xt, w, b, yt, part, B, H,
+                                                  W);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int ds_bwd(const void* x, const void* y, const void* dy, const void* dmom,
-           const void* wt, void* dz, void* dx, void* dweight, void* dbias,
-           int B, int H, int W, int cin, int cout, void* stream) {
+int ds_fwd(const void* x, const void* wt, const void* bias, void* y,
+           void* mom, void* part, int B, int H, int W, int cin, int cout,
+           int part_floats, void* stream) {
   if (!known_shape(cin, cout) || H % 2 || W % 2)
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  ldfold::Partials pp(part, part_floats);
+  const int rc = ds_fwd_launch<T>(x, wt, bias, y, mom, B, H, W, cin, cout,
+                                  s, pp);
+  return rc ? rc : pp.fold<op_k8>(s);
+}
+
+template <typename T>
+int ds_bwd_launch(const void* x, const void* y, const void* dy,
+                  const void* dmom, const void* wt, void* dz, void* dx,
+                  void* dweight, void* dbias, int B, int H, int W, int cin,
+                  int cout, cudaStream_t s, ldfold::Partials& pp) {
   const int Ho = H / 2, Wo = W / 2, cc = cout - cin;
   const T* xb = static_cast<const T*>(x);
   T* dzb = static_cast<T*>(dz);
@@ -415,7 +450,7 @@ int ds_bwd(const void* x, const void* y, const void* dy, const void* dmom,
                                   static_cast<const T*>(y),
                                   static_cast<const float*>(dmom), dzb,
                                   static_cast<float*>(dbias),
-                                  (long long)B * Ho * Wo * cout, cout, s);
+                                  (long long)B * Ho * Wo * cout, cout, s, pp);
   if (rc) return rc;
   if (dx != nullptr) {
     T* dxt = static_cast<T*>(dx);
@@ -432,55 +467,78 @@ int ds_bwd(const void* x, const void* y, const void* dy, const void* dmom,
   }
   if (cin == 16)
     return launch_s2_wgrad<T, 64, 16, op_k8>(dzb, xb, dw, B, Ho, Wo, cout, cc,
-                                             s);
+                                             s, pp);
   if (cin == 64)
     return launch_s2_wgrad<T, 64, 64, op_k8>(dzb, xb, dw, B, Ho, Wo, cout, cc,
-                                             s);
-  ds1_wgrad_kernel<T><<<ew_blocks(16LL * B * Ho * Wo), EW_THREADS, 0, s>>>(
-      dzb, xb, dw, B, H, W);
+                                             s, pp);
+  const int blocks = ew_blocks(16LL * B * Ho * Wo);
+  float* part = pp.take(blocks, D1_CC * D1_K, dw);
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
+  ds1_wgrad_kernel<T><<<blocks, EW_THREADS, 0, s>>>(dzb, xb, part, B, H, W);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int ds_bwd(const void* x, const void* y, const void* dy, const void* dmom,
+           const void* wt, void* dz, void* dx, void* dweight, void* dbias,
+           void* part, int B, int H, int W, int cin, int cout,
+           int part_floats, void* stream) {
+  if (!known_shape(cin, cout) || H % 2 || W % 2)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  ldfold::Partials pp(part, part_floats);
+  const int rc = ds_bwd_launch<T>(x, y, dy, dmom, wt, dz, dx, dweight, dbias,
+                                  B, H, W, cin, cout, s, pp);
+  return rc ? rc : pp.fold<op_k8>(s);
 }
 
 }  // namespace
 
 // x: (B, H, W, cin) bf16; wt: (3, 3, cin, cc) bf16 [kh][kw][ci][co];
-// bias: (cc,) f32; y: (B, H/2, W/2, cout) bf16; mom: (2, cout) f32, zero on
-// entry. (cin, cout) is (3, 16), (16, 64) or (64, 128).
+// bias: (cc,) f32; y: (B, H/2, W/2, cout) bf16; mom: (2, cout) f32,
+// written whole (any contents on entry); part: f32 scratch of part_floats
+// floats for the blocks' sums (ops/lanemaps.py::downsampler_partials
+// counts them; any contents). (cin, cout) is (3, 16), (16, 64) or (64,
+// 128).
 LD_API int ld_downsampler_op_fwd(const void* x, const void* wt,
-                                 const void* bias, void* y, void* mom, int B,
-                                 int H, int W, int cin, int cout,
-                                 void* stream) {
-  return ds_fwd<bf16>(x, wt, bias, y, mom, B, H, W, cin, cout, stream);
+                                 const void* bias, void* y, void* mom,
+                                 void* part, int B, int H, int W, int cin,
+                                 int cout, int part_floats, void* stream) {
+  return ds_fwd<bf16>(x, wt, bias, y, mom, part, B, H, W, cin, cout,
+                      part_floats, stream);
 }
 
 // The same on float32 planes and taps: x, wt, y f32.
 LD_API int ld_downsampler_op_fwd_f32(const void* x, const void* wt,
                                      const void* bias, void* y, void* mom,
-                                     int B, int H, int W, int cin, int cout,
+                                     void* part, int B, int H, int W,
+                                     int cin, int cout, int part_floats,
                                      void* stream) {
-  return ds_fwd<float>(x, wt, bias, y, mom, B, H, W, cin, cout, stream);
+  return ds_fwd<float>(x, wt, bias, y, mom, part, B, H, W, cin, cout,
+                       part_floats, stream);
 }
 
 // x as above; y, dy, dz: (B, H/2, W/2, cout) bf16 (dz scratch); dmom:
 // (2, cout) f32; wt: (3, 3, cc, cin) bf16 [kh][kw][co][ci]; dx: (B, H, W,
 // cin) bf16 or null (skipped); dweight: (cc, cin, 3, 3) f32 and dbias:
-// (cout,) f32 (its first cc entries are the bias gradient), zero on entry.
+// (cout,) f32 (its first cc entries are the bias gradient), written whole
+// (any contents on entry); part: the blocks' sums, as for the forward.
 LD_API int ld_downsampler_op_bwd(const void* x, const void* y, const void* dy,
                                  const void* dmom, const void* wt, void* dz,
-                                 void* dx, void* dweight, void* dbias, int B,
-                                 int H, int W, int cin, int cout,
-                                 void* stream) {
-  return ds_bwd<bf16>(x, y, dy, dmom, wt, dz, dx, dweight, dbias, B, H, W,
-                      cin, cout, stream);
+                                 void* dx, void* dweight, void* dbias,
+                                 void* part, int B, int H, int W, int cin,
+                                 int cout, int part_floats, void* stream) {
+  return ds_bwd<bf16>(x, y, dy, dmom, wt, dz, dx, dweight, dbias, part, B, H,
+                      W, cin, cout, part_floats, stream);
 }
 
 // The same on float32 planes and taps: x, y, dy, wt, dz, dx f32.
 LD_API int ld_downsampler_op_bwd_f32(const void* x, const void* y,
                                      const void* dy, const void* dmom,
                                      const void* wt, void* dz, void* dx,
-                                     void* dweight, void* dbias, int B,
-                                     int H, int W, int cin, int cout,
-                                     void* stream) {
-  return ds_bwd<float>(x, y, dy, dmom, wt, dz, dx, dweight, dbias, B, H, W,
-                       cin, cout, stream);
+                                     void* dweight, void* dbias, void* part,
+                                     int B, int H, int W, int cin, int cout,
+                                     int part_floats, void* stream) {
+  return ds_bwd<float>(x, y, dy, dmom, wt, dz, dx, dweight, dbias, part, B,
+                       H, W, cin, cout, part_floats, stream);
 }

@@ -35,12 +35,13 @@
 // Design. The two upsamplers (128 -> 64, 64 -> 16, k = 3) run on the
 // tensor cores (conv_s2_mma.cuh): the forward is the transposed
 // convolution by output parity (`op_k9_fwd`, N = cout), whose epilogue adds
-// the bias, rounds once and reduces the moments in the block, one
-// atomicAdd per block and channel; the input gradient the 3x3/s2 implicit
-// GEMM over dp (`op_k9_dx`, N = cin); the weight gradient a GEMM per tap.
-// Their backward is three launches (dyv fold, dx, weight gradient); f32
-// atomics make the last bits of mom, dbias and dweight depend on the order
-// blocks finish in, and those outputs must be zero before the call.
+// the bias, rounds once and reduces the moments in the block, in a fixed
+// order, to the block's row of a partials scratch; the input gradient the
+// 3x3/s2 implicit GEMM over dp (`op_k9_dx`, N = cin); the weight gradient
+// a GEMM per tap. Their backward is three launches (dyv fold, dx, weight
+// gradient). Each entry ends in fold.cuh's fixed-order fold of the blocks'
+// partials into mom, or dbias and dweight, which it writes whole: no
+// atomics, so they reproduce themselves bit for bit.
 //
 // The 2x2 head (cin 16, cout 1-8, no moments) is K10's head tile
 // (head_rowsums.cuh, head_quads.cuh): pixel-local, so one pass over x each
@@ -168,14 +169,15 @@ int head_bwd(const void* x, const void* dy, const void* weight, void* part,
 
 // The forward on the tensor cores: the transposed convolution of x (the
 // small plane, `small` = x) by output parity, bias, one rounding to TOut,
-// the moments of the rounded y when mom is given. wt: (3, 3, cin, cout);
+// the moments of the rounded y to the block's row of `part` (2 cout floats
+// a block; rows phase by phase) when part is given. wt: (3, 3, cin, cout);
 // y: (B, 2H, 2W, cout).
 template <typename T, typename TOut>
 struct op_k9_fwd : PhaseGeo<T> {
   const T* wt;
   const float* bias;
   TOut* y;
-  float* mom;
+  float* part;
   int cout;
 
   template <int NT>
@@ -203,11 +205,13 @@ struct op_k9_fwd : PhaseGeo<T> {
         s1[j][1] += f1 * f1;
       }
     }
-    if (mom == nullptr) return;
+    if (part == nullptr) return;
     fold_channels(s0, red);
     fold_channels(s1, red + cout);
     __syncthreads();
-    flush_moments(red, cout, mom);
+    float* row = moment_row(part, cout);
+    for (int c = threadIdx.x; c < 2 * cout; c += MM_THREADS)
+      row[c] = warp_sum(red, c);
   }
 };
 
@@ -239,8 +243,8 @@ struct op_k9_dx : ConvGeo<T> {
 
 template <typename T, typename TOut>
 int lm_fwd(const void* x, const void* wt, const void* bias, void* y,
-           void* mom, int B, int H, int W, int cin, int cout, int k,
-           cudaStream_t s) {
+           void* mom, void* part, int B, int H, int W, int cin, int cout,
+           int k, int part_floats, cudaStream_t s) {
   if (k == 2) {
 #define LD_FWD(CT) \
   head_fwd<T, TOut, CT>(x, wt, bias, y, B * H * W, W, cout, s)
@@ -256,10 +260,17 @@ int lm_fwd(const void* x, const void* wt, const void* bias, void* y,
   op.wt = static_cast<const T*>(wt);
   op.bias = static_cast<const float*>(bias);
   op.y = static_cast<TOut*>(y);
-  op.mom = static_cast<float*>(mom);
   op.cout = cout;
-  return cin == 128 ? launch_s2_gemm<T, 128, 64>(op, 4, s)
-                    : launch_s2_gemm<T, 64, 16>(op, 4, s);
+  ldfold::Partials pp(part, part_floats);
+  op.part = nullptr;
+  if (mom != nullptr) {
+    op.part = pp.take(4 * grid_1d(op.npix, MM_BM), 2 * cout,
+                      static_cast<float*>(mom));
+    if (op.part == nullptr) return (int)cudaErrorInvalidValue;
+  }
+  const int rc = cin == 128 ? launch_s2_gemm<T, 128, 64>(op, 4, s)
+                            : launch_s2_gemm<T, 64, 16>(op, 4, s);
+  return rc ? rc : pp.fold<op_k9>(s);
 }
 
 // k = 3 (pad 1) takes the two upsamplers, on the tensor cores, with or
@@ -274,21 +285,12 @@ bool bad_geometry(int cin, int cout, int k, int pad, const void* mom) {
   return k != 3 || pad != 1 || !up;
 }
 
-// dyv fold, input gradient and weight gradient on planes of type T; dy
-// and y of type TOut. At k = 2 `wt` is the parameter and `scratch` the
-// pass's partial sums (the entries' comments).
+// The k = 3 backward's launches, their sums taken from pp.
 template <typename T, typename TOut>
-int lm_bwd(const void* x, const void* y, const void* dy, const void* dmom,
-           const void* wt, void* scratch, void* dx, void* dweight,
-           void* dbias, int B, int H, int W, int cin, int cout, int k,
-           cudaStream_t s) {
-  if (k == 2) {
-#define LD_BWD(CT)                                                       \
-  head_bwd<T, TOut, CT>(x, dy, wt, scratch, dx, dweight, dbias, B * H * W, \
-                        W, cout, s)
-    LD_HEAD_CT(LD_BWD)
-#undef LD_BWD
-  }
+int lm_bwd_launch(const void* x, const void* y, const void* dy,
+                  const void* dmom, const void* wt, void* scratch, void* dx,
+                  void* dweight, void* dbias, int B, int H, int W, int cin,
+                  int cout, cudaStream_t s, ldfold::Partials& pp) {
   const long long n = (long long)B * 4 * H * W * cout;
   T* dpt = static_cast<T*>(scratch);
   const T* xt = static_cast<const T*>(x);
@@ -296,7 +298,8 @@ int lm_bwd(const void* x, const void* y, const void* dy, const void* dmom,
   int rc = launch_dyv_fold<op_k9>(static_cast<const TOut*>(dy),
                                   static_cast<const TOut*>(y),
                                   static_cast<const float*>(dmom), dpt,
-                                  static_cast<float*>(dbias), n, cout, s);
+                                  static_cast<float*>(dbias), n, cout, s,
+                                  pp);
   if (rc) return rc;
   op_k9_dx<T> op;
   op.large = dpt;
@@ -311,68 +314,99 @@ int lm_bwd(const void* x, const void* y, const void* dy, const void* dmom,
     rc = launch_s2_gemm<T, 64, 128>(op, 1, s);
     if (rc) return rc;
     return launch_s2_wgrad<T, 128, 64, op_k9>(xt, dpt, dw, B, H, W, cin, cin,
-                                              s);
+                                              s, pp);
   }
   rc = launch_s2_gemm<T, 16, 64>(op, 1, s);
   if (rc) return rc;
-  return launch_s2_wgrad<T, 64, 16, op_k9>(xt, dpt, dw, B, H, W, cin, cin, s);
+  return launch_s2_wgrad<T, 64, 16, op_k9>(xt, dpt, dw, B, H, W, cin, cin, s,
+                                           pp);
+}
+
+// dyv fold, input gradient and weight gradient on planes of type T; dy
+// and y of type TOut. At k = 2 `wt` is the parameter and `scratch` the
+// pass's partial sums (the entries' comments); at k = 3 `part` holds the
+// blocks' sums, folded at the end.
+template <typename T, typename TOut>
+int lm_bwd(const void* x, const void* y, const void* dy, const void* dmom,
+           const void* wt, void* scratch, void* dx, void* dweight,
+           void* dbias, void* part, int B, int H, int W, int cin, int cout,
+           int k, int part_floats, cudaStream_t s) {
+  if (k == 2) {
+#define LD_BWD(CT)                                                       \
+  head_bwd<T, TOut, CT>(x, dy, wt, scratch, dx, dweight, dbias, B * H * W, \
+                        W, cout, s)
+    LD_HEAD_CT(LD_BWD)
+#undef LD_BWD
+  }
+  ldfold::Partials pp(part, part_floats);
+  const int rc = lm_bwd_launch<T, TOut>(x, y, dy, dmom, wt, scratch, dx,
+                                        dweight, dbias, B, H, W, cin, cout, s,
+                                        pp);
+  return rc ? rc : pp.fold<op_k9>(s);
 }
 
 }  // namespace
 
 // x: (B, H, W, cin) bf16; y: (B, 2H, 2W, cout) bf16, or f32 when out_f32;
 // bias: (cout,) f32. k = 3 (pad 1): (cin, cout) is (128, 64) or (64, 16);
-// wt: (3, 3, cin, cout) bf16 [ky][kx][ci][co]; mom: (2, cout) f32, zero on
-// entry, or null. k = 2 (pad 0): cin = 16, cout 1-8; wt: the parameter
-// (cin, cout, 2, 2) f32 as it lies; mom null.
+// wt: (3, 3, cin, cout) bf16 [ky][kx][ci][co]; mom: (2, cout) f32, written
+// whole (any contents on entry), or null; part: f32 scratch of part_floats
+// floats for the blocks' moments (ops/lanemaps.py::lane_maps_partials
+// counts them; any contents; unused without mom). k = 2 (pad 0): cin =
+// 16, cout 1-8; wt: the parameter (cin, cout, 2, 2) f32 as it lies; mom
+// null.
 LD_API int ld_lane_maps_op_fwd(const void* x, const void* wt,
-                               const void* bias, void* y, void* mom, int B,
-                               int H, int W, int cin, int cout, int k,
-                               int pad, int out_f32, void* stream) {
+                               const void* bias, void* y, void* mom,
+                               void* part, int B, int H, int W, int cin,
+                               int cout, int k, int pad, int out_f32,
+                               int part_floats, void* stream) {
   if (bad_geometry(cin, cout, k, pad, mom)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? lm_fwd<bf16, float>(x, wt, bias, y, mom, B, H, W, cin,
-                                       cout, k, s)
-                 : lm_fwd<bf16, bf16>(x, wt, bias, y, mom, B, H, W, cin,
-                                      cout, k, s);
+  return out_f32 ? lm_fwd<bf16, float>(x, wt, bias, y, mom, part, B, H, W,
+                                       cin, cout, k, part_floats, s)
+                 : lm_fwd<bf16, bf16>(x, wt, bias, y, mom, part, B, H, W,
+                                      cin, cout, k, part_floats, s);
 }
 
 // The same on float32 planes (x f32; at k = 3 wt f32); y is f32, and
 // out_f32 must be 1.
 LD_API int ld_lane_maps_op_fwd_f32(const void* x, const void* wt,
                                    const void* bias, void* y, void* mom,
-                                   int B, int H, int W, int cin, int cout,
-                                   int k, int pad, int out_f32,
-                                   void* stream) {
+                                   void* part, int B, int H, int W, int cin,
+                                   int cout, int k, int pad, int out_f32,
+                                   int part_floats, void* stream) {
   if (bad_geometry(cin, cout, k, pad, mom) || !out_f32)
     return (int)cudaErrorInvalidValue;
-  return lm_fwd<float, float>(x, wt, bias, y, mom, B, H, W, cin, cout, k,
+  return lm_fwd<float, float>(x, wt, bias, y, mom, part, B, H, W, cin, cout,
+                              k, part_floats,
                               static_cast<cudaStream_t>(stream));
 }
 
 // x as above; dy: (B, 2H, 2W, cout) bf16, or f32 when out_f32; dx: (B, H,
-// W, cin) bf16; dweight: (cin, cout, k, k) f32 and dbias: (cout,) f32.
-// k = 3: y like dy, read only with dmom; dmom: (2, cout) f32 or null; wt:
-// (3, 3, cout, cin) bf16 [ky][kx][co][ci]; scratch: dp, (B, 2H, 2W, cout)
-// bf16; dweight and dbias zero on entry. k = 2: y and dmom null; wt: the
-// parameter (cin, cout, 2, 2) f32 as it lies; scratch: the pass's partial
-// sums, (65 ct, ceil(B H W / 512)) f32 (ct = cout padded to 1, 2, 4 or 8;
-// any contents); dweight and dbias written whole (any contents on entry).
+// W, cin) bf16; dweight: (cin, cout, k, k) f32 and dbias: (cout,) f32,
+// written whole (any contents on entry). k = 3: y like dy, read only with
+// dmom; dmom: (2, cout) f32 or null; wt: (3, 3, cout, cin) bf16
+// [ky][kx][co][ci]; scratch: dp, (B, 2H, 2W, cout) bf16; part: f32
+// scratch of part_floats floats for the blocks' sums (ops/lanemaps.py::
+// lane_maps_partials counts them; any contents). k = 2: y and dmom null;
+// wt: the parameter (cin, cout, 2, 2) f32 as it lies; scratch: the pass's
+// partial sums, (65 ct, ceil(B H W / 512)) f32 (ct = cout padded to 1, 2,
+// 4 or 8; any contents); part unused (null, 0).
 LD_API int ld_lane_maps_op_bwd(const void* x, const void* y, const void* dy,
                                const void* dmom, const void* wt,
                                void* scratch, void* dx, void* dweight,
-                               void* dbias, int B, int H, int W, int cin,
-                               int cout, int k, int pad, int out_f32,
-                               void* stream) {
+                               void* dbias, void* part, int B, int H, int W,
+                               int cin, int cout, int k, int pad, int out_f32,
+                               int part_floats, void* stream) {
   if (bad_geometry(cin, cout, k, pad, dmom))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return out_f32 ? lm_bwd<bf16, float>(x, y, dy, dmom, wt, scratch, dx,
-                                       dweight, dbias, B, H, W, cin, cout, k,
-                                       s)
+                                       dweight, dbias, part, B, H, W, cin,
+                                       cout, k, part_floats, s)
                  : lm_bwd<bf16, bf16>(x, y, dy, dmom, wt, scratch, dx,
-                                      dweight, dbias, B, H, W, cin, cout, k,
-                                      s);
+                                      dweight, dbias, part, B, H, W, cin,
+                                      cout, k, part_floats, s);
 }
 
 // The same on float32 planes: x, y, dy, dx f32 (at k = 3 wt and dp f32),
@@ -380,12 +414,13 @@ LD_API int ld_lane_maps_op_bwd(const void* x, const void* y, const void* dy,
 LD_API int ld_lane_maps_op_bwd_f32(const void* x, const void* y,
                                    const void* dy, const void* dmom,
                                    const void* wt, void* scratch, void* dx,
-                                   void* dweight, void* dbias, int B, int H,
-                                   int W, int cin, int cout, int k, int pad,
-                                   int out_f32, void* stream) {
+                                   void* dweight, void* dbias, void* part,
+                                   int B, int H, int W, int cin, int cout,
+                                   int k, int pad, int out_f32,
+                                   int part_floats, void* stream) {
   if (bad_geometry(cin, cout, k, pad, dmom) || !out_f32)
     return (int)cudaErrorInvalidValue;
   return lm_bwd<float, float>(x, y, dy, dmom, wt, scratch, dx, dweight,
-                              dbias, B, H, W, cin, cout, k,
-                              static_cast<cudaStream_t>(stream));
+                              dbias, part, B, H, W, cin, cout, k,
+                              part_floats, static_cast<cudaStream_t>(stream));
 }

@@ -29,7 +29,11 @@
 // conv3tap_f32.cuh, wgmma in 3xTF32; both with a cp.async ring), the
 // second with the moments epilogue. The intermediate
 // ymid is needed by the backward anyway, so its round trip through device
-// memory is no extra traffic. `mom` must be zero before the call.
+// memory is no extra traffic. In bf16 the moments are summed with f32
+// atomics (`mom` zero before the call); in float32 each block writes its
+// sums to a partials scratch, which a third launch, fold.cuh's fixed-order
+// fold, adds into `mom` (written whole): the float32 moments reproduce
+// themselves bit for bit.
 
 #include "conv3tap_f32.cuh"
 
@@ -37,24 +41,28 @@ using namespace ldconv;
 
 namespace {
 
+struct k6k7 {};  // names the fold in a profile
+
 template <typename T, int C>
 int half_fwd(const T* x, const T* kh, const float* bh, const T* kw,
              const float* bw, const float* muladd, T* ymid, T* yout,
-             float* mom, int npix, int H, int W, int d, cudaStream_t s) {
+             float* mom, int npix, int H, int W, int d, cudaStream_t s,
+             ldfold::Partials* pp) {
   const float* mul = muladd;
   const float* add = muladd ? muladd + C : nullptr;
   int rc = launch_conv<C, EPI_BIAS_RELU>(x, kh, mul, add, bh, nullptr, ymid,
-                                         nullptr, npix, H, W, d, 0, s);
+                                         nullptr, npix, H, W, d, 0, s, pp);
   if (rc) return rc;
-  return launch_conv<C, EPI_BIAS_MOM>(ymid, kw, nullptr, nullptr, bw, nullptr,
-                                      yout, mom, npix, H, W, d, 1, s);
+  rc = launch_conv<C, EPI_BIAS_MOM>(ymid, kw, nullptr, nullptr, bw, nullptr,
+                                    yout, mom, npix, H, W, d, 1, s, pp);
+  return rc ? rc : (pp ? pp->fold<k6k7>(s) : 0);
 }
 
 template <typename T>
 int half_fwd_entry(const void* x, const void* kh, const void* bh,
                    const void* kw, const void* bw, const void* muladd,
-                   void* ymid, void* yout, void* mom, int B, int H, int W,
-                   int C, int d, void* stream) {
+                   void* ymid, void* yout, void* mom, ldfold::Partials* pp,
+                   int B, int H, int W, int C, int d, void* stream) {
   const int npix = B * H * W;
   auto s = static_cast<cudaStream_t>(stream);
 #define LD_ARGS                                                              \
@@ -62,7 +70,7 @@ int half_fwd_entry(const void* x, const void* kh, const void* bh,
       static_cast<const float*>(bh), static_cast<const T*>(kw),             \
       static_cast<const float*>(bw), static_cast<const float*>(muladd),     \
       static_cast<T*>(ymid), static_cast<T*>(yout),                         \
-      static_cast<float*>(mom), npix, H, W, d, s
+      static_cast<float*>(mom), npix, H, W, d, s, pp
   switch (C) {
     case 16:
       return half_fwd<T, 16>(LD_ARGS);
@@ -86,23 +94,29 @@ int fwd_info(int* info) {
 
 // x, ymid, yout: (B, H, W, C) bf16 contiguous; kh, kw: (3, C, C) bf16
 // [tap][ci][co]; bh, bw: (C,) f32; muladd: (2, C) f32 [mul; add] or null
-// (half A); mom: (2, C) f32, zero on entry.
+// (half A); mom: (2, C) f32, zero on entry; part, part_floats: unused
+// (null, 0).
 LD_API int ld_nb_half_fwd(const void* x, const void* kh, const void* bh,
                           const void* kw, const void* bw, const void* muladd,
-                          void* ymid, void* yout, void* mom, int B, int H,
-                          int W, int C, int d, void* stream) {
-  return half_fwd_entry<bf16>(x, kh, bh, kw, bw, muladd, ymid, yout, mom, B,
-                              H, W, C, d, stream);
+                          void* ymid, void* yout, void* mom, void* part,
+                          int B, int H, int W, int C, int d, int part_floats,
+                          void* stream) {
+  return half_fwd_entry<bf16>(x, kh, bh, kw, bw, muladd, ymid, yout, mom,
+                              nullptr, B, H, W, C, d, stream);
 }
 
-// The same on float32 planes and taps: x, ymid, yout, kh, kw f32.
+// The same on float32 planes and taps: x, ymid, yout, kh, kw f32; mom
+// written whole (any contents on entry); part: f32 scratch of part_floats
+// >= 2 C ceil(B H W / BM) floats, BM = 128 at C = 128, else 256 (the
+// blocks' moments; any contents).
 LD_API int ld_nb_half_fwd_f32(const void* x, const void* kh, const void* bh,
                               const void* kw, const void* bw,
                               const void* muladd, void* ymid, void* yout,
-                              void* mom, int B, int H, int W, int C, int d,
-                              void* stream) {
-  return half_fwd_entry<float>(x, kh, bh, kw, bw, muladd, ymid, yout, mom, B,
-                               H, W, C, d, stream);
+                              void* mom, void* part, int B, int H, int W,
+                              int C, int d, int part_floats, void* stream) {
+  ldfold::Partials pp(part, part_floats);
+  return half_fwd_entry<float>(x, kh, bh, kw, bw, muladd, ymid, yout, mom,
+                               &pp, B, H, W, C, d, stream);
 }
 
 // What the card makes of the bf16 tiles of the forward at C (16, 64 or

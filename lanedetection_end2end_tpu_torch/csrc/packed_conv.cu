@@ -37,9 +37,11 @@
 // gradient (wgrad3tap.cuh); f32 runs the 3xTF32 tiles of conv3tap_f32.cuh. The
 // backward is up to three launches: `dz_kernel` (the relu mask and the
 // bias gradient in one elementwise pass, skipped for packed_conv), the
-// transposed convolution and the weight gradient. dk and db are summed
-// with f32 atomicAdd, so their last bits change from run to run; both must
-// be zero before the call.
+// transposed convolution and the weight gradient. db is summed with f32
+// atomicAdd, so its last bits change from run to run, and must be zero
+// before the call; so is dk in bf16. In float32 the weight gradient's
+// blocks write their sums to a partials scratch and a fourth launch,
+// fold.cuh's fixed-order fold, adds them into dk, which it writes whole.
 
 #include "conv3tap_f32.cuh"
 
@@ -97,22 +99,25 @@ int fwd(const T* x, const T* w, const float* bias, void* y, int npix, int H,
   if (bias == nullptr)  // packed_conv: f32 output, no bias
     return launch_conv<C, EPI_PLAIN>(x, w, nullptr, nullptr, nullptr, nullptr,
                                      static_cast<float*>(y), nullptr, npix, H,
-                                     W, d, axis, s);
+                                     W, d, axis, s, nullptr);
   T* out = static_cast<T*>(y);
   if (act)
     return launch_conv<C, EPI_BIAS_RELU>(x, w, nullptr, nullptr, bias,
                                          nullptr, out, nullptr, npix, H, W, d,
-                                         axis, s);
+                                         axis, s, nullptr);
   return launch_conv<C, EPI_BIAS>(x, w, nullptr, nullptr, bias, nullptr, out,
-                                  nullptr, npix, H, W, d, axis, s);
+                                  nullptr, npix, H, W, d, axis, s, nullptr);
 }
 
 // ---- backward ------------------------------------------------------------
 
+struct k11 {};  // names the fold in a profile
+
+// pp: the float32 weight gradient's partials (null in bf16)
 template <typename T, int C>
 int bwd(const T* x, const T* dy, const T* y, const T* wT, T* dz, T* dx,
         float* dk, float* db, int npix, int H, int W, int d, int axis,
-        int act, cudaStream_t s) {
+        int act, cudaStream_t s, ldfold::Partials* pp) {
   const T* src = dy;
   if (act || db != nullptr) {
     if (db == nullptr) return (int)cudaErrorInvalidValue;
@@ -131,9 +136,11 @@ int bwd(const T* x, const T* dy, const T* y, const T* wT, T* dz, T* dx,
   }
   int rc = launch_conv<C, EPI_PLAIN>(src, wT, nullptr, nullptr, nullptr,
                                      nullptr, dx, nullptr, npix, H, W, d,
-                                     axis, s);
+                                     axis, s, pp);
   if (rc) return rc;
-  return launch_wgrad<C>(x, nullptr, nullptr, src, dk, npix, H, W, d, axis, s);
+  rc = launch_wgrad<C>(x, nullptr, nullptr, src, dk, npix, H, W, d, axis, s,
+                       pp);
+  return rc ? rc : (pp ? pp->fold<k11>(s) : 0);
 }
 
 }  // namespace
@@ -172,19 +179,25 @@ LD_API int ld_packed_conv_fwd(const void* x, const void* w, const void* bias,
 // x, dy, dx, and y and dz with act (else null): (B, H, W, C) contiguous of
 // one dtype (bf16 or f32, as above; dz is scratch); wT: (3, C, C) of that
 // dtype, wT[t] = k[2-t]^T; dk: (3, C, C) f32; db: (C,) f32, or null for
-// packed_conv (which passes act = 0). dk and db zero on entry.
+// packed_conv (which passes act = 0). db zero on entry; dk zero on entry
+// in bf16, written whole in f32, where part is an f32 scratch of
+// part_floats >= 3 C^2 times the weight gradient's blocks a tap floats
+// (ops/packed_conv.py::bwd_partials; any contents; unused in bf16).
 LD_API int ld_packed_conv_bwd(const void* x, const void* dy, const void* y,
                               const void* wT, void* dz, void* dx, void* dk,
-                              void* db, int B, int H, int W, int C, int d,
-                              int axis, int f32, int act, void* stream) {
+                              void* db, void* part, int B, int H, int W,
+                              int C, int d, int axis, int f32, int act,
+                              int part_floats, void* stream) {
   const int npix = B * H * W;
   auto s = static_cast<cudaStream_t>(stream);
+  ldfold::Partials parts(part, part_floats);
+  ldfold::Partials* pp = f32 ? &parts : nullptr;
 #define LD_BWD(T, CC)                                                       \
   bwd<T, CC>(static_cast<const T*>(x), static_cast<const T*>(dy),           \
              static_cast<const T*>(y), static_cast<const T*>(wT),           \
              static_cast<T*>(dz), static_cast<T*>(dx),                      \
              static_cast<float*>(dk), static_cast<float*>(db), npix, H, W, \
-             d, axis, act, s)
+             d, axis, act, s, pp)
 #define LD_DISPATCH(T)           \
   switch (C) {                   \
     case 16:                     \

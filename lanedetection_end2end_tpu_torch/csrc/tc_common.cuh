@@ -20,6 +20,69 @@
 
 namespace ldtc {
 
+// ---- bulk copies (TMA) on an mbarrier ------------------------------------
+//
+// A 1-D bulk copy moves `bytes` contiguous bytes from global to shared
+// memory through the Tensor Memory Accelerator and reports them to a
+// shared-memory mbarrier (complete_tx). Source and destination 16-byte
+// aligned, bytes a multiple of 16. One thread arms the barrier with the
+// bytes its phase waits for (`mbar_expect`), issues the copies, and every
+// thread that reads the data waits for the phase (`mbar_wait`); a phase
+// that carries no copy completes on the arrival alone (`mbar_arrive`).
+// (These copies are not deferred by the debug build below.)
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a),
+               "r"(count)
+               : "memory");
+}
+
+// the inits visible to the async proxy (then a __syncthreads)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive on `bar` and add `bytes` to the transactions its phase awaits
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of `bar` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(d),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
 #ifndef LD_DEFER_CP_ASYNC
 
 // 16 bytes from global to shared memory, or 16 zero bytes where !valid

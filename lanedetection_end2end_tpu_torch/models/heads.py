@@ -57,7 +57,11 @@ class Classification(nn.Module):
 
     def forward(self, x):
         """x: (B, 128, rows, cols) -> line logits, (B, 4) 'bp' or (B, 3, 4)
-        'bev', or horizon logits (B, resize)."""
+        'bev', or horizon logits (B, resize). x is made contiguous NCHW
+        first (the packed backbone hands over an NHWC plane): there
+        cuDNN's deterministic weight and input gradients, which the train
+        step asks for, are faster than on the NHWC plane (PERF.md §6)."""
+        x = x.contiguous()
         for i in range(1, 5):
             x = getattr(self, f"conv{i}")(x)
             x = F.relu(getattr(self, f"conv{i}_bn")(x))

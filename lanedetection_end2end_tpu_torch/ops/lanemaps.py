@@ -43,8 +43,12 @@ float dtype. The TPU's lane maps, `plan`, `sel`, `red`, `pool` and `btile`
 matrices are lane-packing devices and are not ported.
 
 The moments, the bias and the weight gradients of K8 and of K9's two
-upsamplers are summed with f32 atomicAdd, so their last bits change from
-run to run. K10 and K9's 2x2 head (`lane_maps_op` at k = 2, which takes
+upsamplers are fixed-order sums in both dtypes: each block writes its sums
+to a row of a partials scratch (sized from the kernels' block partitions,
+`downsampler_partials`, `lane_maps_partials`) and a last launch adds the
+rows in a fixed order (`csrc/fold.cuh`, `ops/fold.py`), which writes the
+outputs whole, so they reproduce themselves bit for bit and need no zero
+fill. K10 and K9's 2x2 head (`lane_maps_op` at k = 2, which takes
 no moments) run one backward pass (`csrc/head_quads.cuh`) and sum their
 weight and bias gradients in a fixed order (per tile of `HEAD_BWD_TILE`
 input pixels, then over the tiles), so they reproduce themselves bit for
@@ -62,6 +66,7 @@ from torch.nn.grad import conv2d_weight
 from lanedetection_end2end_tpu_torch.ops._build import (
     check_cuda, kernel, launch, plane_symbol)
 from lanedetection_end2end_tpu_torch.ops.backbone import HEAD_CIN, _nhwc
+from lanedetection_end2end_tpu_torch.ops.fold import cdiv, ew_rows, split_rows
 from lanedetection_end2end_tpu_torch.ops.nb_block import (
     _SUM, _moments, _ptr, _rounder)
 
@@ -318,6 +323,61 @@ def head_part_floats(npix: int, C: int) -> int:
     return (4 * HEAD_CIN + 1) * head_lanes(C) * -(-npix // HEAD_BWD_TILE)
 
 
+# The block partitions of K8 / K9's sums (csrc/downsampler_op.cu,
+# lane_maps_op.cu, conv_s2_mma.cuh, conv_s2.cuh): the rows of their
+# partials. A stride-2 GEMM block takes S2_ROWS small-plane pixels (of one
+# parity phase in K9's forward); the weight gradient's blocks a tap,
+# S2_PER_TAP[(bytes a value, MP, CL)], each take whole chunks of S2_CHUNK
+# small-plane pixels; the elementwise kernels walk their items grid-stride
+# (`fold.ew_rows`).
+S2_ROWS = 64
+S2_CHUNK = 32
+S2_PER_TAP = {(4, 64, 16): 88, (4, 64, 64): 58, (4, 128, 64): 29,
+              (2, 64, 16): 117, (2, 64, 64): 88, (2, 128, 64): 58}
+D1_WGRAD_CHANNELS = 13 * 27  # the first downsampler's weights
+
+
+def s2_wgrad_split(npix: int, itemsize: int, mp: int, cl: int) -> tuple:
+    """(blocks a tap, small-plane pixels a block) of the stride-2 weight
+    gradient over npix small-plane pixels (`launch_s2_wgrad<T, mp, cl>`)."""
+    blocks, cpb = split_rows(cdiv(npix, S2_CHUNK),
+                             S2_PER_TAP[(itemsize, mp, cl)])
+    return blocks, cpb * S2_CHUNK
+
+
+def downsampler_partials(B: int, H: int, W: int, cin: int, cout: int,
+                         itemsize: int, backward: bool) -> int:
+    """Floats of K8's partials at input (B, H, W, cin): forward, the
+    moments (2 cout a block); backward, the bias gradient (cout a dyv
+    block) then the weight gradient (its cc cin 9 weights a block)."""
+    ns, cc = B * (H // 2) * (W // 2), cout - cin
+    if not backward:
+        rows = ew_rows(ns) if cin == 3 else cdiv(ns, S2_ROWS)
+        return rows * 2 * cout
+    dyv = ew_rows(ns * cout) * cout
+    if cin == 3:
+        return dyv + ew_rows(16 * ns) * D1_WGRAD_CHANNELS
+    mp = 64
+    return dyv + s2_wgrad_split(ns, itemsize, mp, cin)[0] * cc * cin * 9
+
+
+def lane_maps_partials(B: int, H: int, W: int, cin: int, cout: int,
+                       itemsize: int, backward: bool) -> int:
+    """Floats of the upsamplers' partials (K9 at k = 3) at input (B, H, W,
+    cin): forward, the moments (2 cout a block of each of the 4 phases);
+    backward, the bias gradient (cout a dyv block) then the weight
+    gradient (cin cout 9 a block)."""
+    n = B * H * W
+    if not backward:
+        return 4 * cdiv(n, S2_ROWS) * 2 * cout
+    dyv = ew_rows(4 * n * cout) * cout
+    return dyv + s2_wgrad_split(n, itemsize, cin, cout)[0] * cin * cout * 9
+
+
+def _partials(floats: int, device):
+    return torch.empty(floats, dtype=F32, device=device), floats
+
+
 def _check_out_dtype(plane: torch.dtype, out: torch.dtype):
     """lane_maps_op writes bf16 or f32 from bf16 planes, f32 from f32."""
     if out not in ((BF16, F32) if plane == BF16 else (F32,)):
@@ -344,10 +404,12 @@ def _downsampler_fwd_cuda(x, weight, bias):
     w, b = _check_weight(weight, bias, cc, cin, 3)
     wt = _taps_first(w, 0, x.dtype)                       # (3, 3, cin, cc)
     y = torch.empty(B, H // 2, W // 2, cout, dtype=x.dtype, device=x.device)
-    mom = torch.zeros(2, cout, dtype=F32, device=x.device)
-    launch(kernel("downsampler_op", symbol, "p" * 5 + "i" * 5 + "p"),
+    part, floats = _partials(downsampler_partials(
+        B, H, W, cin, cout, x.element_size(), False), x.device)
+    mom = torch.empty(2, cout, dtype=F32, device=x.device)  # written whole
+    launch(kernel("downsampler_op", symbol, "p" * 6 + "i" * 6 + "p"),
            x.device, x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
-           mom.data_ptr(), B, H, W, cin, cout)
+           mom.data_ptr(), part.data_ptr(), B, H, W, cin, cout, floats)
     downsampler_op.launches += 1
     return y, mom
 
@@ -369,12 +431,16 @@ def downsampler_bwd_kernel(x, y, dy, dmom, weight, need_dx: bool = True):
     wt = _taps_first(w, 1, x.dtype)                       # (3, 3, cc, cin)
     dz = torch.empty_like(y)
     dx = torch.empty_like(x) if need_dx else None
-    acc = torch.zeros(w.numel() + cout, dtype=F32, device=x.device)
-    dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
-    launch(kernel("downsampler_op", symbol, "p" * 9 + "i" * 5 + "p"),
+    part, floats = _partials(downsampler_partials(
+        B, H, W, cin, cout, x.element_size(), True), x.device)
+    # written whole by the fold
+    dweight = torch.empty_like(w)
+    dbias = torch.empty(cout, dtype=F32, device=x.device)
+    launch(kernel("downsampler_op", symbol, "p" * 10 + "i" * 6 + "p"),
            x.device, x.data_ptr(), y.data_ptr(), dy.data_ptr(),
            dmom.data_ptr(), wt.data_ptr(), dz.data_ptr(), _ptr(dx),
-           dweight.data_ptr(), dbias.data_ptr(), B, H, W, cin, cout)
+           dweight.data_ptr(), dbias.data_ptr(), part.data_ptr(), B, H, W,
+           cin, cout, floats)
     downsampler_op.bwd_launches += 1
     return dx, dweight, dbias[:cc]
 
@@ -393,11 +459,16 @@ def _lane_maps_fwd_cuda(x, weight, bias, k, out_dtype, want_mom):
     # kernel); the upsamplers (k, k, cin, cout) taps in x's dtype
     wt = w if k == 2 else _taps_first(w, 1, x.dtype)
     y = torch.empty(B, 2 * H, 2 * W, cout, dtype=out_dtype, device=x.device)
-    mom = (torch.zeros(2, cout, dtype=F32, device=x.device) if want_mom
-           else None)
-    launch(kernel("lane_maps_op", symbol, "p" * 5 + "i" * 8 + "p"),
+    mom = part = None
+    floats = 0
+    if want_mom:  # written whole by the fold of the blocks' partials
+        mom = torch.empty(2, cout, dtype=F32, device=x.device)
+        part, floats = _partials(lane_maps_partials(
+            B, H, W, cin, cout, x.element_size(), False), x.device)
+    launch(kernel("lane_maps_op", symbol, "p" * 6 + "i" * 9 + "p"),
            x.device, x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
-           _ptr(mom), B, H, W, cin, cout, k, pad, int(out_dtype == F32))
+           _ptr(mom), _ptr(part), B, H, W, cin, cout, k, pad,
+           int(out_dtype == F32), floats)
     lane_maps_op.launches += 1
     return y, mom
 
@@ -421,6 +492,7 @@ def lane_maps_bwd_kernel(x, y, dy, dmom, weight, k: int):
     w = weight.float().contiguous()
     check_cuda(w, F32, (cin, cout, k, k), "weight")
     dx = torch.empty_like(x)
+    part, floats = None, 0
     if k == 2:
         # the head: one pass over x writes dx and per-block partial sums,
         # a second launch adds them in order into dweight and dbias, which
@@ -433,13 +505,16 @@ def lane_maps_bwd_kernel(x, y, dy, dmom, weight, k: int):
     else:
         wt = _taps_first(w, 0, x.dtype)                   # (k, k, cout, cin)
         scratch = torch.empty(dy.shape, dtype=x.dtype, device=x.device)
-        acc = torch.zeros(w.numel() + cout, dtype=F32, device=x.device)
-        dweight, dbias = acc[:w.numel()].view_as(w), acc[w.numel():]
-    launch(kernel("lane_maps_op", symbol, "p" * 9 + "i" * 8 + "p"),
+        part, floats = _partials(lane_maps_partials(
+            B, H, W, cin, cout, x.element_size(), True), x.device)
+        # written whole by the fold of the blocks' partials
+        dweight = torch.empty_like(w)
+        dbias = torch.empty(cout, dtype=F32, device=x.device)
+    launch(kernel("lane_maps_op", symbol, "p" * 10 + "i" * 9 + "p"),
            x.device, x.data_ptr(), _ptr(y if dmom is not None else None),
            dy.data_ptr(), _ptr(dmom), wt.data_ptr(), scratch.data_ptr(),
-           dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), B, H, W, cin,
-           cout, k, pad, int(dy.dtype == F32))
+           dx.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), _ptr(part),
+           B, H, W, cin, cout, k, pad, int(dy.dtype == F32), floats)
     lane_maps_op.bwd_launches += 1
     return dx, dweight, dbias
 

@@ -25,8 +25,13 @@ tensor takes the plain versions below (`half_fwd_plain`, `half_bwd_plain`),
 forward and backward, in any float dtype. The TPU's block-diagonal `kexp`, `sel` and banded W-conv matrices
 are lane-packing devices and are not ported.
 
-The weight and bias gradients of the kernels are summed with f32
-atomicAdd, so their last bits change from run to run.
+In bf16 the kernels sum the moments and the weight and bias gradients
+with f32 atomicAdd, so their last bits change from run to run. In float32
+every block writes its sums to a row of a partials scratch (the wrappers
+size it from the kernels' block partitions: `fwd_partials`,
+`bwd_partials`) and one more launch adds the rows in a fixed order
+(`csrc/fold.cuh`, `ops/fold.py`), so the float32 sums reproduce
+themselves bit for bit and need no zero fill.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 
 from lanedetection_end2end_tpu_torch.ops._build import (
     check_cuda, kernel, launch, plane_symbol)
+from lanedetection_end2end_tpu_torch.ops.fold import cdiv, ew_rows, split_rows
 from lanedetection_end2end_tpu_torch.ops.nb1d import _conv3
 
 _SUM = (0, 1, 2)  # the pixel axes of an NHWC plane
@@ -143,6 +149,52 @@ def nb_half_b_plain(y2, mul, add, kh, bh, kw, bw, d: int):
 # Kernel launches
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# The float32 kernels' block partitions (csrc/conv3tap_f32.cuh,
+# csrc/nb_half_bwd.cu): the rows of their partials
+# ----------------------------------------------------------------------
+
+WG_PER_TAP = {16: 132, 64: 88, 128: 44}  # weight-gradient blocks a tap
+WG_CHUNK = {16: 128, 64: 32, 128: 32}    # its pixels a chunk
+
+
+def conv_rows(C: int, npix: int) -> int:
+    """Blocks of the convolution: tiles of 128 pixels at C = 128, else
+    256."""
+    return cdiv(npix, 128 if C == 128 else 256)
+
+
+def wgrad_split(C: int, npix: int) -> tuple:
+    """(blocks a tap, pixels a block) of the weight gradient: whole chunks
+    of WG_CHUNK[C] pixels over WG_PER_TAP[C] blocks a tap."""
+    blocks, cpb = split_rows(cdiv(npix, WG_CHUNK[C]), WG_PER_TAP[C])
+    return blocks, cpb * WG_CHUNK[C]
+
+
+def dyv_split(C: int, npix: int) -> tuple:
+    """(blocks, pixels a block and round) of the backward's dyv pass: a
+    grid-stride walk, block b taking pixels b * RPI + [0, RPI) of each
+    round of blocks * RPI."""
+    rpi = 256 // (C // 8)
+    return ew_rows(npix, rpi), rpi
+
+
+def fwd_partials(C: int, npix: int) -> int:
+    """Floats of the float32 forward's partials: the moments' 2C a
+    block."""
+    return 2 * C * conv_rows(C, npix)
+
+
+def bwd_partials(C: int, npix: int, half_b: bool) -> int:
+    """Floats of the float32 backward's partials, in the kernels' order:
+    dbw (C a dyv block), dkw (3 C^2 a weight-gradient block), dbh (C a
+    convolution block), dkh, and for half B [dmul; dadd] (2C a
+    convolution block)."""
+    wg = wgrad_split(C, npix)[0] * 3 * C * C
+    return (dyv_split(C, npix)[0] * C + 2 * wg + conv_rows(C, npix) * C
+            * (3 if half_b else 1))
+
+
 def _check_plane(x: torch.Tensor, symbol: str):
     """-> (B, H, W, C, the C entry `symbol` for x's dtype)."""
     B, H, W, C = x.shape
@@ -165,6 +217,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _partials(x: torch.Tensor, floats: int):
+    """(scratch, its floats) of the float32 kernels' partials; (None, 0)
+    for bf16 planes, whose kernels sum with atomics."""
+    if x.dtype != torch.float32:
+        return None, 0
+    return torch.empty(floats, dtype=torch.float32, device=x.device), floats
+
+
 def _half_fwd_cuda(x, mul, add, kh, bh, kw, bw, d: int):
     B, H, W, C, symbol = _check_plane(x, "ld_nb_half_fwd")
     khb, kwb = kh.to(x.dtype).contiguous(), kw.to(x.dtype).contiguous()
@@ -175,11 +235,15 @@ def _half_fwd_cuda(x, mul, add, kh, bh, kw, bw, d: int):
         check_cuda(t, torch.float32, (C,), name)
     ma = _muladd(mul, add, C)
     ymid, yout = torch.empty_like(x), torch.empty_like(x)
-    mom = torch.zeros(2, C, dtype=torch.float32, device=x.device)
-    launch(kernel("nb_half_fwd", symbol, "pppppppppiiiiip"),
+    part, floats = _partials(x, fwd_partials(C, B * H * W))
+    # float32: the fold writes the moments whole; bf16 adds to zeros
+    mom = (torch.empty if part is not None else torch.zeros)(
+        2, C, dtype=torch.float32, device=x.device)
+    launch(kernel("nb_half_fwd", symbol, "p" * 10 + "i" * 6 + "p"),
            x.device, x.data_ptr(), khb.data_ptr(), bhf.data_ptr(),
            kwb.data_ptr(), bwf.data_ptr(), _ptr(ma), ymid.data_ptr(),
-           yout.data_ptr(), mom.data_ptr(), B, H, W, C, d)
+           yout.data_ptr(), mom.data_ptr(), _ptr(part), B, H, W, C, d,
+           floats)
     (nb_half_a if mul is None else nb_half_b).launches += 1
     return yout, ymid, mom
 
@@ -197,18 +261,21 @@ def half_bwd_kernel(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int):
     kwT = _transposed_taps(kw).to(x.dtype).contiguous()
     ma = _muladd(mul, add, C)
     dyv, dmid, dx = (torch.empty_like(x) for _ in range(3))
-    # one zeroed f32 buffer for everything the kernels accumulate into
+    part, floats = _partials(x, bwd_partials(C, B * H * W, ma is not None))
+    # one f32 buffer for every sum: written whole by the fold in float32,
+    # zeroed for the bf16 kernels' atomics
     n_k, f32 = 3 * C * C, torch.float32
-    acc = torch.zeros(2 * n_k + 4 * C, dtype=f32, device=x.device)
+    acc = (torch.empty if part is not None else torch.zeros)(
+        2 * n_k + 4 * C, dtype=f32, device=x.device)
     dkh, dkw = acc[:n_k].view(3, C, C), acc[n_k:2 * n_k].view(3, C, C)
     dbh, dbw = acc[2 * n_k:2 * n_k + C], acc[2 * n_k + C:2 * n_k + 2 * C]
     dma = acc[2 * n_k + 2 * C:].view(2, C) if ma is not None else None
-    launch(kernel("nb_half_bwd", symbol, "p" * 16 + "iiiiip"),
+    launch(kernel("nb_half_bwd", symbol, "p" * 17 + "i" * 6 + "p"),
            x.device, x.data_ptr(), _ptr(ma), ymid.data_ptr(),
            yout.data_ptr(), dyout.data_ptr(), dmom.data_ptr(),
            khT.data_ptr(), kwT.data_ptr(), dyv.data_ptr(), dmid.data_ptr(),
            dx.data_ptr(), dkh.data_ptr(), dbh.data_ptr(), dkw.data_ptr(),
-           dbw.data_ptr(), _ptr(dma), B, H, W, C, d)
+           dbw.data_ptr(), _ptr(dma), _ptr(part), B, H, W, C, d, floats)
     (nb_half_a if mul is None else nb_half_b).bwd_launches += 1
     if dma is None:
         return dx, None, None, dkh, dbh, dkw, dbw

@@ -30,9 +30,12 @@ it (`*_fwd_plain`, differentiable by autograd as it stands, and
 `*_bwd_plain`, the backward kernels' order). A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel (`csrc/packed_conv.cu`,
 `csrc/channel_sums.cu`) or raises. The wrappers count their launches
-(`launches`, and `bwd_launches` for the backward). The weight and bias
-gradients of K11 are summed with f32 atomicAdd, so their last bits change
-from run to run; the channel sums are a fixed-order reduction (per-block
+(`launches`, and `bwd_launches` for the backward). K11's bias gradient,
+and its weight gradient in bf16, are summed with f32 atomicAdd, so their
+last bits change from run to run; its float32 weight gradient is the
+float32 3-tap tiles' fixed-order sum (per-block partials, `bwd_partials`,
+folded in order by `csrc/fold.cuh`), and reproduces itself bit for bit;
+the channel sums are a fixed-order reduction (per-block
 partials over a partition fixed by the shape, then a second launch that
 adds them in order), so they reproduce themselves bit for bit
 (`channel_sums_ordered` states that order in PyTorch). channel_sums'
@@ -49,7 +52,7 @@ from lanedetection_end2end_tpu_torch.ops._build import (
     check_cuda, kernel, launch)
 from lanedetection_end2end_tpu_torch.ops.nb1d import _conv3
 from lanedetection_end2end_tpu_torch.ops.nb_block import (
-    _SUM, _rounder, _transposed_taps, _wgrad3)
+    _SUM, _rounder, _transposed_taps, _wgrad3, wgrad_split)
 
 AXES = {"h": 0, "w": 1}
 PLANE_DTYPES = (torch.bfloat16, torch.float32)
@@ -146,6 +149,12 @@ def _fwd_cuda(x, k, b, axis: str, d: int, act: bool) -> torch.Tensor:
     return y
 
 
+def bwd_partials(C: int, npix: int) -> int:
+    """Floats of the float32 weight gradient's partials (3 C^2 a block of
+    `nb_block.wgrad_split`)."""
+    return wgrad_split(C, npix)[0] * 3 * C * C
+
+
 def packed_conv_bwd_kernel(x, y, dy, k, axis: str, d: int, act: bool,
                            bias: bool = True):
     """Launch the backward kernels on CUDA tensors -> (dx, dk, db), db None
@@ -158,16 +167,22 @@ def packed_conv_bwd_kernel(x, y, dy, k, axis: str, d: int, act: bool,
     kT = _cast_taps(_transposed_taps(k), x.dtype, C)
     dz = torch.empty_like(x) if act else None
     dx = torch.empty_like(x)
-    # one zeroed f32 buffer for everything the kernels accumulate into
-    acc = torch.zeros(3 * C * C + C, dtype=torch.float32, device=x.device)
-    dk = acc[:3 * C * C].view(3, C, C)
-    db = acc[3 * C * C:] if bias else None
+    # db (atomics) zeroed; dk zeroed for the bf16 tile's atomics, written
+    # whole by the fold of the float32 tile's partials
+    f32 = x.dtype == torch.float32
+    floats = bwd_partials(C, B * H * W) if f32 else 0
+    part = (torch.empty(floats, dtype=torch.float32, device=x.device)
+            if f32 else None)
+    dk = (torch.empty if f32 else torch.zeros)(
+        3, C, C, dtype=torch.float32, device=x.device)
+    db = (torch.zeros(C, dtype=torch.float32, device=x.device) if bias
+          else None)
     launch(kernel("packed_conv", "ld_packed_conv_bwd",
-                  "p" * 8 + "i" * 8 + "p"),
+                  "p" * 9 + "i" * 9 + "p"),
            x.device, x.data_ptr(), dy.data_ptr(), _ptr(y if act else None),
            kT.data_ptr(), _ptr(dz), dx.data_ptr(), dk.data_ptr(), _ptr(db),
-           B, H, W, C, d, AXES[axis], int(x.dtype == torch.float32),
-           int(act))
+           _ptr(part), B, H, W, C, d, AXES[axis], int(f32), int(act),
+           floats)
     (packed_conv_act if bias else packed_conv).bwd_launches += 1
     return dx, dk, db
 

@@ -21,9 +21,22 @@ import torch
 
 from lanedetection_end2end_tpu_torch.ops._build import (
     check_cuda, kernel, launch)
+from lanedetection_end2end_tpu_torch.ops.fold import cdiv
 
 F32 = torch.float32
-CHUNK = 512  # pixels per CTA of the kernel's first pass
+TILE = 128   # pixels a stage of the kernel's ring
+ROWS = 32    # rows (b, c) a CTA
+CTAS = 264   # CTAs of the streaming pass: two per SM of the H100
+
+
+def stream_chunks(B: int, N: int, C: int) -> tuple:
+    """(chunks, tiles a chunk) of the kernel's streaming pass: N in tiles
+    of TILE pixels, split over at most CTAS / groups contiguous chunks
+    (groups of ROWS rows); its partials are (chunks, B*C, K)."""
+    tiles = cdiv(N, TILE)
+    per = max(1, CTAS // cdiv(B * C, ROWS))
+    tpc = cdiv(tiles, min(tiles, per))
+    return cdiv(tiles, tpc), tpc
 
 
 def _as_bnc(w: torch.Tensor) -> torch.Tensor:
@@ -58,11 +71,13 @@ def wls_moments_kernel(w: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
                          f"K={K} lie in 1..32")
     wp = check_cuda(w3, F32, name="w")
     bp = check_cuda(basis, F32, (N, K), "basis")
-    chunks = -(-N // CHUNK)
-    partial = torch.empty(chunks, B * C, K, dtype=F32, device=w.device)
+    chunks, _ = stream_chunks(B, N, C)
+    # the chunks' partial moments, folded in a fixed order by the kernel's
+    # second launch, which writes `out` whole: no zero fill
+    part = torch.empty(chunks, B * C, K, dtype=F32, device=w.device)
     out = torch.empty(B * C, K, dtype=F32, device=w.device)
     launch(kernel("wls_moments", "ld_wls_moments", "ppppiiiiip"), w.device,
-           wp, bp, partial.data_ptr(), out.data_ptr(), B, N, C, K, chunks)
+           wp, bp, part.data_ptr(), out.data_ptr(), B, N, C, K, chunks)
     wls_moments.launches += 1
     return out
 

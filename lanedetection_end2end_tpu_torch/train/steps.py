@@ -56,10 +56,23 @@ class indices; both: `horizon` (B, resize), and `gt` (B, H, W) for skip
 and seg. `generator` is the `torch.Generator` (on the step's device) that
 dropout draws from; None turns dropout off. Each rank of a data-parallel
 step draws from its own (`parallel/mesh.py::rank_seed`).
+
+The float32 e2e step on the fused blocks (the default) reproduces itself
+on the card bit for bit from one state (weights, optimizer state, batch,
+generator): its kernels' sums are fixed-order (`csrc/fold.cuh`), and a
+packed step with fused maps, whose only cuDNN convolutions are the line
+and horizon heads, runs them with `torch.backends.cudnn.deterministic`
+on (`deterministic_cudnn`): with TF32 off, cuDNN's default weight and
+input gradients of the heads sum in an order that changes from run to
+run. The other paths keep cuDNN's default algorithms (with TF32 off its
+deterministic ones for the stride-2 blocks of `fused_maps=False` cost
+11 ms a float32 step on an H100), and the bf16 half blocks and K11's
+bias gradient still sum with atomics.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
@@ -135,6 +148,18 @@ def resolve_packed(lanenet, cfg: LaneConfig, phase: str) -> bool:
             "packed_train unset or set it False to train e2e on "
             "LaneNet.forward")
     return supported
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms within the block (forward and
+    backward of a step), the flag restored after it."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 def _shares(counts: torch.Tensor, group) -> torch.Tensor:
@@ -362,11 +387,16 @@ def make_train_step(lanenet, cfg: LaneConfig,
     if state is None:
         state = TrainState(lanenet, optimizer)
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    maps = fused_blocks if fused_maps is None else fused_maps
+    algorithms = (deterministic_cudnn
+                  if resolve_packed(lanenet, cfg, phase) and maps
+                  else contextlib.nullcontext)
 
     def step(batch, generator: Optional[torch.Generator] = None):
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics, _ = loss_fn(_to_device(batch, device), generator)
-        loss.backward()
+        with algorithms():
+            loss, metrics, _ = loss_fn(_to_device(batch, device), generator)
+            loss.backward()
         # a parameter the phase does not reach (the heads in skip and seg,
         # the head the phase does not read) takes a zero gradient for the
         # update, as it does in JAX, so its moments and step count move

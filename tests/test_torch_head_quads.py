@@ -204,11 +204,14 @@ def test_head_wrappers_ask_for_one_pass(stubs, dtype, C):
         ("lane_maps_op", "ld_lane_maps_op_fwd" + SUFFIX[dtype]),
         ("lane_maps_op", "ld_lane_maps_op_bwd" + SUFFIX[dtype])]
     fwd, bwd = (args for _, _, args in stubs.calls)
-    # forward: x, the parameter as it lies, bias, y, no moments
-    assert fwd[4] is None and fwd[-5:] == (CIN, C, 2, 0, 1)
-    # backward: no y, no moment cotangent, the partial sums' scratch
-    assert bwd[1] is None and bwd[3] is None
-    assert bwd[-8:] == (B, H, W, CIN, C, 2, 0, 1)
+    # forward: x, the parameter as it lies, bias, y, no moments (and no
+    # moments' partials)
+    assert fwd[4] is None and fwd[5] is None
+    assert fwd[-6:] == (CIN, C, 2, 0, 1, 0)
+    # backward: no y, no moment cotangent, the partial sums' scratch, no
+    # partials of the upsamplers' fold
+    assert bwd[1] is None and bwd[3] is None and bwd[9] is None
+    assert bwd[-9:] == (B, H, W, CIN, C, 2, 0, 1, 0)
     assert stubs.zeroed == []  # no dp plane above, and no zero fill
     assert mom is None and y.shape == (B, 2 * H, 2 * W, C) and y.dtype == F32
     assert dx.shape == x.shape and dx.dtype == dtype
