@@ -45,9 +45,9 @@ a card. In order:
    bytes, blocks an SM, any local memory failing; then one whole
    NB1D block per (C, d) and every downsampler and upsampler block
    forward and backward through autograd (bf16), on the kernels and on
-   their plain versions; every output of the float32 half blocks and of
-   K8 / K9 in both dtypes (y, dx and the fixed-order sums: moments, dk,
-   db, dmul, dadd, dweight, dbias) bit for bit against a second launch;
+   their plain versions; every output of the half blocks and of K8 / K9
+   in both dtypes (y, dx and the fixed-order sums: moments, dk, db, dmul,
+   dadd, dweight, dbias) bit for bit against a second launch;
 2d. K11 and `channel_sums` in bf16 and in float32: `packed_conv_act`
    forward and backward (dx, dk, db) and `packed_conv` forward, dx and dW
    at every (plane, d, axis) of the unfused 256x512 train step at batch 8
@@ -60,8 +60,9 @@ a card. In order:
    the relu mask, on channels_last operands of the same dtype, TF32 off;
    `channel_sums`: `torch.var_mean(x.float(), dim=(0, 1, 2))`), the
    kernels and their library calls in card time (`card_ms`), the plain
-   versions in CUDA events; `channel_sums` also bit for bit a second
-   launch, and its error against a float64 sum printed;
+   versions in CUDA events; every output of K11 (y, dx, dk, db; y, dx,
+   dW) and of `channel_sums` also bit for bit a second launch, and the
+   sums' error against a float64 sum printed;
 2c. the kernels of the blocks-mode engine: `nb1d_chain` at its four
    256x512 chains and the resize-64 d = 16 edge against its plain version
    and, bit for bit, against K1 launched block by block (its input left
@@ -146,12 +147,17 @@ a card. In order:
    finite loss and gradients, parameters moved; then, counted anew, one
    step with `fused_maps=False` (17 / 17 / 17 / 17 and 5 of
    channel_sums), which keeps that path driven;
-4r. the float32 default step twice from one state (weights, Adam's
-   moments and the BatchNorm statistics after one counted step, the
-   batch, the dropout generator), each with the launch counts set to 0
-   just before: the metrics, every gradient, every updated parameter and
-   every BatchNorm statistic bit for bit equal (the kernels' fixed-order
-   float32 sums; cuDNN's deterministic algorithms in the heads);
+4r. four steps, each twice from one state (weights, Adam's moments and
+   the BatchNorm statistics after one counted step, the batch, the
+   dropout generator), each run with the launch counts set to 0 just
+   before and read just after: the default step in float32 and in bf16,
+   and the unfused step with `fused_maps=True` (K11 for the NB1D blocks,
+   K8-K10 for the rest) in bf16 and in float32; the metrics, every
+   gradient, every updated parameter and every BatchNorm statistic bit
+   for bit equal (the kernels' fixed-order sums in both dtypes; cuDNN's
+   deterministic algorithms in the heads, their only cuDNN convolutions;
+   the paths with `fused_maps=False` keep cuDNN's default gradients for
+   their stride-2 blocks and are not held);
 3e. the BEV profile's engine (phase 3's batches, `bev_defaults`, 2
    lanes, order 2, seeded weights): 1 `encoder_fused` + 1
    `decoder_fused` a call and nothing else, beta held to the f32 LaneNet
@@ -180,7 +186,8 @@ a card. In order:
    tiles issue cp.async, forward and backward, at the 256x512 train
    step's shapes, batch 8 (`nb_half_a` / `nb_half_b` at C = 16, 64, 128
    in float32 and in bf16; `downsampler_op` 16 -> 64, 64 -> 128;
-   `lane_maps_op` 128 -> 64, 64 -> 16; K11 in bf16 at C = 64; K12 at a
+   `lane_maps_op` 128 -> 64, 64 -> 16; K11 in bf16 and in float32 at
+   C = 64; K12 at a
    shape whose tiles arrive by cp.async and at one they reach by TMA), on
    the
    normal build and on `ops/_build.py`'s
@@ -188,7 +195,7 @@ a card. In order:
    in step 1), where a cp.async copy lands only at its group's wait and
    its destination holds NaN until then, so a read of a ring stage before
    its wait shows every time: the outputs must be finite and equal the
-   normal build's bit for bit (the sums of f32 atomics at TOL_REDUCE).
+   normal build's bit for bit, every fixed-order sum included.
    `--defer-only` builds those nine libraries in both builds and runs
    this phase alone (`--tiles-only` runs phases 2b's half blocks and 2d's
    K11 in bf16 alone, the quick check of the bf16 tiles);
@@ -366,8 +373,8 @@ of head_rowsums differ only by f32 summation order: < 1e-4. The engine
 against the f32 LaneNet: the JAX package's own bars (beta max relative
 error < 3e-2, line/horizon rtol = atol = 1e-2). The training kernels'
 f32 reductions (moments, dk, db, dmul, dadd) sum bf16-exact products in
-another order (with atomics in the bf16 half blocks, in a fixed order in
-K8 / K9 and in every float32 kernel), over operands of which a few may
+another order (a fixed order in every kernel, in both dtypes), over
+operands of which a few may
 differ from
 the plain version's by one bf16 step: max|diff| / max|plain| < 2e-3. The
 stride-2 ops have no relu inside and their pool routing is a function of
@@ -375,8 +382,8 @@ the input alone, so the same bars hold for them without exception, planted
 ties included; the row sums S of head_rowsums_op at 1e-4, and S, dx,
 dweight and dbias bit for bit against a second launch (K10 sums its
 gradients in a fixed order, no atomics). In float32 the planes of K6-K10
-(y, dx) are held at TOL_F32 = 1e-4 of max|plain| and their f32 atomic
-sums at TOL_REDUCE, except the weight gradients of K6-K9 and K11 and
+(y, dx) are held at TOL_F32 = 1e-4 of max|plain| and their f32 sums at
+TOL_REDUCE, except the weight gradients of K6-K9 and K11 and
 K10's fixed-order dweight and dbias, held at TOL_F32 too. K10, the first
 downsampler and K9's 2x2 head sum exact f32 products (FFMA) in another
 order than the plain versions. K6-K9 and K11 multiply on the
@@ -398,8 +405,9 @@ same values: bf16 planes (y, dx) at TOL_BF16, f32 planes (packed_conv's y
 in both dtypes, every float32 y and dx) and the float32 weight gradients
 at TOL_F32 = 1e-4 of max|plain| (the 3xTF32 products keep f32 accuracy;
 one TF32 product would miss that bar), the bias gradients and the bf16
-weight gradients, summed with f32 atomics over up to 262,144 pixels, at
-TOL_REDUCE; `channel_sums` at TOL_REDUCE in bf16 and TOL_F32 in float32,
+weight gradients, f32 sums over up to 262,144 pixels, at TOL_REDUCE;
+every K11 output in both dtypes bit for bit against a second launch (its
+sums fixed-order); `channel_sums` at TOL_REDUCE in bf16 and TOL_F32 in float32,
 and bit for bit against a second launch (a fixed-order reduction, no
 atomics). K9's 2x2 head keeps the bars it had (bf16 dx at TOL_BF16, its
 f32 logits and sums at TOL_REDUCE in bf16, everything but dbias at
@@ -427,15 +435,17 @@ the seeded weights as drawn: loss within 1e-2 relative, and for the four
 leaves of the heads' last linear layers, which see the encoder's features
 directly, gradient cosine > 0.98 and norm ratio in 0.9-1.1. No tighter bar
 holds on these weights. In bf16, through 40 train-mode BatchNorms on
-random weights, the step is so sensitive that the kernel step does not
-reproduce itself from run to run (its f32 atomics change last bits, a few
-bf16 roundings flip downstream): measured on an H100, its loss moves by
-1e-3 and those leaves by up to 0.005 in cosine and 0.025 in norm between
-runs; the decoder's output convolution, whose gradient is the residue of
+random weights, the step is so sensitive that a change in the last bits
+of a sum flips a few bf16 roundings downstream: measured on an H100 while
+the bf16 kernels summed with f32 atomics, the kernel step's loss moved by
+1e-3 between runs and those leaves by up to 0.005 in cosine and 0.025 in
+norm; the decoder's output convolution, whose gradient is the residue of
 a cancelling sum over every pixel through the cubic fit, reads cosine
 0.87-0.88 against the plain step; and the whole gradient reads 0.24, as it
-does for the kernel step against its own rerun (0.28) and for the plain
-step when one input pixel changes by 1/255 (0.28). So for the whole
+did for the kernel step against its own rerun then (0.28) and does for
+the plain step when one input pixel changes by 1/255 (0.28). Its sums
+are fixed-order now, and the step reproduces itself bit for bit (phase
+4r). So for the whole
 gradient the script damps the residual branches (every NB1D block's
 second BatchNorm scale times BN2_DAMP), which tames that sensitivity,
 measures the plain step's own cosine under that one-pixel change as the
@@ -450,7 +460,7 @@ smaller steps: on the seeded weights as drawn its loss agrees with the
 plain step's to 1e-6, but f32 summation order alone moves the whole
 gradient off by 1e-3 in cosine (measured on an H100: the kernel step
 against the plain step 0.99949 and 0.99875 in two runs, against its own
-rerun, whose f32 atomics add in another order, 0.99818). So on those
+rerun 0.99818 while its sums were f32 atomics). So on those
 weights the loss is held within 2e-3 relative, the whole-gradient cosine
 at 0.995 and the norm ratio within 1e-2 of 1; with the residual branches
 damped as above, where the same rounding can no longer grow, the cosine is
@@ -1007,7 +1017,7 @@ def time_and_record(label, s, per_step, verdict, fwd, pfwd, bwd, pbwd, work,
 def plane_tols(dt):
     """The extra `hold` argument of a plane of dtype `dt`: none in bf16
     (TOL_BF16 by its dtype), TOL_F32 in float32 (an f32 result is
-    otherwise held at TOL_REDUCE, the bar of atomic sums)."""
+    otherwise held at TOL_REDUCE, the bar of f32 sums)."""
     return (TOL_F32,) if dt == torch.float32 else ()
 
 
@@ -1103,15 +1113,15 @@ def check_training_kernels(dev, g, dt):
                        + [(n, a, b, *(pt if n.startswith("dk") else ()))
                           for n, a, b in zip(names[1:], grads[1:],
                                              pgrads[1:])], s, failures)
+        # the sums are fixed-order: a second launch of each direction
+        # gives every output bit for bit
+        with torch.no_grad():
+            y2, mom2 = call()
+            grads2 = [t for t in nb.half_bwd_kernel(*bwd_args)
+                      if t is not None]
+        bitwise(label, [("y", y, y2), ("mom", mom, mom2)]
+                + list(zip(names, grads, grads2)), failures)
         if dt == torch.float32:
-            # the float32 sums are fixed-order: a second launch of each
-            # direction gives every output bit for bit
-            with torch.no_grad():
-                y2, mom2 = call()
-                grads2 = [t for t in nb.half_bwd_kernel(*bwd_args)
-                          if t is not None]
-            bitwise(label, [("y", y, y2), ("mom", mom, mom2)]
-                    + list(zip(names, grads, grads2)), failures)
             with torch.no_grad():
                 cy = nb.half_fwd_plain(x, mul, add, kh, bh, kw, bw, d,
                                        conv=conv3_tf32)[0]
@@ -1781,6 +1791,16 @@ def check_k11(dev, g, dtypes=DTYPE_NAMES):
                 pgrads = pc.packed_conv_act_bwd_plain(*args)
                 pcgrads = pc.packed_conv_bwd_plain(x, dyc, k, axis, d)
             label = f"{dname} {shape} d={d} axis={axis}"
+            # the sums are fixed-order: a second launch of each gives
+            # every output bit for bit
+            with torch.no_grad():
+                again = (pc.packed_conv_act(x, k, b, axis, d, act),
+                         *pc.packed_conv_bwd_kernel(*args),
+                         pc.packed_conv(x, k, axis, d),
+                         *pc.packed_conv_bwd_kernel(*cargs, bias=False)[:2])
+            bitwise(f"K11 {label}", list(zip(
+                ("y", "dx", "dk", "db", "y_plain", "dx_plain", "dW"),
+                (y, *grads, yc, *cgrads), again)), failures)
             if dt == torch.float32:
                 with torch.no_grad():
                     tf32_control(f"K11 {label}", [
@@ -2752,10 +2772,6 @@ def race_check():
 DEFER_SOURCES = ("encoder_fused", "decoder_fused", "nb1d_chain",
                  "nb_half_fwd", "nb_half_bwd", "downsampler_op",
                  "lane_maps_op", "packed_conv", "wls_moments")
-# outputs summed with f32 atomics, in an order that changes from run to
-# run: held at TOL_REDUCE of max|normal|; every other output bit for bit
-DEFER_SUMS = ("mom", "dmul", "dadd", "dkh", "dbh", "dkw", "dbw", "dweight",
-              "dbias", "dk", "db", "dk_plain")
 
 
 def defer_calls(dev):
@@ -2768,9 +2784,9 @@ def defer_calls(dev):
     tiles), `downsampler_op` 16 -> 64 and 64 -> 128, `lane_maps_op`
     128 -> 64 and 64 -> 16 in float32 (the shapes whose tiles issue
     cp.async; the first downsampler and the head run on FFMA), and K11 in
-    bf16 on the 64-channel plane (`packed_conv_act` as a 3x1 convolution
-    with relu, `packed_conv` as a 1x3 one: the tiles' bias, bias + relu
-    and f32-output epilogues), and K12 on a shape whose tiles arrive by
+    bf16 and in float32 on the 64-channel plane (`packed_conv_act` as a
+    3x1 convolution with relu, `packed_conv` as a 1x3 one: the tiles'
+    bias, bias + relu and f32-output epilogues), and K12 on a shape whose tiles arrive by
     cp.async and on one they reach by TMA. Every input is made once, here;
     a backward reads the stashes of the plain forward."""
     from lanedetection_end2end_tpu_torch.config import train_sh_config
@@ -2825,20 +2841,22 @@ def defer_calls(dev):
         calls[f"nb_half_{half} {DTYPE_NAMES[dt]} {(B, h, w, C)} d={d}"] = (
             half_call)
 
-    xk = rn(B, H // 4, W // 4, 64).to(torch.bfloat16)
-    k, bk = rn(3, 64, 64) / 192 ** 0.5, 0.1 * rn(64)
-    yk = pc.packed_conv_act_fwd_plain(xk, k, bk, "h", 1, True)
-    act_args = (xk, yk, rn(*xk.shape).to(xk.dtype), k, "h", 1, True)
-    plain_args = (xk, None, rn(*xk.shape).to(xk.dtype), k, "w", 1, False)
+    for dt in (torch.bfloat16, torch.float32):
+        xk = rn(B, H // 4, W // 4, 64).to(dt)
+        k, bk = rn(3, 64, 64) / 192 ** 0.5, 0.1 * rn(64)
+        yk = pc.packed_conv_act_fwd_plain(xk, k, bk, "h", 1, True)
+        act_args = (xk, yk, rn(*xk.shape).to(dt), k, "h", 1, True)
+        plain_args = (xk, None, rn(*xk.shape).to(dt), k, "w", 1, False)
 
-    def k11_call():
-        dx, dk, db = pc.packed_conv_bwd_kernel(*act_args)
-        cdx, cdk, _ = pc.packed_conv_bwd_kernel(*plain_args, bias=False)
-        return {"y": pc.packed_conv_act(xk, k, bk, "h", 1, True),
-                "dx": dx, "dk": dk, "db": db,
-                "y_plain": pc.packed_conv(xk, k, "w", 1),
-                "dx_plain": cdx, "dk_plain": cdk}
-    calls[f"K11 bfloat16 {tuple(xk.shape)} d=1"] = k11_call
+        def k11_call(xk=xk, k=k, bk=bk, act_args=act_args,
+                     plain_args=plain_args):
+            dx, dk, db = pc.packed_conv_bwd_kernel(*act_args)
+            cdx, cdk, _ = pc.packed_conv_bwd_kernel(*plain_args, bias=False)
+            return {"y": pc.packed_conv_act(xk, k, bk, "h", 1, True),
+                    "dx": dx, "dk": dk, "db": db,
+                    "y_plain": pc.packed_conv(xk, k, "w", 1),
+                    "dx_plain": cdx, "dk_plain": cdk}
+        calls[f"K11 {DTYPE_NAMES[dt]} {tuple(xk.shape)} d=1"] = k11_call
 
     for (h, w, cin), cout in (((H // 2, W // 2, 16), 64),
                               ((H // 4, W // 4, 64), 128)):
@@ -2885,9 +2903,8 @@ def defer_check(dev):
     cp.async copy lands only at its group's wait and its destination holds
     NaN until then (`csrc/tc_common.cuh`). A read of a ring stage before
     its wait so reads NaN every time. Every output must be finite and equal
-    the normal build's bit for bit; the outputs summed with f32 atomics
-    (DEFER_SUMS), whose order changes from run to run, at TOL_REDUCE of
-    max|normal|. Returns ({call: verdict}, failures)."""
+    the normal build's bit for bit: every sum is fixed-order. Returns
+    ({call: verdict}, failures)."""
     from lanedetection_end2end_tpu_torch.ops import _build
     calls = defer_calls(dev)
 
@@ -2909,15 +2926,10 @@ def defer_check(dev):
             got = deferred[label][name]
             n += 1
             finite = bool(torch.isfinite(got.float()).all().item())
-            if name in DEFER_SUMS:
-                rel = rel_err(got, want)[1]
-                ok = finite and rel <= TOL_REDUCE
-                said = f"{rel:.2e} of max|normal| (tol {TOL_REDUCE:g})"
-            else:
-                ok = finite and torch.equal(got, want)
-                said = ("bit for bit" if torch.equal(got, want) else
-                        f"differs, max|diff| "
-                        f"{(got.float() - want.float()).abs().max().item():.3e}")
+            ok = finite and torch.equal(got, want)
+            said = ("bit for bit" if torch.equal(got, want) else
+                    f"differs, max|diff| "
+                    f"{(got.float() - want.float()).abs().max().item():.3e}")
             print(f"deferred copies {label} {name}{tuple(got.shape)}: "
                   f"finite {finite}, {said} against the normal build "
                   f"{'ok' if ok else 'FAIL'}")
@@ -4390,22 +4402,27 @@ def train_phase(dev, sd0, dtype, profile=False):
     return counts
 
 
-def repro_phase(dev, sd0):
-    """Phase 4r: the float32 default e2e step, twice from one state. One
-    counted step from the seeded weights moves them, Adam's moments and
-    the BatchNorm statistics off their starting values; that state (the
-    model's, the optimizer's, the batch and the dropout generator's) is
-    kept, and two steps are taken from it, each with the launch counts
-    set to 0 just before and read just after. Their metrics (the loss and
-    its parts), every gradient, every updated parameter and every
-    BatchNorm statistic must be bit for bit equal: the kernels' sums are
-    fixed-order in float32 (csrc/fold.cuh) and cuDNN's heads run their
-    deterministic algorithms (`train/steps.py::deterministic_cudnn`).
-    Returns (summary, failures)."""
+# the steps of phase 4r: (dtype, fused_blocks, fused_maps, the path's
+# launch counts), each taken twice from one state
+REPRO_STEPS = (("float32", True, None, "fused"),
+               ("bfloat16", True, None, "fused"),
+               ("bfloat16", False, True, "unfused maps on"),
+               ("float32", False, True, "unfused maps on"))
+
+
+def repro_step(dev, sd0, dtype, fused_blocks, fused_maps, path):
+    """One step of phase 4r, twice from one state. One counted step from
+    the seeded weights moves them, Adam's moments and the BatchNorm
+    statistics off their starting values; that state (the model's, the
+    optimizer's, the batch and the dropout generator's) is kept, and two
+    steps are taken from it, each with the launch counts set to 0 just
+    before and read just after. Their metrics (the loss and its parts),
+    every gradient, every updated parameter and every BatchNorm statistic
+    must be bit for bit equal. Returns (summary, failures)."""
     import copy
-    tr = Trainer(dev, sd0, "float32", fused_blocks=True)
+    tr = Trainer(dev, sd0, dtype, fused_blocks=fused_blocks)
     wrappers = train_wrappers()
-    step = tr.fresh_step()
+    step = tr.fresh_step(fused_maps=fused_maps)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     tr.one_step(step, gen)
     model, opt = step.state.model, step.state.optimizer
@@ -4426,29 +4443,48 @@ def repro_phase(dev, sd0):
                      {k: v.detach().clone()
                       for k, v in model.state_dict().items()}, counts, ms))
     (m1, g1, s1, c1, ms1), (m2, g2, s2, c2, ms2) = runs
+    label = (f"{dtype} {'default' if fused_blocks else 'unfused'} step"
+             + (f", fused_maps={fused_maps}" if fused_maps is not None
+                else ""))
     failures = []
-    want = {n: PER_STEP["fused"][n] for n in c1}
+    want = {n: PER_STEP[path][n] for n in c1}
     if c1 != want or c2 != want:
-        failures.append(f"launches {c1} / {c2}, expected {want}")
+        failures.append(f"{label}: launches {c1} / {c2}, expected {want}")
     metrics_equal = m1 == m2
     grads_differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
     state_differ = [k for k in s1 if not torch.equal(s1[k], s2[k])]
     ok = metrics_equal and not grads_differ and not state_differ
-    print(f"reproducibility, float32 default step twice from one state: "
-          f"metrics {m1} / {m2} ({'equal' if metrics_equal else 'DIFFER'});"
-          f" {len(g1) - len(grads_differ)} of {len(g1)} gradients and "
+    print(f"reproducibility, {label} twice from one state: metrics {m1} / "
+          f"{m2} ({'equal' if metrics_equal else 'DIFFER'}); "
+          f"{len(g1) - len(grads_differ)} of {len(g1)} gradients and "
           f"{len(s1) - len(state_differ)} of {len(s1)} updated parameters "
           f"and BatchNorm statistics bit for bit equal; launches a step "
-          f"{c1}; {ms1:.3f} / {ms2:.3f} ms: {'ok' if ok else 'FAIL'}")
+          f"{ {n: v for n, v in c1.items() if v[0]} }; {ms1:.3f} / "
+          f"{ms2:.3f} ms: {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append(f"the float32 step does not reproduce itself: "
-                        f"metrics equal {metrics_equal}, gradients differ "
+        failures.append(f"the {label} does not reproduce itself: metrics "
+                        f"equal {metrics_equal}, gradients differ "
                         f"{grads_differ[:6]}, state differs "
                         f"{state_differ[:6]}")
     return {"loss": m1["loss"], "metrics_equal": metrics_equal,
             "gradients_equal": len(g1) - len(grads_differ),
             "gradients": len(g1), "state_equal": len(s1) - len(state_differ),
             "state": len(s1)}, failures
+
+
+def repro_phase(dev, sd0):
+    """Phase 4r: each step of REPRO_STEPS twice from one state, bit for bit
+    (`repro_step`): the kernels' sums are fixed-order in both dtypes
+    (csrc/fold.cuh) and cuDNN's heads, the only cuDNN convolutions of the
+    paths with fused maps, run their deterministic algorithms
+    (`train/steps.py::deterministic_cudnn`). Returns ({step: summary},
+    failures)."""
+    summary, failures = {}, []
+    for dtype, fused_blocks, fused_maps, path in REPRO_STEPS:
+        s, f = repro_step(dev, sd0, dtype, fused_blocks, fused_maps, path)
+        summary[f"{dtype} {path}"] = s
+        failures += f
+    return summary, failures
 
 
 def bev_train_phase(dev, profile=False):
@@ -5655,7 +5691,8 @@ def main() -> int:
     sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     fused_launches = {dtype: train_phase(dev, sd0, dtype, profile=profile)
                       for dtype in DTYPE_NAMES.values()}
-    # 4r. the float32 default step twice from one state, bit for bit
+    # 4r. the default step in both dtypes and the unfused step with fused
+    # maps in both, each twice from one state, bit for bit
     reproducibility, failures = repro_phase(dev, sd0)
     if failures:
         fail("reproducibility: " + "; ".join(failures))

@@ -60,8 +60,16 @@
 //    wgmma;
 //  - the epilogues in registers from wgmma's accumulator layout, with the
 //    rounding points of the plain version; per-channel sums kept per
-//    thread across the block's tiles, folded by shuffles, then in shared
-//    memory, then one atomicAdd per block and channel.
+//    thread across the block's tiles, folded by shuffles, then in warp
+//    order in shared memory, then written to the block's row of a
+//    partials buffer, which fold.cuh's fixed-order fold adds up after the
+//    entry point's last launch: no atomics, so the sums reproduce
+//    themselves bit for bit;
+//  - a launch takes one wave of the H100 (132 SMs at one block an SM),
+//    fewer blocks when the plane has fewer tiles: a constant of the
+//    shape, never read from the card, so that the sums' partition (which
+//    block takes which tile) is the same on every card; a card that holds
+//    fewer blocks at once runs the launch in more waves.
 // Each C in {16, 64, 128} has one fixed tile (ConvTile). Any d >= 1 (also
 // d >= H or W, where the shifted taps read only zeros) and any pixel count;
 // there is no other path, and a launch the card refuses returns its error.
@@ -72,6 +80,7 @@
 
 #include <stdint.h>
 
+#include "fold.cuh"
 #include "tc_common.cuh"
 
 namespace ldconv {
@@ -90,6 +99,13 @@ enum Epilogue {
                   // v = acc * (x*mul+add > 0); sums += [v*x, v];
                   // out = bf16(v * mul)
 };
+
+// rows of sums an epilogue keeps: [sum] or [sum; second sum]
+__host__ __device__ constexpr int sums_of(int EPI) {
+  return EPI == EPI_MASK_SUM ? 1
+         : EPI == EPI_BIAS_MOM || EPI == EPI_PRO_BWD ? 2
+                                                      : 0;
+}
 
 // x * mul + add with the product rounded before the sum, never contracted
 // into one fused multiply-add: the forward prologue, its recomputation in
@@ -387,9 +403,10 @@ struct TileGeo {
 // so that device memory sees 16-byte accesses of whole runs of the tile's
 // pixels.
 // One block an SM: C = 128 two warpgroups, 208,896 bytes; C = 64 four,
-// 209,408; C = 16 four, 173,184.
+// 209,408; C = 16 four, 173,184. A launch: at most WAVE blocks.
 template <int C>
 struct ConvTile {
+  static constexpr int WAVE = 132;              // the H100's SMs
   static constexpr int NWG = C == 128 ? 2 : 4;  // warpgroups a block
   static constexpr int THREADS = NWG * 128;
   static constexpr int MT = C == 16 ? 2 : 1;    // m64 tiles a tile
@@ -413,8 +430,9 @@ struct ConvTile {
   static_assert(SMEM <= 232448, "shared memory of a block");
 };
 
-// Arguments as the kernel below; `sums` is (2, C) f32 (one row used by
-// EPI_MASK_SUM) and must be zero before the launch.
+// Arguments as the kernel below; `part` is the partials of the sums
+// epilogues, sums_of(EPI) x C floats a block (row blockIdx.x: the block's
+// sums over its tiles), null for the others.
 template <int C, int EPI, typename TO>
 __global__ void __launch_bounds__(ConvTile<C>::THREADS, 1)
     conv3tap_kernel(const bf16* __restrict__ in, const bf16* __restrict__ w,
@@ -422,7 +440,7 @@ __global__ void __launch_bounds__(ConvTile<C>::THREADS, 1)
                     const float* __restrict__ padd,
                     const float* __restrict__ vec,
                     const bf16* __restrict__ aux, TO* __restrict__ out,
-                    float* __restrict__ sums, int npix,
+                    float* __restrict__ part, int npix,
                     TileGeo<ConvTile<C>::BM> geo) {
   using T = ConvTile<C>;
   constexpr bool kVec = EPI != EPI_PLAIN && EPI != EPI_MASK_SUM;
@@ -631,9 +649,10 @@ __global__ void __launch_bounds__(ConvTile<C>::THREADS, 1)
     }
   }
 
-  if (EPI == EPI_BIAS_MOM || EPI == EPI_MASK_SUM || EPI == EPI_PRO_BWD) {
+  if (sums_of(EPI) > 0) {
     // lanes with equal tg hold the same channels: fold them onto lanes
-    // 0..3 (tg = lane there), then sum the 8 warps' rows in shared memory
+    // 0..3 (tg = lane there), then sum the warps' rows in shared memory in
+    // warp order, into the block's row of the partials
     float red[C / 2];
 #pragma unroll
     for (int j = 0; j < C / 8; ++j)
@@ -663,33 +682,20 @@ __global__ void __launch_bounds__(ConvTile<C>::THREADS, 1)
         a0 += sRed[k * 2 * C + threadIdx.x];
         a1 += sRed[k * 2 * C + C + threadIdx.x];
       }
-      atomicAdd(sums + threadIdx.x, a0);
-      if (EPI != EPI_MASK_SUM) atomicAdd(sums + C + threadIdx.x, a1);
+      float* row = part + (size_t)blockIdx.x * sums_of(EPI) * C;
+      row[threadIdx.x] = a0;
+      if (sums_of(EPI) == 2) row[C + threadIdx.x] = a1;
     }
   }
 }
 
 // ---- launches ---------------------------------------------------------
 
-// Allow `kern` `smem` bytes of dynamic shared memory and, where *slots is
-// still 0, set it to the blocks of `kern` the card holds at once (resident
-// on one SM times the SMs).
+// Allow `kern` `smem` bytes of dynamic shared memory.
 template <typename K>
-static inline int tile_slots(K kern, int threads, int smem, int* slots) {
-  cudaError_t e = cudaFuncSetAttribute(
+static inline int tile_smem(K kern, int smem) {
+  return (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess || *slots > 0) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                      smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  *slots = per_sm * sms;
-  return 0;
 }
 
 // What the card makes of a tile kernel, for a report: info[0..3] =
@@ -720,24 +726,39 @@ int conv_info(int* info) {
                    ConvTile<C>::SMEM, info);
 }
 
+// the blocks of a convolution over npix pixels of (H, W) images: a
+// warpgroup a tile at most, at most one wave (ops/nb_block.py counts the
+// same, the rows of its sums' partials)
+template <int C>
+int conv_grid(int npix, const TileGeo<ConvTile<C>::BM>& geo, int H, int W) {
+  using T = ConvTile<C>;
+  const int groups =
+      (npix / (H * W) * geo.frb.d * geo.fcb.d + T::NWG - 1) / T::NWG;
+  return groups < T::WAVE ? groups : T::WAVE;
+}
+
+// `sums` ((sums_of(EPI), C) f32) is written whole by the fold of `pp`,
+// which takes the blocks' partials here; pp may be null for an epilogue
+// without sums
 template <int C, int EPI, typename TO>
 int launch_conv(const bf16* in, const bf16* w, const float* pmul,
                 const float* padd, const float* vec, const bf16* aux,
                 TO* out, float* sums, int npix, int H, int W, int d,
-                int axis, cudaStream_t stream) {
+                int axis, cudaStream_t stream, ldfold::Partials* pp) {
   using T = ConvTile<C>;
   auto kern = conv3tap_kernel<C, EPI, TO>;
-  static int slots = 0;  // a wave of persistent blocks
-  const int rc = tile_slots(kern, T::THREADS, T::SMEM, &slots);
+  const int rc = tile_smem(kern, T::SMEM);
   if (rc) return rc;
-  if (npix == 0) return 0;
-  // a warpgroup a tile at most
+  if (npix == 0) return sums_of(EPI) > 0 ? (int)cudaErrorInvalidValue : 0;
   const TileGeo<T::BM> geo(H, W, d, axis);
-  const int groups =
-      (npix / (H * W) * geo.frb.d * geo.fcb.d + T::NWG - 1) / T::NWG;
-  const int grid = groups < slots ? groups : slots;
+  const int grid = conv_grid<C>(npix, geo, H, W);
+  float* part = nullptr;
+  if (sums_of(EPI) > 0) {
+    part = pp ? pp->take(grid, sums_of(EPI) * C, sums) : nullptr;
+    if (part == nullptr) return (int)cudaErrorInvalidValue;
+  }
   kern<<<grid, T::THREADS, T::SMEM, stream>>>(in, w, pmul, padd, vec, aux,
-                                              out, sums, npix, geo);
+                                              out, part, npix, geo);
   return (int)cudaGetLastError();
 }
 

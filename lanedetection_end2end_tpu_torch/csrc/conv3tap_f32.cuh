@@ -104,6 +104,7 @@ using ldconv::EPI_BIAS_RELU;
 using ldconv::EPI_MASK_SUM;
 using ldconv::EPI_PLAIN;
 using ldconv::EPI_PRO_BWD;
+using ldconv::sums_of;
 using ldtc::cp_async16;
 using ldtc::cp_async4;
 using ldtc::cp_async_commit;
@@ -310,13 +311,6 @@ struct ConvTile {
 // conv3tap.cuh's conv3tap_kernel, in f32 throughout: nothing is rounded
 // to bf16. `part` is the partials of the sums epilogues, SUMS(EPI) x C
 // floats a block (the block's row).
-// rows of sums an epilogue keeps: [sum] or [sum; second sum]
-__host__ __device__ constexpr int sums_of(int EPI) {
-  return EPI == EPI_MASK_SUM ? 1
-         : EPI == EPI_BIAS_MOM || EPI == EPI_PRO_BWD ? 2
-                                                      : 0;
-}
-
 template <int C, int EPI>
 __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
     conv3tap_f32_kernel(const float* __restrict__ in,
@@ -936,11 +930,10 @@ int launch_wgrad_f32(const float* in, const float* pmul, const float* padd,
 
 namespace ldconv {
 
-// conv3tap.cuh's launch_conv and wgrad3tap.cuh's launch_wgrad with the
-// partials of the float32 tiles as a last argument, so that a caller
-// templated on the plane type calls them alike: the float32 overloads sum
-// through `pp` (folded by the caller's pp->fold), the bf16 ones ignore it
-// and sum into `sums` / `dk` with f32 atomics (zero before the call).
+// conv3tap.cuh's launch_conv and wgrad3tap.cuh's launch_wgrad on float32
+// planes, so that a caller templated on the plane type calls them alike:
+// both dtypes sum through the partials of `pp`, folded by the caller's
+// pp->fold.
 template <int C, int EPI>
 int launch_conv(const float* in, const float* w, const float* pmul,
                 const float* padd, const float* vec, const float* aux,
@@ -951,29 +944,12 @@ int launch_conv(const float* in, const float* w, const float* pmul,
                                            pp);
 }
 
-template <int C, int EPI, typename TO>
-int launch_conv(const bf16* in, const bf16* w, const float* pmul,
-                const float* padd, const float* vec, const bf16* aux,
-                TO* out, float* sums, int npix, int H, int W, int d,
-                int axis, cudaStream_t stream, ldfold::Partials*) {
-  return launch_conv<C, EPI, TO>(in, w, pmul, padd, vec, aux, out, sums,
-                                 npix, H, W, d, axis, stream);
-}
-
 template <int C>
 int launch_wgrad(const float* in, const float* pmul, const float* padd,
                  const float* dy, float* dk, int npix, int H, int W, int d,
                  int axis, cudaStream_t stream, ldfold::Partials* pp) {
   return ldconv32::launch_wgrad_f32<C>(in, pmul, padd, dy, dk, npix, H, W, d,
                                        axis, stream, pp);
-}
-
-template <int C>
-int launch_wgrad(const bf16* in, const float* pmul, const float* padd,
-                 const bf16* dy, float* dk, int npix, int H, int W, int d,
-                 int axis, cudaStream_t stream, ldfold::Partials*) {
-  return launch_wgrad<C>(in, pmul, padd, dy, dk, npix, H, W, d, axis,
-                         stream);
 }
 
 }  // namespace ldconv

@@ -1,6 +1,6 @@
-// Fixed-order sums across blocks: what replaces f32 atomicAdd in the
-// weight gradients, bias gradients and moments of the training kernels
-// (K6-K9, K11's float32 weight gradient) and in K12, so that those sums
+// Fixed-order sums across blocks: how the training kernels (K6-K9 and
+// K11, in bf16 and in float32) sum their weight gradients, bias gradients
+// and moments, and K12 its moments, with no atomics, so that those sums
 // reproduce themselves bit for bit from launch to launch.
 //
 // A kernel whose blocks each hold a partial sum of the same outputs writes
@@ -12,14 +12,15 @@
 // point queued (a `Partials` plan, up to MAX_SEGS buffers), each entry in
 // this order:
 //
-//   G = row_groups(rows), a power of two;
+//   G = row_groups(rows, entries), a power of two;
 //   s[g] = sum over rows b = g, g + G, g + 2G, ... in ascending order of
 //          part[b][e]                                   (g = 0 .. G-1)
 //   then for h = G/2, G/4, .., 1: s[g] = s[g] + s[g + h] for g < h;
 //   out[e] = s[0]
 //
-// (thread (g, e) of a block adds its rows in turn, at most about four;
-// the G sums meet in a pairwise tree in shared memory). ops/fold.py
+// (thread (g, e) of a block adds its rows in turn, at most about four, or
+// sixteen in a segment of many entries; the G sums meet in a pairwise
+// tree in shared memory). ops/fold.py
 // writes the same order in PyTorch, and the CPU tests hold it there.
 //
 // The fold is a programmatic dependent launch (Hopper): it may start
@@ -38,13 +39,20 @@ namespace ldfold {
 constexpr int THREADS = 256;
 constexpr int MAX_SEGS = 6;
 
-// The row groups of a fold over `rows` rows: the least power of two that
-// leaves a thread at most four rows, at most THREADS (a block folds
-// THREADS / row_groups entries).
-__host__ __device__ __forceinline__ int row_groups(int rows) {
-  const int per = (rows + 3) / 4;
+// The row groups of a fold over `rows` rows of `entries` entries: the
+// least power of two that leaves a thread at most four rows, at most
+// THREADS (a block folds THREADS / row_groups entries). A segment of at
+// least WIDE_ENTRIES entries has blocks enough to fill the card: there a
+// thread takes up to sixteen rows (four loads in flight at a time) and a
+// block at least 8 entries of a row (whole 32-byte sectors), so that
+// fewer blocks read the same bytes.
+constexpr int WIDE_ENTRIES = 1024;
+__host__ __device__ __forceinline__ int row_groups(int rows, int entries) {
+  const bool wide = entries >= WIDE_ENTRIES;
+  const int per = wide ? (rows + 15) / 16 : (rows + 3) / 4;
+  const int most = wide ? 32 : THREADS;
   int g = 1;
-  while (g < per && g < THREADS) g *= 2;
+  while (g < per && g < most) g *= 2;
   return g;
 }
 
@@ -71,7 +79,7 @@ __global__ void __launch_bounds__(THREADS)
   int s = 0;
   while (s + 1 < plan.n && (int)blockIdx.x >= plan.first[s + 1]) ++s;
   const Seg& sg = plan.seg[s];
-  const int ng = row_groups(sg.rows), ep = THREADS / ng;
+  const int ng = row_groups(sg.rows, sg.entries), ep = THREADS / ng;
   const int g = threadIdx.x / ep;
   const int e = ((int)blockIdx.x - plan.first[s]) * ep + threadIdx.x % ep;
   float a = 0.0f;
@@ -122,7 +130,8 @@ struct Partials {
     for (int i = 0; i < plan.n; ++i) {
       plan.first[i] = blocks;
       blocks += grid_1d(plan.seg[i].entries,
-                        THREADS / row_groups(plan.seg[i].rows));
+                        THREADS / row_groups(plan.seg[i].rows,
+                                             plan.seg[i].entries));
     }
     plan.first[plan.n] = blocks;
     if (blocks == 0) return 0;

@@ -30,12 +30,11 @@
 // bf16 wgmma over pixel chunks; float32: conv3tap_f32.cuh's 3xTF32 wgmma;
 // both mma.sync at C = 16). (3, 5) the shared convolution (conv3tap.cuh
 // or conv3tap_f32.cuh) on transposed taps with the masking epilogues.
-// In bf16, f32 atomics make the last bits of dk, db, dmul and dadd depend
-// on the order blocks finish in, and every f32 output must be zero before
-// the call. In float32 every block writes its sums (dbw, dkw, dbh, dkh,
-// dmul and dadd) to its row of a partials scratch and a sixth launch,
-// fold.cuh's fixed-order fold, adds them into the outputs, which it writes
-// whole: they reproduce themselves bit for bit.
+// In both dtypes every block writes its sums (dbw, dkw, dbh, dkh, dmul and
+// dadd) to its row of a partials scratch, over a block partition fixed by
+// the shape, and a sixth launch, fold.cuh's fixed-order fold, adds them
+// into the outputs, which it writes whole: they reproduce themselves bit
+// for bit.
 
 #include "conv3tap_f32.cuh"
 
@@ -46,21 +45,17 @@ namespace {
 constexpr int EW_THREADS = 256;
 
 // out = T(dy + ds1[c] + 2 * y * ds2[c]); the f32 values summed over the
-// block's pixels, lanes by xor shuffles, warps in warp order: with
-// ROWS_OUT, to the block's row of db (C floats a block, a partials
-// buffer); else added to db with atomics.
-template <typename T, int C, bool ROWS_OUT>
+// block's pixels (a grid-stride walk), lanes by xor shuffles, warps in
+// warp order, to the block's row of db (C floats a block, a partials
+// buffer).
+template <typename T, int C>
 __global__ void __launch_bounds__(EW_THREADS) dyv_kernel(
     const T* __restrict__ dy, const T* __restrict__ y,
     const float* __restrict__ dmom, T* __restrict__ out,
     float* __restrict__ db, int npix) {
   constexpr int VPR = C / 8;
   constexpr int RPI = EW_THREADS / VPR;  // rows per block iteration
-  __shared__ float sdb[ROWS_OUT ? EW_THREADS / 32 : 1][C];
-  if (!ROWS_OUT) {
-    for (int i = threadIdx.x; i < C; i += EW_THREADS) sdb[0][i] = 0.0f;
-    __syncthreads();
-  }
+  __shared__ float sdb[EW_THREADS / 32][C];
   const int v = threadIdx.x % VPR;  // this thread's 8 channels never change
   float ds1[8], ds2[8], acc[8];
 #pragma unroll
@@ -85,28 +80,19 @@ __global__ void __launch_bounds__(EW_THREADS) dyv_kernel(
   }
   if (fold_lanes(acc, VPR)) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (ROWS_OUT)
-        sdb[threadIdx.x / 32][v * 8 + j] = acc[j];
-      else
-        atomicAdd(&sdb[0][v * 8 + j], acc[j]);
-    }
+    for (int j = 0; j < 8; ++j) sdb[threadIdx.x / 32][v * 8 + j] = acc[j];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < C; i += EW_THREADS) {
-    if (ROWS_OUT) {
-      float a = 0.0f;
-      for (int k = 0; k < EW_THREADS / 32; ++k) a += sdb[k][i];
-      db[(size_t)blockIdx.x * C + i] = a;
-    } else {
-      atomicAdd(db + i, sdb[0][i]);
-    }
+    float a = 0.0f;
+    for (int k = 0; k < EW_THREADS / 32; ++k) a += sdb[k][i];
+    db[(size_t)blockIdx.x * C + i] = a;
   }
 }
 
 struct k6k7 {};  // names the fold in a profile
 
-// pp: the float32 partials (null in bf16, which sums with atomics)
+// pp: the partials of every sum, folded at the end
 template <typename T, int C>
 int half_bwd(const T* x, const float* muladd, const T* ymid, const T* yout,
              const T* dyout, const float* dmom, const T* khT, const T* kwT,
@@ -117,15 +103,10 @@ int half_bwd(const T* x, const float* muladd, const T* ymid, const T* yout,
   const float* add = muladd ? muladd + C : nullptr;
   constexpr int RPI = EW_THREADS / (C / 8);
   const int blocks = min(grid_1d(npix, RPI), 132 * 8);
-  if (pp != nullptr) {
-    float* rows = pp->take(blocks, C, dbw);
-    if (rows == nullptr) return (int)cudaErrorInvalidValue;
-    dyv_kernel<T, C, true><<<blocks, EW_THREADS, 0, s>>>(dyout, yout, dmom,
-                                                         dyv, rows, npix);
-  } else {
-    dyv_kernel<T, C, false><<<blocks, EW_THREADS, 0, s>>>(dyout, yout, dmom,
-                                                          dyv, dbw, npix);
-  }
+  float* rows = pp->take(blocks, C, dbw);
+  if (rows == nullptr) return (int)cudaErrorInvalidValue;
+  dyv_kernel<T, C><<<blocks, EW_THREADS, 0, s>>>(dyout, yout, dmom, dyv,
+                                                 rows, npix);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   rc = launch_wgrad<C>(ymid, nullptr, nullptr, dyv, dkw, npix, H, W, d, 1, s,
@@ -143,7 +124,7 @@ int half_bwd(const T* x, const float* muladd, const T* ymid, const T* yout,
   else
     rc = launch_conv<C, EPI_PRO_BWD>(dmid, khT, nullptr, nullptr, muladd, x,
                                      dx, dmuladd, npix, H, W, d, 0, s, pp);
-  return rc ? rc : (pp ? pp->fold<k6k7>(s) : 0);
+  return rc ? rc : pp->fold<k6k7>(s);
 }
 
 template <typename T>
@@ -151,10 +132,11 @@ int half_bwd_entry(const void* x, const void* muladd, const void* ymid,
                    const void* yout, const void* dyout, const void* dmom,
                    const void* khT, const void* kwT, void* dyv, void* dmid,
                    void* dx, void* dkh, void* dbh, void* dkw, void* dbw,
-                   void* dmuladd, ldfold::Partials* pp, int B, int H, int W,
-                   int C, int d, void* stream) {
+                   void* dmuladd, void* part, int B, int H, int W, int C,
+                   int d, int part_floats, void* stream) {
   const int npix = B * H * W;
   auto s = static_cast<cudaStream_t>(stream);
+  ldfold::Partials pp(part, part_floats);
 #define LD_ARGS                                                              \
   static_cast<const T*>(x), static_cast<const float*>(muladd),              \
       static_cast<const T*>(ymid), static_cast<const T*>(yout),             \
@@ -163,7 +145,7 @@ int half_bwd_entry(const void* x, const void* muladd, const void* ymid,
       static_cast<T*>(dyv), static_cast<T*>(dmid), static_cast<T*>(dx),     \
       static_cast<float*>(dkh), static_cast<float*>(dbh),                   \
       static_cast<float*>(dkw), static_cast<float*>(dbw),                   \
-      static_cast<float*>(dmuladd), npix, H, W, d, s, pp
+      static_cast<float*>(dmuladd), npix, H, W, d, s, &pp
   switch (C) {
     case 16:
       return half_bwd<T, 16>(LD_ARGS);
@@ -191,8 +173,9 @@ int bwd_info(int* info) {
 // dmid scratch); muladd: (2, C) f32 [mul; add] or null (half A); dmom:
 // (2, C) f32; khT, kwT: (3, C, C) bf16, khT[t] = kh[2-t]^T; dkh, dkw:
 // (3, C, C) f32; dbh, dbw: (C,) f32; dmuladd: (2, C) f32 [dmul; dadd] or
-// null. All f32 outputs zero on entry. part, part_floats: unused (null,
-// 0).
+// null. The f32 outputs are written whole (any contents on entry); part:
+// f32 scratch of part_floats floats for the blocks' sums
+// (ops/nb_block.py::bwd_partials counts them; any contents).
 LD_API int ld_nb_half_bwd(const void* x, const void* muladd, const void* ymid,
                           const void* yout, const void* dyout,
                           const void* dmom, const void* khT, const void* kwT,
@@ -202,13 +185,10 @@ LD_API int ld_nb_half_bwd(const void* x, const void* muladd, const void* ymid,
                           int part_floats, void* stream) {
   return half_bwd_entry<bf16>(x, muladd, ymid, yout, dyout, dmom, khT, kwT,
                               dyv, dmid, dx, dkh, dbh, dkw, dbw, dmuladd,
-                              nullptr, B, H, W, C, d, stream);
+                              part, B, H, W, C, d, part_floats, stream);
 }
 
-// The same on float32 planes and taps: every bf16 argument above f32; the
-// f32 outputs written whole (any contents on entry); part: f32 scratch of
-// part_floats floats for the blocks' sums (ops/nb_block.py::bwd_partials
-// counts them; any contents).
+// The same on float32 planes and taps: every bf16 argument above f32.
 LD_API int ld_nb_half_bwd_f32(const void* x, const void* muladd,
                               const void* ymid, const void* yout,
                               const void* dyout, const void* dmom,
@@ -217,10 +197,9 @@ LD_API int ld_nb_half_bwd_f32(const void* x, const void* muladd,
                               void* dkw, void* dbw, void* dmuladd,
                               void* part, int B, int H, int W, int C, int d,
                               int part_floats, void* stream) {
-  ldfold::Partials pp(part, part_floats);
   return half_bwd_entry<float>(x, muladd, ymid, yout, dyout, dmom, khT, kwT,
                                dyv, dmid, dx, dkh, dbh, dkw, dbw, dmuladd,
-                               &pp, B, H, W, C, d, stream);
+                               part, B, H, W, C, d, part_floats, stream);
 }
 
 // What the card makes of the bf16 tiles of the backward at C (16, 64 or

@@ -29,11 +29,10 @@
 // conv3tap_f32.cuh, wgmma in 3xTF32; both with a cp.async ring), the
 // second with the moments epilogue. The intermediate
 // ymid is needed by the backward anyway, so its round trip through device
-// memory is no extra traffic. In bf16 the moments are summed with f32
-// atomics (`mom` zero before the call); in float32 each block writes its
-// sums to a partials scratch, which a third launch, fold.cuh's fixed-order
-// fold, adds into `mom` (written whole): the float32 moments reproduce
-// themselves bit for bit.
+// memory is no extra traffic. In both dtypes each block writes its sums
+// to a partials scratch, which a third launch, fold.cuh's fixed-order
+// fold, adds into `mom` (written whole): the moments reproduce themselves
+// bit for bit.
 
 #include "conv3tap_f32.cuh"
 
@@ -55,22 +54,24 @@ int half_fwd(const T* x, const T* kh, const float* bh, const T* kw,
   if (rc) return rc;
   rc = launch_conv<C, EPI_BIAS_MOM>(ymid, kw, nullptr, nullptr, bw, nullptr,
                                     yout, mom, npix, H, W, d, 1, s, pp);
-  return rc ? rc : (pp ? pp->fold<k6k7>(s) : 0);
+  return rc ? rc : pp->fold<k6k7>(s);
 }
 
 template <typename T>
 int half_fwd_entry(const void* x, const void* kh, const void* bh,
                    const void* kw, const void* bw, const void* muladd,
-                   void* ymid, void* yout, void* mom, ldfold::Partials* pp,
-                   int B, int H, int W, int C, int d, void* stream) {
+                   void* ymid, void* yout, void* mom, void* part, int B,
+                   int H, int W, int C, int d, int part_floats,
+                   void* stream) {
   const int npix = B * H * W;
   auto s = static_cast<cudaStream_t>(stream);
+  ldfold::Partials pp(part, part_floats);
 #define LD_ARGS                                                              \
   static_cast<const T*>(x), static_cast<const T*>(kh),                      \
       static_cast<const float*>(bh), static_cast<const T*>(kw),             \
       static_cast<const float*>(bw), static_cast<const float*>(muladd),     \
       static_cast<T*>(ymid), static_cast<T*>(yout),                         \
-      static_cast<float*>(mom), npix, H, W, d, s, pp
+      static_cast<float*>(mom), npix, H, W, d, s, &pp
   switch (C) {
     case 16:
       return half_fwd<T, 16>(LD_ARGS);
@@ -94,29 +95,26 @@ int fwd_info(int* info) {
 
 // x, ymid, yout: (B, H, W, C) bf16 contiguous; kh, kw: (3, C, C) bf16
 // [tap][ci][co]; bh, bw: (C,) f32; muladd: (2, C) f32 [mul; add] or null
-// (half A); mom: (2, C) f32, zero on entry; part, part_floats: unused
-// (null, 0).
+// (half A); mom: (2, C) f32, written whole (any contents on entry); part:
+// f32 scratch of part_floats floats for the blocks' moments
+// (ops/nb_block.py::fwd_partials counts them; any contents).
 LD_API int ld_nb_half_fwd(const void* x, const void* kh, const void* bh,
                           const void* kw, const void* bw, const void* muladd,
                           void* ymid, void* yout, void* mom, void* part,
                           int B, int H, int W, int C, int d, int part_floats,
                           void* stream) {
   return half_fwd_entry<bf16>(x, kh, bh, kw, bw, muladd, ymid, yout, mom,
-                              nullptr, B, H, W, C, d, stream);
+                              part, B, H, W, C, d, part_floats, stream);
 }
 
-// The same on float32 planes and taps: x, ymid, yout, kh, kw f32; mom
-// written whole (any contents on entry); part: f32 scratch of part_floats
-// >= 2 C ceil(B H W / BM) floats, BM = 128 at C = 128, else 256 (the
-// blocks' moments; any contents).
+// The same on float32 planes and taps: x, ymid, yout, kh, kw f32.
 LD_API int ld_nb_half_fwd_f32(const void* x, const void* kh, const void* bh,
                               const void* kw, const void* bw,
                               const void* muladd, void* ymid, void* yout,
                               void* mom, void* part, int B, int H, int W,
                               int C, int d, int part_floats, void* stream) {
-  ldfold::Partials pp(part, part_floats);
   return half_fwd_entry<float>(x, kh, bh, kw, bw, muladd, ymid, yout, mom,
-                               &pp, B, H, W, C, d, stream);
+                               part, B, H, W, C, d, part_floats, stream);
 }
 
 // What the card makes of the bf16 tiles of the forward at C (16, 64 or

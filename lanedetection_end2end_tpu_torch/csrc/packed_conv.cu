@@ -37,11 +37,11 @@
 // gradient (wgrad3tap.cuh); f32 runs the 3xTF32 tiles of conv3tap_f32.cuh. The
 // backward is up to three launches: `dz_kernel` (the relu mask and the
 // bias gradient in one elementwise pass, skipped for packed_conv), the
-// transposed convolution and the weight gradient. db is summed with f32
-// atomicAdd, so its last bits change from run to run, and must be zero
-// before the call; so is dk in bf16. In float32 the weight gradient's
-// blocks write their sums to a partials scratch and a fourth launch,
-// fold.cuh's fixed-order fold, adds them into dk, which it writes whole.
+// transposed convolution and the weight gradient. In both dtypes the
+// blocks of `dz_kernel` and of the weight gradient write their sums to
+// their rows of a partials scratch, over block partitions fixed by the
+// shape, and a fourth launch, fold.cuh's fixed-order fold, adds them into
+// db and dk, which it writes whole: they reproduce themselves bit for bit.
 
 #include "conv3tap_f32.cuh"
 
@@ -51,17 +51,17 @@ namespace {
 
 constexpr int EW_THREADS = 256;
 
-// dz = MASK ? (y > 0 ? dy : 0) : dy, written only with MASK;
-// db[c] += sum of dz over the pixels (f32).
+// dz = MASK ? (y > 0 ? dy : 0) : dy, written only with MASK; the f32
+// values of dz summed over the block's pixels (a grid-stride walk), lanes
+// by xor shuffles, warps in warp order, to the block's row of db (C floats
+// a block, a partials buffer).
 template <typename T, int C, bool MASK>
 __global__ void __launch_bounds__(EW_THREADS) dz_kernel(
     const T* __restrict__ dy, const T* __restrict__ y, T* __restrict__ dz,
     float* __restrict__ db, int npix) {
   constexpr int VPR = C / 8;
   constexpr int RPI = EW_THREADS / VPR;  // rows per block iteration
-  __shared__ float sdb[C];
-  for (int i = threadIdx.x; i < C; i += EW_THREADS) sdb[i] = 0.0f;
-  __syncthreads();
+  __shared__ float sdb[EW_THREADS / 32][C];
   const int v = threadIdx.x % VPR;  // this thread's 8 channels never change
   float acc[8];
 #pragma unroll
@@ -83,10 +83,14 @@ __global__ void __launch_bounds__(EW_THREADS) dz_kernel(
   }
   if (fold_lanes(acc, VPR)) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) atomicAdd(&sdb[v * 8 + j], acc[j]);
+    for (int j = 0; j < 8; ++j) sdb[threadIdx.x / 32][v * 8 + j] = acc[j];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < C; i += EW_THREADS) atomicAdd(db + i, sdb[i]);
+  for (int i = threadIdx.x; i < C; i += EW_THREADS) {
+    float a = 0.0f;
+    for (int k = 0; k < EW_THREADS / 32; ++k) a += sdb[k][i];
+    db[(size_t)blockIdx.x * C + i] = a;
+  }
 }
 
 // ---- forward ------------------------------------------------------------
@@ -113,7 +117,7 @@ int fwd(const T* x, const T* w, const float* bias, void* y, int npix, int H,
 
 struct k11 {};  // names the fold in a profile
 
-// pp: the float32 weight gradient's partials (null in bf16)
+// pp: the partials of db and dk, folded at the end
 template <typename T, int C>
 int bwd(const T* x, const T* dy, const T* y, const T* wT, T* dz, T* dx,
         float* dk, float* db, int npix, int H, int W, int d, int axis,
@@ -123,13 +127,15 @@ int bwd(const T* x, const T* dy, const T* y, const T* wT, T* dz, T* dx,
     if (db == nullptr) return (int)cudaErrorInvalidValue;
     constexpr int RPI = EW_THREADS / (C / 8);
     const int blocks = min(grid_1d(npix, RPI), 132 * 8);
+    float* rows = pp->take(blocks, C, db);
+    if (rows == nullptr) return (int)cudaErrorInvalidValue;
     if (act) {
-      dz_kernel<T, C, true><<<blocks, EW_THREADS, 0, s>>>(dy, y, dz, db,
+      dz_kernel<T, C, true><<<blocks, EW_THREADS, 0, s>>>(dy, y, dz, rows,
                                                           npix);
       src = dz;
     } else {
-      dz_kernel<T, C, false><<<blocks, EW_THREADS, 0, s>>>(dy, nullptr,
-                                                           nullptr, db, npix);
+      dz_kernel<T, C, false><<<blocks, EW_THREADS, 0, s>>>(
+          dy, nullptr, nullptr, rows, npix);
     }
     const int rc = (int)cudaGetLastError();
     if (rc) return rc;
@@ -140,7 +146,7 @@ int bwd(const T* x, const T* dy, const T* y, const T* wT, T* dz, T* dx,
   if (rc) return rc;
   rc = launch_wgrad<C>(x, nullptr, nullptr, src, dk, npix, H, W, d, axis, s,
                        pp);
-  return rc ? rc : (pp ? pp->fold<k11>(s) : 0);
+  return rc ? rc : pp->fold<k11>(s);
 }
 
 }  // namespace
@@ -179,10 +185,10 @@ LD_API int ld_packed_conv_fwd(const void* x, const void* w, const void* bias,
 // x, dy, dx, and y and dz with act (else null): (B, H, W, C) contiguous of
 // one dtype (bf16 or f32, as above; dz is scratch); wT: (3, C, C) of that
 // dtype, wT[t] = k[2-t]^T; dk: (3, C, C) f32; db: (C,) f32, or null for
-// packed_conv (which passes act = 0). db zero on entry; dk zero on entry
-// in bf16, written whole in f32, where part is an f32 scratch of
-// part_floats >= 3 C^2 times the weight gradient's blocks a tap floats
-// (ops/packed_conv.py::bwd_partials; any contents; unused in bf16).
+// packed_conv (which passes act = 0); dk and db written whole (any
+// contents on entry); part: f32 scratch of part_floats floats for the
+// blocks' sums (ops/packed_conv.py::bwd_partials counts them; any
+// contents).
 LD_API int ld_packed_conv_bwd(const void* x, const void* dy, const void* y,
                               const void* wT, void* dz, void* dx, void* dk,
                               void* db, void* part, int B, int H, int W,
@@ -190,14 +196,13 @@ LD_API int ld_packed_conv_bwd(const void* x, const void* dy, const void* y,
                               int part_floats, void* stream) {
   const int npix = B * H * W;
   auto s = static_cast<cudaStream_t>(stream);
-  ldfold::Partials parts(part, part_floats);
-  ldfold::Partials* pp = f32 ? &parts : nullptr;
+  ldfold::Partials pp(part, part_floats);
 #define LD_BWD(T, CC)                                                       \
   bwd<T, CC>(static_cast<const T*>(x), static_cast<const T*>(dy),           \
              static_cast<const T*>(y), static_cast<const T*>(wT),           \
              static_cast<T*>(dz), static_cast<T*>(dx),                      \
              static_cast<float*>(dk), static_cast<float*>(db), npix, H, W, \
-             d, axis, act, s, pp)
+             d, axis, act, s, &pp)
 #define LD_DISPATCH(T)           \
   switch (C) {                   \
     case 16:                     \

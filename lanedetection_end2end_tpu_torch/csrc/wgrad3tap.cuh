@@ -1,7 +1,7 @@
 // The weight gradient of a 3-tap convolution in bf16, shared by the
 // training kernels nb_half_bwd.cu (K6 / K7) and packed_conv.cu (K11):
 //
-//   dk[t, ci, co] += sum_p f(in[p + tap_t])[ci] * dy[p, co]
+//   dk[t, ci, co] = sum_p f(in[p + tap_t])[ci] * dy[p, co]
 //
 // with taps at -d, 0, +d along rows (axis 0) or columns (axis 1) and f the
 // BatchNorm prologue of conv3tap.cuh when pmul != nullptr. Replaces, in
@@ -43,11 +43,27 @@
 // planes, one k16 step of the tile a warp, four partial sums a tap.
 // C = 128: three taps of 2 x 64 x 128 f32
 // would not fit the registers, so a block takes one tap (blockIdx.y) and
-// each warpgroup one m64 half of dk. The block's sums meet
-// in shared memory and add to the (3, C, C) result with one f32 atomicAdd
-// per weight, so the last bits depend on the order blocks finish in. dk
-// must be zero before the first launch that adds to it.
+// each warpgroup one m64 half of dk. The block's sums meet in its shared
+// memory (at C = 16 the WS warps' partial sums added in warp order); at C
+// = 64 the two blocks of a cluster (consecutive blockIdx.x) then add
+// theirs through distributed shared memory, each block half the entries,
+// in rank order. The sums go out by coalesced stores to the row of a
+// partials buffer of the block, or of the cluster (row blockIdx.x /
+// CLUSTER, 3 C^2 floats, the taps at their place in it: at C = 128 the
+// row holds the three blocks of one blockIdx.x, one tap each), which
+// fold.cuh's fixed-order fold adds into dk after the entry point's last
+// launch: no atomics, so dk reproduces itself bit for bit. The cluster
+// halves the partials where they are largest (264 rows of 3 C^2 at C =
+// 64); at C = 16 and 128 a cluster's wait cost more than its smaller fold
+// saved, and a block keeps its own row. A launch takes BLOCKS blocks
+// (a tap), one wave of the H100 at the tile's two blocks an SM (132 SMs;
+// a sixth of them a tap at C = 128, the fewer blocks the fewer partials:
+// a third a tap measured slower), fewer when the plane has fewer tiles
+// (rounded up to whole clusters); a constant of the shape, never read
+// from the card, so that the partition is the same on every card.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "conv3tap.cuh"
 
@@ -63,6 +79,8 @@ namespace ldconv {
 // warpgroup sums its own k16 step of the tile on mma.sync.
 template <int C>
 struct WgradTile {
+  static constexpr int BLOCKS = C == 128 ? 44 : 264;  // a launch's (a tap's)
+  static constexpr int CLUSTER = C == 64 ? 2 : 1;  // blocks a partials row
   static constexpr int BM = 64;                    // pixels a tile
   static constexpr int TAPS = C == 128 ? 1 : 3;    // taps a block sums
   static constexpr int NWG = TAPS == 3 ? 3 : 2;    // warpgroups a block
@@ -80,17 +98,22 @@ struct WgradTile {
                                   ? STAGES * STAGE * 2
                                   : TAPS * WS * C * LK * 4;
   static_assert(STAGE % 8 == 0, "stages on 16-byte boundaries");
+  static_assert(BLOCKS % CLUSTER == 0 && TAPS * C * C % CLUSTER == 0,
+                "whole clusters; a cluster's entries split evenly");
 };
 
-// dk[t] += sum over the block's tiles of shift_t(f(in))^T @ dy for its taps
-// (all three, or tap blockIdx.y at C = 128); f the prologue when pmul !=
-// nullptr.
+// The row of `part` of the block's cluster (3 C^2 floats at part +
+// blockIdx.x / CLUSTER * 3 C^2), tap t at t C^2 of it: sum over the
+// cluster's blocks, in rank order, of the sum over each block's tiles of
+// shift_t(f(in))^T @ dy for its taps (all three, or tap blockIdx.y at C =
+// 128); f the prologue when pmul != nullptr. Launched in clusters of
+// CLUSTER blocks along x (one block: no cluster).
 template <int C>
 __global__ void __launch_bounds__(WgradTile<C>::THREADS, 2)
     wgrad3tap_kernel(const bf16* __restrict__ in,
                      const float* __restrict__ pmul,
                      const float* __restrict__ padd,
-                     const bf16* __restrict__ dy, float* __restrict__ dk,
+                     const bf16* __restrict__ dy, float* __restrict__ part,
                      int npix, TileGeo<WgradTile<C>::BM> geo) {
   using T = WgradTile<C>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -205,7 +228,8 @@ __global__ void __launch_bounds__(WgradTile<C>::THREADS, 2)
   // acc[4j + 2h + e]: dk[t0 + t][ci][co], ci = 64 mt + 16 (warp % 4) + g +
   // 8h (wgmma) or g + 8h (mma.sync, a warp's own partial sum), co = 8j +
   // 2tg + e, one thread's alone: the block's dk meets in shared memory,
-  // which then adds to dk row by row (coalesced atomics)
+  // then goes (added to the other blocks' of its cluster) to its row of
+  // the partials (coalesced stores)
   cp_async_wait<0>();
   __syncthreads();  // the ring is free
   float* sK = reinterpret_cast<float*>(smem) +
@@ -218,17 +242,37 @@ __global__ void __launch_bounds__(WgradTile<C>::THREADS, 2)
       const int ci = row0 + 8 * (e / 2);
       if (ci < C) sK[ci * T::LK + 8 * j + 2 * tg + e % 2] = acc[4 * j + e];
     }
-  __syncthreads();
+  __syncthreads();  // the block's dk in its shared memory
   const float* sAll = reinterpret_cast<const float*>(smem);
-  float* dkt = dk + (size_t)t0 * C * C;
-  for (int i = threadIdx.x; i < T::TAPS * C * C; i += T::THREADS) {
+  const float* peer[T::CLUSTER] = {sAll};
+  int i0 = 0;  // this block's CLUSTER-th of the entries starts here
+  constexpr int PER = T::TAPS * C * C / T::CLUSTER;
+  if constexpr (T::CLUSTER > 1) {
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    cluster.sync();  // every block's dk in the cluster's shared memory
+#pragma unroll
+    for (int q = 0; q < T::CLUSTER; ++q)
+      peer[q] = cluster.map_shared_rank(sAll, q);
+    i0 = (int)cluster.block_rank() * PER;
+  }
+  float* row = part + ((size_t)blockIdx.x / T::CLUSTER * 3 + t0) * C * C;
+  for (int i = i0 + threadIdx.x; i < i0 + PER; i += T::THREADS) {
     const int r = i / C;  // tap r / C, row r % C
     float v = 0.0f;
 #pragma unroll
-    for (int w = 0; w < T::WS; ++w)
-      v += sAll[((r / C * T::WS + w) * C + r % C) * T::LK + i % C];
-    atomicAdd(dkt + i, v);
+    for (int q = 0; q < T::CLUSTER; ++q) {
+      float a = 0.0f;
+#pragma unroll
+      for (int w = 0; w < T::WS; ++w)
+        a += peer[q][((r / C * T::WS + w) * C + r % C) * T::LK + i % C];
+      v += a;
+    }
+    row[i] = v;
   }
+  if constexpr (T::CLUSTER > 1)
+    cooperative_groups::this_cluster().sync();  // no block leaves while
+                                                // another reads its memory
 }
 
 template <int C>
@@ -237,26 +281,48 @@ int wgrad_info(int* info) {
                    WgradTile<C>::SMEM, info);
 }
 
+// the blocks (a tap) of a weight gradient over npix pixels of (H, W)
+// images: at most BLOCKS, and a tile each at least but for the last
+// cluster's, rounded up to whole clusters (ops/nb_block.py counts the
+// same, CLUSTER blocks a row of its partials)
+template <int C>
+int wgrad_grid(int npix, const TileGeo<WgradTile<C>::BM>& geo, int H,
+               int W) {
+  using T = WgradTile<C>;
+  const int ntiles = npix / (H * W) * geo.frb.d * geo.fcb.d;
+  const int blocks = ntiles < T::BLOCKS ? ntiles : T::BLOCKS;
+  return (blocks + T::CLUSTER - 1) / T::CLUSTER * T::CLUSTER;
+}
+
+// dk ((3, C, C) f32) is written whole by the fold of `pp`, which takes the
+// blocks' partials here
 template <int C>
 int launch_wgrad(const bf16* in, const float* pmul, const float* padd,
                  const bf16* dy, float* dk, int npix, int H, int W, int d,
-                 int axis, cudaStream_t stream) {
+                 int axis, cudaStream_t stream, ldfold::Partials* pp) {
   using T = WgradTile<C>;
   auto kern = wgrad3tap_kernel<C>;
-  static int slots = 0;  // a wave of persistent blocks
-  const int rc = tile_slots(kern, T::THREADS, T::SMEM, &slots);
+  const int rc = tile_smem(kern, T::SMEM);
   if (rc) return rc;
-  if (npix == 0) return 0;
+  if (npix == 0 || pp == nullptr) return (int)cudaErrorInvalidValue;
   const TileGeo<T::BM> geo(H, W, d, axis);
-  const int ntiles = npix / (H * W) * geo.frb.d * geo.fcb.d;
-  // one wave of the blocks the card holds at once; when a block takes one
-  // tap, a sixth of them per tap (the fewer blocks, the fewer atomics into
-  // dk: a third per tap measured slower)
-  const int per = T::TAPS == 1 ? (slots / 6 > 1 ? slots / 6 : 1) : slots;
-  dim3 grid(ntiles < per ? ntiles : per, T::TAPS == 1 ? 3 : 1);
-  kern<<<grid, T::THREADS, T::SMEM, stream>>>(in, pmul, padd, dy, dk, npix,
-                                               geo);
-  return (int)cudaGetLastError();
+  const int blocks = wgrad_grid<C>(npix, geo, H, W);
+  float* part = pp->take(blocks / T::CLUSTER, 3 * C * C, dk);
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, T::TAPS == 1 ? 3 : 1);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute cl[1];
+  cl[0].id = cudaLaunchAttributeClusterDimension;
+  cl[0].val.clusterDim.x = T::CLUSTER;
+  cl[0].val.clusterDim.y = 1;
+  cl[0].val.clusterDim.z = 1;
+  cfg.attrs = cl;
+  cfg.numAttrs = T::CLUSTER > 1 ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kern, in, pmul, padd, dy, part, npix,
+                                 geo);
 }
 
 }  // namespace ldconv

@@ -25,13 +25,12 @@ tensor takes the plain versions below (`half_fwd_plain`, `half_bwd_plain`),
 forward and backward, in any float dtype. The TPU's block-diagonal `kexp`, `sel` and banded W-conv matrices
 are lane-packing devices and are not ported.
 
-In bf16 the kernels sum the moments and the weight and bias gradients
-with f32 atomicAdd, so their last bits change from run to run. In float32
-every block writes its sums to a row of a partials scratch (the wrappers
-size it from the kernels' block partitions: `fwd_partials`,
-`bwd_partials`) and one more launch adds the rows in a fixed order
-(`csrc/fold.cuh`, `ops/fold.py`), so the float32 sums reproduce
-themselves bit for bit and need no zero fill.
+In both dtypes every block of the kernels writes its sums (the moments,
+the weight and bias gradients) to a row of a partials scratch (the
+wrappers size it from the kernels' block partitions, which depend on the
+shape alone: `fwd_partials`, `bwd_partials`) and one more launch adds
+the rows in a fixed order (`csrc/fold.cuh`, `ops/fold.py`), so the sums
+reproduce themselves bit for bit and need no zero fill.
 """
 
 from __future__ import annotations
@@ -150,49 +149,110 @@ def nb_half_b_plain(y2, mul, add, kh, bh, kw, bw, d: int):
 # ----------------------------------------------------------------------
 
 # ----------------------------------------------------------------------
-# The float32 kernels' block partitions (csrc/conv3tap_f32.cuh,
-# csrc/nb_half_bwd.cu): the rows of their partials
+# The kernels' block partitions (float32: csrc/conv3tap_f32.cuh; bf16:
+# csrc/conv3tap.cuh, csrc/wgrad3tap.cuh; both: csrc/nb_half_bwd.cu's dyv
+# pass): the rows of their partials
 # ----------------------------------------------------------------------
 
 WG_PER_TAP = {16: 132, 64: 88, 128: 44}  # weight-gradient blocks a tap
 WG_CHUNK = {16: 128, 64: 32, 128: 32}    # its pixels a chunk
 
+# The bf16 tiles: persistent blocks walking tiles of one image (8 rows x
+# BM / 8 columns for the row taps, axis 0; BM columns of a row for the
+# column taps, axis 1), at most one wave of the H100's 132 SMs at the
+# convolution's one block an SM and the weight gradient's two; the weight
+# gradient's blocks add their sums in clusters of BF16_WG_CLUSTER[C], a
+# row of partials a cluster
+BF16_WAVE = 132                              # convolution blocks
+BF16_CONV = {16: (4, 128), 64: (4, 64), 128: (2, 64)}  # (warpgroups, BM)
+BF16_WG_BLOCKS = {16: 264, 64: 264, 128: 44}  # weight gradient (a tap)
+BF16_WG_BM = 64
+BF16_WG_CLUSTER = {16: 1, 64: 2, 128: 1}
+
 
 def conv_rows(C: int, npix: int) -> int:
-    """Blocks of the convolution: tiles of 128 pixels at C = 128, else
-    256."""
+    """Blocks of the float32 convolution: tiles of 128 pixels at C = 128,
+    else 256."""
     return cdiv(npix, 128 if C == 128 else 256)
 
 
 def wgrad_split(C: int, npix: int) -> tuple:
-    """(blocks a tap, pixels a block) of the weight gradient: whole chunks
-    of WG_CHUNK[C] pixels over WG_PER_TAP[C] blocks a tap."""
+    """(blocks a tap, pixels a block) of the float32 weight gradient:
+    whole chunks of WG_CHUNK[C] pixels over WG_PER_TAP[C] blocks a tap."""
     blocks, cpb = split_rows(cdiv(npix, WG_CHUNK[C]), WG_PER_TAP[C])
     return blocks, cpb * WG_CHUNK[C]
 
 
 def dyv_split(C: int, npix: int) -> tuple:
-    """(blocks, pixels a block and round) of the backward's dyv pass: a
-    grid-stride walk, block b taking pixels b * RPI + [0, RPI) of each
-    round of blocks * RPI."""
+    """(blocks, pixels a block and round) of the backward's dyv pass (and
+    of K11's dz pass): a grid-stride walk, block b taking pixels b * RPI +
+    [0, RPI) of each round of blocks * RPI."""
     rpi = 256 // (C // 8)
     return ew_rows(npix, rpi), rpi
 
 
-def fwd_partials(C: int, npix: int) -> int:
-    """Floats of the float32 forward's partials: the moments' 2C a
-    block."""
-    return 2 * C * conv_rows(C, npix)
+def bf16_tiles(shape, axis: int, bm: int) -> int:
+    """Tiles of BM pixels of the bf16 tiles' geometry (`TileGeo`) over a
+    (B, H, W, C) plane."""
+    B, H, W, _ = shape
+    th = 8 if axis == 0 else 1
+    return B * cdiv(H, th) * cdiv(W, bm // th)
 
 
-def bwd_partials(C: int, npix: int, half_b: bool) -> int:
-    """Floats of the float32 backward's partials, in the kernels' order:
-    dbw (C a dyv block), dkw (3 C^2 a weight-gradient block), dbh (C a
-    convolution block), dkh, and for half B [dmul; dadd] (2C a
-    convolution block)."""
-    wg = wgrad_split(C, npix)[0] * 3 * C * C
-    return (dyv_split(C, npix)[0] * C + 2 * wg + conv_rows(C, npix) * C
-            * (3 if half_b else 1))
+def bf16_conv_rows(shape, axis: int) -> int:
+    """Blocks of the bf16 convolution: a warpgroup a tile at most, at most
+    BF16_WAVE; warpgroup w of block b takes tiles b NWG + w + k NWG
+    blocks."""
+    nwg, bm = BF16_CONV[shape[-1]]
+    return min(cdiv(bf16_tiles(shape, axis, bm), nwg), BF16_WAVE)
+
+
+def bf16_wgrad_grid(shape, axis: int) -> int:
+    """Blocks (a tap at C = 128) of the bf16 weight gradient: at most
+    BF16_WG_BLOCKS, rounded up to whole clusters; block b takes the
+    64-pixel tiles b + k blocks."""
+    C = shape[-1]
+    blocks = min(bf16_tiles(shape, axis, BF16_WG_BM), BF16_WG_BLOCKS[C])
+    return cdiv(blocks, BF16_WG_CLUSTER[C]) * BF16_WG_CLUSTER[C]
+
+
+def bf16_wgrad_rows(shape, axis: int) -> int:
+    """Rows of the bf16 weight gradient's partials: one a cluster of
+    BF16_WG_CLUSTER[C] blocks (blocks b K .. b K + K - 1 make row b)."""
+    return bf16_wgrad_grid(shape, axis) // BF16_WG_CLUSTER[shape[-1]]
+
+
+def sum_rows(shape, axis: int, dtype) -> int:
+    """Rows of a convolution's sums over a (B, H, W, C) plane of `dtype`
+    (its taps on `axis`)."""
+    if dtype == torch.float32:
+        return conv_rows(shape[-1], shape[0] * shape[1] * shape[2])
+    return bf16_conv_rows(shape, axis)
+
+
+def wgrad_rows(shape, axis: int, dtype) -> int:
+    """Rows of 3 C^2 floats of a weight gradient's partials."""
+    if dtype == torch.float32:
+        return wgrad_split(shape[-1], shape[0] * shape[1] * shape[2])[0]
+    return bf16_wgrad_rows(shape, axis)
+
+
+def fwd_partials(shape, dtype) -> int:
+    """Floats of the forward's partials over a (B, H, W, C) plane: the
+    moments' 2C a block of the second convolution (column taps)."""
+    return 2 * shape[-1] * sum_rows(shape, 1, dtype)
+
+
+def bwd_partials(shape, half_b: bool, dtype) -> int:
+    """Floats of the backward's partials, in the kernels' order: dbw (C a
+    dyv block), dkw (3 C^2 a weight-gradient block, column taps), dbh (C a
+    convolution block, column taps), dkh (row taps), and for half B
+    [dmul; dadd] (2C a convolution block, row taps)."""
+    C = shape[-1]
+    npix = shape[0] * shape[1] * shape[2]
+    wg = (wgrad_rows(shape, 1, dtype) + wgrad_rows(shape, 0, dtype)) * 3 * C * C
+    return (dyv_split(C, npix)[0] * C + wg + sum_rows(shape, 1, dtype) * C
+            + (2 * C * sum_rows(shape, 0, dtype) if half_b else 0))
 
 
 def _check_plane(x: torch.Tensor, symbol: str):
@@ -217,14 +277,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _partials(x: torch.Tensor, floats: int):
-    """(scratch, its floats) of the float32 kernels' partials; (None, 0)
-    for bf16 planes, whose kernels sum with atomics."""
-    if x.dtype != torch.float32:
-        return None, 0
-    return torch.empty(floats, dtype=torch.float32, device=x.device), floats
-
-
 def _half_fwd_cuda(x, mul, add, kh, bh, kw, bw, d: int):
     B, H, W, C, symbol = _check_plane(x, "ld_nb_half_fwd")
     khb, kwb = kh.to(x.dtype).contiguous(), kw.to(x.dtype).contiguous()
@@ -235,14 +287,14 @@ def _half_fwd_cuda(x, mul, add, kh, bh, kw, bw, d: int):
         check_cuda(t, torch.float32, (C,), name)
     ma = _muladd(mul, add, C)
     ymid, yout = torch.empty_like(x), torch.empty_like(x)
-    part, floats = _partials(x, fwd_partials(C, B * H * W))
-    # float32: the fold writes the moments whole; bf16 adds to zeros
-    mom = (torch.empty if part is not None else torch.zeros)(
-        2, C, dtype=torch.float32, device=x.device)
+    # the blocks' partials (any contents); the fold writes the moments whole
+    floats = fwd_partials(x.shape, x.dtype)
+    part = torch.empty(floats, dtype=torch.float32, device=x.device)
+    mom = torch.empty(2, C, dtype=torch.float32, device=x.device)
     launch(kernel("nb_half_fwd", symbol, "p" * 10 + "i" * 6 + "p"),
            x.device, x.data_ptr(), khb.data_ptr(), bhf.data_ptr(),
            kwb.data_ptr(), bwf.data_ptr(), _ptr(ma), ymid.data_ptr(),
-           yout.data_ptr(), mom.data_ptr(), _ptr(part), B, H, W, C, d,
+           yout.data_ptr(), mom.data_ptr(), part.data_ptr(), B, H, W, C, d,
            floats)
     (nb_half_a if mul is None else nb_half_b).launches += 1
     return yout, ymid, mom
@@ -261,12 +313,11 @@ def half_bwd_kernel(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int):
     kwT = _transposed_taps(kw).to(x.dtype).contiguous()
     ma = _muladd(mul, add, C)
     dyv, dmid, dx = (torch.empty_like(x) for _ in range(3))
-    part, floats = _partials(x, bwd_partials(C, B * H * W, ma is not None))
-    # one f32 buffer for every sum: written whole by the fold in float32,
-    # zeroed for the bf16 kernels' atomics
-    n_k, f32 = 3 * C * C, torch.float32
-    acc = (torch.empty if part is not None else torch.zeros)(
-        2 * n_k + 4 * C, dtype=f32, device=x.device)
+    floats = bwd_partials(x.shape, ma is not None, x.dtype)
+    part = torch.empty(floats, dtype=torch.float32, device=x.device)
+    # one f32 buffer for every sum, written whole by the fold
+    n_k = 3 * C * C
+    acc = torch.empty(2 * n_k + 4 * C, dtype=torch.float32, device=x.device)
     dkh, dkw = acc[:n_k].view(3, C, C), acc[n_k:2 * n_k].view(3, C, C)
     dbh, dbw = acc[2 * n_k:2 * n_k + C], acc[2 * n_k + C:2 * n_k + 2 * C]
     dma = acc[2 * n_k + 2 * C:].view(2, C) if ma is not None else None
@@ -275,7 +326,8 @@ def half_bwd_kernel(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int):
            yout.data_ptr(), dyout.data_ptr(), dmom.data_ptr(),
            khT.data_ptr(), kwT.data_ptr(), dyv.data_ptr(), dmid.data_ptr(),
            dx.data_ptr(), dkh.data_ptr(), dbh.data_ptr(), dkw.data_ptr(),
-           dbw.data_ptr(), _ptr(dma), _ptr(part), B, H, W, C, d, floats)
+           dbw.data_ptr(), _ptr(dma), part.data_ptr(), B, H, W, C, d,
+           floats)
     (nb_half_a if mul is None else nb_half_b).bwd_launches += 1
     if dma is None:
         return dx, None, None, dkh, dbh, dkw, dbw

@@ -30,11 +30,10 @@ it (`*_fwd_plain`, differentiable by autograd as it stands, and
 `*_bwd_plain`, the backward kernels' order). A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel (`csrc/packed_conv.cu`,
 `csrc/channel_sums.cu`) or raises. The wrappers count their launches
-(`launches`, and `bwd_launches` for the backward). K11's bias gradient,
-and its weight gradient in bf16, are summed with f32 atomicAdd, so their
-last bits change from run to run; its float32 weight gradient is the
-float32 3-tap tiles' fixed-order sum (per-block partials, `bwd_partials`,
-folded in order by `csrc/fold.cuh`), and reproduces itself bit for bit;
+(`launches`, and `bwd_launches` for the backward). K11's bias and
+weight gradients are fixed-order sums in both dtypes (per-block partials
+over partitions fixed by the shape, `bwd_partials`, folded in order by
+`csrc/fold.cuh`), and reproduce themselves bit for bit;
 the channel sums are a fixed-order reduction (per-block
 partials over a partition fixed by the shape, then a second launch that
 adds them in order), so they reproduce themselves bit for bit
@@ -52,7 +51,7 @@ from lanedetection_end2end_tpu_torch.ops._build import (
     check_cuda, kernel, launch)
 from lanedetection_end2end_tpu_torch.ops.nb1d import _conv3
 from lanedetection_end2end_tpu_torch.ops.nb_block import (
-    _SUM, _rounder, _transposed_taps, _wgrad3, wgrad_split)
+    _SUM, _rounder, _transposed_taps, _wgrad3, dyv_split, wgrad_rows)
 
 AXES = {"h": 0, "w": 1}
 PLANE_DTYPES = (torch.bfloat16, torch.float32)
@@ -149,10 +148,13 @@ def _fwd_cuda(x, k, b, axis: str, d: int, act: bool) -> torch.Tensor:
     return y
 
 
-def bwd_partials(C: int, npix: int) -> int:
-    """Floats of the float32 weight gradient's partials (3 C^2 a block of
-    `nb_block.wgrad_split`)."""
-    return wgrad_split(C, npix)[0] * 3 * C * C
+def bwd_partials(shape, axis: str, dtype, bias: bool = True) -> int:
+    """Floats of the backward's partials over a (B, H, W, C) plane of
+    `dtype`: db (C a block of the dz pass, `nb_block.dyv_split`) with
+    `bias`, and dk (3 C^2 a weight-gradient block, `nb_block.wgrad_rows`)."""
+    B, H, W, C = shape
+    db = dyv_split(C, B * H * W)[0] * C if bias else 0
+    return db + wgrad_rows(shape, AXES[axis], dtype) * 3 * C * C
 
 
 def packed_conv_bwd_kernel(x, y, dy, k, axis: str, d: int, act: bool,
@@ -167,22 +169,18 @@ def packed_conv_bwd_kernel(x, y, dy, k, axis: str, d: int, act: bool,
     kT = _cast_taps(_transposed_taps(k), x.dtype, C)
     dz = torch.empty_like(x) if act else None
     dx = torch.empty_like(x)
-    # db (atomics) zeroed; dk zeroed for the bf16 tile's atomics, written
-    # whole by the fold of the float32 tile's partials
-    f32 = x.dtype == torch.float32
-    floats = bwd_partials(C, B * H * W) if f32 else 0
-    part = (torch.empty(floats, dtype=torch.float32, device=x.device)
-            if f32 else None)
-    dk = (torch.empty if f32 else torch.zeros)(
-        3, C, C, dtype=torch.float32, device=x.device)
-    db = (torch.zeros(C, dtype=torch.float32, device=x.device) if bias
+    # dk and db written whole by the fold of the blocks' partials
+    floats = bwd_partials(x.shape, axis, x.dtype, bias)
+    part = torch.empty(floats, dtype=torch.float32, device=x.device)
+    dk = torch.empty(3, C, C, dtype=torch.float32, device=x.device)
+    db = (torch.empty(C, dtype=torch.float32, device=x.device) if bias
           else None)
     launch(kernel("packed_conv", "ld_packed_conv_bwd",
                   "p" * 9 + "i" * 9 + "p"),
            x.device, x.data_ptr(), dy.data_ptr(), _ptr(y if act else None),
            kT.data_ptr(), _ptr(dz), dx.data_ptr(), dk.data_ptr(), _ptr(db),
-           _ptr(part), B, H, W, C, d, AXES[axis], int(f32), int(act),
-           floats)
+           part.data_ptr(), B, H, W, C, d, AXES[axis],
+           int(x.dtype == torch.float32), int(act), floats)
     (packed_conv_act if bias else packed_conv).bwd_launches += 1
     return dx, dk, db
 

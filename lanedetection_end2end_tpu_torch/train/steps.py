@@ -57,17 +57,17 @@ and seg. `generator` is the `torch.Generator` (on the step's device) that
 dropout draws from; None turns dropout off. Each rank of a data-parallel
 step draws from its own (`parallel/mesh.py::rank_seed`).
 
-The float32 e2e step on the fused blocks (the default) reproduces itself
-on the card bit for bit from one state (weights, optimizer state, batch,
-generator): its kernels' sums are fixed-order (`csrc/fold.cuh`), and a
-packed step with fused maps, whose only cuDNN convolutions are the line
-and horizon heads, runs them with `torch.backends.cudnn.deterministic`
-on (`deterministic_cudnn`): with TF32 off, cuDNN's default weight and
-input gradients of the heads sum in an order that changes from run to
-run. The other paths keep cuDNN's default algorithms (with TF32 off its
-deterministic ones for the stride-2 blocks of `fused_maps=False` cost
-11 ms a float32 step on an H100), and the bf16 half blocks and K11's
-bias gradient still sum with atomics.
+A packed e2e step with fused maps (the default one, and the unfused one
+with `fused_maps=True`) reproduces itself on the card bit for bit from
+one state (weights, optimizer state, batch, generator), in bf16 and in
+float32: its kernels' sums are fixed-order (`csrc/fold.cuh`), and its
+only cuDNN convolutions, the line and horizon heads, run with
+`torch.backends.cudnn.deterministic` on (`deterministic_cudnn`): with
+TF32 off, cuDNN's default weight and input gradients of the heads sum in
+an order that changes from run to run. The paths with
+`fused_maps=False` keep cuDNN's default algorithms for their stride-2
+blocks (with TF32 off the deterministic ones cost 11 ms a float32 step
+on an H100), and do not reproduce themselves.
 """
 
 from __future__ import annotations

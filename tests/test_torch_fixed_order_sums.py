@@ -1,5 +1,6 @@
-"""The fixed-order sums of the training kernels K6-K9 and K11's float32
-weight gradient, on the CPU.
+"""The fixed-order sums of the float32 training kernels K6-K9 and K11's
+float32 weight gradient, on the CPU (the bf16 tiles' and K11's bias
+gradient: `tests/test_torch_fixed_order_bf16.py`).
 
 Each kernel that sums over blocks writes one row of partials per block and
 `csrc/fold.cuh` adds the rows in the order `ops/fold.py::fold_rows` writes
@@ -27,7 +28,7 @@ partials are folded in that order, and the result equals the plain sum
 
 Then the CUDA wrappers with `kernel`, `launch` and `check_cuda` stubbed:
 each asks for its entry with a partials scratch of the floats its kernels
-take and no zero fill of what the fold writes. Last, the train step runs
+take and no zero fill of what the fold writes, in both dtypes. Last, the train step runs
 cuDNN's deterministic algorithms exactly where the heads are its only
 cuDNN convolutions (the packed path with fused maps)."""
 
@@ -311,28 +312,21 @@ def _t(*shape, dtype=F32):
     return torch.ones(*shape, dtype=dtype)  # not a zero fill the stubs see
 
 
+@pytest.mark.parametrize("dt", [F32, BF16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("half", ["a", "b"])
-def test_half_block_wrappers_ask_for_partials(stubs, half):
+def test_half_block_wrappers_ask_for_partials(stubs, half, dt):
     B, H, W, C, d = 2, 24, 40, 64, 2
-    x = _t(B, H, W, C)
+    x = _t(B, H, W, C, dtype=dt)
     k, b = _t(3, C, C), _t(C)
     mul = add = None if half == "a" else _t(C)
     stubs.zeroed.clear()
     nb._half_fwd_cuda(x, mul, add, k, b, k, b, d)
-    _asked(stubs, 9, nb.fwd_partials(C, B * H * W))
+    _asked(stubs, 9, nb.fwd_partials(x.shape, dt))
     assert stubs.zeroed == []
     stubs.calls.clear()
     nb.half_bwd_kernel(x, mul, add, x, x, x, _t(2, C), k, k, d)
-    _asked(stubs, 16, nb.bwd_partials(C, B * H * W, half == "b"))
+    _asked(stubs, 16, nb.bwd_partials(x.shape, half == "b", dt))
     assert stubs.zeroed == []
-
-
-def test_half_block_bf16_entries_keep_their_zeroed_sums(stubs):
-    """bf16 planes: the atomics' zeroed sums, no partials."""
-    x, k, b = _t(2, 8, 8, 16, dtype=BF16), _t(3, 16, 16), _t(16)
-    nb._half_fwd_cuda(x, None, None, k, b, k, b, 1)
-    [(_, _, args)] = stubs.calls
-    assert args[9] is None and args[-1] == 0 and stubs.zeroed == [(2, 16)]
 
 
 @pytest.mark.parametrize("dt", [F32, BF16], ids=["float32", "bfloat16"])
@@ -367,20 +361,20 @@ def test_lane_maps_wrappers_ask_for_partials(stubs, dt, cin, cout):
 
 
 def test_k11_float32_weight_gradient_asks_for_partials(stubs):
-    """K11 in float32: dk from the fold (no zero fill), db still zeroed for
-    its atomics; in bf16 both zeroed and no partials."""
+    """K11 in float32: dk and db from the fold, no zero fill; packed_conv
+    (no bias) asks for dk's partials alone (the bf16 wrappers:
+    `tests/test_torch_fixed_order_bf16.py`)."""
     B, H, W, C = 2, 8, 8, 64
     x, k = _t(B, H, W, C), _t(3, C, C)
     pc.packed_conv_bwd_kernel(x, x, x, k, "h", 1, True)
-    _asked(stubs, 8, pc.bwd_partials(C, B * H * W))
-    assert stubs.zeroed == [(C,)]
+    floats = pc.bwd_partials(x.shape, "h", F32)
+    _asked(stubs, 8, floats)
+    assert floats == (nb.dyv_split(C, B * H * W)[0] * C
+                      + nb.wgrad_split(C, B * H * W)[0] * 3 * C * C)
     stubs.calls.clear()
-    stubs.zeroed.clear()
-    xb = _t(B, H, W, C, dtype=BF16)
-    pc.packed_conv_bwd_kernel(xb, xb, xb, k, "h", 1, True)
-    [(_, _, args)] = stubs.calls
-    assert args[8] is None and args[-1] == 0
-    assert stubs.zeroed == [(3, C, C), (C,)]
+    pc.packed_conv_bwd_kernel(x, None, x, k, "w", 1, False, bias=False)
+    _asked(stubs, 8, nb.wgrad_split(C, B * H * W)[0] * 3 * C * C)
+    assert stubs.zeroed == []
 
 
 # ----------------------------------------------------------------------
