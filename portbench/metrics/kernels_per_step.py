@@ -1,0 +1,9 @@
+"""kernels_per_step.<family>: device kernels in the traced steps over their
+count, from the trace (the host's launch path, read from no counter of
+the program)."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.kernels:
+        return None
+    return run.trace.kernels / run.traced_units
