@@ -19,6 +19,7 @@ each batch.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -33,6 +34,7 @@ from lanedetection_end2end_tpu_torch.eval.lane_eval import LaneEval
 from lanedetection_end2end_tpu_torch.eval.projections import Projections
 from lanedetection_end2end_tpu_torch.utils import (
     AverageMeter, mkdir_if_missing)
+from lanedetection_end2end_tpu_torch.utils.profiling import span
 
 # line-branch slots [ll, l, r, rr] -> lane order [l, r, ll, rr]
 _LINE_ORDER = [1, 2, 0, 3]
@@ -45,20 +47,12 @@ def make_infer_fn(lanenet, cfg: LaneConfig, projections: Projections,
     uint8 or float in [0, 1], on any device."""
     device = engine.device if engine is not None else (
         lanenet.fitter.sep_coeff.device)
+    calls = itertools.count()
 
-    @torch.no_grad()
-    def infer(images: torch.Tensor) -> torch.Tensor:
-        images = images.to(device, non_blocking=True)
-        if images.dtype == torch.uint8:
-            images = images.float() * (1.0 / 255.0)
-        M_b = M_inv_b = None
-        if engine is not None:
-            beta, line_logits, horizon_logits = engine(packed, images)
-        else:
-            out = lanenet.forward(images, train=False,
-                                  dtype=cfg.torch_dtype())
-            beta, M_b, M_inv_b = out.beta, out.M, out.M_inv
-            line_logits, horizon_logits = out.line_logits, out.horizon_logits
+    def gated_lanes(beta, line_logits, horizon_logits, M_b, M_inv_b):
+        """The lanes of `beta` (B, C, 56), -2.0 where gated: with
+        `cfg.clas` an absent line and the rows above the estimated
+        horizon, and any x outside the image."""
         if M_b is not None:  # the learned homography
             lanes_pred = projections.compute_coordinates_with_M(
                 beta, M_b, M_inv_b)
@@ -82,6 +76,26 @@ def make_infer_fn(lanenet, cfg: LaneConfig, projections: Projections,
         # out-of-image x
         return torch.where((lanes_pred > 1279.0) | (lanes_pred < 0.0), -2.0,
                            lanes_pred)
+
+    @torch.no_grad()
+    def infer(images: torch.Tensor) -> torch.Tensor:
+        with span("serve.call", device, root=next(calls)):
+            with span("serve.h2d", device):
+                images = images.to(device, non_blocking=True)
+                if images.dtype == torch.uint8:
+                    images = images.float() * (1.0 / 255.0)
+            M_b = M_inv_b = None
+            if engine is not None:
+                beta, line_logits, horizon_logits = engine(packed, images)
+            else:
+                out = lanenet.forward(images, train=False,
+                                      dtype=cfg.torch_dtype())
+                beta, M_b, M_inv_b = out.beta, out.M, out.M_inv
+                line_logits = out.line_logits
+                horizon_logits = out.horizon_logits
+            with span("serve.lanes", device):
+                return gated_lanes(beta, line_logits, horizon_logits, M_b,
+                                   M_inv_b)
 
     return infer
 

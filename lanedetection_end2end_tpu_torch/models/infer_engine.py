@@ -59,6 +59,7 @@ from lanedetection_end2end_tpu_torch.ops.nb1d import (
     nb1d_chain, pack_chain, pack_nb1d)
 from lanedetection_end2end_tpu_torch.parallel.collectives import gather_rows
 from lanedetection_end2end_tpu_torch.parallel.mesh import local_rows
+from lanedetection_end2end_tpu_torch.utils.profiling import span
 
 BF16 = torch.bfloat16
 _HEADS = (("line_classification", "line"), ("horizon_estimation", "horizon"))
@@ -170,19 +171,21 @@ class FusedLaneNetEngine:
         separable fitter is JAX's `mode="blocks"`, which the tests and
         `chip_smoke.py` hold against the full path."""
         images = images.to(self.device)
-        if not blocks:
-            enc = encoder_fused(images, packed["enc"])
-            S = decoder_fused(enc, packed["dec"])              # (B, H, 2C)
-            C = self.cfg.out_channels
-            beta = self.fitter.beta_from_rowsums(S[..., :C].transpose(1, 2),
-                                                 S[..., C:].transpose(1, 2))
-        else:
-            enc, beta = self._call_blocks(packed, images)
+        with span("serve.backbone", self.device):
+            if not blocks:
+                enc = encoder_fused(images, packed["enc"])
+                S = decoder_fused(enc, packed["dec"])          # (B, H, 2C)
+                C = self.cfg.out_channels
+                beta = self.fitter.beta_from_rowsums(
+                    S[..., :C].transpose(1, 2), S[..., C:].transpose(1, 2))
+            else:
+                enc, beta = self._call_blocks(packed, images)
         line = horizon = None
         if self.cfg.clas:
-            e = _nchw(enc)  # NCHW view of the NHWC features
-            line = packed["line"](e).float()
-            horizon = packed["horizon"](e).float()
+            with span("serve.heads", self.device):
+                e = _nchw(enc)  # NCHW view of the NHWC features
+                line = packed["line"](e).float()
+                horizon = packed["horizon"](e).float()
         return beta, line, horizon
 
     def _call_blocks(self, packed: Dict, images: torch.Tensor) -> tuple:

@@ -87,6 +87,7 @@ from lanedetection_end2end_tpu_torch.ops.metrics import trapezoidal_area
 from lanedetection_end2end_tpu_torch.parallel.collectives import (
     all_reduce_grads, all_reduce_mean, gather_rows, set_sync_group)
 from lanedetection_end2end_tpu_torch.train.state import TrainState
+from lanedetection_end2end_tpu_torch.utils.profiling import span
 
 def prepare_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Device-side batch preparation for compact-transfer batches: applies
@@ -276,14 +277,22 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
 
     def loss_fn(batch, generator=None):
         batch = prepare_batch(batch)
-        if packed:
-            out = lanenet.apply_packed(batch["image"], train=train,
-                                       generator=generator, dtype=dtype,
-                                       fused_blocks=fused_blocks,
-                                       fused_maps=fused_maps)
-        else:
-            out = lanenet.forward(batch["image"], phase=phase, train=train,
-                                  generator=generator, dtype=dtype)
+        with span("model.forward", device):
+            if packed:
+                out = lanenet.apply_packed(batch["image"], train=train,
+                                           generator=generator, dtype=dtype,
+                                           fused_blocks=fused_blocks,
+                                           fused_maps=fused_maps)
+            else:
+                out = lanenet.forward(batch["image"], phase=phase,
+                                      train=train, generator=generator,
+                                      dtype=dtype)
+        with span("model.fit_loss", device):
+            return fit_loss(batch, out)
+
+    def fit_loss(batch, out):
+        """The fit's curve loss, the heads' losses and the metrics of the
+        network's output `out`."""
         metrics: Dict[str, torch.Tensor] = {}
         outputs: Dict[str, torch.Tensor] = {}
         share = counted_shares(batch)
@@ -393,23 +402,28 @@ def make_train_step(lanenet, cfg: LaneConfig,
                   else contextlib.nullcontext)
 
     def step(batch, generator: Optional[torch.Generator] = None):
-        optimizer.zero_grad(set_to_none=True)
-        with algorithms():
-            loss, metrics, _ = loss_fn(_to_device(batch, device), generator)
-            loss.backward()
-        # a parameter the phase does not reach (the heads in skip and seg,
-        # the head the phase does not read) takes a zero gradient for the
-        # update, as it does in JAX, so its moments and step count move
-        # with the rest; its .grad stays None for the caller
-        unused = [p for p in params if p.grad is None]
-        for p in unused:
-            p.grad = torch.zeros_like(p)
-        all_reduce_grads(params, group)
-        optimizer.step()
-        for p in unused:
-            p.grad = None
-        state.step += 1
-        return _mean_metrics(metrics, group)
+        with span("train.step", device, root=state.step):
+            optimizer.zero_grad(set_to_none=True)
+            with algorithms():
+                loss, metrics, _ = loss_fn(_to_device(batch, device),
+                                           generator)
+                with span("train.backward", device):
+                    loss.backward()
+            with span("train.optimizer", device):
+                # a parameter the phase does not reach (the heads in skip
+                # and seg, the head the phase does not read) takes a zero
+                # gradient for the update, as it does in JAX, so its
+                # moments and step count move with the rest; its .grad
+                # stays None for the caller
+                unused = [p for p in params if p.grad is None]
+                for p in unused:
+                    p.grad = torch.zeros_like(p)
+                all_reduce_grads(params, group)
+                optimizer.step()
+                for p in unused:
+                    p.grad = None
+            state.step += 1
+            return _mean_metrics(metrics, group)
 
     step.state = state
     return step

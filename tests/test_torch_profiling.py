@@ -10,7 +10,9 @@ host operator, flow and metadata events, with exact totals and
 categories. Then the three harnesses built on it
 (`tools/prof_infer.py`, `prof_train.py`, `prof_feed.py`) at small counts:
 each refuses to run without a card unless asked for the CPU, and each
-measures what it names."""
+measures what it names. Last the program's spans: off without a
+profiler, the train step's and the serving call's phases under one, the
+bounded list, and `by_span` / `busy_us` on a hand-written trace."""
 
 import gzip
 import json
@@ -21,8 +23,10 @@ import torch
 
 from lanedetection_end2end_tpu_torch.tools import (
     prof_feed, prof_infer, prof_train)
+from lanedetection_end2end_tpu_torch.utils import profiling
 from lanedetection_end2end_tpu_torch.utils.profiling import (
-    CPU, category, summarize, trace)
+    CPU, OUTSIDE, SPAN_LIMIT, category, reset_spans, span, span_records,
+    span_summary, summarize, trace)
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -147,7 +151,10 @@ def test_summarize_counts_device_events_once(tmp_path):
     assert s.count_per_iter("conv3tap_f32_kernel") == 1.5
     assert s.count_per_iter("<64, 1>") == 1.0
     text = s.format(top=3)
-    assert text.splitlines()[0] == "total device op time 50 us/iter"
+    assert s.busy_us == 99.0  # no two events overlap here
+    assert text.splitlines()[:2] == [
+        "device busy 50 us/iter (union of device intervals)",
+        "total device op time 50 us/iter"]
     assert "n=    3  ldconv32::conv3tap_f32_kernel" in text
 
 
@@ -209,3 +216,168 @@ def test_prof_feed_measures_six_ways(capsys):
     line = prof_feed.report("put_sync", secs["put_sync"], 2, 1,
                             secs["batch_mb"])
     assert "MB/s" in line and "img/s" in line and "ms/batch" in line
+
+
+# ----------------------------------------------------------------------
+# the program's spans
+# ----------------------------------------------------------------------
+
+TRAIN_SPANS = ["train.step", "model.forward", "model.fit_loss",
+               "train.backward", "train.optimizer"]
+SERVE_SPANS = ["serve.call", "serve.h2d", "serve.backbone", "serve.heads",
+               "serve.lanes"]
+
+
+@pytest.fixture
+def no_spans():
+    reset_spans()
+    yield
+    reset_spans()
+
+
+def _annotations(trace_dir):
+    path = profiling._latest_trace_file(trace_dir)
+    with gzip.open(path, "rt") as fh:
+        events = json.load(fh)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "user_annotation"]
+
+
+def test_span_off_is_one_shared_noop(no_spans, monkeypatch):
+    """With no profiler recording: one shared context, no CUDA event made,
+    nothing recorded."""
+    def no_event(*a, **k):
+        raise AssertionError("a CUDA event was made")
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    assert not torch.autograd._profiler_enabled()
+    off = span("a")
+    assert off is span("b", "cpu", root=3)
+    with off:
+        with span("c"):
+            pass
+    assert span_records() == [] and span_summary() == {}
+
+
+@pytest.mark.parametrize("call", ["train_step", "serve_call"])
+def test_steps_record_nothing_without_a_profiler(call, no_spans):
+    if call == "train_step":
+        step, batch, gen = prof_train.setup(2, torch.device("cpu"), resize=32,
+                                            packed_train=False)
+        step(batch, gen)
+    else:
+        infer, images = prof_infer.setup(2, torch.device("cpu"), resize=64)
+        infer(images)
+    assert span_records() == []
+
+
+def test_train_step_spans(tmp_path, no_spans):
+    """One root `train.step` with the four phases under it in order, one
+    root id (the step count before the step), the five ranges in the
+    chrome trace; on the CPU no allocator counts."""
+    step, batch, gen = prof_train.setup(2, torch.device("cpu"), resize=32)
+    step(batch, gen)
+    before = step.state.step
+    with trace(str(tmp_path)) as t:
+        step(batch, gen)
+    recs = span_records()
+    assert [r.name for r in recs] == TRAIN_SPANS
+    root = recs[0]
+    assert root.parent is None and root.root == before
+    assert all(r.parent == root.index and r.root == before
+               for r in recs[1:])
+    assert all(r.host_ms > 0 and r.mallocs is None for r in recs)
+    assert root.host_ms >= sum(r.host_ms for r in recs[1:])
+    assert sorted(set(_annotations(t.dir)) & set(TRAIN_SPANS)) == sorted(
+        TRAIN_SPANS)
+    summary = span_summary()
+    assert summary["train.backward"]["count"] == 1
+    assert summary["train.step"]["mallocs"] is None
+    assert summary["train.step"]["host_ms"] == pytest.approx(root.host_ms)
+    host = summarize(t.dir, device_substr=CPU)
+    assert {"model.forward", "train.backward"} <= {
+        r.name for r in host.by_span}
+
+
+def test_serve_call_spans(tmp_path, no_spans):
+    """`serve.call` with the input copy, backbone, heads and lane
+    projection under it; each call a root id of its own."""
+    infer, images = prof_infer.setup(2, torch.device("cpu"), resize=64)
+    with trace(str(tmp_path)) as t:
+        infer(images)
+        infer(images)
+    recs = span_records()
+    assert [r.name for r in recs] == SERVE_SPANS * 2
+    first, second = recs[0], recs[5]
+    assert second.root == first.root + 1
+    for root, rs in ((first, recs[1:5]), (second, recs[6:])):
+        assert root.parent is None
+        assert all(r.parent == root.index and r.root == root.root
+                   for r in rs)
+    assert set(SERVE_SPANS) <= set(_annotations(t.dir))
+    assert span_summary()["serve.heads"]["count"] == 2
+
+
+def test_span_list_is_bounded(no_spans):
+    extra = 10
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        for i in range(SPAN_LIMIT + extra):
+            with span(f"s{i}"):
+                pass
+    recs = span_records()
+    assert len(recs) == SPAN_LIMIT
+    assert recs[0].name == f"s{extra}"
+    assert recs[-1].name == f"s{SPAN_LIMIT + extra - 1}"
+    assert [r.root for r in recs] == sorted({r.root for r in recs})
+
+
+def _span_trace(path):
+    def x(cat, name, tid, ts, dur, corr=None, pid=77):
+        e = {"ph": "X", "cat": cat, "name": name, "pid": pid, "tid": tid,
+             "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+    ev = [
+        # the host's spans: thread 1 runs the step, thread 2 is autograd's
+        x("user_annotation", "train.step", 1, 0.0, 200.0),
+        x("user_annotation", "model.forward", 1, 10.0, 50.0),
+        x("user_annotation", "train.backward", 1, 100.0, 50.0),
+        x("user_annotation", "Optimizer.step#Adam.step", 1, 160.0, 30.0),
+        # launches
+        x("cuda_runtime", "cudaLaunchKernel", 1, 20.0, 2.0, 1),
+        x("cuda_runtime", "cudaLaunchKernel", 1, 30.0, 2.0, 2),
+        x("cuda_runtime", "cudaMemcpyAsync", 1, 40.0, 2.0, 6),
+        x("cuda_runtime", "cudaLaunchKernel", 2, 120.0, 2.0, 3),
+        x("cuda_driver", "cuLaunchKernel", 1, 170.0, 2.0, 4),
+        x("cuda_runtime", "cudaLaunchKernel", 1, 300.0, 2.0, 5),
+        # the card: two kernels overlap by 10 us
+        x("gpu_user_annotation", "model.forward", 7, 50.0, 49.0, pid=0),
+        x("kernel", KERNEL_A, 7, 50.0, 30.0, 1, pid=0),
+        x("kernel", KERNEL_B, 7, 70.0, 20.0, 2, pid=0),
+        x("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 8, 95.0, 4.0, 6,
+          pid=0),
+        x("kernel", KERNEL_C, 7, 130.0, 10.0, 3, pid=0),
+        x("kernel", KERNEL_D, 7, 180.0, 5.0, 4, pid=0),
+        x("kernel", KERNEL_A2, 7, 310.0, 2.0, 5, pid=0),
+    ]
+    with gzip.open(path, "wt") as fh:
+        json.dump({"traceEvents": ev}, fh)
+
+
+def test_by_span_and_busy(tmp_path):
+    """Each device event goes to the innermost span open where its launch
+    ran (autograd's thread: the span its caller waits in; PyTorch's own
+    `#` ranges are no spans; a launch outside every span to OUTSIDE), and
+    overlapping kernels count once in `busy_us`."""
+    _span_trace(tmp_path / "0001.trace.json.gz")
+    s = summarize(str(tmp_path), iters=2)
+    assert s.total_us == 30.0 + 20.0 + 4.0 + 10.0 + 5.0 + 2.0
+    assert s.busy_us == 40.0 + 4.0 + 10.0 + 5.0 + 2.0
+    assert {r.name: (r.busy_us, r.kernels) for r in s.by_span} == {
+        "model.forward": (44.0, 2), "train.backward": (10.0, 1),
+        "train.step": (5.0, 1), OUTSIDE: (2.0, 1)}
+    assert s.by_span[0].name == "model.forward"
+    text = s.format()
+    assert text.splitlines()[0] == (
+        "device busy 30 us/iter (union of device intervals)")
+    assert "       22.0       1.0  model.forward" in text
