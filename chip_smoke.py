@@ -198,7 +198,9 @@ a card. In order:
    normal build's bit for bit, every fixed-order sum included.
    `--defer-only` builds those nine libraries in both builds and runs
    this phase alone (`--tiles-only` runs phases 2b's half blocks and 2d's
-   K11 in bf16 alone, the quick check of the bf16 tiles);
+   K11 alone, in bf16 and in float32, with the float32 edge and batch-128
+   planes and the tiles' occupancy lines, the quick check of the 3-tap
+   tiles);
 4g. the training entry point: `main_torch.main` on the train.sh flags
    (float32, full width and depth) at 256x512, batch 8, on a 32-image
    synthetic dataset (24 training images, 3 steps an epoch; 8 for
@@ -638,6 +640,19 @@ P16, P64, P128 = ((BATCH, RESIZE // 2, RESIZE, 16),
 HALF_CASES = ([("a", P64, 1, 7), ("a", P128, 1, 8), ("a", P16, 1, 2),
                ("b", P64, 1, 7), ("b", P16, 1, 2)]
               + [("b", P128, d, 2) for d in (2, 4, 8, 16)])
+# float32 only, beside the step's: planes whose pixel counts are not a
+# multiple of the tile's (partial tiles at both edges), and d >= H at C =
+# 16 and 64 (three bands, the shifted taps all off the plane)
+F32_EDGE_CASES = [("a", (3, 13, 21, 16), 1, 0), ("b", (3, 13, 21, 64), 2, 0),
+                  ("b", (2, 11, 19, 128), 8, 0), ("a", (2, 12, 70, 64), 1, 0),
+                  ("b", (1, 9, 40, 16), 16, 0), ("b", (2, 6, 150, 64), 16, 0)]
+# float32 only: the step's planes at batch 128, the training cells' batch,
+# where each warpgroup of a C = 128 launch walks 15 or 16 tiles (one at
+# batch 8), so a tile's accumulator restart, the weight ring carried from
+# tile to tile and the sums kept across a block's tiles are all exercised
+F32_B128_CASES = [(h, (128,) + tuple(p[1:]), d, 0) for h, p, d in (
+    ("a", P128, 1), ("b", P128, 2), ("b", P128, 16), ("a", P64, 1),
+    ("b", P16, 1))]
 # (plane, d, axis, launches an unfused step): K11 in phase 2d; relu on 'h'
 K11_CASES = ([(P64, 1, a, 14) for a in "hw"] + [(P128, 1, a, 8) for a in "hw"]
              + [(P128, d, a, 2) for d in (2, 4, 8, 16) for a in "hw"]
@@ -1072,6 +1087,8 @@ def check_training_kernels(dev, g, dt):
     # the edge: the resize=64 NB1D-128 plane (8x16) with d = 16 >= H, W
     cases = HALF_CASES + [("a", (2, 8, 16, 128), 1, 0),
                           ("b", (2, 8, 16, 128), 16, 0)]
+    if dt == torch.float32:
+        cases += F32_EDGE_CASES + F32_B128_CASES
     summary = {n: {**dict.fromkeys(K11_KEYS, 0.0),
                    "library_of": LIBRARY_OF_HALF}
                for n in ("nb_half_a", "nb_half_b")}
@@ -1155,25 +1172,36 @@ LIBRARY_OF_HALF = ("cuDNN's products alone at each shape, channels_last, "
                    "backward")
 
 
-def bf16_tiles(dev):
-    """What the card makes of the bf16 3-tap tiles (csrc/conv3tap.cuh,
-    wgrad3tap.cuh) at each C: registers, local (spilled) bytes, blocks
-    resident on an SM and shared bytes of each instantiation the half
-    blocks launch. Any local memory, or no block resident, fails. ->
-    ({C: {kernel: info}}, failures)"""
+def tile_occupancy(dev):
+    """What the card makes of the 3-tap tiles (csrc/conv3tap.cuh,
+    wgrad3tap.cuh in bf16, conv3tap_f32.cuh in float32) on the step's
+    planes at batch 8 and 128: registers, local (spilled) bytes, blocks
+    resident on an SM, shared bytes and blocks a launch of each
+    instantiation the half blocks launch. Any local memory, no block
+    resident, or a launch of more than one wave fails. -> ({dtype: {plane:
+    {kernel: info}}}, failures)"""
     from lanedetection_end2end_tpu_torch.ops.nb_block import tile_info
-    out, failures = {}, []
-    for C in (16, 64, 128):
-        out[C] = tile_info(C, dev)
-        for name, info in out[C].items():
-            ok = info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
-            print(f"tile bf16 C={C} {name}: {info['registers']} registers, "
-                  f"{info['local_bytes']} local bytes, "
-                  f"{info['blocks_per_sm']} blocks an SM, "
-                  f"{info['smem_bytes']} shared bytes "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                failures.append(f"bf16 tile C={C} {name}: {info}")
+    out, failures = {"bfloat16": {}, "float32": {}}, []
+    for batch in (BATCH, 128):
+        for _, plane, d, _ in HALF_CASES:
+            shape = (batch,) + tuple(plane[1:])
+            key = f"{shape} d={d}"
+            if key in out["float32"]:
+                continue
+            for dt, kernels in tile_info(shape, d, dev).items():
+                out[dt][key] = kernels
+                for name, info in kernels.items():
+                    ok = (info["local_bytes"] == 0
+                          and info["blocks_per_sm"] >= 1
+                          and info["blocks"] <= 132 * info["blocks_per_sm"])
+                    print(f"tile {dt} {key} {name}: {info['registers']} "
+                          f"registers, {info['local_bytes']} local bytes, "
+                          f"{info['blocks_per_sm']} blocks an SM, "
+                          f"{info['smem_bytes']} shared bytes, "
+                          f"{info['blocks']} blocks a launch "
+                          f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(f"{dt} tile {key} {name}: {info}")
     return out, failures
 
 
@@ -5389,9 +5417,11 @@ def trace_phase_in_child():
 
 
 def tiles_only() -> int:
-    """`--tiles-only`: phases 2b and 2d in bf16 alone, the half blocks and
-    K11 on the bf16 3-tap tiles against their plain versions, with the
-    tiles' occupancy lines (about a minute with the builds)."""
+    """`--tiles-only`: phases 2b and 2d alone, in bf16 and in float32: the
+    half blocks and K11 on the 3-tap tiles against their plain versions
+    (every output and sum bit for bit a second launch; in float32 the
+    edge and batch-128 planes and the single-TF32 controls besides), with
+    the tiles' occupancy lines (a few minutes with the builds)."""
     from lanedetection_end2end_tpu_torch.ops import _build
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5399,13 +5429,14 @@ def tiles_only() -> int:
     print(gpu_line())
     _build.build(["nb_half_fwd", "nb_half_bwd", "packed_conv"])
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    _, failures = check_training_kernels(dev, g, torch.bfloat16)
-    _, f = bf16_tiles(dev)
-    failures += f
-    _, f = check_k11(dev, g, {torch.bfloat16: "bfloat16"})
-    if failures + f:
-        fail("bf16 3-tap tiles: " + "; ".join(failures + f))
-    print("bf16 3-tap tiles: every check ok")
+    failures = []
+    for dt in (torch.bfloat16, torch.float32):
+        failures += check_training_kernels(dev, g, dt)[1]
+        failures += check_k11(dev, g, {dt: DTYPE_NAMES[dt]})[1]
+    failures += tile_occupancy(dev)[1]
+    if failures:
+        fail("3-tap tiles: " + "; ".join(failures))
+    print("3-tap tiles: every check ok")
     return 0
 
 
@@ -5561,10 +5592,11 @@ def main() -> int:
         lanemaps, f2 = check_lanemap_kernels(dev, g, dt)
         train_summary[dname] = {**halves, **lanemaps}
         failures += f + f2
-    occupancy, f = bf16_tiles(dev)
+    occupancy, f = tile_occupancy(dev)
     failures += f
-    for n in ("nb_half_a", "nb_half_b"):
-        train_summary["bfloat16"][n]["occupancy"] = occupancy
+    for dt in ("bfloat16", "float32"):
+        for n in ("nb_half_a", "nb_half_b"):
+            train_summary[dt][n]["occupancy"] = occupancy[dt]
     failures += check_blocks_through_autograd(dev, g, model.net)
     if failures:
         fail("training kernel disagrees with its plain version: "

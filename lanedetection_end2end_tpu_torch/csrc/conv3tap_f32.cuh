@@ -14,9 +14,12 @@
 //
 // Precision. A TF32 product keeps 10 mantissa bits, about 1e-3 relative,
 // and the float32 path is held to 1e-4 of max|plain| against the plain
-// PyTorch version in full f32. So every f32 operand a is split in the SM,
-// never in device memory: hi = tf32(a), lo = tf32(a - hi) (cvt.rna both),
-// and each product is taken as lo_a * hi_b + hi_a * lo_b + hi_a * hi_b,
+// PyTorch version in full f32. So every f32 operand a is split on the
+// card, hi = tf32(a), lo = tf32(a - hi) (cvt.rna both): the activations
+// in the SM as their fragments are read, the convolution's tap matrices
+// once a launch into device memory (wsplit_f32_kernel), the weight
+// gradient's dy in shared memory. Each product is taken as
+// lo_a * hi_b + hi_a * lo_b + hi_a * hi_b,
 // three TF32 products into the one f32 accumulator, smallest terms first.
 // What is lost (lo_a * lo_b, about 2^-22 of the product) is below f32
 // rounding. ops/tf32x3.py states the same arithmetic in PyTorch, and the
@@ -26,59 +29,80 @@
 // plane read, the output written); as three TF32 products it runs at most
 // at 495 / 3 = 165 TFLOP/s, whose ridge is about 49 FLOP per byte of the
 // H100's 3.35 TB/s. The operations bound C = 128 (96 FLOP per byte), C = 64
-// sits at the ridge (48) and the bytes bound C = 16 (12). The weight
-// gradient does the same work per pixel. Legacy `mma.sync` TF32 runs well
-// below the rate `wgmma` reaches on this card, so the products are
-// `wgmma` instructions (m64 x C x 8, A from registers, B from shared
-// memory), issued by warpgroups of 4 warps. The split costs two cvt and a
-// subtraction per operand value; the tiles split B once per block and
-// chunk in shared memory. Measured on the H100, the products are not what
-// bounds these tiles: builds without them keep most of the time, spent in
-// the copies of A and B, the splits and the epilogue, which overlap little
-// (PERF.md).
+// sits at the ridge (48) and the bytes bound C = 16 (12): at the train
+// step's planes at batch 128 each convolution's bound is about 0.16 ms at
+// every C. The weight gradient does the same work per pixel. Legacy
+// `mma.sync` TF32 runs well below the rate `wgmma` reaches on this card, so
+// the products are `wgmma` instructions (m64 x C x 8, A from registers, B
+// from shared memory), issued by warpgroups of 4 warps. The split costs two
+// cvt and a subtraction per operand value.
 //
-// Both kernels walk K in chunks through a ring of STAGES shared-memory
-// stages filled by cp.async (16-byte copies of the A rows, src-size 0, a
-// zero fill, for rows whose tap falls off the plane; 4-byte copies of B,
-// scattered into wgmma's K-major core-matrix layout), so the copies of the
-// next chunks are in flight while this one is multiplied. Once a chunk
-// lands, each thread works on what it copied itself: it applies the
-// BatchNorm-1 prologue relu(x * mul + add) of half B in place to its A rows
-// whose tap lies on the plane (a validity bit per row and tap: the padding
-// stays zero, it is padding of z, not of x), and splits its B values into
-// a hi and a lo copy. One barrier per chunk publishes both. A is split
-// into registers as its fragments are read.
+// conv3tap_f32_kernel replaces a tile that copied the tap matrices 4 bytes
+// at a time into every block for every chunk of K and split them there,
+// copied each activation row once for each tap, and ran one block of two
+// warpgroups in step per 128 or 256 pixels, one chunk's copies, splits,
+// products and epilogue after another: 32% of its bound (PERF.md). Its
+// design, by what it does about that:
+//  - the tap matrices are split once a launch (wsplit_f32_kernel, a few us,
+//    the convolution a programmatic dependent of it) into TF32 hi and lo
+//    planes in wgmma's core-matrix order, which the blocks take with bulk
+//    copies: resident in shared memory at C = 16 and 64, streamed through
+//    a ring of mbarrier stages at C = 128 (384 KB), no thread copying or
+//    splitting a weight in the main loop;
+//  - a tile is BM pixels of one image (TileGeo, as the bf16 tile's), staged
+//    with its halo of d rows or columns once for the three taps, which read
+//    offset views of it; the prologue runs once on each staged value; a
+//    stage carries 32 input channels (C = 128) or 16 (a whole pixel at C =
+//    16), so that the plane is read in runs of 64 or 128 bytes a pixel;
+//  - persistent blocks of independent warpgroups, one wave, each walking
+//    tiles of its own through a ring of its own: one warpgroup's copies,
+//    prologue and splits overlap another's products, and a tile's
+//    epilogue the next tile's copies.
+// Measured (H100 80GB HBM3, 700 W, tools/prof_conv3tap.py --dtype float32,
+// PERF.md): 49.3 ms of card time a default float32 step at batch 128,
+// against 67.1 for the former tile; by C, forward + input gradient, 5.0,
+// 23.7 and 20.7 ms (16, 64, 128). A clock64 breakdown of the warpgroups'
+// loop puts about a fifth of it in issuing the copies, a fifth in reading
+// and splitting A's fragments and a sixth in the products' issue.
 //
 // conv3tap_f32_kernel: an implicit GEMM, M = pixels, N = C output channels,
-// K = 3 taps x C input channels. A block of two warpgroups computes 128
-// pixels (C = 128) or 256 (C = 64, 16) x all C channels, K in chunks of 32
-// (C = 128) or 16 input channels of one tap. The epilogues are
-// conv3tap.cuh's without its bf16 roundings; each thread holds two adjacent
-// channels of two pixel rows per 8 channels, and the per-channel sums fold
+// K = 3 taps x C input channels, in products of KC input channels of all
+// three taps: K is summed chunk by chunk, the three taps in turn within a
+// chunk, where the former tile summed it tap by tap, so y and the sums
+// agree with the former tile's to rounding, not bit for bit. The epilogues are conv3tap.cuh's without its bf16 roundings;
+// each thread holds two adjacent channels of two pixel rows per 8
+// channels, and the per-channel sums, kept across a block's tiles, fold
 // over the warp with shuffles, over the block's warps in warp order in
 // shared memory, and the block writes them to its row of a partials
-// buffer, which one fixed-order fold (fold.cuh) adds up after the
-// entry point's last launch.
+// buffer, which one fixed-order fold (fold.cuh) adds up after the entry
+// point's last launch.
 //
 // wgrad3tap_f32_kernel (C = 64, 128): dk[t] += shift_t(f(in))^T @ dy,
 // M = C input channels, N = C output channels, K = the block's pixels in
 // chunks of 32, split over blocks (blockIdx.y is the tap, f the prologue
-// when given). The staged input rows are read as the transposed A operand,
-// so no transpose is written; dy is B. Its C = 16 specialization does the
-// same on mma.sync: wgmma's 64 rows would be a quarter used, and the
-// 16-channel plane is bound by its bytes; this tile with its rows 16 .. 63
-// zero took more than twice the mma.sync one's time on the H100
-// (PERF.md). Each block writes its C x C sums (the two warpgroups'
-// halves of the pixel steps at C = 64, the 8 warps' at C = 16, added in a
-// fixed order in shared memory) to its row of a partials buffer, and the
-// fold adds the rows: no atomics, so dk, like every sum here, is bit for
-// bit the same from launch to launch, and is written whole.
+// when given), through a ring of STAGES shared-memory stages filled by
+// cp.async (16-byte copies of the input rows, src-size 0, a zero fill, for
+// rows whose tap falls off the plane; 4-byte copies of dy, scattered into
+// wgmma's K-major core-matrix layout). Once a chunk lands, each thread
+// applies the prologue to its rows that lie on the plane and splits its dy
+// values into a hi and a lo copy; one barrier a chunk publishes both. The
+// staged input rows are read as the transposed A operand, so no transpose
+// is written; dy is B. Its C = 16 specialization does the same on
+// mma.sync: wgmma's 64 rows would be a quarter used, and the 16-channel
+// plane is bound by its bytes; this tile with its rows 16 .. 63 zero took
+// more than twice the mma.sync one's time on the H100 (PERF.md). Each
+// block writes its C x C sums (the two warpgroups' halves of the pixel
+// steps at C = 64, the 8 warps' at C = 16, added in a fixed order in
+// shared memory) to its row of a partials buffer, and the fold adds the
+// rows: no atomics, so dk, like every sum here, is bit for bit the same
+// from launch to launch, and is written whole.
 //
-// The block partitions depend on the shape alone: the convolution's
-// blocks are its BM-pixel tiles; the weight gradient takes WG_PER_TAP[C]
-// blocks a tap (one wave of the H100: 3, 2 and 1 blocks an SM at C = 16,
-// 64, 128), each a run of whole pixel chunks (ops/nb_block.py sizes the
-// partials from the same counts).
+// The block partitions depend on the shape alone: the convolution takes
+// one wave of blocks at most, each the groups of NWG tiles dealt to it in
+// turn (ops/nb_block.py::conv_rows); the weight gradient takes
+// WG_PER_TAP[C] blocks a tap (one wave of the H100: 3, 2 and 1 blocks an
+// SM at C = 16, 64, 128), each a run of whole pixel chunks (ops/nb_block.py
+// sizes the partials from the same counts).
 //
 // Each C in {16, 64, 128} has one fixed tile per kernel, which takes any
 // d >= 1 (also d >= H or W, where the shifted taps read only zeros) and
@@ -143,7 +167,9 @@ __device__ __forceinline__ uint64_t b_desc(const float* p) {
 }
 
 // d (m64 x N, f32) += a (m64 x 8, TF32, registers) @ b (8 x N, TF32, shared
-// memory through its descriptor), issued by the 4 warps of a warpgroup.
+// memory through its descriptor), issued by the 4 warps of a warpgroup;
+// with keep_d = 0, d = a @ b (wgmma's scale-d: the accumulator is not
+// read, so no other instruction has to zero it).
 // Warp w holds rows 16w .. 16w + 15 of a and d; thread (g, tg) = (lane / 4,
 // lane % 4) holds a[g][tg], a[g+8][tg], a[g][tg+4], a[g+8][tg+4] and
 // d[4j + 2h + e] = d[g + 8h][8j + 2tg + e].
@@ -154,7 +180,8 @@ template <>
 struct Wgmma<16> {
   __device__ __forceinline__ static void mma(float (&d)[8],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int keep_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
@@ -163,7 +190,7 @@ struct Wgmma<16> {
         "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(keep_d)
         : "memory");
   }
 };
@@ -172,7 +199,8 @@ template <>
 struct Wgmma<64> {
   __device__ __forceinline__ static void mma(float (&d)[32],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int keep_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -190,7 +218,7 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(keep_d)
         : "memory");
   }
 };
@@ -199,7 +227,8 @@ template <>
 struct Wgmma<128> {
   __device__ __forceinline__ static void mma(float (&d)[64],
                                              const uint32_t (&a)[4],
-                                             uint64_t desc) {
+                                             uint64_t desc,
+                                             int keep_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -229,21 +258,23 @@ struct Wgmma<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(keep_d)
         : "memory");
   }
 };
 
 // acc (MT m64 tiles x N) += the 8-deep step's products of the split
-// operands: lo_a hi_b + hi_a lo_b + hi_a hi_b, smallest terms first.
+// operands: lo_a hi_b + hi_a lo_b + hi_a hi_b, smallest terms first; with
+// keep_acc = 0 the first product starts acc afresh.
 template <int N, int MT>
 __device__ __forceinline__ void wgmma3(float (&acc)[MT][N / 2],
                                        const uint32_t (&ahi)[MT][4],
                                        const uint32_t (&alo)[MT][4],
-                                       uint64_t bhi, uint64_t blo) {
+                                       uint64_t bhi, uint64_t blo,
+                                       int keep_acc = 1) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    Wgmma<N>::mma(acc[mt], alo[mt], bhi);
+    Wgmma<N>::mma(acc[mt], alo[mt], bhi, keep_acc);
     Wgmma<N>::mma(acc[mt], ahi[mt], blo);
     Wgmma<N>::mma(acc[mt], ahi[mt], bhi);
   }
@@ -276,218 +307,366 @@ __device__ __forceinline__ void prologue4(float4* v, float4 mul, float4 add) {
 
 // ---- the convolution ------------------------------------------------------
 
-// A block's tile: BM pixels x all C output channels, two warpgroups, each
-// MT m64 tiles of pixels x C channels; K (3 taps x C input channels) in
-// chunks of KC input channels. C = 128: 128 pixels (16,384 pixels of the
-// 128-channel plane give 128 blocks, one wave of the 132 SMs). C = 64 and
-// 16: 256 pixels, two blocks an SM.
+// The tap matrices as wgmma reads them, written once a launch by
+// wsplit_f32_kernel: for each chunk cc of KC input channels and tap t, the
+// KC x C slice w[t][cc KC + k][n] as a TF32 hi plane and a lo plane (the
+// cvt.rna split of split_tf32), each in core_nk<KC>'s K-major core-matrix
+// order. Float ((cc * 3 + t) * 2 + h) * KC * C + e of the planes is
+// element core_nk<KC>(e) of plane h (0 hi, 1 lo) of tap t in chunk cc, so a
+// chunk's three taps are B_CHUNK contiguous floats and all of them
+// 6 * C * C.
+template <int C, int KC>
+__global__ void __launch_bounds__(256)
+    wsplit_f32_kernel(const float* __restrict__ w, float* __restrict__ planes) {
+  // the convolution may start while this runs (a programmatic dependent
+  // launch): it waits for these planes alone
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  if (e >= 3 * C * C) return;
+  const int idx = e % (KC * C), q = e / (KC * C);
+  const int t = q % 3, cc = q / 3;
+  int n, k;
+  core_nk<KC>(idx, n, k);
+  uint32_t hi, lo;
+  split_tf32(w[((size_t)t * C + cc * KC + k) * C + n], hi, lo);
+  float* p = planes + (size_t)(cc * 3 + t) * 2 * KC * C + idx;
+  p[0] = __uint_as_float(hi);
+  p[KC * C] = __uint_as_float(lo);
+}
+
+// A block: NWG warpgroups, persistent, each in step only with itself (a
+// named barrier), so that one warpgroup's copies, prologue and splits
+// overlap another's products. The block walks groups of NWG tiles
+// (warpgroup w of block b takes tiles b NWG + w + k NWG blocks, the bf16
+// tile's walk), each tile BM pixels of one image x all C output channels
+// (ldconv::TileGeo: 8 rows x BM / 8 columns for the row taps, BM columns of
+// a row for the column taps), MT m64 tiles of pixels. A warpgroup's ring
+// stage holds KCS input channels of its tile's staged pixels (rows of KCS
+// floats, pitch LDA): one run of the tile and d more rows or columns on
+// each side, the three taps offset views of it, else three bands of BM
+// (TileGeo::nload, base), so each input value is copied, prologued and
+// split about once a tap; a tap off the plane is a staged pixel off it,
+// which the copy zero-fills and the prologue skips. A stage is U products
+// of KC input channels of all three taps. The ring holds as many stages of
+// the launch's staged rows as fit, at most MAX_STAGES, at least two. The
+// planes of the tap matrices (wsplit_f32_kernel) are resident, one bulk
+// copy a block, at C = 16 and 64 (6 KB, 96 KB); at C = 128 (384 KB) they
+// stream through B_STAGES stages of one product's B_CHUNK floats shared by
+// the warpgroups: thread 0 refills a stage with a bulk copy on its `full`
+// mbarrier once every warp has arrived on its `empty` one, done with the
+// product it held. A warpgroup's wgmma of one product runs on while it
+// reads and splits the next product's fragments, or waits for, prologues
+// and publishes its next stage.
 template <int C>
 struct ConvTile {
-  static constexpr int MT = C == 128 ? 1 : 2;    // m64 tiles a warpgroup
-  static constexpr int BM = 2 * MT * 64;         // pixels per block
-  static constexpr int KC = C == 128 ? 32 : 16;  // input channels a chunk
-  static constexpr int KS = KC / 8;              // 8-deep steps a chunk
-  static constexpr int CPT = C / KC;             // chunks per tap
-  static constexpr int NCHUNK = 3 * CPT;
-  static constexpr int LDA = KC + 4;  // pitch of the A rows, in floats
-  static constexpr int VPR = KC / 4;  // 16-byte copies an A row
-  static constexpr int A_COPIES = BM * VPR / THREADS;
-  static constexpr int B_COPIES = KC * C / THREADS;  // 4-byte copies
-  static constexpr int A_FLOATS = BM * LDA;
-  static constexpr int B_FLOATS = KC * C;  // each of B hi and B lo
-  static constexpr int STAGE = A_FLOATS + 2 * B_FLOATS;  // floats
-  static constexpr int SMEM = STAGES * STAGE * 4;        // bytes
-  static_assert(A_FLOATS % 32 == 0 && STAGE % 32 == 0,
-                "core matrices on 128-byte boundaries");
-  static_assert(THREADS % VPR == 0 && A_COPIES * THREADS == BM * VPR &&
-                    B_COPIES * THREADS == KC * C && 3 * A_COPIES <= 32,
-                "a thread's copies and their validity bits");
-  static_assert(THREADS / 32 * 2 * C <= STAGES * STAGE, "room for the sums");
+  static constexpr int WAVE = 132;              // the H100's SMs
+  static constexpr int NWG = C == 16 ? 4 : 2;   // warpgroups a block
+  static constexpr int THREADS = NWG * 128;
+  static constexpr int MT = C == 64 ? 2 : 1;    // m64 tiles a tile
+  static constexpr int BM = 64 * MT;            // pixels a tile
+  static constexpr int KC = C == 16 ? 16 : 8;   // input channels a product
+  static constexpr int KS = KC / 8;             // 8-deep steps a product
+  // input channels a stage: runs of 128 or 64 bytes a pixel
+  static constexpr int KCS = C == 128 ? 32 : 16;
+  static constexpr int U = KCS / KC;            // products a stage
+  static constexpr int CPT = C / KCS;           // stages a tile
+  static constexpr int LDA = KCS + 4;  // pitch of the staged rows, in floats
+  static constexpr int VPR = KCS / 4;  // 16-byte copies a staged row
+  static constexpr int ROWS = 3 * BM;           // staged rows a tile, at most
+  static constexpr int B_CHUNK = 6 * KC * C;    // floats of a product's planes
+  static constexpr int PLANES = 6 * C * C;      // floats of all of them
+  static constexpr bool RESIDENT = C <= 64;
+  static constexpr int B_STAGES = 4;  // the streamed planes' stages
+  static constexpr int MAX_STAGES = 8;
+  static constexpr int BARS = 128;  // bytes: the mbarriers
+  static constexpr int W_BYTES = (RESIDENT ? PLANES : B_STAGES * B_CHUNK) * 4;
+  static constexpr int SMEM = 232448;            // bytes, the SM's most
+  // bytes of a warpgroup's ring, on 128-byte boundaries
+  static constexpr int RING = (SMEM - BARS - W_BYTES) / NWG / 128 * 128;
+  // floats of a stage of `nload` staged rows: 128-byte boundaries
+  __host__ __device__ static constexpr int stage_floats(int nload) {
+    return (nload * LDA + 31) & ~31;
+  }
+  static_assert(8 * (1 + 2 * B_STAGES) <= BARS && W_BYTES % 128 == 0,
+                "the mbarriers; the rings on 128-byte boundaries");
+  static_assert(128 % VPR == 0 && LDA % 4 == 0, "a thread's channels");
 };
 
+// cp_async_wait<n> for a depth n in 0 .. MAX_STAGES - 2 known at run time
+// (uniform across the warpgroup)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
 // out[p, co] = epilogue(sum_t sum_ci f(in[p + tap_t])[ci] * w[t, ci, co]),
-// taps at -d, 0, +d along rows (axis 0) or columns (axis 1); f is the
-// prologue when pmul != nullptr. Arguments and epilogues as
+// taps at -d, 0, +d along rows (axis 0) or columns (axis 1, `geo`); f is
+// the prologue when pmul != nullptr. Arguments and epilogues as
 // conv3tap.cuh's conv3tap_kernel, in f32 throughout: nothing is rounded
-// to bf16. `part` is the partials of the sums epilogues, SUMS(EPI) x C
-// floats a block (the block's row).
+// to bf16. `planes`: w split by wsplit_f32_kernel. `part` is the partials
+// of the sums epilogues, SUMS(EPI) x C floats a block (row blockIdx.x: the
+// block's sums over its tiles).
 template <int C, int EPI>
-__global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
+__global__ void __launch_bounds__(ConvTile<C>::THREADS, 1)
     conv3tap_f32_kernel(const float* __restrict__ in,
-                        const float* __restrict__ w,
+                        const float* __restrict__ planes,
                         const float* __restrict__ pmul,
                         const float* __restrict__ padd,
                         const float* __restrict__ vec,
                         const float* __restrict__ aux,
                         float* __restrict__ out, float* __restrict__ part,
-                        int npix, int H, int W, int d, int axis) {
+                        int npix, ldconv::TileGeo<ConvTile<C>::BM> geo) {
   using T = ConvTile<C>;
-  extern __shared__ __align__(128) float smem32[];
-  const int p0 = blockIdx.x * T::BM;
+  static_assert(2 * T::stage_floats(T::ROWS) * 4 <= T::RING &&
+                    T::THREADS / 32 * 2 * C * 4 <= T::W_BYTES + T::RING,
+                "a ring of three stages at least; room for the sums");
+  extern __shared__ __align__(128) unsigned char smem[];
+  // full[s], empty[s]: stage s of the streamed planes; bar[0]: the resident
+  // planes
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = bar + 1;
+  uint64_t* empty = full + T::B_STAGES;
+  float* sW = reinterpret_cast<float*>(smem + T::BARS);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  float* sRing =
+      reinterpret_cast<float*>(smem + T::BARS + T::W_BYTES + wg * T::RING);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, tg = lane % 4;
-  // this warp's 16 rows of each of its warpgroup's m64 tiles start at
-  // m0 + mt * 64
-  const int m0 = (warp / 4) * T::MT * 64 + (warp % 4) * 16;
+  const int m0 = (warp % 4) * 16;  // this warp's rows of each m64 tile
 
-  // this thread copies A rows r0 + j * R_STEP, 4 channels at v * 4 of each
-  // chunk; bit 3j + t: row j's tap t lies on the plane
-  constexpr int R_STEP = THREADS / T::VPR;
-  const int v = threadIdx.x % T::VPR, r0 = threadIdx.x / T::VPR;
-  const long long step = axis == 0 ? (long long)W * d : d;  // tap to tap
-  unsigned valid = 0;
-#pragma unroll
-  for (int j = 0; j < T::A_COPIES; ++j)
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-      if (tap_pixel(p0 + r0 + j * R_STEP, npix, H, W, (t - 1) * d, axis) >=
-          0)
-        valid |= 1u << (3 * j + t);
+  // block b takes the groups of NWG tiles b, b + blocks, ...: chunk i of
+  // its walk is chunk i % CPT of group b + (i / CPT) blocks
+  const int ntiles = geo.ntiles(npix);
+  const int groups = (ntiles + T::NWG - 1) / T::NWG;
+  const int b = (int)blockIdx.x, blocks = (int)gridDim.x;
+  const int n = (b < groups ? (groups - 1 - b) / blocks + 1 : 0) * T::CPT;
+  const int nload = geo.nload();
+  const int stage_floats = T::stage_floats(nload);
+  const int nst = min(T::MAX_STAGES, T::RING / (stage_floats * 4));
 
-  auto stage = [&](int i) { return smem32 + (i % STAGES) * T::STAGE; };
+  // this warpgroup's staged rows of chunk i
+  auto stage = [&](int i) { return sRing + (i % nst) * stage_floats; };
+  // this warpgroup's tile of chunk i: false past the last tile
+  auto tile_at = [&](int i, int& R0, int& h0, int& c0) {
+    const int tile = (b + i / T::CPT * blocks) * T::NWG + wg;
+    if (tile >= ntiles) return false;
+    geo.at(tile, R0, h0, c0);
+    return true;
+  };
   auto load_chunk = [&](int i) {
+    int R0, h0, c0;
+    if (!tile_at(i, R0, h0, c0)) return;
     float* sA = stage(i);
-    float* sB = sA + T::A_FLOATS;
-    const int t = i / T::CPT, c0 = (i % T::CPT) * T::KC;
-#pragma unroll
-    for (int j = 0; j < T::A_COPIES; ++j) {
-      const int r = r0 + j * R_STEP;
-      const bool ok = (valid >> (3 * j + t)) & 1u;
-      const float* src =
-          ok ? in + ((p0 + r) + (t - 1) * step) * C + c0 + v * 4 : in;
-      cp_async16(sA + r * T::LDA + v * 4, src, ok);
-    }
-    // the chunk's KC x C slice of tap t, k = input channel, n = output
-    // channel, into core matrices
-    const float* wt = w + ((size_t)t * C + c0) * C;
-#pragma unroll
-    for (int j = 0; j < T::B_COPIES; ++j) {
-      const int e = threadIdx.x + j * THREADS;
-      int n, k;
-      core_nk<T::KC>(e, n, k);
-      cp_async4(sB + e, wt + k * C + n, true);
+    const int ch = (i % T::CPT) * T::KCS;
+    for (int e = tid; e < nload * T::VPR; e += 128) {
+      const int j = e / T::VPR, v = e % T::VPR;
+      const int q = geo.staged_pixel(R0, h0, c0, j);
+      cp_async16(sA + j * T::LDA + v * 4,
+                 q >= 0 ? in + (size_t)q * C + ch + v * 4 : in, q >= 0);
     }
   };
+  // the streamed planes of product j (product u of stage i is j = i U +
+  // u) into stage j % B_STAGES (thread 0), once every warp is done with
+  // product j - B_STAGES there
+  const int nprod = n * T::U;
+  auto load_planes = [&](int j) {
+    const int s = j % T::B_STAGES;
+    if (j >= T::B_STAGES)
+      ldtc::mbar_wait(empty + s, (j / T::B_STAGES - 1) & 1);
+    ldtc::mbar_expect(full + s, T::B_CHUNK * 4);
+    ldtc::bulk_copy(sW + s * T::B_CHUNK,
+                    planes + (size_t)(j % (C / T::KC)) * T::B_CHUNK,
+                    T::B_CHUNK * 4, full + s);
+  };
 
-  float acc[T::MT][C / 2];
-#pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-    for (int e = 0; e < C / 2; ++e) acc[mt][e] = 0.0f;
-
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < T::NCHUNK) load_chunk(i);
+  if (threadIdx.x == 0) {
+    ldtc::mbar_init(bar, 1);
+    for (int s = 0; s < T::B_STAGES; ++s) {
+      ldtc::mbar_init(full + s, 1);
+      ldtc::mbar_init(empty + s, T::THREADS / 32);
+    }
+    ldtc::mbar_init_fence();
+  }
+  __syncthreads();  // the mbarriers initialized
+  // the launch is a programmatic dependent of the weight split: the one
+  // thread that copies the planes waits for it, while the others' first
+  // copies of pixels are already on their way
+  if (threadIdx.x == 0 && n > 0) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    if (T::RESIDENT) {
+      ldtc::mbar_expect(bar, T::PLANES * 4);
+      ldtc::bulk_copy(sW, planes, T::PLANES * 4, bar);
+    } else {
+      for (int j = 0; j < T::B_STAGES - 2 && j < nprod; ++j) load_planes(j);
+    }
+  }
+  // this warpgroup's first nst - 1 chunks, a group each: chunk i + nst -
+  // 1 refills the stage of chunk i - 1
+  for (int i = 0; i < nst - 1; ++i) {
+    if (i < n) load_chunk(i);
     cp_async_commit();
   }
-#pragma unroll 1
-  for (int i = 0; i < T::NCHUNK; ++i) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk i landed
-    float* sA = stage(i);
-    float* sBh = sA + T::A_FLOATS;
-    float* sBl = sBh + T::B_FLOATS;
-    if (pmul != nullptr) {
-      // the prologue on the rows this thread copied, valid ones only
-      const int t = i / T::CPT, c = (i % T::CPT) * T::KC + v * 4;
-      const float4 mul = *reinterpret_cast<const float4*>(pmul + c);
-      const float4 add = *reinterpret_cast<const float4*>(padd + c);
-#pragma unroll
-      for (int j = 0; j < T::A_COPIES; ++j)
-        if ((valid >> (3 * j + t)) & 1u)
-          prologue4(reinterpret_cast<float4*>(
-                        sA + (r0 + j * R_STEP) * T::LDA + v * 4),
-                    mul, add);
-    }
-    split_b<T::B_COPIES>(sBh, sBl);
-    fence_proxy_async();
-    // every thread's copies, prologue and splits of chunk i are visible,
-    // and every warpgroup is done with chunk i - 1, whose stage is refilled
-    // next
-    __syncthreads();
-    if (i + STAGES - 1 < T::NCHUNK) load_chunk(i + STAGES - 1);
-    cp_async_commit();  // possibly empty: one group per iteration
+  if (T::RESIDENT && n > 0) ldtc::mbar_wait(bar, 0);
 
-    uint32_t ahi[T::KS][T::MT][4], alo[T::KS][T::MT][4];
-#pragma unroll
-    for (int s = 0; s < T::KS; ++s)
-#pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt) {
-        const float* a = sA + (m0 + mt * 64 + g) * T::LDA + s * 8 + tg;
-        split_tf32(a[0], ahi[s][mt][0], alo[s][mt][0]);
-        split_tf32(a[8 * T::LDA], ahi[s][mt][1], alo[s][mt][1]);
-        split_tf32(a[4], ahi[s][mt][2], alo[s][mt][2]);
-        split_tf32(a[8 * T::LDA + 4], ahi[s][mt][3], alo[s][mt][3]);
-      }
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < T::KS; ++s)
-      wgmma3<C>(acc, ahi[s], alo[s], b_desc<T::KC>(sBh + s * 64),
-                b_desc<T::KC>(sBl + s * 64));
-    wgmma_commit();
-    wgmma_wait0();
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt) keep(acc[mt]);
-#pragma unroll
-    for (int s = 0; s < T::KS; ++s)
-#pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt) {
-        keep(ahi[s][mt]);
-        keep(alo[s][mt]);
-      }
-  }
-
-  // acc[mt][4j + 2h + e]: pixel p0 + m0 + mt*64 + g + 8h, channel
-  // 8j + 2tg + e
-  float s0[C / 8][2], s1[C / 8][2];
+  float acc[T::MT][C / 2] = {};
+  float s0[C / 8][2], s1[C / 8][2];  // this thread's channel sums
 #pragma unroll
   for (int j = 0; j < C / 8; ++j)
     s0[j][0] = s0[j][1] = s1[j][0] = s1[j][1] = 0.0f;
-#pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = p0 + m0 + mt * 64 + g + 8 * h;
-      if (p >= npix) continue;
-#pragma unroll
-      for (int j = 0; j < C / 8; ++j) {
-        const int c0 = 8 * j + 2 * tg;
-        const size_t base = (size_t)p * C + c0;
-        float2 xa = make_float2(0.0f, 0.0f);
-        if (EPI == EPI_MASK_SUM || EPI == EPI_PRO_BWD)
-          xa = *reinterpret_cast<const float2*>(aux + base);
-        const float xv[2] = {xa.x, xa.y};
-        float o[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = c0 + e;
-          const float a = acc[mt][4 * j + 2 * h + e];
-          if (EPI == EPI_BIAS_RELU) {
-            o[e] = fmaxf(a + vec[c], 0.0f);
-          } else if (EPI == EPI_BIAS) {
-            o[e] = a + vec[c];
-          } else if (EPI == EPI_BIAS_MOM) {
-            o[e] = a + vec[c];
-            s0[j][e] += o[e];
-            s1[j][e] += o[e] * o[e];
-          } else if (EPI == EPI_PLAIN) {
-            o[e] = a;
-          } else if (EPI == EPI_MASK_SUM) {
-            o[e] = xv[e] > 0.0f ? a : 0.0f;
-            s0[j][e] += o[e];
-          } else {  // EPI_PRO_BWD: aux = x, vec = [mul; add]
-            const float m =
-                bn_affine(xv[e], vec[c], vec[C + c]) > 0.0f ? a : 0.0f;
-            s0[j][e] += m * xv[e];
-            s1[j][e] += m;
-            o[e] = m * vec[c];
-          }
-        }
-        *reinterpret_cast<float2*>(out + base) = make_float2(o[0], o[1]);
+  // the A fragments of a product's three taps, in flight with its wgmma
+  uint32_t ahi[3][T::KS][T::MT][4] = {}, alo[3][T::KS][T::MT][4] = {};
+  int R0 = 0, h0 = 0, c0 = 0;
+  bool have = false;  // this warpgroup has a tile in this group
+
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const int cc = i % T::CPT;
+    if (cc == 0) have = tile_at(i, R0, h0, c0);
+    cp_async_wait_n(nst - 2);  // this thread's copies of chunk i landed
+    float* sA = stage(i);
+    if (pmul != nullptr && have) {
+      // the prologue on the rows this thread copied that lie on the plane
+      const int c = cc * T::KCS + (tid % T::VPR) * 4;
+      const float4 mul = *reinterpret_cast<const float4*>(pmul + c);
+      const float4 add = *reinterpret_cast<const float4*>(padd + c);
+      for (int e = tid; e < nload * T::VPR; e += 128) {
+        const int j = e / T::VPR;
+        if (geo.staged_pixel(R0, h0, c0, j) < 0) continue;
+        prologue4(reinterpret_cast<float4*>(sA + j * T::LDA +
+                                            (e % T::VPR) * 4),
+                  mul, add);
       }
     }
+    // every thread's rows of chunk i (and their prologue) visible to the
+    // warpgroup, and its reads of chunk i - 1, whose stage is refilled
+    // next, done
+    ldconv::warpgroup_sync(wg);
+    if (i + nst - 1 < n) load_chunk(i + nst - 1);
+    cp_async_commit();  // possibly empty: one group per iteration
+
+    // U products of KC channels from the stage, each from the fragments of
+    // the three taps: tile pixel m of tap t is staged row geo.base(t) + m.
+    // A warpgroup past the last tile multiplies what its stage holds and
+    // stores nothing: the wgmma stay out of branches, so the compiler keeps
+    // them asynchronous
+#pragma unroll
+    for (int u = 0; u < T::U; ++u) {
+      const int k = i * T::U + u;  // this product of the walk
+      wgmma_wait0();  // this warpgroup's product k - 1: its registers
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) keep(acc[mt]);
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+#pragma unroll
+        for (int s = 0; s < T::KS; ++s)
+#pragma unroll
+          for (int mt = 0; mt < T::MT; ++mt) {
+            keep(ahi[t][s][mt]);
+            keep(alo[t][s][mt]);
+          }
+      if (!T::RESIDENT) {
+        // this warp is done with product k - 1's planes; thread 0 refills
+        // the stage of product k - 2 once every warp is done with it
+        if (k > 0 && lane == 0)
+          ldtc::mbar_arrive(empty + (k - 1) % T::B_STAGES);
+        if (threadIdx.x == 0 && k + T::B_STAGES - 2 < nprod)
+          load_planes(k + T::B_STAGES - 2);
+      }
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const float* at =
+            sA + (geo.base(t) + m0 + g) * T::LDA + u * T::KC + tg;
+#pragma unroll
+        for (int s = 0; s < T::KS; ++s)
+#pragma unroll
+          for (int mt = 0; mt < T::MT; ++mt) {
+            const float* a = at + mt * 64 * T::LDA + s * 8;
+            split_tf32(a[0], ahi[t][s][mt][0], alo[t][s][mt][0]);
+            split_tf32(a[8 * T::LDA], ahi[t][s][mt][1], alo[t][s][mt][1]);
+            split_tf32(a[4], ahi[t][s][mt][2], alo[t][s][mt][2]);
+            split_tf32(a[8 * T::LDA + 4], ahi[t][s][mt][3],
+                       alo[t][s][mt][3]);
+          }
+      }
+      const float* sB =
+          sW + (T::RESIDENT ? cc * T::U + u : k % T::B_STAGES) * T::B_CHUNK;
+      if (!T::RESIDENT)
+        ldtc::mbar_wait(full + k % T::B_STAGES, (k / T::B_STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+#pragma unroll
+        for (int s = 0; s < T::KS; ++s)  // a tile's first product starts acc
+          wgmma3<C>(acc, ahi[t][s], alo[t][s],
+                    b_desc<T::KC>(sB + 2 * t * T::KC * C + s * 64),
+                    b_desc<T::KC>(sB + (2 * t + 1) * T::KC * C + s * 64),
+                    cc + u + t + s > 0);
+      wgmma_commit();
+    }
+    if (cc != T::CPT - 1) continue;
+
+    // the tile's epilogue. acc[mt][4j + 2h + e]: tile pixel m = mt * 64 +
+    // m0 + g + 8h, channel 8j + 2tg + e
+    wgmma_wait0();
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt) keep(acc[mt]);
+    if (!have) continue;
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long p = geo.pixel(R0, h0, c0, mt * 64 + m0 + g + 8 * h, C);
+        if (p < 0) continue;
+#pragma unroll
+        for (int j = 0; j < C / 8; ++j) {
+          const int c2 = 8 * j + 2 * tg;
+          const size_t base = (size_t)p + c2;
+          float2 xa = make_float2(0.0f, 0.0f);
+          if (EPI == EPI_MASK_SUM || EPI == EPI_PRO_BWD)
+            xa = *reinterpret_cast<const float2*>(aux + base);
+          const float xv[2] = {xa.x, xa.y};
+          float o[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = c2 + e;
+            const float a = acc[mt][4 * j + 2 * h + e];
+            if (EPI == EPI_BIAS_RELU) {
+              o[e] = fmaxf(a + vec[c], 0.0f);
+            } else if (EPI == EPI_BIAS) {
+              o[e] = a + vec[c];
+            } else if (EPI == EPI_BIAS_MOM) {
+              o[e] = a + vec[c];
+              s0[j][e] += o[e];
+              s1[j][e] += o[e] * o[e];
+            } else if (EPI == EPI_PLAIN) {
+              o[e] = a;
+            } else if (EPI == EPI_MASK_SUM) {
+              o[e] = xv[e] > 0.0f ? a : 0.0f;
+              s0[j][e] += o[e];
+            } else {  // EPI_PRO_BWD: aux = x, vec = [mul; add]
+              const float m =
+                  bn_affine(xv[e], vec[c], vec[C + c]) > 0.0f ? a : 0.0f;
+              s0[j][e] += m * xv[e];
+              s1[j][e] += m;
+              o[e] = m * vec[c];
+            }
+          }
+          *reinterpret_cast<float2*>(out + base) = make_float2(o[0], o[1]);
+        }
+      }
+  }
+
   if (sums_of(EPI) > 0) {
     // lanes with equal tg hold the same channels: fold them onto lanes
-    // 0..3 (tg = lane there), then sum the 8 warps' rows in shared memory
+    // 0..3 (tg = lane there), then sum the warps' rows in shared memory in
+    // warp order, into the block's row of the partials
     float red[C / 2];
 #pragma unroll
     for (int j = 0; j < C / 8; ++j)
@@ -497,8 +676,8 @@ __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
         red[C / 4 + 2 * j + e] = s1[j][e];
       }
     cp_async_wait<0>();
-    __syncthreads();       // the ring is free
-    float* sRed = smem32;  // 8 x 2C
+    __syncthreads();  // the rings and the planes are free
+    float* sRed = sW;  // a row of 2C a warp
     if (fold_lanes(red, 4)) {
       float* row = sRed + warp * 2 * C;
 #pragma unroll
@@ -513,7 +692,7 @@ __global__ void __launch_bounds__(THREADS, C == 128 ? 1 : 2)
     __syncthreads();
     if (threadIdx.x < C) {
       float a0 = 0.0f, a1 = 0.0f;
-      for (int k = 0; k < THREADS / 32; ++k) {
+      for (int k = 0; k < T::THREADS / 32; ++k) {
         a0 += sRed[k * 2 * C + threadIdx.x];
         a1 += sRed[k * 2 * C + C + threadIdx.x];
       }
@@ -862,33 +1041,85 @@ int allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// the block rows of the sums of a convolution over npix pixels
+// the blocks of a convolution over npix pixels of (H, W) images: a
+// warpgroup a tile at most, at most one wave, a constant of the shape
+// (ops/nb_block.py::conv_rows counts the same, the rows of its sums'
+// partials)
 template <int C>
-int conv_rows(int npix) {
-  return grid_1d(npix, ConvTile<C>::BM);
+int conv_grid_f32(int npix, const ldconv::TileGeo<ConvTile<C>::BM>& geo,
+                  int H, int W) {
+  using T = ConvTile<C>;
+  const int groups =
+      (npix / (H * W) * geo.frb.d * geo.fcb.d + T::NWG - 1) / T::NWG;
+  return groups < T::WAVE ? groups : T::WAVE;
 }
 
 // `sums` ((SUMS(EPI), C) f32) is written whole by the fold of `pp`, which
-// takes the blocks' partials here; pp may be null for an epilogue without
-// sums
+// takes the blocks' partials here, and the split tap matrices (6 C^2
+// floats of its scratch that no fold reads)
 template <int C, int EPI>
 int launch_conv_f32(const float* in, const float* w, const float* pmul,
                     const float* padd, const float* vec, const float* aux,
                     float* out, float* sums, int npix, int H, int W, int d,
                     int axis, cudaStream_t stream, ldfold::Partials* pp) {
   using T = ConvTile<C>;
+  auto kern = conv3tap_f32_kernel<C, EPI>;
+  int rc = allow_smem(kern, T::SMEM);
+  if (rc) return rc;
+  if (npix == 0) return sums_of(EPI) > 0 ? (int)cudaErrorInvalidValue : 0;
+  float* planes = pp ? pp->space(T::PLANES) : nullptr;
+  if (planes == nullptr) return (int)cudaErrorInvalidValue;
+  const ldconv::TileGeo<T::BM> geo(H, W, d, axis);
+  const int grid = conv_grid_f32<C>(npix, geo, H, W);
   float* part = nullptr;
   if (sums_of(EPI) > 0) {
-    part = pp ? pp->take(conv_rows<C>(npix), sums_of(EPI) * C, sums)
-              : nullptr;
+    part = pp->take(grid, sums_of(EPI) * C, sums);
     if (part == nullptr) return (int)cudaErrorInvalidValue;
   }
-  int rc = allow_smem(conv3tap_f32_kernel<C, EPI>, T::SMEM);
+  wsplit_f32_kernel<C, T::KC>
+      <<<grid_1d(3 * C * C, 256), 256, 0, stream>>>(w, planes);
+  rc = (int)cudaGetLastError();
   if (rc) return rc;
-  conv3tap_f32_kernel<C, EPI>
-      <<<conv_rows<C>(npix), THREADS, T::SMEM, stream>>>(
-          in, w, pmul, padd, vec, aux, out, part, npix, H, W, d, axis);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, in, (const float*)planes, pmul,
+                                 padd, vec, aux, out, part, npix, geo);
+}
+
+// What the card makes of the convolution tile at C with epilogue EPI, for
+// a report (conv3tap.cuh's tile_info): info[0..3] registers a thread, local
+// (spilled) bytes a thread, blocks resident on one SM, dynamic shared
+// bytes a block; info[4] its blocks a launch over npix pixels of (H, W)
+// images at d and axis.
+template <int C, int EPI>
+int conv_info_f32(int npix, int H, int W, int d, int axis, int* info) {
+  using T = ConvTile<C>;
+  const int rc = ldconv::tile_info(conv3tap_f32_kernel<C, EPI>, T::THREADS,
+                                   T::SMEM, info);
+  if (rc) return rc;
+  info[4] = conv_grid_f32<C>(npix, ldconv::TileGeo<T::BM>(H, W, d, axis), H,
+                             W);
+  return 0;
+}
+
+// The same five ints of the bf16 convolution tile (conv3tap.cuh's
+// conv_info and conv_grid), so that one report lists both dtypes alike.
+template <int C, int EPI>
+int conv_info_bf16(int npix, int H, int W, int d, int axis, int* info) {
+  using T = ldconv::ConvTile<C>;
+  const int rc = ldconv::conv_info<C, EPI, bf16>(info);
+  if (rc) return rc;
+  info[4] = ldconv::conv_grid<C>(
+      npix, ldconv::TileGeo<T::BM>(H, W, d, axis), H, W);
+  return 0;
 }
 
 // blocks a tap of the weight gradient: one wave of the H100's 132 SMs, a

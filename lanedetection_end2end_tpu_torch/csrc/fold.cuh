@@ -122,6 +122,18 @@ struct Partials {
     return p;
   }
 
+  // n floats of the scratch that no fold reads (a launch's own operands,
+  // such as the split tap matrices of conv3tap_f32.cuh); null when the
+  // scratch is full. Every earlier request was a multiple of 4 floats, so
+  // the floats start on a 16-byte boundary of the scratch.
+  float* space(long long n) {
+    if (base == nullptr || used + n > cap || n < 1 || used % 4 != 0)
+      return nullptr;
+    float* p = base + used;
+    used += n;
+    return p;
+  }
+
   // one launch that folds every buffer taken, as a programmatic dependent
   // of the last kernel on `s`; nothing when none was taken
   template <class Tag>

@@ -159,12 +159,38 @@ int half_bwd_entry(const void* x, const void* muladd, const void* ymid,
 #undef LD_ARGS
 }
 
+// the bf16 weight gradient's five ints (wgrad3tap.cuh's wgrad_info), its
+// blocks a launch those of the larger of the two axes' launches
 template <int C>
-int bwd_info(int* info) {
-  int rc = conv_info<C, EPI_MASK_SUM, bf16>(info);
-  if (!rc) rc = conv_info<C, EPI_PLAIN, bf16>(info + 4);
-  if (!rc) rc = conv_info<C, EPI_PRO_BWD, bf16>(info + 8);
-  return rc ? rc : wgrad_info<C>(info + 12);
+int wgrad_info_bf16(int npix, int H, int W, int d, int* info) {
+  using T = WgradTile<C>;
+  const int rc = wgrad_info<C>(info);
+  if (rc) return rc;
+  int blocks = 0;
+  for (int axis = 0; axis < 2; ++axis) {
+    const int b = wgrad_grid<C>(npix, TileGeo<T::BM>(H, W, d, axis), H, W);
+    blocks = b > blocks ? b : blocks;
+  }
+  info[4] = blocks * (T::TAPS == 1 ? 3 : 1);
+  return 0;
+}
+
+// info[5 k .. 5 k + 4] of the report's kernel k: the bf16 convolution with
+// the relu mask (column taps), the plain one (half A's dx), the one with
+// the prologue's backward (half B's dx) and the weight gradient, then the
+// float32 tile's three convolutions (conv3tap_f32.cuh's conv_info_bf16 /
+// conv_info_f32)
+template <int C>
+int bwd_info(int npix, int H, int W, int d, int* info) {
+  using ldconv32::conv_info_bf16;
+  using ldconv32::conv_info_f32;
+  int rc = conv_info_bf16<C, EPI_MASK_SUM>(npix, H, W, d, 1, info);
+  if (!rc) rc = conv_info_bf16<C, EPI_PLAIN>(npix, H, W, d, 0, info + 5);
+  if (!rc) rc = conv_info_bf16<C, EPI_PRO_BWD>(npix, H, W, d, 0, info + 10);
+  if (!rc) rc = wgrad_info_bf16<C>(npix, H, W, d, info + 15);
+  if (!rc) rc = conv_info_f32<C, EPI_MASK_SUM>(npix, H, W, d, 1, info + 20);
+  if (!rc) rc = conv_info_f32<C, EPI_PLAIN>(npix, H, W, d, 0, info + 25);
+  return rc ? rc : conv_info_f32<C, EPI_PRO_BWD>(npix, H, W, d, 0, info + 30);
 }
 
 }  // namespace
@@ -202,19 +228,21 @@ LD_API int ld_nb_half_bwd_f32(const void* x, const void* muladd,
                                part, B, H, W, C, d, part_floats, stream);
 }
 
-// What the card makes of the bf16 tiles of the backward at C (16, 64 or
-// 128), for a report (conv3tap.cuh's tile_info: registers, local bytes,
-// blocks an SM, shared bytes): info[0..3] the convolution with the relu
-// mask, [4..7] the plain one (half A's dx), [8..11] the one with the
-// prologue's backward (half B's dx), [12..15] the weight gradient.
-LD_API int ld_nb_half_bwd_info(int C, int* info) {
+// What the card makes of the 3-tap tiles of the backward on a (B, H, W, C)
+// plane (C 16, 64 or 128) at d, for a report: five ints a kernel,
+// registers a thread, local bytes, blocks an SM, shared bytes and blocks a
+// launch (conv3tap.cuh's tile_info and the launch's grid); info[0..19] the
+// bf16 tiles, info[20..34] the float32 convolutions (bwd_info).
+LD_API int ld_nb_half_bwd_info(int B, int H, int W, int C, int d,
+                               int* info) {
+  const int npix = B * H * W;
   switch (C) {
     case 16:
-      return bwd_info<16>(info);
+      return bwd_info<16>(npix, H, W, d, info);
     case 64:
-      return bwd_info<64>(info);
+      return bwd_info<64>(npix, H, W, d, info);
     case 128:
-      return bwd_info<128>(info);
+      return bwd_info<128>(npix, H, W, d, info);
     default:
       return (int)cudaErrorInvalidValue;
   }

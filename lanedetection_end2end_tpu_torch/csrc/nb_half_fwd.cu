@@ -85,10 +85,18 @@ int half_fwd_entry(const void* x, const void* kh, const void* bh,
 #undef LD_ARGS
 }
 
+// info[5 k .. 5 k + 4] of the report's kernel k: the bf16 tiles' first
+// convolution (row taps; prologue, bias and relu) and second (column taps;
+// bias and moments), then the float32 tile's same two (conv3tap_f32.cuh's
+// conv_info_bf16 / conv_info_f32)
 template <int C>
-int fwd_info(int* info) {
-  const int rc = conv_info<C, EPI_BIAS_RELU, bf16>(info);
-  return rc ? rc : conv_info<C, EPI_BIAS_MOM, bf16>(info + 4);
+int fwd_info(int npix, int H, int W, int d, int* info) {
+  using ldconv32::conv_info_bf16;
+  using ldconv32::conv_info_f32;
+  int rc = conv_info_bf16<C, EPI_BIAS_RELU>(npix, H, W, d, 0, info);
+  if (!rc) rc = conv_info_bf16<C, EPI_BIAS_MOM>(npix, H, W, d, 1, info + 5);
+  if (!rc) rc = conv_info_f32<C, EPI_BIAS_RELU>(npix, H, W, d, 0, info + 10);
+  return rc ? rc : conv_info_f32<C, EPI_BIAS_MOM>(npix, H, W, d, 1, info + 15);
 }
 
 }  // namespace
@@ -117,18 +125,21 @@ LD_API int ld_nb_half_fwd_f32(const void* x, const void* kh, const void* bh,
                                part, B, H, W, C, d, part_floats, stream);
 }
 
-// What the card makes of the bf16 tiles of the forward at C (16, 64 or
-// 128), for a report (conv3tap.cuh's tile_info: registers, local bytes,
-// blocks an SM, shared bytes): info[0..3] the first convolution (prologue,
-// bias and relu), info[4..7] the second (bias and moments).
-LD_API int ld_nb_half_fwd_info(int C, int* info) {
+// What the card makes of the 3-tap tiles of the forward on a (B, H, W, C)
+// plane (C 16, 64 or 128) at d, for a report: five ints a kernel,
+// registers a thread, local bytes, blocks an SM, shared bytes and blocks a
+// launch (conv3tap.cuh's tile_info and the launch's grid); info[0..9] the
+// bf16 tiles, info[10..19] the float32 ones (fwd_info).
+LD_API int ld_nb_half_fwd_info(int B, int H, int W, int C, int d,
+                               int* info) {
+  const int npix = B * H * W;
   switch (C) {
     case 16:
-      return fwd_info<16>(info);
+      return fwd_info<16>(npix, H, W, d, info);
     case 64:
-      return fwd_info<64>(info);
+      return fwd_info<64>(npix, H, W, d, info);
     case 128:
-      return fwd_info<128>(info);
+      return fwd_info<128>(npix, H, W, d, info);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -97,20 +97,22 @@ __global__ void __launch_bounds__(EW_THREADS) dz_kernel(
 
 // launch_conv and launch_wgrad take bf16 planes (conv3tap.cuh, wgrad3tap.cuh)
 // or f32 ones (conv3tap_f32.cuh): the overload follows T.
+// pp: the float32 tile's split tap matrices (unused in bf16)
 template <typename T, int C>
 int fwd(const T* x, const T* w, const float* bias, void* y, int npix, int H,
-        int W, int d, int axis, int act, cudaStream_t s) {
+        int W, int d, int axis, int act, cudaStream_t s,
+        ldfold::Partials* pp) {
   if (bias == nullptr)  // packed_conv: f32 output, no bias
     return launch_conv<C, EPI_PLAIN>(x, w, nullptr, nullptr, nullptr, nullptr,
                                      static_cast<float*>(y), nullptr, npix, H,
-                                     W, d, axis, s, nullptr);
+                                     W, d, axis, s, pp);
   T* out = static_cast<T*>(y);
   if (act)
     return launch_conv<C, EPI_BIAS_RELU>(x, w, nullptr, nullptr, bias,
                                          nullptr, out, nullptr, npix, H, W, d,
-                                         axis, s, nullptr);
+                                         axis, s, pp);
   return launch_conv<C, EPI_BIAS>(x, w, nullptr, nullptr, bias, nullptr, out,
-                                  nullptr, npix, H, W, d, axis, s, nullptr);
+                                  nullptr, npix, H, W, d, axis, s, pp);
 }
 
 // ---- backward ------------------------------------------------------------
@@ -153,16 +155,21 @@ int bwd(const T* x, const T* dy, const T* y, const T* wT, T* dz, T* dx,
 
 // x: (B, H, W, C) contiguous, bf16 (f32 == 0) or f32 (f32 == 1); w: (3, C,
 // C) of the same dtype, [tap][ci][co]; bias: (C,) f32, or null for
-// packed_conv, whose y is f32; otherwise y has x's dtype. act: relu.
+// packed_conv, whose y is f32; otherwise y has x's dtype. act: relu. part:
+// f32 scratch of part_floats floats for the float32 tile's split tap
+// matrices (ops/packed_conv.py::fwd_partials counts them; null and 0 in
+// bf16).
 LD_API int ld_packed_conv_fwd(const void* x, const void* w, const void* bias,
                               void* y, int B, int H, int W, int C, int d,
-                              int axis, int f32, int act, void* stream) {
+                              int axis, int f32, int act, void* part,
+                              int part_floats, void* stream) {
   const int npix = B * H * W;
   auto s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
+  ldfold::Partials pp(part, part_floats);
 #define LD_FWD(T, CC)                                                      \
   fwd<T, CC>(static_cast<const T*>(x), static_cast<const T*>(w), b, y,    \
-             npix, H, W, d, axis, act, s)
+             npix, H, W, d, axis, act, s, &pp)
 #define LD_DISPATCH(T)           \
   switch (C) {                   \
     case 16:                     \

@@ -157,6 +157,15 @@ def nb_half_b_plain(y2, mul, add, kh, bh, kw, bw, d: int):
 WG_PER_TAP = {16: 132, 64: 88, 128: 44}  # weight-gradient blocks a tap
 WG_CHUNK = {16: 128, 64: 32, 128: 32}    # its pixels a chunk
 
+# The float32 convolution tile: persistent blocks of F32_CONV[C][0]
+# independent warpgroups walking tiles of F32_CONV[C][1] pixels of one
+# image (the bf16 tiles' `TileGeo` and walk), at most one wave (BF16_WAVE
+# blocks); K in products of F32_KC[C] input channels of all three taps,
+# the tap matrices split once a launch into `f32_planes(C)` floats of the
+# partials scratch that no fold reads
+F32_CONV = {16: (4, 64), 64: (2, 128), 128: (2, 64)}  # (warpgroups, BM)
+F32_KC = {16: 16, 64: 8, 128: 8}
+
 # The bf16 tiles: persistent blocks walking tiles of one image (8 rows x
 # BM / 8 columns for the row taps, axis 0; BM columns of a row for the
 # column taps, axis 1), at most one wave of the H100's 132 SMs at the
@@ -170,10 +179,19 @@ BF16_WG_BM = 64
 BF16_WG_CLUSTER = {16: 1, 64: 2, 128: 1}
 
 
-def conv_rows(C: int, npix: int) -> int:
-    """Blocks of the float32 convolution: tiles of 128 pixels at C = 128,
-    else 256."""
-    return cdiv(npix, 128 if C == 128 else 256)
+def conv_rows(shape, axis: int) -> int:
+    """Blocks of the float32 convolution over a (B, H, W, C) plane (its
+    taps on `axis`): a warpgroup a tile at most, at most BF16_WAVE;
+    warpgroup w of block b takes tiles b NWG + w + k NWG blocks."""
+    nwg, bm = F32_CONV[shape[-1]]
+    return min(cdiv(bf16_tiles(shape, axis, bm), nwg), BF16_WAVE)
+
+
+def f32_planes(C: int) -> int:
+    """Floats of the float32 convolution's split tap matrices: for each
+    chunk of F32_KC[C] input channels and tap, a TF32 hi and lo plane of
+    F32_KC[C] x C (`csrc/conv3tap_f32.cuh::wsplit_f32_kernel`)."""
+    return 6 * C * C
 
 
 def wgrad_split(C: int, npix: int) -> tuple:
@@ -192,8 +210,8 @@ def dyv_split(C: int, npix: int) -> tuple:
 
 
 def bf16_tiles(shape, axis: int, bm: int) -> int:
-    """Tiles of BM pixels of the bf16 tiles' geometry (`TileGeo`) over a
-    (B, H, W, C) plane."""
+    """Tiles of BM pixels of the 3-tap tiles' geometry (`TileGeo`, bf16 and
+    float32) over a (B, H, W, C) plane."""
     B, H, W, _ = shape
     th = 8 if axis == 0 else 1
     return B * cdiv(H, th) * cdiv(W, bm // th)
@@ -226,7 +244,7 @@ def sum_rows(shape, axis: int, dtype) -> int:
     """Rows of a convolution's sums over a (B, H, W, C) plane of `dtype`
     (its taps on `axis`)."""
     if dtype == torch.float32:
-        return conv_rows(shape[-1], shape[0] * shape[1] * shape[2])
+        return conv_rows(shape, axis)
     return bf16_conv_rows(shape, axis)
 
 
@@ -237,22 +255,32 @@ def wgrad_rows(shape, axis: int, dtype) -> int:
     return bf16_wgrad_rows(shape, axis)
 
 
+def conv_space(C: int, dtype) -> int:
+    """Floats of the scratch a convolution takes besides its sums: the
+    float32 tile's split tap matrices, none in bf16."""
+    return f32_planes(C) if dtype == torch.float32 else 0
+
+
 def fwd_partials(shape, dtype) -> int:
     """Floats of the forward's partials over a (B, H, W, C) plane: the
-    moments' 2C a block of the second convolution (column taps)."""
-    return 2 * shape[-1] * sum_rows(shape, 1, dtype)
+    moments' 2C a block of the second convolution (column taps), and in
+    float32 the two convolutions' split tap matrices."""
+    C = shape[-1]
+    return 2 * C * sum_rows(shape, 1, dtype) + 2 * conv_space(C, dtype)
 
 
 def bwd_partials(shape, half_b: bool, dtype) -> int:
     """Floats of the backward's partials, in the kernels' order: dbw (C a
     dyv block), dkw (3 C^2 a weight-gradient block, column taps), dbh (C a
     convolution block, column taps), dkh (row taps), and for half B
-    [dmul; dadd] (2C a convolution block, row taps)."""
+    [dmul; dadd] (2C a convolution block, row taps); in float32 the two
+    input gradients' split tap matrices besides."""
     C = shape[-1]
     npix = shape[0] * shape[1] * shape[2]
     wg = (wgrad_rows(shape, 1, dtype) + wgrad_rows(shape, 0, dtype)) * 3 * C * C
     return (dyv_split(C, npix)[0] * C + wg + sum_rows(shape, 1, dtype) * C
-            + (2 * C * sum_rows(shape, 0, dtype) if half_b else 0))
+            + (2 * C * sum_rows(shape, 0, dtype) if half_b else 0)
+            + 2 * conv_space(C, dtype))
 
 
 def _check_plane(x: torch.Tensor, symbol: str):
@@ -334,31 +362,42 @@ def half_bwd_kernel(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d: int):
     return dx, dma[0], dma[1], dkh, dbh, dkw, dbw
 
 
-# the kernels whose occupancy `ld_nb_half_fwd_info` / `ld_nb_half_bwd_info`
-# report, in their order (the bf16 3-tap tiles, csrc/conv3tap.cuh and
-# csrc/wgrad3tap.cuh), and what each reports of one
-TILE_KERNELS = {"nb_half_fwd": ("conv bias relu", "conv bias moments"),
-                "nb_half_bwd": ("conv relu mask", "conv plain",
-                                "conv prologue backward", "wgrad")}
-TILE_INFO = ("registers", "local_bytes", "blocks_per_sm", "smem_bytes")
+# the 3-tap tiles whose occupancy and blocks a launch `ld_nb_half_fwd_info`
+# / `ld_nb_half_bwd_info` report, in their order: the bf16 tiles
+# (csrc/conv3tap.cuh, csrc/wgrad3tap.cuh), then the float32 convolution
+# tile (csrc/conv3tap_f32.cuh); and what each reports of one
+TILE_KERNELS = {
+    "nb_half_fwd": {"bfloat16": ("conv bias relu", "conv bias moments"),
+                    "float32": ("conv bias relu", "conv bias moments")},
+    "nb_half_bwd": {"bfloat16": ("conv relu mask", "conv plain",
+                                 "conv prologue backward", "wgrad"),
+                    "float32": ("conv relu mask", "conv plain",
+                                "conv prologue backward")}}
+TILE_INFO = ("registers", "local_bytes", "blocks_per_sm", "smem_bytes",
+             "blocks")
 
 
-def tile_info(C: int, device) -> dict:
-    """What the card makes of the bf16 3-tap tiles at C (16, 64, 128):
-    {kernel: {registers, local_bytes, blocks_per_sm, smem_bytes}} for each
-    instantiation the half blocks launch. Needs a card."""
+def tile_info(shape, d: int, device) -> dict:
+    """What the card makes of the 3-tap tiles on a (B, H, W, C) plane at
+    dilation d: {dtype: {kernel: {registers, local_bytes, blocks_per_sm,
+    smem_bytes, blocks}}} for each instantiation the half blocks launch,
+    dtype "bfloat16" or "float32", `blocks` its blocks a launch (of the
+    weight gradient, its larger axis's). Needs a card."""
+    B, H, W, C = shape
     if C not in (16, 64, 128):
         raise ValueError(f"nb_half kernels: C={C} not in (16, 64, 128)")
-    out = {}
-    for lib, names in TILE_KERNELS.items():
-        info = (ctypes.c_int * (len(TILE_INFO) * len(names)))()
-        fn = kernel(lib, f"ld_{lib}_info", "ip")
+    n = len(TILE_INFO)
+    out = {"bfloat16": {}, "float32": {}}
+    for lib, kernels in TILE_KERNELS.items():
+        rows = [(dt, name) for dt, names in kernels.items() for name in names]
+        info = (ctypes.c_int * (n * len(rows)))()
+        fn = kernel(lib, f"ld_{lib}_info", "iiiiip")
         with torch.cuda.device(device):
-            rc = fn(C, ctypes.addressof(info))
+            rc = fn(B, H, W, C, d, ctypes.addressof(info))
         if rc != 0:
             raise RuntimeError(f"ld_{lib}_info failed: CUDA error {rc}")
-        for i, name in enumerate(names):
-            out[name] = dict(zip(TILE_INFO, info[4 * i:4 * i + 4]))
+        for i, (dt, name) in enumerate(rows):
+            out[dt][name] = dict(zip(TILE_INFO, info[n * i:n * i + n]))
     return out
 
 

@@ -51,7 +51,8 @@ from lanedetection_end2end_tpu_torch.ops._build import (
     check_cuda, kernel, launch)
 from lanedetection_end2end_tpu_torch.ops.nb1d import _conv3
 from lanedetection_end2end_tpu_torch.ops.nb_block import (
-    _SUM, _rounder, _transposed_taps, _wgrad3, dyv_split, wgrad_rows)
+    _SUM, _rounder, _transposed_taps, _wgrad3, conv_space, dyv_split,
+    wgrad_rows)
 
 AXES = {"h": 0, "w": 1}
 PLANE_DTYPES = (torch.bfloat16, torch.float32)
@@ -140,21 +141,35 @@ def _fwd_cuda(x, k, b, axis: str, d: int, act: bool) -> torch.Tensor:
         check_cuda(bf, torch.float32, (C,), "b")
     y = torch.empty(x.shape, device=x.device,
                     dtype=x.dtype if b is not None else torch.float32)
-    launch(kernel("packed_conv", "ld_packed_conv_fwd", "pppp" + "i" * 8 + "p"),
+    # the float32 tile's split taps (any contents); none in bf16
+    floats = fwd_partials(x.shape, x.dtype)
+    part = (torch.empty(floats, dtype=torch.float32, device=x.device)
+            if floats else None)
+    launch(kernel("packed_conv", "ld_packed_conv_fwd",
+                  "pppp" + "i" * 8 + "pip"),
            x.device, x.data_ptr(), kc.data_ptr(), _ptr(bf), y.data_ptr(),
            B, H, W, C, d, AXES[axis], int(x.dtype == torch.float32),
-           int(act))
+           int(act), _ptr(part), floats)
     (packed_conv_act if b is not None else packed_conv).launches += 1
     return y
+
+
+def fwd_partials(shape, dtype) -> int:
+    """Floats of the forward's scratch over a (B, H, W, C) plane of
+    `dtype`: the float32 tile's split taps (`nb_block.conv_space`), none
+    in bf16."""
+    return conv_space(shape[-1], dtype)
 
 
 def bwd_partials(shape, axis: str, dtype, bias: bool = True) -> int:
     """Floats of the backward's partials over a (B, H, W, C) plane of
     `dtype`: db (C a block of the dz pass, `nb_block.dyv_split`) with
-    `bias`, and dk (3 C^2 a weight-gradient block, `nb_block.wgrad_rows`)."""
+    `bias`, dk (3 C^2 a weight-gradient block, `nb_block.wgrad_rows`),
+    and the input gradient's split taps in float32."""
     B, H, W, C = shape
     db = dyv_split(C, B * H * W)[0] * C if bias else 0
-    return db + wgrad_rows(shape, AXES[axis], dtype) * 3 * C * C
+    return (db + wgrad_rows(shape, AXES[axis], dtype) * 3 * C * C
+            + conv_space(C, dtype))
 
 
 def packed_conv_bwd_kernel(x, y, dy, k, axis: str, d: int, act: bool,

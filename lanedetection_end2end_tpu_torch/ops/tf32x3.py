@@ -17,6 +17,10 @@ This module states that arithmetic where there is no GPU:
 - `round_tf32(x)`: round float32 to TF32 (10 mantissa bits), to nearest
   with ties away from zero, on the float32 bits, as `cvt.rna.tf32.f32`;
 - `split_tf32(x) -> (hi, lo)`;
+- `split_planes(w, kc)`: the tap matrices as the float32 convolution tile
+  reads them, split once a launch (`wsplit_f32_kernel`): each chunk of kc
+  input channels and tap a hi and a lo plane in wgmma's K-major
+  core-matrix order (`core_nk`);
 - `conv3_tf32x3` / `conv3_tf32`: the 3-tap convolution of `ops/nb1d.py`'s
   `_conv3` (same arguments) from the split operands, three products or
   one, each product exact and the sums in float64, rounded to float32 at
@@ -67,6 +71,30 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     x - hi is exact in float32, so hi + lo is within about 2^-22 |x|."""
     hi = round_tf32(x)
     return hi, round_tf32(x - hi)
+
+
+def core_nk(e: torch.Tensor, kb: int):
+    """(n, k) of float e of a kb-deep K-major slice in core matrices of 8 n
+    x 4 k, 32 consecutive floats each (`csrc/conv3tap_f32.cuh::core_nk`):
+    element (n, k) is float ((n / 8) (kb / 4) + k / 4) 32 + (n % 8) 4 + k %
+    4."""
+    cm, wd = e // 32, e % 32
+    return cm // (kb // 4) * 8 + wd // 4, cm % (kb // 4) * 4 + wd % 4
+
+
+def split_planes(w: torch.Tensor, kc: int) -> torch.Tensor:
+    """The tap matrices w (3, ci, co) f32 as `wsplit_f32_kernel` writes
+    them -> (6 C^2,) f32: float ((cc 3 + t) 2 + h) kc C + e is element
+    core_nk(e, kc) = (n, k) of plane h (0: hi, 1: lo of `split_tf32`) of
+    w[t][cc kc + k][n]."""
+    C = w.shape[-1]
+    hi, lo = split_tf32(w.float().contiguous())
+    n, k = core_nk(torch.arange(kc * C), kc)
+    out = torch.empty(C // kc, 3, 2, kc * C)
+    for cc in range(C // kc):
+        out[cc, :, 0] = hi[:, cc * kc + k, n]
+        out[cc, :, 1] = lo[:, cc * kc + k, n]
+    return out.reshape(-1)
 
 
 def _conv3_f64(t: torch.Tensor, w: torch.Tensor, axis: int, d: int):

@@ -13,9 +13,11 @@ OUT/<name> (build outputs left out), applies the mutation there, runs
 chip_smoke.py in the copy with the mutation's flag, writes its output to
 OUT/<name>.log and prints the exit code and the lines that failed. It
 exits 1 if a check passes on any mutated copy. Needs a card, nvcc and a
-checkout; the checkout itself is never modified.
+checkout; the checkout itself is never modified. Names after OUT run
+those mutations alone.
 
-    python -m lanedetection_end2end_tpu_torch.tools.defer_mutations OUT
+    python -m lanedetection_end2end_tpu_torch.tools.defer_mutations OUT \
+        [NAME ...]
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ ROOT = Path(__file__).resolve().parents[2]
 CSRC = "lanedetection_end2end_tpu_torch/csrc/"
 _F32 = "    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk i landed"
 _F32_NEW = "    if (i > 0) cp_async_wait<STAGES - 2>();"
+_F32_CONV = ("    cp_async_wait_n(nst - 2);  // this thread's copies of chunk i "
+             "landed")
+_F32_CONV_NEW = "    if (i > 0) cp_async_wait_n(nst - 2);"
 _BF16 = ("    cp_async_wait<T::STAGES - 2>();  // this thread's copies of chunk "
          "i landed")
 _BF16_NEW = "    if (i > 0) cp_async_wait<T::STAGES - 2>();"
@@ -44,9 +49,10 @@ MUTATIONS = {
         "    if (i > 0) { ldtc::cp_async_wait<STAGES - 2>(); "
         "__syncthreads(); }"),
     # the float32 3-tap convolution tile (K6 / K7 forward and dx, K11)
-    "conv3tap_f32_conv_first_wait": ("conv3tap_f32.cuh", 1, _F32, _F32_NEW),
+    "conv3tap_f32_conv_first_wait": ("conv3tap_f32.cuh", 1, _F32_CONV,
+                                     _F32_CONV_NEW),
     # the float32 weight-gradient tile at C = 64, 128
-    "conv3tap_f32_wgrad_first_wait": ("conv3tap_f32.cuh", 2, _F32, _F32_NEW),
+    "conv3tap_f32_wgrad_first_wait": ("conv3tap_f32.cuh", 1, _F32, _F32_NEW),
     # the stride-2 tile (K8 / K9, the fused kernels' stride-2 passes)
     "conv_s2_mma_first_wait": (
         "conv_s2_mma.cuh", 1,
@@ -93,10 +99,10 @@ def mutate(text: str, nth: int, old: str, new: str) -> str:
 
 
 def main(argv) -> int:
-    if len(argv) != 1:
+    if not argv or any(n not in FLAGS for n in argv[1:]):
         print(__doc__, file=sys.stderr)
         return 2
-    names = list(FLAGS)
+    names = argv[1:] or list(FLAGS)
     out = Path(argv[0]).resolve()
     out.mkdir(parents=True, exist_ok=True)
     missed = []

@@ -498,24 +498,27 @@ def test_the_staged_rows_fill_the_column_planes(C):
 
 
 class _Fn:
+    """A stand-in of an `ld_nb_half_*_info` entry: records (B, H, W, C, d)
+    and fills five ints a kernel, the kernel's value first."""
+
     def __init__(self, per_kernel):
         self.per_kernel, self.calls = per_kernel, []
 
-    def __call__(self, C, addr):
-        self.calls.append(C)
+    def __call__(self, B, H, W, C, d, addr):
+        self.calls.append((B, H, W, C, d))
         n = len(self.per_kernel)
-        buf = (ctypes.c_int * (4 * n)).from_address(addr)
+        buf = (ctypes.c_int * (5 * n)).from_address(addr)
         for i, v in enumerate(self.per_kernel):
-            buf[4 * i:4 * i + 4] = [v, 0, 1, 1000 + i]
+            buf[5 * i:5 * i + 5] = [v, 0, 1, 1000 + i, 100 + i]
         return 0
 
 
 def test_tile_info_reads_each_librarys_entry(monkeypatch):
     """`ops/nb_block.py::tile_info` asks each library for its info entry
-    with the channel count and names the kernels in the entry's order; it
-    refuses other channel counts before any call."""
-    fns = {"nb_half_fwd": _Fn([100, 101]),
-           "nb_half_bwd": _Fn([200, 201, 202, 203])}
+    with the plane and d, and names the kernels in the entry's order, the
+    bf16 tiles first; it refuses other channel counts before any call."""
+    fns = {"nb_half_fwd": _Fn([100, 101, 110, 111]),
+           "nb_half_bwd": _Fn([200, 201, 202, 203, 210, 211, 212])}
     asked = []
 
     def fake_kernel(lib, symbol, signature):
@@ -524,16 +527,19 @@ def test_tile_info_reads_each_librarys_entry(monkeypatch):
 
     monkeypatch.setattr(nb, "kernel", fake_kernel)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: _Null())
-    info = nb.tile_info(64, "cuda")
-    assert asked == [("nb_half_fwd", "ld_nb_half_fwd_info", "ip"),
-                     ("nb_half_bwd", "ld_nb_half_bwd_info", "ip")]
-    assert fns["nb_half_fwd"].calls == [64] == fns["nb_half_bwd"].calls
-    assert list(info) == [*nb.TILE_KERNELS["nb_half_fwd"],
-                          *nb.TILE_KERNELS["nb_half_bwd"]]
-    assert info["wgrad"] == {"registers": 203, "local_bytes": 0,
-                             "blocks_per_sm": 1, "smem_bytes": 1003}
+    info = nb.tile_info((8, 64, 128, 64), 1, "cuda")
+    assert asked == [("nb_half_fwd", "ld_nb_half_fwd_info", "iiiiip"),
+                     ("nb_half_bwd", "ld_nb_half_bwd_info", "iiiiip")]
+    assert (fns["nb_half_fwd"].calls == [(8, 64, 128, 64, 1)]
+            == fns["nb_half_bwd"].calls)
+    assert list(info["bfloat16"]) == [
+        *nb.TILE_KERNELS["nb_half_fwd"]["bfloat16"],
+        *nb.TILE_KERNELS["nb_half_bwd"]["bfloat16"]]
+    assert info["bfloat16"]["wgrad"] == {
+        "registers": 203, "local_bytes": 0, "blocks_per_sm": 1,
+        "smem_bytes": 1003, "blocks": 103}
     with pytest.raises(ValueError, match="C=32"):
-        nb.tile_info(32, "cuda")
+        nb.tile_info((1, 8, 8, 32), 1, "cuda")
 
 
 class _Null:

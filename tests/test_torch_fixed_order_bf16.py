@@ -32,7 +32,8 @@ from lanedetection_end2end_tpu_torch.ops import nb_block as nb
 from lanedetection_end2end_tpu_torch.ops import packed_conv as pc
 from lanedetection_end2end_tpu_torch.ops.fold import cdiv, fold_rows
 from test_torch_fixed_order_sums import (  # noqa: F401 (the fixture)
-    _asked, _close, _conv3, _rn, _t, half_sums_plain, stride_rows, stubs)
+    _asked, _close, _conv3, _rn, _t, half_sums_plain, stride_rows, stubs,
+    tile_of)
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -42,18 +43,6 @@ CSRC = Path(nb.__file__).resolve().parents[1] / "csrc"
 # ----------------------------------------------------------------------
 # The bf16 tiles' walks (TileGeo) and the blocks they give each pixel
 # ----------------------------------------------------------------------
-
-def tile_of(shape, axis: int, bm: int) -> torch.Tensor:
-    """(npix,) the tile of each pixel: tiles of one image, 8 rows x bm / 8
-    columns (axis 0) or bm columns of a row (axis 1), numbered by image,
-    block of rows, block of columns (`TileGeo::at`)."""
-    B, H, W, _ = shape
-    th = 8 if axis == 0 else 1
-    tw = bm // th
-    b, h, w = torch.meshgrid(torch.arange(B), torch.arange(H),
-                             torch.arange(W), indexing="ij")
-    return ((b * cdiv(H, th) + h // th) * cdiv(W, tw) + w // tw).reshape(-1)
-
 
 def conv_blocks(shape, axis: int):
     """(the block of each pixel, blocks) of the bf16 convolution."""
@@ -267,7 +256,8 @@ def test_k11_sums_fold_to_the_plain_sums(case, dt):
                nb._wgrad3(x, dz, pc.AXES[axis], d))
     assert pc.bwd_partials(shape, axis, dt) == (
         nb.dyv_split(C, x.numel() // C)[0] * C
-        + nb.wgrad_rows(shape, pc.AXES[axis], dt) * 3 * C * C)
+        + nb.wgrad_rows(shape, pc.AXES[axis], dt) * 3 * C * C
+        + nb.conv_space(C, dt))
 
 
 # ----------------------------------------------------------------------

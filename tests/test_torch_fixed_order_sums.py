@@ -14,7 +14,8 @@ partials are folded in that order, and the result equals the plain sum
 
 - K6 / K7 (`csrc/conv3tap_f32.cuh`, `csrc/nb_half_bwd.cu`): the moments
   and the masked sums (dbh; dmul and dadd of half B) over the
-  convolution's BM-pixel tiles, dbw over the grid-stride blocks of the
+  convolution's persistent blocks (each the groups of NWG tiles dealt to
+  it in turn), dbw over the grid-stride blocks of the
   dyv pass, dkh and dkw over the weight gradient's runs of whole pixel
   chunks, at C = 16, 64 and 128 (K11's float32 weight gradient is the
   same tile);
@@ -69,18 +70,33 @@ def _conv3(t, w, axis: int, d: int):
     return y.permute(0, 2, 3, 1)
 
 
-def runs_rows(values, per: int):
-    """(n, ...) per-item values -> (blocks, ...): block b sums items
-    [b per, (b + 1) per)."""
-    n = values.shape[0]
-    return torch.stack([values[b * per:(b + 1) * per].sum(0)
-                        for b in range(cdiv(n, per))])
+def tile_of(shape, axis: int, bm: int) -> torch.Tensor:
+    """(npix,) the tile of each pixel: tiles of one image, 8 rows x bm / 8
+    columns (axis 0) or bm columns of a row (axis 1), numbered by image,
+    block of rows, block of columns (`TileGeo::at`, the 3-tap tiles' in
+    both dtypes)."""
+    B, H, W, _ = shape
+    th = 8 if axis == 0 else 1
+    tw = bm // th
+    b, h, w = torch.meshgrid(torch.arange(B), torch.arange(H),
+                             torch.arange(W), indexing="ij")
+    return ((b * cdiv(H, th) + h // th) * cdiv(W, tw) + w // tw).reshape(-1)
 
 
-def stride_rows(values, per: int, blocks: int):
+def f32_conv_blocks(shape, axis: int) -> torch.Tensor:
+    """(npix,) the block of each pixel of the float32 convolution: its
+    tile's group of NWG (`nb.F32_CONV`), groups dealt to the blocks in
+    turn (`nb.conv_rows`)."""
+    nwg, bm = nb.F32_CONV[shape[-1]]
+    return tile_of(shape, axis, bm) // nwg % nb.conv_rows(shape, axis)
+
+
+def stride_rows(values, per: int, blocks: int, idx=None):
     """(n, ...) -> (blocks, ...): a grid-stride walk, block b taking items
-    b per + [0, per) of each round of blocks * per."""
-    idx = (torch.arange(values.shape[0]) // per) % blocks
+    b per + [0, per) of each round of blocks * per; or item i to block
+    idx[i]."""
+    if idx is None:
+        idx = (torch.arange(values.shape[0]) // per) % blocks
     out = torch.zeros(blocks, *values.shape[1:], dtype=values.dtype)
     return out.index_add_(0, idx, values)
 
@@ -110,20 +126,22 @@ def half_sums_ordered(x, mul, add, ymid, yout, dyout, dmom, kh, kw, d):
     C = x.shape[-1]
     npix = x.numel() // C
     flat = lambda t: t.reshape(npix, C)
-    conv_blocks = lambda t: fold_rows(runs_rows(flat(t),
-                                                256 if C < 128 else 128))
-    out = {"mom": torch.stack([conv_blocks(yout), conv_blocks(yout * yout)])}
+    conv_blocks = lambda t, axis: fold_rows(stride_rows(
+        flat(t), 1, nb.conv_rows(x.shape, axis),
+        f32_conv_blocks(x.shape, axis)))
+    out = {"mom": torch.stack([conv_blocks(yout, 1),
+                               conv_blocks(yout * yout, 1)])}
     z = x if mul is None else torch.relu(x * mul + add)
     dyv = dyout + dmom[0] + 2.0 * yout * dmom[1]
     blocks, rpi = nb.dyv_split(C, npix)
     out["dbw"] = fold_rows(stride_rows(flat(dyv), rpi, blocks))
     out["dkw"] = fold_rows(wgrad_rows(ymid, dyv, 1, d))
     dmid = _conv3(dyv, nb._transposed_taps(kw), 1, d) * (ymid > 0)
-    out["dbh"] = conv_blocks(dmid)
+    out["dbh"] = conv_blocks(dmid, 1)
     out["dkh"] = fold_rows(wgrad_rows(z, dmid, 0, d))
     if mul is not None:
         dz = _conv3(dmid, nb._transposed_taps(kh), 0, d) * (x * mul + add > 0)
-        out["dmul"], out["dadd"] = conv_blocks(dz * x), conv_blocks(dz)
+        out["dmul"], out["dadd"] = conv_blocks(dz * x, 0), conv_blocks(dz, 0)
     return out
 
 
@@ -173,13 +191,15 @@ def test_half_block_sums_fold_to_the_plain_sums(case):
 def test_the_partitions_split_the_step_as_the_kernels_do():
     """At the 256x512 step's planes, batch 8: the weight gradients at most
     44 / 88 / 132 blocks a tap (one wave), the dyv pass 1056 blocks, the
-    convolution one block a tile."""
+    convolution a block a group of its tiles, at most one wave."""
     assert nb.wgrad_split(128, 8 * 32 * 64) == (43, 384)
     assert nb.wgrad_split(64, 8 * 64 * 128) == (86, 768)
     assert nb.wgrad_split(16, 8 * 128 * 256) == (128, 2048)
     assert nb.dyv_split(16, 8 * 128 * 256) == (1056, 128)
-    assert nb.conv_rows(128, 8 * 32 * 64) == 128
-    assert nb.conv_rows(64, 8 * 64 * 128) == 256
+    assert [nb.conv_rows((8, 32, 64, 128), a) for a in (0, 1)] == [128, 128]
+    assert [nb.conv_rows((8, 64, 128, 64), a) for a in (0, 1)] == [132, 132]
+    assert [nb.conv_rows((8, 128, 256, 16), a) for a in (0, 1)] == [132, 132]
+    assert nb.conv_rows((1, 8, 16, 128), 1) == 4
 
 
 # ----------------------------------------------------------------------
@@ -370,10 +390,12 @@ def test_k11_float32_weight_gradient_asks_for_partials(stubs):
     floats = pc.bwd_partials(x.shape, "h", F32)
     _asked(stubs, 8, floats)
     assert floats == (nb.dyv_split(C, B * H * W)[0] * C
-                      + nb.wgrad_split(C, B * H * W)[0] * 3 * C * C)
+                      + nb.wgrad_split(C, B * H * W)[0] * 3 * C * C
+                      + nb.f32_planes(C))
     stubs.calls.clear()
     pc.packed_conv_bwd_kernel(x, None, x, k, "w", 1, False, bias=False)
-    _asked(stubs, 8, nb.wgrad_split(C, B * H * W)[0] * 3 * C * C)
+    _asked(stubs, 8, nb.wgrad_split(C, B * H * W)[0] * 3 * C * C
+           + nb.f32_planes(C))
     assert stubs.zeroed == []
 
 
