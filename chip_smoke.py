@@ -233,14 +233,17 @@ a card. In order:
    epochs, then `--evaluate` on the card against the CPU, beta also
    against a float64 witness beside a bf16 control), every launch
    counted (`staged_phase`);
-4j. the learned homography (`train_sh_config(resize=256, reg_ls=1.0,
-   learn_homography=True)`, float32, seeded weights): the eval forward
+4j. the learned homography on the plain graph (`train_sh_config(
+   resize=256, reg_ls=1.0, learn_homography=True, packed_train=False)`,
+   float32, seeded weights; its default packed path is the benchmark's
+   `bp_learned_h.train_b128`): the eval forward
    on the card against the CPU (offsets, M, M_inv, beta, logits), M,
    M_inv and beta also against a float64 witness beside a TF32 and a
    bf16 control; a train step card against CPU (the loss, the whole
    gradient's and the homography head's cosine against the card step's
    own rerun, and damped), 3 steps with dropout on; `main_torch.main
-   --learn_homography true` on 4g's flags (2 epochs, a resume,
+   --learn_homography true --packed_train false` on 4g's flags (2
+   epochs, a resume,
    `--test_only` through `compute_coordinates_with_M`, `--evaluate` card
    against CPU) and one epoch with `--packed_train false`; no launch of
    any kernel wrapper in the whole phase (`homography_phase`);
@@ -3533,9 +3536,14 @@ def staged_phase(dev, card):
 # Phase 4j: the learned homography, and the e2e step on the plain graph
 # ----------------------------------------------------------------------
 
-# 4g's flags with the learned homography: its e2e steps, its validation
-# and its test_model run LaneNet.forward (cuDNN and autograd), no kernel
-LH_ARGV = TRAINER_ARGV + ["--learn_homography", "true"]
+# 4g's flags with the learned homography on the plain graph
+# (`--packed_train false`; the default trains that option on the packed
+# path, which the benchmark's `bp_learned_h` cell and
+# tests/test_torch_learned_h_packed.py hold): its e2e steps, its
+# validation and its test_model run LaneNet.forward (cuDNN and autograd),
+# no kernel
+LH_ARGV = TRAINER_ARGV + ["--learn_homography", "true",
+                          "--packed_train", "false"]
 # Bars of phase 4j, each set from its card runs (H100 80GB HBM3, 700 W;
 # the readings span them; seeded offsets up to 10 pixels, M 6.3e-2 of max|M| off the fixed
 # matrix). M and M_inv against a float64 witness on the CPU, of
@@ -3583,7 +3591,7 @@ def detached_M(route):
     from lanedetection_end2end_tpu_torch.ops.losses import (
         BackprojectionLoss)
     from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
-    cls, name, cut = {"fit": (WLSFitter, "fit_with_M", (1,)),
+    cls, name, cut = {"fit": (WLSFitter, "sep_coeff_from_M", (0,)),
                       "loss": (BackprojectionLoss, "with_M", (3, 4))}[route]
     orig = getattr(cls, name)
 
@@ -3680,7 +3688,8 @@ def beta_columns(got, want):
 
 def homography_phase(dev, card):
     """Phase 4j: `train_sh_config(resize=256, reg_ls=1.0,
-    learn_homography=True)`, batch 8, float32, seeded weights, a seeded
+    learn_homography=True, packed_train=False)`, batch 8, float32, seeded
+    weights, a seeded
     non-zero `fc_offsets` among them:
 
     (a) the eval forward (TF32 off) on the card against the same on the
@@ -3697,10 +3706,10 @@ def homography_phase(dev, card):
         and with the residual branches damped (bn2 x BN2_DAMP) at
         F32_DAMPED; then 3 steps with dropout on: losses finite, the
         `fc_offsets` gradient non-zero, ms per step (median of 3);
-    (d) `main_torch.main --learn_homography true` on 4g's flags: 2
-        epochs, a resume to 3 bit for bit, `--test_only` through
-        `compute_coordinates_with_M` reproducing the best epoch's test
-        accuracy, `--evaluate` on the card against `--no_cuda true`:
+    (d) `main_torch.main --learn_homography true --packed_train false` on
+        4g's flags: 2 epochs, a resume to 3 bit for bit, `--test_only`
+        through `compute_coordinates_with_M` reproducing the best epoch's
+        test accuracy, `--evaluate` on the card against `--no_cuda true`:
         loss at TOL_F32, x_cal at LH_TOL of max, beta per column at
         LH_BETA_TOL, test accuracy within ACC_TOL;
     (e) 4g's flags with `--packed_train false`, one epoch.
@@ -3742,7 +3751,8 @@ def homography_phase(dev, card):
                             f"{bar:g})")
         return "ok" if ok else "FAIL"
 
-    cfg = train_sh_config(resize=RESIZE, reg_ls=1.0, learn_homography=True)
+    cfg = train_sh_config(resize=RESIZE, reg_ls=1.0, learn_homography=True,
+                          packed_train=False)
     # seeded like every other kernel, fc_offsets moves the trapezoid by a
     # few pixels (printed)
     sd = random_state_dict(LaneNet(cfg, device=dev), SEED)
@@ -5183,7 +5193,7 @@ def bf16_graph_phase(dev, card):
             ("skip", "skip", dict(pretrained=True)),
             ("seg", "seg", dict(pretrained=True)),
             ("e2e, learned homography", "e2e",
-             dict(learn_homography=True))):
+             dict(learn_homography=True, packed_train=False))):
         base = train_sh_config(resize=RESIZE, reg_ls=1.0, **extra)
         sd = random_state_dict(LaneNet(base, device=dev), SEED)
         row, betas = {}, {}

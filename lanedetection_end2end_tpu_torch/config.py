@@ -13,10 +13,10 @@ no environment knobs, so `save_id` appends none.
 every graph the steps run: the training backbone and the plain graph
 (`LaneNet.forward`) alike, the parameters staying float32. The Pallas
 switches are kept for the CLI: `packed_train` None and True train the
-e2e phase on the port's kernels, False on the plain graph (as JAX's flax
-graph); None takes the plain graph where the kernels do not serve the
-config (the learned homography), and True raises there
-(`train/steps.py`); `use_pallas_wls` None and True take the moments of a
+e2e phase on the port's kernels (the learned homography included),
+False on the plain graph (as JAX's flax graph); None takes the plain
+graph where the kernels do not serve the config (a non-separable
+homography), and True raises there (`train/steps.py`); `use_pallas_wls` None and True take the moments of a
 general-homography fit from the port's kernel K12, False from its plain
 version (float64 sums rounded once to float32), as the JAX package then
 takes XLA's moments (`ops/wls.py::WLSFitter`).

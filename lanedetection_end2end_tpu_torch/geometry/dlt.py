@@ -15,9 +15,14 @@ The homography is held to the row-separable form
 
 so y' depends on y alone and the WLS fitter's separable row-sum path
 applies with per-sample coefficient rows (`ops/wls.py::fit_with_M`). The
-(B, 6, 6) system is built in float32 and solved with `torch.linalg.solve`
-(LU with partial pivoting, differentiable), as the JAX package solves it
-with `jnp.linalg.solve` in float32. The system is badly conditioned at
+(B, 6, 6) system is built in float32 and solved with
+`torch.linalg.solve_ex` (LU with partial pivoting, differentiable), as the
+JAX package solves it with `jnp.linalg.solve` in float32. The `_ex` forms
+of the solve and of the inverse run the same LU as `torch.linalg.solve`
+and `torch.linalg.inv` but leave their `info` on the device: the plain
+forms read it on the host, and on a card each would wait for the stream
+inside the forward pass. A singular system gives non-finite matrices
+(which the loss carries) rather than an exception, as in JAX. The system is badly conditioned at
 pixel scale (cond(A) about 2.8e4 at resize 32 and 1.9e6 at resize 256),
 so two LU implementations agree only to within that conditioning; the
 tests hold both packages against a float64 solve of the same system.
@@ -99,7 +104,7 @@ def dlt_homography(offsets: torch.Tensor, resize: int = 256
     `dlt_matrices` of that.
     """
     A, b = dlt_system(offsets.float(), resize)
-    return dlt_matrices(torch.linalg.solve(A, b))
+    return dlt_matrices(torch.linalg.solve_ex(A, b).result)
 
 
 def dlt_matrices(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -110,7 +115,7 @@ def dlt_matrices(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     o1 = h.new_ones(B, 1)
     M = torch.cat([h[:, 0:3], z1, h[:, 3:5], z1, h[:, 5:6], o1],
                   dim=1).reshape(B, 3, 3)
-    M_inv = torch.linalg.inv(M)
+    M_inv = torch.linalg.inv_ex(M).inverse
     return M, M_inv / M_inv[:, 2:3, 2:3]
 
 

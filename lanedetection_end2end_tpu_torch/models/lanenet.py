@@ -31,14 +31,18 @@ module's `state_dict` carries the reference torch names (`net.*`,
 
 With `learn_homography` (BP profile), the module also holds
 `homography_head` (`models/dlt.py`): in the e2e phase its offsets give
-each sample its own matrices (`geometry/dlt.py::dlt_homography`), the fit
-runs `WLSFitter.fit_with_M` with them, and the output carries them as
-`M` and `M_inv`. The packed path has no place for them, so
-`packed_supported` is False there and the e2e step trains on `forward`,
-as the JAX package trains that option on its flax graph. The head runs
-in every phase (in train mode its BatchNorm statistics move), as the
-line and horizon heads do. ERFNet's dormant `do_segmentation` decoder is
-never turned on here, as in the JAX package.
+each sample its own matrices (`geometry/dlt.py::dlt_homography`), whose
+coefficient rows (`WLSFitter.sep_coeff_from_M`) the fit contracts with
+the row sums (`WLSFitter.beta_from_rowsums_per_sample`), and the output
+carries them as `M` and `M_inv`. The matrices are row-separable, so the
+fit still needs only the row sums: `apply_packed` takes them from the
+training tail's kernels as it does for the fixed matrix, and trains this
+option on K6-K10 too, where the JAX package trains it on its flax graph.
+The head, the DLT and the coefficient rows run under the
+`model.homography` span on both graphs. The head runs in every phase (in
+train mode its BatchNorm statistics move), as the line and horizon heads
+do. ERFNet's dormant `do_segmentation` decoder is never turned on here,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from lanedetection_end2end_tpu_torch.ops.activations import activation_fn
 from lanedetection_end2end_tpu_torch.ops.packed_graph import (
     erfnet_train, head_rowsums_train, resolve_fused_maps, rowsums)
 from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
+from lanedetection_end2end_tpu_torch.utils.profiling import span
 
 
 PHASES = ("skip", "seg", "e2e")
@@ -148,12 +153,14 @@ class LaneNet(nn.Module):
             enc, dec, _ = call_in_dtype(self.net, dtype, x, generator,
                                          use_main_head=use_main)
             dec = dec.permute(0, 2, 3, 1).float()           # (B, H, W, C)
-            line = horizon = offsets = None
+            line = horizon = None
             if cfg.clas:
                 line = call_in_dtype(self.line_classification, dtype, enc)
                 horizon = call_in_dtype(self.horizon_estimation, dtype, enc)
+            M_b = M_inv_b = coeff = None
             if cfg.learn_homography:
-                offsets = call_in_dtype(self.homography_head, dtype, enc)
+                M_b, M_inv_b, coeff = self._homography(enc, dtype,
+                                                       phase == "e2e")
             enc = enc.permute(0, 2, 3, 1)
             if phase == "skip":
                 return LaneNetOutput(None, None, dec, None, None, enc)
@@ -167,20 +174,32 @@ class LaneNet(nn.Module):
                      for k in range(1, cfg.nclasses + 1)], dim=-1)
                 line = horizon = None
             masked = activated * self._mask
-            M_b = M_inv_b = None
-            if offsets is not None and phase == "e2e":
-                M_b, M_inv_b = dlt_homography(offsets, cfg.resize)
-                beta = self.fitter.fit_with_M(masked, M_b)
+            if coeff is not None:
+                beta = self.fitter.beta_from_rowsums_per_sample(
+                    *self.fitter.rowsums(masked), coeff)
             else:
                 beta = self.fitter(masked)
         return LaneNetOutput(beta, masked.permute(0, 3, 1, 2), dec, line,
                              horizon, enc, M_b, M_inv_b)
 
+    def _homography(self, enc: torch.Tensor, dtype: torch.dtype,
+                    fit: bool) -> tuple:
+        """The learned homography's head on the encoder features `enc`
+        (B, 128, H/8, W/8) in `dtype`, under the `model.homography` span,
+        and with `fit` each sample's geometry: -> (M, M_inv, the fit's
+        coefficient rows (B, 2H, K)), or three Nones without `fit`."""
+        with span("model.homography", self._mask.device):
+            offsets = call_in_dtype(self.homography_head, dtype, enc)
+            if not fit:
+                return None, None, None
+            M_b, M_inv_b = dlt_homography(offsets, self.cfg.resize)
+            return M_b, M_inv_b, self.fitter.sep_coeff_from_M(M_b)
+
     def packed_supported(self, phase: str) -> bool:
         """Whether `apply_packed` serves this config and phase: the e2e
-        phase with a separable fitter and no learned homography."""
-        return (phase == "e2e" and self.fitter.separable
-                and not self.cfg.learn_homography)
+        phase with a separable fitter (the learned homography's matrices
+        are row-separable, so it is served too)."""
+        return phase == "e2e" and bool(self.fitter.separable)
 
     def apply_packed(self, images: torch.Tensor, train: bool = False,
                      generator: Optional[torch.Generator] = None,
@@ -201,10 +220,15 @@ class LaneNet(nn.Module):
         activation, fuses the head with the tail: the logits are never
         formed either (`seg_logits` is None). In eval mode, or with
         another activation, the head runs on its own and `rowsums`
-        reduces the logits."""
+        reduces the logits.
+
+        With the learned homography its head runs beside the line and
+        horizon heads, and the fit contracts the same row sums with each
+        sample's coefficient rows; `M` and `M_inv` are returned as
+        `forward` returns them."""
         if not self.packed_supported("e2e"):
             raise ValueError("apply_packed: the packed path does not serve "
-                             "this config (the learned homography)")
+                             "this config (a non-separable homography)")
         self.train(train)
         cfg = self.cfg
         fused_maps = resolve_fused_maps(fused_blocks, fused_maps)
@@ -224,10 +248,18 @@ class LaneNet(nn.Module):
             else:
                 S0, S1 = rowsums(dec, self._act, self.fitter.sep_xs,
                                  zero_rows(cfg))
-            beta = self.fitter.beta_from_rowsums(S0, S1)
+            M_b = M_inv_b = None
+            if cfg.learn_homography:
+                M_b, M_inv_b, coeff = self._homography(
+                    enc.permute(0, 3, 1, 2), dtype, True)
+                beta = self.fitter.beta_from_rowsums_per_sample(S0, S1,
+                                                                coeff)
+            else:
+                beta = self.fitter.beta_from_rowsums(S0, S1)
             line = horizon = None
             if cfg.clas:
                 e = enc.permute(0, 3, 1, 2)  # NCHW view of NHWC features
                 line = call_in_dtype(self.line_classification, dtype, e)
                 horizon = call_in_dtype(self.horizon_estimation, dtype, e)
-        return LaneNetOutput(beta, None, dec, line, horizon, enc)
+        return LaneNetOutput(beta, None, dec, line, horizon, enc, M_b,
+                             M_inv_b)

@@ -18,9 +18,11 @@ precision (JAX's `Precision.HIGHEST`).
 
 The learned homography (`geometry/dlt.py`) gives each sample its own
 row-separable matrix: `sep_coeff_from_M` builds the (B, 2H, K)
-coefficient rows from them, differentiably, and `fit_with_M` contracts
-them with the same row sums, element-wise in float32 too; gradients reach
-both the weight maps and the matrices.
+coefficient rows from them, differentiably, and
+`beta_from_rowsums_per_sample` contracts them with the same row sums
+(from the weight maps in `fit_with_M`, from the training tail's kernels
+in `LaneNet.apply_packed`), element-wise in float32 too; gradients reach
+both the row sums and the matrices.
 
 A general homography (a camera roll, say) takes the full grid: a constant
 (H*W, K) basis of all products Y_i*Y_j (row-major) then Y_i*x, built once
@@ -136,7 +138,7 @@ class WLSFitter:
             [np.zeros((height, o1 * o1)), Yr * (alpha * sx)[:, None]], axis=1)
         self.sep_coeff = f32(np.concatenate([c0, c1], axis=0))  # (2H, K)
         self.sep_xs = f32((xs - x0) / sx)                         # (W,)
-        # constants of the per-sample-homography path (fit_with_M)
+        # constants of the per-sample rows (sep_coeff_from_M)
         self.sep_ys = f32(ys)                                     # (H,)
         self.sep_x0, self.sep_sx = x0, sx
 
@@ -149,10 +151,15 @@ class WLSFitter:
             moments = (wls_moments_plain if self.use_pallas is False
                        else wls_moments)(w, self.basis)
             return self._finish(moments, B, C)
+        return self.beta_from_rowsums(*self.rowsums(wmaps))
+
+    def rowsums(self, wmaps: torch.Tensor) -> tuple:
+        """Activated, masked weight maps (B, H, W, C) -> the W-axis row
+        sums S0 = sum_c w^2 and S1 = sum_c w^2 xs (B, C, H), float32."""
         w2 = (wmaps * wmaps).float()
         S0 = w2.sum(dim=2).transpose(1, 2)                          # (B,C,H)
         S1 = (w2 * self.sep_xs[None, None, :, None]).sum(dim=2).transpose(1, 2)
-        return self.beta_from_rowsums(S0, S1)
+        return S0, S1
 
     def beta_from_rowsums(self, S0: torch.Tensor, S1: torch.Tensor
                           ) -> torch.Tensor:
@@ -197,13 +204,20 @@ class WLSFitter:
         """Fit with per-sample homographies: wmaps (B, H, W, C), M_b
         (B, 3, 3) row-separable -> beta (B, C, order+1); gradients reach
         both arguments. float32, contracted element-wise."""
+        return self.beta_from_rowsums_per_sample(
+            *self.rowsums(wmaps), self.sep_coeff_from_M(M_b))
+
+    def beta_from_rowsums_per_sample(self, S0: torch.Tensor,
+                                     S1: torch.Tensor, coeff: torch.Tensor
+                                     ) -> torch.Tensor:
+        """Fit from (already masked) row sums S0, S1 (B, C, H) with each
+        sample's coefficient rows `coeff` (B, 2H, K), `sep_coeff_from_M`'s
+        -> beta (B, C, order+1): the per-sample twin of
+        `beta_from_rowsums`, contracted element-wise in float32;
+        gradients reach the row sums and the rows."""
         assert self.separable, "per-sample fitting needs separable form"
-        B, C = wmaps.shape[0], wmaps.shape[-1]
-        w2 = (wmaps * wmaps).float()
-        S0 = w2.sum(dim=2).transpose(1, 2)                          # (B,C,H)
-        S1 = (w2 * self.sep_xs[None, None, :, None]).sum(dim=2).transpose(1, 2)
-        S = torch.cat([S0, S1], dim=-1)                     # (B, C, 2H)
-        coeff = self.sep_coeff_from_M(M_b)                  # (B, 2H, K)
+        B, C = S0.shape[0], S0.shape[1]
+        S = torch.cat([S0, S1], dim=-1).float()             # (B, C, 2H)
         moments = (S.unsqueeze(-1) * coeff.unsqueeze(1)).sum(dim=2)
         return self._finish(moments.reshape(B * C, -1), B, C)
 

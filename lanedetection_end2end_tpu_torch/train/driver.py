@@ -31,9 +31,10 @@ data-parallel world (one process and one card each, `parallel/`):
 When no validation batch runs, the validation loss repeats the epoch's
 train loss, as the JAX Trainer does, and that value then picks the best
 model and drives the plateau schedule; the Trainer prints a notice that
-the validation set was empty. The learned homography and `packed_train`
-False train their e2e epochs on `LaneNet.forward` (`train/steps.py`),
-with the homography head in the checkpoints. `use_pallas_wls` reaches
+the validation set was empty. `packed_train` False trains the e2e
+epochs on `LaneNet.forward` (`train/steps.py`); the learned homography
+trains them on the packed path like the rest, with the homography head
+in the checkpoints. `use_pallas_wls` reaches
 the LaneNet's fitter (`models/lanenet.py::make_fitter`); both shipped
 homographies are separable, so it changes nothing there, as in JAX.
 

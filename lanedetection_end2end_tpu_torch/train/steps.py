@@ -20,11 +20,12 @@ classifiers (cross entropy; argmax accuracy), and its segmentation
 classes are weighted [1, w, w] (BP: [1] + [w] * nclasses). As in the
 JAX package, skip and seg run on the plain graph (`LaneNet.forward`,
 cuDNN and autograd; no kernel of the port), and e2e on the training
-backbone (`LaneNet.apply_packed`, K6-K10 on a card), except where the
-packed path does not serve the config (the learned homography) or
-`packed_train` is False: then e2e runs on `LaneNet.forward` too, as JAX
-runs it on its flax graph (`resolve_packed`; a forced True there
-raises). Every graph runs in `cfg.compute_dtype`, as JAX runs its flax
+backbone (`LaneNet.apply_packed`, K6-K10 on a card), the learned
+homography included (JAX trains that option on its flax graph), except
+where the packed path does not serve the config (a non-separable
+homography) or `packed_train` is False: then e2e runs on
+`LaneNet.forward` too, as JAX runs it on its flax graph
+(`resolve_packed`; a forced True there raises). Every graph runs in `cfg.compute_dtype`, as JAX runs its flax
 graph and its packed backbone in its LaneNet's dtype; the parameters,
 their gradients and the optimizer's state stay float32. With the learned
 homography the backprojection loss takes each sample's matrices
@@ -135,17 +136,18 @@ def resolve_packed(lanenet, cfg: LaneConfig, phase: str) -> bool:
     False (None, the default, selects it where it serves). The skip and
     seg phases have no packed path and run `LaneNet.forward` whatever the
     flag says. A forced True on an e2e config that the packed path does
-    not serve raises ValueError, where the JAX package's `_resolve_packed`
-    warns and runs its flax graph: the port gives no kernel's work to the
-    plain graph unasked."""
+    not serve (a non-separable fitter) raises ValueError, where the JAX
+    package's `_resolve_packed` warns and runs its flax graph: the port
+    gives no kernel's work to the plain graph unasked. The port's packed
+    path serves the learned homography, which JAX's does not."""
     if phase != "e2e" or cfg.packed_train is False:
         return False
     supported = lanenet.packed_supported(phase)
     if cfg.packed_train and not supported:
         raise ValueError(
             "packed_train=True was forced but the packed backbone does not "
-            "serve this configuration (the learned homography or a "
-            "non-separable homography; LaneNet.packed_supported): leave "
+            "serve this configuration (a non-separable homography; "
+            "LaneNet.packed_supported): leave "
             "packed_train unset or set it False to train e2e on "
             "LaneNet.forward")
     return supported
@@ -198,9 +200,9 @@ def make_loss_fn(lanenet, cfg: LaneConfig, phase: str = "e2e",
     the keywords of the packed path do not apply there. They need a
     segmentation head with the background channel (`pretrained`, or
     `end_to_end` off): ValueError otherwise. So does the e2e phase where
-    `resolve_packed` says no (the learned homography, `packed_train`
-    False); there the backprojection loss takes the per-sample matrices
-    of the forward when it gives them.
+    `resolve_packed` says no (a non-separable fitter, `packed_train`
+    False). On either graph the backprojection loss takes the per-sample
+    matrices of the learned homography when the forward gives them.
 
     `group`: the batch holds this rank's rows of a global batch, and each
     loss that divides by a count of the batch is scaled by the rank's

@@ -20,9 +20,17 @@ tests/test_torch_phases.py does).
    The control, the port's float32 layer on the same input, differs on
    48% to 100% of the elements: it must differ on more than 40%.
 2. Whole steps, one per plain-graph phase: skip and seg (the pretraining
-   head), e2e with `packed_train=False`, e2e with the learned
-   homography; the port's `make_loss_fn` against JAX's flax
-   `make_loss_fn(use_packed=False)` in bf16, every NB1D block's bn2
+   head), e2e with `packed_train=False`, e2e with the learned homography
+   and `packed_train=False` (the port's default step trains that option
+   on its packed path, which JAX's does not serve: its bf16 loss lies
+   4.6% from JAX's flax bf16 loss here, beyond this module's bar of JAX's
+   own bf16-vs-float32 gap, 1.7%, plus 2e-3, because the packed path
+   takes the images in bf16 as JAX's packed path does; so
+   tests/test_torch_learned_h_packed.py holds it against JAX's flax bf16
+   step on these weights at tests/test_torch_train_step.py's bf16 bars
+   for the packed step, and against the port's plain bf16 step); the port's
+   `make_loss_fn` against JAX's flax `make_loss_fn(use_packed=False)` in
+   bf16, every NB1D block's bn2
    scale times 0.1 as tests/test_torch_phases.py damps them. beta at
    3e-2 of max|beta| (ROADMAP Queue 3's bf16 parity limit; read 1.4e-3
    to 4.3e-3). The loss within JAX's own bf16-vs-float32 gap at that
@@ -74,7 +82,8 @@ QUARTER = 0.25
 STEPS = {"skip": (dict(pretrained=True), "skip"),
          "seg": (dict(pretrained=True), "seg"),
          "e2e-plain": (dict(packed_train=False), "e2e"),
-         "e2e-learned": (dict(learn_homography=True), "e2e")}
+         "e2e-learned": (dict(learn_homography=True, packed_train=False),
+                         "e2e")}
 
 
 @pytest.fixture(autouse=True)

@@ -32,8 +32,10 @@ the tests compare them here with one process on the whole batch:
   ratios, as JAX's packed shard_map step does) must fail the total loss
   bars (read 1.3e-3 as drawn, 1.9e-3 damped), the eval step's loss bar
   (1.3e-3, 9.5e-4) and the damped cosine (0.99952);
-- the plain-graph step with the learned homography (`LaneNet.forward`,
-  the heads' and `HomographyHead`'s BatchNorms) at the same bars;
+- the packed step with the learned homography (`LaneNet.apply_packed`,
+  the default path of that option since the port's packed path fits
+  each image's matrices; the heads' and `HomographyHead`'s BatchNorms,
+  `_shares` in its backprojection loss) at the same bars;
 - the eval step: metrics and outputs gathered in row order against one
   process;
 - the engine's `sharded_call` against one call on the 8 images.

@@ -6,11 +6,13 @@ learn_homography=True)`: `LaneNet.forward` in eval and train mode
 (M, M_inv, beta, logits, new running statistics) against JAX's flax
 `LaneNet.apply`, and one e2e train step of each package on the same
 weights and batch, dropout off (flax's Dropout an identity for the call,
-as tests/test_torch_phases.py does): the port's `make_train_step` on
-`LaneNet.forward(train=True)` against JAX's `make_loss_fn` on its flax
-graph (JAX's `_resolve_packed` off a TPU) with the adam update of its
-`make_train_step`. The same step with `packed_train=False` and no
-learned homography. Then the Trainer through `main_torch.main`: one
+as tests/test_torch_phases.py does): the port's default `make_train_step`,
+which takes the packed path (`LaneNet.apply_packed`, the kernels' plain
+versions on the CPU) for the learned homography, against JAX's
+`make_loss_fn` on its flax graph (JAX's `_resolve_packed` off a TPU, and
+JAX's packed path does not serve this option) with the adam update of
+its `make_train_step`. The same step with `packed_train=False` and no
+learned homography, on `LaneNet.forward`. Then the Trainer through `main_torch.main`: one
 epoch, a checkpoint with the head, a resume, `--test_only` through
 `compute_coordinates_with_M`; and the two JAX-side records of this
 option (ROADMAP Queue 3), each pinned.
@@ -195,7 +197,8 @@ def _run_case(name):
         params=flat(new["params"]), stats=flat(new["batch_stats"]),
         jparams=flat(jax.device_get(jparams)),
         jstats=flat(jax.device_get(jbs)), step=step,
-        launches=nb_half_a.launches - launches)
+        launches=nb_half_a.launches - launches,
+        packed=tsteps.resolve_packed(net, cfg, "e2e"))
     return out
 
 
@@ -275,9 +278,12 @@ def test_step_beta_and_x_cal_match_jax(case):
 
 
 def test_step_runs_on_the_plain_graph(case):
-    """No kernel wrapper ran (the packed path is not taken), as JAX runs
-    both configs on its flax graph."""
-    _, r = case
+    """The plain-graph config runs `LaneNet.forward`, as JAX runs both
+    configs on its flax graph; the learned homography runs the packed
+    path (where JAX keeps its flax graph), and the bars above hold all
+    the same. No kernel is launched on the CPU either way."""
+    name, r = case
+    assert r["packed"] is (name == "learned")
     assert r["launches"] == 0 and r["step"].state.step == 1
 
 
@@ -340,39 +346,50 @@ def test_step_running_stats_match_jax(case):
 
 @pytest.mark.parametrize("extra,packed", [
     ({}, True), (dict(packed_train=True), True),
-    (dict(packed_train=False), False), (dict(learn_homography=True), False),
-    (dict(learn_homography=True, packed_train=True), False)])
+    (dict(packed_train=False), False), (dict(learn_homography=True), True),
+    (dict(learn_homography=True, packed_train=True), True)])
 def test_resolve_packed_follows_jax(extra, packed):
     """The port takes the packed path where JAX's `_resolve_packed` would
-    on a TPU. Where a forced packed_train=True cannot be honoured, JAX
-    warns and runs its flax graph; the port refuses with ValueError
-    (ROADMAP Queue 3): it gives no kernel's work to the plain graph
-    unasked."""
+    on a TPU, and also with the learned homography, which JAX's packed
+    path does not serve (JAX trains it on its flax graph; the port's
+    `apply_packed` fits each image's matrices from the tail's row sums).
+    Where a forced packed_train=True cannot be honoured (a non-separable
+    fitter, here a rolled homography's, which no preset gives), JAX warns
+    and runs its flax graph; the port refuses with ValueError (ROADMAP
+    Queue 3): it gives no kernel's work to the plain graph unasked."""
+    from lanedetection_end2end_tpu_torch.geometry import camera_roll
+    from lanedetection_end2end_tpu_torch.ops.wls import WLSFitter
     cfg, jcfg = train_sh_config(**KW, **extra), jax_config(**KW, **extra)
     net = LaneNet(cfg, device="cpu")
-    forced = extra.get("packed_train") and not packed
+    jnet = JaxLaneNet(jcfg)
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
-        if forced:
-            with pytest.raises(ValueError, match="packed_train=True"):
-                tsteps.resolve_packed(net, cfg, "e2e")
-            with pytest.raises(ValueError, match="packed_train=True"):
-                tsteps.make_loss_fn(net, cfg, "e2e")
-        else:
-            assert tsteps.resolve_packed(net, cfg, "e2e") is packed
+        assert tsteps.resolve_packed(net, cfg, "e2e") is packed
         for phase in ("skip", "seg"):  # no packed path, whatever the flag
             assert tsteps.resolve_packed(net, cfg, phase) is False
-        assert net.packed_supported("e2e") is (
-            not cfg.learn_homography)
-        jnet = JaxLaneNet(jcfg)
-        assert jnet.packed_supported("e2e") is net.packed_supported("e2e")
+        assert net.packed_supported("e2e") is True
+        assert jnet.packed_supported("e2e") is (not cfg.learn_homography)
         if "packed_train" in extra:
-            assert jsteps._resolve_packed(jnet, jcfg, "e2e") is packed
+            assert jsteps._resolve_packed(jnet, jcfg, "e2e") is (
+                packed and not cfg.learn_homography)
     warned = [w for w in seen if issubclass(w.category, RuntimeWarning)]
-    assert len(warned) == (1 if forced else 0)  # JAX's, not the port's
-    if not net.packed_supported("e2e"):
-        with pytest.raises(ValueError, match="packed path"):
-            net.apply_packed(torch.zeros(1, RESIZE, 2 * RESIZE, 3))
+    # JAX's, where its packed path cannot honour a forced True
+    assert len(warned) == (1 if extra.get("packed_train") and
+                           cfg.learn_homography else 0)
+    # a non-separable fitter: the packed path refuses it
+    M = bev_matrices_pixel(RESIZE)[0] @ camera_roll(2.0, RESIZE,
+                                                    RESIZE / 2)
+    net.fitter = WLSFitter(M, RESIZE, 2 * RESIZE, cfg.order,
+                           normalized=False, reg_ls=cfg.reg_ls,
+                           device="cpu")
+    assert net.packed_supported("e2e") is False
+    if extra.get("packed_train"):
+        with pytest.raises(ValueError, match="packed_train=True"):
+            tsteps.resolve_packed(net, cfg, "e2e")
+    else:
+        assert tsteps.resolve_packed(net, cfg, "e2e") is False
+    with pytest.raises(ValueError, match="packed path"):
+        net.apply_packed(torch.zeros(1, RESIZE, 2 * RESIZE, 3))
 
 
 def test_init_weights_redraws_fc_offsets_in_both_packages():
